@@ -2,28 +2,40 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, LEVIR-CD evaluation of DAHiTra
+Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
 (``newUNetTrans``) at its published width and 256 px, through the user's
-entry point ``dahitra_tpu_torch.cli.eval_cd``. Phases, each fatal on
-failure:
+entry points ``dahitra_tpu_torch.cli.eval_cd`` and
+``dahitra_tpu_torch.cli.main_cd``. Phases, each fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``dahitra_tpu_torch/csrc`` (one nvcc per
      source, all started together);
   3. hold each kernel against its plain PyTorch version on the card at every
-     shape the main path gives it, in fp32 and bf16, and time the kernel,
+     shape the main paths give it, in fp32 and bf16, and time the kernel,
      the plain version and, where one exists, a single PyTorch call that
-     computes the same function;
+     computes the same function: K1 and K1-save (the decoder-stack forward
+     without and with saves), K2 (its backward, from K1-save's saves) and
+     K3 (the tokenizer);
   4. write a seeded synthetic LEVIR tree (4 tiles of 1024 px = 64 patches of
      256 px) and a seeded ``best_ckpt.pt``;
   5. run ``eval_cd`` on the card at batch 8, once in fp32 and once with
      ``--bf16``, with every launch counter set to 0 just before each run and
-     read just after: K1 must launch 6 times and K3 3 times per forward;
+     read just after: K1 must launch 6 times and K3 3 times per forward, and
+     K1-save and K2 never;
   6. hold the card's fp32 forward (kernels) against the port's plain path on
-     the CPU for two patches.
+     the CPU for two patches;
+  7. write seeded synthetic ``train`` (32 pairs) and ``val`` (8 pairs) splits
+     at 256 px and run ``main_cd`` on the card at batch 8 for 2 epochs, once
+     in fp32 and once with ``--bf16``, with every launch counter set to 0
+     just before each run: 8 steps x (6 K1-save, 6 K2, 3 K3) and 2
+     validation batches x (6 K1, 3 K3);
+  8. hold the card's fp32 training gradients (kernels) against the port's
+     plain path on the CPU: one batch of 2 at 256 px, no augmentation, every
+     parameter's gradient and the updated BN running statistics.
 
-``--profile`` adds, after phase 6, a torch.profiler breakdown of the
-batch-8 forward by kernel class, with the device's idle share.
+``--profile`` adds, after phase 8, a torch.profiler breakdown of the
+batch-8 forward and of one batch-8 training step by kernel class, with the
+device's idle share.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when no
@@ -40,14 +52,19 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 BATCH = 8
 IMG = 256
 # Scale-normalized max-error tolerances: fp32 allows summation-order noise;
-# bf16 allows a flipped rounding that a depth-8 stack carries forward.
+# bf16 allows a flipped rounding that a depth-8 stack carries forward
+# (gradients: tests/test_decoder_vjp.py:27-30).
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+GTOL = {"float32": 1e-4, "bfloat16": 6e-2}
+TRAIN_PAIRS, VAL_PAIRS, EPOCHS = 32, 8, 2
 # Decoder calls per forward at batch 8: (name, batch, tokens, depth, heads).
 # The dates decode runs both dates batch-stacked, the difference decode once.
 K1_SHAPES = [(f"{r}/{what}", b, n, depth, heads)
@@ -94,21 +111,38 @@ def scaled_err(got, ref):
     return err, err / max(ref.abs().max().item(), 1e-3)
 
 
+def _decoder_operands(torch, dtype, gen, b, n, depth, heads):
+    """Seeded kernel operands (x, a, z, w1, w2, vecs) of one decoder call
+    and a cotangent dy, on the card in ``dtype``."""
+    from dahitra_tpu_torch.nn.blocks import TransformerDecoder
+    from dahitra_tpu_torch.nn.decoder_vjp import _operands, pack_decoder_params
+
+    dec = TransformerDecoder(DIM, depth, heads, 64, DIM)
+    with torch.no_grad():
+        for prm in dec.parameters():
+            prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+        x, m, dy = (torch.randn(b, k, DIM, generator=gen).cuda().to(dtype)
+                    for k in (n, TOKENS, n))
+        ops = _operands(x, m, pack_decoder_params(dec.cuda()), depth, heads,
+                        dtype)
+    return ops, dy
+
+
+def _k1_ops(b, n, depth, hl):
+    """K1's operations: per row and layer the four products (2*32*hl twice,
+    2*32*32 twice) plus about 1400 + 5*hl elementwise operations (two
+    LayerNorms, the clamped exp and divide, GELU, bias and residual adds)."""
+    return b * n * depth * (4 * DIM * hl + 4 * DIM * DIM + 1400 + 5 * hl)
+
+
 def check_k1(torch, dtype, gen):
     """K1 against its plain version at every main-path decoder shape."""
     from dahitra_tpu_torch.kernels import folded_decoder as fd
-    from dahitra_tpu_torch.nn.blocks import TransformerDecoder
-    from dahitra_tpu_torch.nn.decoder_vjp import _operands, pack_decoder_params
 
     dname = str(dtype).split(".")[-1]
     rows = []
     for name, b, n, depth, heads in K1_SHAPES:
-        dec = TransformerDecoder(DIM, depth, heads, 64, DIM).cuda()
-        x = torch.randn(b, n, DIM, generator=gen).cuda().to(dtype)
-        m = torch.randn(b, TOKENS, DIM, generator=gen).cuda().to(dtype)
-        with torch.no_grad():
-            ops_in = _operands(x, m, pack_decoder_params(dec), depth, heads,
-                               dtype)
+        ops_in, _ = _decoder_operands(torch, dtype, gen, b, n, depth, heads)
         got = fd.decoder_stack_fwd(*ops_in, depth, heads, dtype)
         ref = fd.decoder_stack_fwd_plain(*ops_in, depth, heads, dtype)
         torch.cuda.synchronize()
@@ -119,12 +153,7 @@ def check_k1(torch, dtype, gen):
         size = torch.finfo(dtype).bits // 8
         nbytes = (2 * b * n * DIM + sum(t.numel() for t in ops_in[1:5])) * size \
             + ops_in[5].numel() * 4
-        # Per row and layer: the four products (2*32*hl twice, 2*32*32
-        # twice) plus about 1400 + 5*hl elementwise operations (two
-        # LayerNorms, the clamped exp and divide, GELU, bias and residual
-        # adds).
-        ops = b * n * depth * (4 * DIM * hl + 4 * DIM * DIM + 1400 + 5 * hl)
-        bms, by = bound(nbytes, ops, dname)
+        bms, by = bound(nbytes, _k1_ops(b, n, depth, hl), dname)
         rows.append({
             "shape": name, "B": b, "N": n, "depth": depth, "hl": hl,
             "max_abs_err": err, "scaled_err": serr,
@@ -134,6 +163,77 @@ def check_k1(torch, dtype, gen):
                 *ops_in, depth, heads, dtype), torch),
             "bound_ms": bms, "bound_by": by, "library_ms": None})
     return rows
+
+
+def check_k1_save_k2(torch, dtype, gen):
+    """K1 with saves (y and both saves) and K2 (every gradient, from the
+    kernel's own saves) against their plain versions at every training
+    decoder shape; no single PyTorch call computes either, so no library
+    yardstick."""
+    from dahitra_tpu_torch.kernels import folded_decoder as fd
+
+    dname = str(dtype).split(".")[-1]
+    size = torch.finfo(dtype).bits // 8
+    fwd_rows, bwd_rows = [], []
+    for name, b, n, depth, heads in K1_SHAPES:
+        ops_in, dy = _decoder_operands(torch, dtype, gen, b, n, depth, heads)
+        hl = heads * TOKENS
+        got = fd.decoder_stack_fwd(*ops_in, depth, heads, dtype, save=True)
+        ref = fd.decoder_stack_fwd_plain(*ops_in, depth, heads, dtype,
+                                         save=True)
+        grads = fd.decoder_stack_bwd(got[1], got[2], dy, *ops_in[1:], depth,
+                                     heads, dtype)
+        gref = fd.decoder_stack_bwd_plain(got[1], got[2], dy, *ops_in[1:],
+                                          depth, heads, dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], fd.decoder_stack_fwd(*ops_in, depth, heads,
+                                                        dtype)):
+            fail(f"K1-save {name} {dname}: y differs from K1's")
+        errs = [scaled_err(g, r) for g, r in zip(got, ref)]
+        gerrs = [scaled_err(g, r) for g, r in zip(grads, gref)]
+        if not (all(torch.isfinite(g.float()).all() for g in got + grads)
+                and max(e[1] for e in errs) <= TOL[dname]
+                and max(e[1] for e in gerrs) <= GTOL[dname]):
+            fail(f"K1-save/K2 {name} {dname}: scaled errors "
+                 f"{[e[1] for e in errs]} (tolerance {TOL[dname]}), "
+                 f"{[e[1] for e in gerrs]} (tolerance {GTOL[dname]})")
+        weights = sum(t.numel() for t in ops_in[1:5]) * size \
+            + ops_in[5].numel() * 4
+        saves = depth * b * n * (DIM + hl) * size
+        # K1-save: K1's reads and writes plus the saves.
+        nbytes = 2 * b * n * DIM * size + weights + saves
+        bms, by = bound(nbytes, _k1_ops(b, n, depth, hl), dname)
+        fwd_rows.append({
+            "shape": name, "B": b, "N": n, "depth": depth, "hl": hl,
+            "max_abs_err": max(e[0] for e in errs),
+            "scaled_err": max(e[1] for e in errs),
+            "ms": time_ms(lambda: fd.decoder_stack_fwd(
+                *ops_in, depth, heads, dtype, save=True), torch),
+            "plain_ms": time_ms(lambda: fd.decoder_stack_fwd_plain(
+                *ops_in, depth, heads, dtype, save=True), torch),
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
+        # K2: reads the saves, dy and the weights; writes dx, dA, dZ (T)
+        # and dW1, dW2, dvecs (fp32). Per row and layer: ten products
+        # (recomputed attn.Z and g.W1, dy.W2^T, dt.W1^T, dx1.Z^T, dl.A^T and
+        # the four weight-side sums), five of 2*32*32 and five of 2*32*hl,
+        # plus about 2200 + 10*hl elementwise operations (two LayerNorms
+        # and their backward, GELU and its derivative, the softmax
+        # backward, the vector sums).
+        nbytes = saves + 2 * b * n * DIM * size + weights \
+            + (ops_in[1].numel() + ops_in[2].numel()) * size \
+            + (2 * depth * DIM * DIM + depth * 7 * DIM) * 4
+        ops = b * n * depth * (10 * DIM * DIM + 10 * DIM * hl + 2200 + 10 * hl)
+        bms, by = bound(nbytes, ops, dname)
+        bwd_rows.append({
+            "shape": name, "B": b, "N": n, "depth": depth, "hl": hl,
+            "max_abs_err": max(e[0] for e in gerrs),
+            "scaled_err": max(e[1] for e in gerrs),
+            "ms": time_ms(lambda: fd.decoder_stack_bwd(
+                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch),
+            "plain_ms": time_ms(lambda: fd.decoder_stack_bwd_plain(
+                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch),
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
+    return fwd_rows, bwd_rows
 
 
 def check_k3(torch, dtype, gen):
@@ -177,9 +277,10 @@ def check_k3(torch, dtype, gen):
     return rows
 
 
-def summarize(name, source, replaces, dname, rows, launches):
+def summarize(name, source, replaces, dname, rows, launches, tol):
     """One kernel entry: times summed over the kernel's launches in one
-    batch-8 forward, errors the worst over those shapes."""
+    batch-8 forward (K1, K3) or training step (K1-save, K2), errors the
+    worst over those shapes."""
     lib = [r["library_ms"] for r in rows]
     bound_ms = sum(r["bound_ms"] for r in rows)
     by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
@@ -188,7 +289,7 @@ def summarize(name, source, replaces, dname, rows, launches):
         "replaces": replaces, "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "scaled_err": max(r["scaled_err"] for r in rows),
-        "tolerance": TOL[dname],
+        "tolerance": tol[dname],
         "ms": sum(r["ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": bound_ms,
@@ -199,46 +300,37 @@ def summarize(name, source, replaces, dname, rows, launches):
 
 
 # Kernel-name fragments -> class, first match wins (torch.profiler names).
-_CLASSES = (("K1 decoder_stack_fwd", ("decoder_stack_fwd",)),
+_CLASSES = (("K1-save decoder_stack_fwd (save)", (", true>",)),
+            ("K1 decoder_stack_fwd", ("decoder_stack_fwd",)),
+            ("K2 decoder_stack_bwd", ("decoder_stack_bwd",)),
             ("K3 semantic_tokenizer", ("tokenizer_kernel",)),
-            ("convolution (cuDNN)", ("conv", "fprop", "implicit", "fft",
-                                     "winograd", "complex")),
+            ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad",
+                                     "implicit", "fft", "winograd",
+                                     "complex")),
             ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass")),
             ("softmax / layer norm", ("softmax", "norm")))
 
 
-def profile_forward(torch, state_dict, dtype) -> dict:
-    """torch.profiler over five batch-8 forwards of the port's model: device
-    time by kernel class, and the device's idle share against the CUDA-event
-    time of one forward."""
+def _profile(torch, fn, reps: int) -> dict:
+    """Device time by kernel class over ``reps`` calls of ``fn``, and the
+    device's idle share against the CUDA-event time of one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dahitra_tpu_torch.core.checkpoint import load_weights
-    from dahitra_tpu_torch.data.augment import normalize_images
-    from dahitra_tpu_torch.models.registry import define_g
-
-    model = define_g("newUNetTrans", dtype=dtype, img_size=IMG)
-    load_weights(model, state_dict)
-    model.cuda().eval()
-    g = torch.Generator().manual_seed(1)
-    a, b = (normalize_images(torch.randint(
-        0, 256, (BATCH, IMG, IMG, 3), generator=g, dtype=torch.uint8).cuda(),
-        dtype) for _ in range(2))
-    reps = 5
-    with torch.inference_mode():
-        forward_ms = time_ms(lambda: model(a, b), torch, reps=reps, rounds=3)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                model(a, b)
-            torch.cuda.synchronize()
-    # Device-side events only: an operator row (aten::...) repeats the
-    # time of the kernels it launched.
+    call_ms = time_ms(fn, torch, reps=reps, rounds=3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # Device-side kernel events only: an operator row (aten::...) repeats
+    # the time of the kernels it launched, and a user annotation's device
+    # range ("Optimizer.step#AdamW.step") spans kernels already counted.
     kernels = [(e.key, e.self_device_time_total / reps / 1e3, e.count / reps)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not e.key.startswith("Optimizer.")]
     by_class = {}
     for name, ms, _ in kernels:
         cls = next((c for c, frags in _CLASSES
@@ -246,12 +338,152 @@ def profile_forward(torch, state_dict, dtype) -> dict:
         by_class[cls] = by_class.get(cls, 0.0) + ms
     busy = sum(ms for _, ms, _ in kernels)
     kernels.sort(key=lambda k: -k[1])
-    return {"profile": str(dtype).split(".")[-1], "batch": BATCH,
-            "forward_ms": forward_ms, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / forward_ms),
+    return {"batch": BATCH, "call_ms": call_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / call_ms),
             "by_class_ms": by_class,
             "top": [{"kernel": n[:90], "ms": ms, "calls": c}
                     for n, ms, c in kernels[:12]]}
+
+
+def _batch(torch, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randint(0, 256, (n, IMG, IMG, 3), generator=g,
+                          dtype=torch.uint8).cuda(),
+            torch.randint(0, 256, (n, IMG, IMG, 3), generator=g,
+                          dtype=torch.uint8).cuda(),
+            torch.randint(0, 2, (n, IMG, IMG), generator=g,
+                          dtype=torch.uint8).cuda())
+
+
+def profile_forward(torch, state_dict, dtype) -> dict:
+    """torch.profiler over five batch-8 forwards of the port's model."""
+    from dahitra_tpu_torch.core.checkpoint import load_weights
+    from dahitra_tpu_torch.data.augment import normalize_images
+    from dahitra_tpu_torch.models.registry import define_g
+
+    model = define_g("newUNetTrans", dtype=dtype, img_size=IMG)
+    load_weights(model, state_dict)
+    model.cuda().eval()
+    a_u8, b_u8, _ = _batch(torch, BATCH, 1)
+    a, b = normalize_images(a_u8, dtype), normalize_images(b_u8, dtype)
+    with torch.inference_mode():
+        out = _profile(torch, lambda: model(a, b), reps=5)
+    return {"profile": "forward", "dtype": str(dtype).split(".")[-1], **out}
+
+
+def profile_train_step(torch, tmp, dtype) -> dict:
+    """torch.profiler over three batch-8 training steps of ``CDTrainer``
+    (augmentation, train forward, loss, backward, AdamW)."""
+    import types
+
+    from dahitra_tpu_torch.train.engine import CDTrainer
+
+    args = types.SimpleNamespace(
+        n_class=2, checkpoint_dir=os.path.join(tmp, f"profile_{dtype}"),
+        max_epochs=1, bf16=dtype == torch.bfloat16, seed=0,
+        net_G="newUNetTrans", img_size=IMG, lr=5e-4, batch_size=BATCH)
+    empty = {k: np.zeros((0, 1), np.uint8) for k in ("a", "b", "label")}
+    trainer = CDTrainer(args, empty, empty, device="cuda")
+    batch = _batch(torch, BATCH, 2)
+    out = _profile(torch, lambda: trainer.train_step(*batch), reps=3)
+    return {"profile": "train_step", "dtype": str(dtype).split(".")[-1],
+            **out}
+
+
+def run_training(torch, root, flag, dname) -> dict:
+    """``main_cd`` for EPOCHS epochs at batch 8 on the synthetic splits,
+    launch counters set to 0 just before and read just after."""
+    from dahitra_tpu_torch.cli import main_cd
+    from dahitra_tpu_torch.kernels import folded_decoder as fd
+    from dahitra_tpu_torch.kernels import fused_tokenizer as ft
+
+    os.environ["DAHITRA_DATA_ROOT"] = os.path.join(root, "data")
+    argv = ["--checkpoint_root", os.path.join(root, "ckpt"),
+            "--project_name", f"train_{dname}", "--data_name", "LEVIR",
+            "--img_size", str(IMG), "--batch_size", str(BATCH),
+            "--max_epochs", str(EPOCHS), "--log_every", "2", "--skip_test",
+            "--device", "cuda", *flag]
+    torch.cuda.reset_peak_memory_stats()
+    fd.launches = fd.launches_save = fd.launches_bwd = ft.launches = 0
+    history = main_cd.main(argv)
+    torch.cuda.synchronize()
+    got = {"k1": fd.launches, "k1_save": fd.launches_save,
+           "k2": fd.launches_bwd, "k3": ft.launches}
+    steps = EPOCHS * TRAIN_PAIRS // BATCH
+    vals = EPOCHS * VAL_PAIRS // BATCH
+    want = {"k1": 6 * vals, "k1_save": 6 * steps, "k2": 6 * steps,
+            "k3": 3 * (steps + vals)}
+    if got != want:
+        fail(f"training {dname}: launches {got} != {want}")
+    ckpt = os.path.join(root, "ckpt", f"train_{dname}")
+    missing = [f for f in ("best_ckpt.pt", "log.txt", "train_acc.npy",
+                           "val_acc.npy")
+               if not os.path.exists(os.path.join(ckpt, f))]
+    losses = [h["loss"] for h in history]
+    if missing or len(history) != EPOCHS \
+            or not all(np.isfinite(losses)):
+        fail(f"training {dname}: artifacts missing {missing} or losses "
+             f"{losses}")
+    return {"train": dname, "pairs_per_s_by_epoch": [h["imps"]
+                                                      for h in history],
+            "loss_by_epoch": losses,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": got}
+
+
+def check_train_grads(torch, root) -> dict:
+    """The card's fp32 training gradients against the port's plain path on
+    the CPU: one batch of 2 at 256 px, no augmentation, train-mode forward,
+    ``levir_train_loss`` and backward. Every parameter's gradient must agree
+    to 1e-3 of the gradient's scale (its largest element over all
+    parameters) and the updated BN running statistics to 1e-4,
+    scale-normalized per tensor.
+
+    The scale is the whole gradient's, not each tensor's own: fp32
+    summation order moves a few ReLU inputs that lie within ~1e-6 of zero
+    across the kink, and each such flip moves the gradients of the
+    convolutions below it by about 1 % of their own largest element
+    (tests/test_torch_dahitra.py::test_train_grads_match_flax measures the
+    same on JAX alone). The worst per-tensor error on its own scale is
+    printed beside."""
+    import copy
+
+    from dahitra_tpu_torch.data.augment import augment_pairs
+    from dahitra_tpu_torch.data.levir import load_levir_split
+    from dahitra_tpu_torch.losses.cd import levir_train_loss
+    from dahitra_tpu_torch.models.registry import define_g
+    from dahitra_tpu_torch.nn.init import init_weights
+
+    pairs = load_levir_split(os.path.join(root, "data", "LEVIR_CD"), "train",
+                             IMG)
+    batch = [torch.from_numpy(t[:2]) for t in (pairs.a, pairs.b, pairs.label)]
+    gen = torch.Generator().manual_seed(3)
+    model = init_weights(define_g("newUNetTrans", img_size=IMG,
+                                  generator=gen), "normal", 0.02, gen)
+    models = {"cpu": model, "cuda": copy.deepcopy(model).cuda()}
+    for dev, m in models.items():
+        a, b, label = augment_pairs(*(t.to(dev) for t in batch), train=False)
+        levir_train_loss(m(a, b, train=True).float(), label, 2).backward()
+    torch.cuda.synchronize()
+    cuda_params = dict(models["cuda"].named_parameters())
+    scale = max(p.grad.abs().max().item() for p in model.parameters())
+    errs = {k: ((cuda_params[k].grad.cpu() - p.grad).abs().max().item(),
+                p.grad.abs().max().item())
+            for k, p in model.named_parameters()}
+    worst = max((e / scale, k) for k, (e, _) in errs.items())
+    worst_own = max((e / max(own, 1e-30), k) for k, (e, own) in errs.items())
+    cuda_bufs = dict(models["cuda"].named_buffers())
+    worst_stat = max((scaled_err(cuda_bufs[k].cpu(), v)[1], k)
+                     for k, v in model.named_buffers())
+    out = {"train_grads_vs_cpu_plain": {
+        "worst_grad_err_over_scale": worst[0], "at": worst[1],
+        "grad_scale": scale, "worst_grad_err_own_scale": worst_own[0],
+        "own_at": worst_own[1], "n_params": len(errs),
+        "worst_bn_stat_scaled_err": worst_stat[0], "stat_at": worst_stat[1]}}
+    if worst[0] > 1e-3 or worst_stat[0] > 1e-4:
+        fail(f"card training gradients disagree with the CPU plain path: "
+             f"{out}")
+    return out
 
 
 def main() -> None:
@@ -292,10 +524,12 @@ def main() -> None:
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         checks[("k1", dname)] = check_k1(torch, dtype, gen)
+        checks[("k1_save", dname)], checks[("k2", dname)] = \
+            check_k1_save_k2(torch, dtype, gen)
         checks[("k3", dname)] = check_k3(torch, dtype, gen)
-        for key in (("k1", dname), ("k3", dname)):
-            for r in checks[key]:
-                print(json.dumps({"check": f"{key[0]}[{dname}]", **r}),
+        for kid in ("k1", "k1_save", "k2", "k3"):
+            for r in checks[(kid, dname)]:
+                print(json.dumps({"check": f"{kid}[{dname}]", **r}),
                       flush=True)
 
     # 4. synthetic LEVIR and a seeded checkpoint
@@ -303,7 +537,6 @@ def main() -> None:
     t0 = time.time()
     write_synthetic_levir(os.path.join(tmp, "data"), n_tiles=4, size=1024,
                           seed=0)
-    os.environ["DAHITRA_DATA_ROOT"] = os.path.join(tmp, "data")
     model = define_g("newUNetTrans", img_size=IMG)
     model.init_weights(torch.Generator().manual_seed(0))
     save_checkpoint(os.path.join(tmp, "ckpt", "smoke"), model.state_dict(),
@@ -311,22 +544,24 @@ def main() -> None:
     print(f"setup: synthetic LEVIR + checkpoint in {time.time() - t0:.1f} s",
           flush=True)
 
-    # 5. the main path, fp32 then bf16
+    # 5. the eval path, fp32 then bf16
     n_forward = 64 // BATCH
     launches = {}
     for flag, dname in (([], "float32"), (["--bf16"], "bfloat16")):
+        os.environ["DAHITRA_DATA_ROOT"] = os.path.join(tmp, "data")
         argv = ["--checkpoint_root", os.path.join(tmp, "ckpt"),
                 "--project_name", "smoke", "--data_name", "LEVIR",
                 "--split", "test", "--img_size", str(IMG),
                 "--batch_size", str(BATCH), "--num_patches", "16",
                 "--device", "cuda", *flag]
         torch.cuda.reset_peak_memory_stats()
-        fd.launches = 0
-        ft.launches = 0
+        fd.launches = fd.launches_save = fd.launches_bwd = ft.launches = 0
         scores = eval_cd.main(argv)
         torch.cuda.synchronize()
-        launches[dname] = {"k1": fd.launches, "k3": ft.launches}
-        want = {"k1": 6 * n_forward, "k3": 3 * n_forward}
+        launches[dname] = {"k1": fd.launches, "k1_save": fd.launches_save,
+                           "k2": fd.launches_bwd, "k3": ft.launches}
+        want = {"k1": 6 * n_forward, "k1_save": 0, "k2": 0,
+                "k3": 3 * n_forward}
         if launches[dname] != want:
             fail(f"{dname} launches {launches[dname]} != {want}")
         finite = all(0.0 <= scores[k] <= 1.0 for k in ("acc", "miou", "mf1"))
@@ -362,21 +597,44 @@ def main() -> None:
         fail(f"card forward disagrees with the CPU plain path: scaled error "
              f"{serr:.3e} (tolerance 1e-3), argmax agreement {agree:.5f}")
 
+    # 7. the training path, fp32 then bf16
+    train_root = os.path.join(tmp, "train")
+    for split, n, seed in (("train", TRAIN_PAIRS, 1), ("val", VAL_PAIRS, 2)):
+        write_synthetic_levir(os.path.join(train_root, "data"), n_tiles=n,
+                              size=IMG, split=split, seed=seed)
+    for flag, dname in (([], "float32"), (["--bf16"], "bfloat16")):
+        out = run_training(torch, train_root, flag, dname)
+        launches[dname].update({f"train_{k}": v
+                                for k, v in out["launches"].items()})
+        print(json.dumps(out), flush=True)
+
+    # 8. the card's training gradients against the plain path on the CPU
+    print(json.dumps(check_train_grads(torch, train_root)), flush=True)
+
     if "--profile" in sys.argv[1:]:
         sd = model.state_dict()
         for dtype in (torch.float32, torch.bfloat16):
             print(json.dumps(profile_forward(torch, sd, dtype)), flush=True)
+            print(json.dumps(profile_train_step(torch, tmp, dtype)),
+                  flush=True)
 
     kernels = []
+    src = "dahitra_tpu_torch/csrc/"
     for dname in ("float32", "bfloat16"):
-        kernels.append(summarize(
-            "decoder_stack_fwd", "dahitra_tpu_torch/csrc/decoder_fwd.cu",
-            "dahitra_tpu/pallas/folded_decoder.py:180", dname,
-            checks[("k1", dname)], launches[dname]["k1"]))
-        kernels.append(summarize(
-            "semantic_tokenizer", "dahitra_tpu_torch/csrc/tokenizer.cu",
-            "dahitra_tpu/pallas/fused_tokenizer.py:42", dname,
-            checks[("k3", dname)], launches[dname]["k3"]))
+        lc = launches[dname]
+        kernels += [
+            summarize("decoder_stack_fwd", src + "decoder_fwd.cu",
+                      "dahitra_tpu/pallas/folded_decoder.py:180", dname,
+                      checks[("k1", dname)], lc["k1"], TOL),
+            summarize("decoder_stack_fwd_save", src + "decoder_fwd.cu",
+                      "dahitra_tpu/pallas/folded_decoder.py:180", dname,
+                      checks[("k1_save", dname)], lc["train_k1_save"], TOL),
+            summarize("decoder_stack_bwd", src + "decoder_bwd.cu",
+                      "dahitra_tpu/pallas/folded_decoder.py:320", dname,
+                      checks[("k2", dname)], lc["train_k2"], GTOL),
+            summarize("semantic_tokenizer", src + "tokenizer.cu",
+                      "dahitra_tpu/pallas/fused_tokenizer.py:42", dname,
+                      checks[("k3", dname)], lc["k3"], TOL)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,10 @@
 Counterpart of dahitra_tpu/core/checkpoint.py, which keeps an Orbax pytree
 and a JSON sidecar. The port writes what the reference trainer wrote
 (models/trainer.py:150-158): one file ``<checkpoint_dir>/<name>.pt`` holding
-``model_G_state_dict``, ``best_val_acc`` and ``best_epoch_id``, so reference
-checkpoints and the port's own load through the same path.
+``model_G_state_dict``, ``best_val_acc`` and ``best_epoch_id`` and, from a
+training run, ``epoch_id`` and ``optimizer_G_state_dict``, so reference
+checkpoints and the port's own load through the same path and a
+``best_ckpt.pt`` resumes a run (dahitra_tpu/train/engine.py ``_maybe_resume``).
 """
 from __future__ import annotations
 
@@ -22,13 +24,18 @@ def checkpoint_path(checkpoint_dir: str, name: str = "best_ckpt") -> str:
 
 def save_checkpoint(checkpoint_dir: str, state_dict: StateDict,
                     best_val_acc: float = 0.0, best_epoch_id: int = 0,
-                    name: str = "best_ckpt") -> str:
+                    name: str = "best_ckpt", epoch_id: Optional[int] = None,
+                    optimizer_state: Optional[dict] = None) -> str:
     """Write the reference-format dict; returns the file's path."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     ckpt = {"model_G_state_dict": {k: v.detach().cpu()
                                    for k, v in state_dict.items()},
             "best_val_acc": float(best_val_acc),
             "best_epoch_id": int(best_epoch_id)}
+    if epoch_id is not None:
+        ckpt["epoch_id"] = int(epoch_id)
+    if optimizer_state is not None:
+        ckpt["optimizer_G_state_dict"] = optimizer_state
     path = checkpoint_path(checkpoint_dir, name)
     torch.save(ckpt, path)
     return path
@@ -49,12 +56,15 @@ def model_state_dict(ckpt) -> StateDict:
 def load_checkpoint(checkpoint_dir: str, name: str = "best_ckpt"
                     ) -> Optional[Tuple[StateDict, dict]]:
     """(state_dict, metadata) of ``<checkpoint_dir>/<name>.pt``; None if
-    the file is absent."""
+    the file is absent. The metadata holds whichever of ``best_val_acc``,
+    ``best_epoch_id``, ``epoch_id`` and ``optimizer_G_state_dict`` the file
+    has."""
     path = checkpoint_path(checkpoint_dir, name)
     if not os.path.exists(path):
         return None
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    meta = {k: ckpt[k] for k in ("best_val_acc", "best_epoch_id", "epoch_id")
+    meta = {k: ckpt[k] for k in ("best_val_acc", "best_epoch_id", "epoch_id",
+                                 "optimizer_G_state_dict")
             if isinstance(ckpt, dict) and k in ckpt}
     return model_state_dict(ckpt), meta
 

@@ -2,7 +2,11 @@
 // Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel dahitra_tpu/pallas/folded_decoder.py
-// `_fwd_kernel` (forward without saves). Per layer d, for every token row x
+// `_fwd_kernel`, without saves (eval, `decoder_stack_fwd_*`) and with them
+// (training, `decoder_stack_fwd_save_*`: each layer's input x_in and its
+// attention row, which the backward kernel csrc/decoder_bwd.cu reads). The
+// two are one template; the saves are stores beside the same arithmetic, so
+// y is the same bit for bit. Per layer d, for every token row x
 // (dim = 32) of sample b, with the per-sample A_d[b] (32, hl) and
 // Z_d[b] (hl, 32) that build_az derives from the memory tokens:
 //
@@ -30,53 +34,23 @@
 // bounded by operations, not bytes. This first version runs its products on
 // the fp32 FMA pipe and reads one shared-memory operand per FMA; moving the
 // row products onto tensor cores (mma/wgmma over 64-row tiles) is later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decoder_common.cuh"
 
 namespace {
 
-constexpr int DIM = 32;
-constexpr int MAX_HL = 128;
+using namespace decoder;
+
 constexpr int WARPS = 8;
 constexpr int ROWS_PER_WARP = 4;
 constexpr int ROWS_PER_CTA = WARPS * ROWS_PER_WARP;
-constexpr float CLAMP = 80.0f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Round to T and back (the identity for float).
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// LayerNorm over the warp's 32 lanes with fp32 two-pass statistics
-// (decoder_vjp._ln_stats / _ln_apply).
-__device__ __forceinline__ float layer_norm(float v, float scale, float bias) {
-  const float mu = warp_sum(v) * (1.0f / DIM);
-  const float dv = v - mu;
-  const float var = warp_sum(dv * dv) * (1.0f / DIM);
-  return (v - mu) * rsqrtf(var + 1e-5f) * scale + bias;
-}
-
-template <typename T>
+// One layer for one row. With SAVE, the row's attention (hl values, rounded
+// to T) is stored at attn_out.
+template <typename T, bool SAVE>
 __device__ float decoder_layer(float v, int lane, float* buf, const float* sA,
                                const float* sZ, const float* sW1,
                                const float* sW2, const float* sV, int hl,
-                               int l, float scale) {
+                               int l, T* attn_out) {
   // ---- attention ----
   const float hn = rnd<T>(layer_norm(v, sV[0 * DIM + lane], sV[1 * DIM + lane]));
   buf[lane] = hn;
@@ -90,7 +64,7 @@ __device__ float decoder_layer(float v, int lane, float* buf, const float* sA,
       float acc = 0.0f;
 #pragma unroll 8
       for (int c = 0; c < DIM; ++c) acc = fmaf(buf[c], sA[c * hl + j], acc);
-      const float dots = rnd<T>(acc) * scale;
+      const float dots = rnd<T>(acc) * SCALE;
       e[k] = expf(fminf(fmaxf(dots, -CLAMP), CLAMP));
     }
   }
@@ -117,7 +91,10 @@ __device__ float decoder_layer(float v, int lane, float* buf, const float* sA,
 #pragma unroll
   for (int k = 0; k < MAX_HL / 32; ++k) {
     const int j = lane + 32 * k;
-    if (j < hl) buf[j] = attn[k];
+    if (j < hl) {
+      buf[j] = attn[k];
+      if (SAVE) attn_out[j] = from_f<T>(attn[k]);
+    }
   }
   __syncwarp();
   float ao = 0.0f;
@@ -133,7 +110,7 @@ __device__ float decoder_layer(float v, int lane, float* buf, const float* sA,
 #pragma unroll 8
   for (int c = 0; c < DIM; ++c) t = fmaf(buf[c], sW1[c * DIM + lane], t);
   t = rnd<T>(rnd<T>(t) + sV[5 * DIM + lane]);
-  const float h = rnd<T>(0.5f * t * (1.0f + erff(t * 0.70710678118654752f)));
+  const float h = rnd<T>(gelu(t));
   __syncwarp();
   buf[lane] = h;
   __syncwarp();
@@ -147,14 +124,16 @@ __device__ float decoder_layer(float v, int lane, float* buf, const float* sA,
 
 // x, y: (B, N, 32); a: (D, B, 32, hl); z: (D, B, hl, 32); w1, w2: (D, 32, 32)
 // laid out (in, out); vecs: (D, 7, 32) fp32 rows
-// [ln1_scale, ln1_bias, bo, ln2_scale, ln2_bias, b1, b2].
-template <typename T>
+// [ln1_scale, ln1_bias, bo, ln2_scale, ln2_bias, b1, b2]. With SAVE,
+// xsave: (D, B, N, 32) and attnsave: (D, B, N, hl) in T.
+template <typename T, bool SAVE>
 __global__ void __launch_bounds__(WARPS * 32)
 decoder_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
                          const T* __restrict__ z, const T* __restrict__ w1,
                          const T* __restrict__ w2, const float* __restrict__ vecs,
-                         T* __restrict__ y, int B, int N, int depth, int hl,
-                         int l) {
+                         T* __restrict__ y, T* __restrict__ xsave,
+                         T* __restrict__ attnsave, int B, int N, int depth,
+                         int hl, int l) {
   __shared__ float sA[DIM * MAX_HL];
   __shared__ float sZ[MAX_HL * DIM];
   __shared__ float sW1[DIM * DIM];
@@ -167,7 +146,6 @@ decoder_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int row0 = blockIdx.x * ROWS_PER_CTA + warp * ROWS_PER_WARP;
-  const float scale = rsqrtf(static_cast<float>(DIM));
 
   float xr[ROWS_PER_WARP];
 #pragma unroll
@@ -196,9 +174,14 @@ decoder_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      if (row0 + r < N)  // warp-uniform: the whole warp skips a missing row
-        xr[r] = decoder_layer<T>(xr[r], lane, sBuf[warp], sA, sZ, sW1, sW2,
-                                 sV, hl, l, scale);
+      const int row = row0 + r;
+      if (row < N) {  // warp-uniform: the whole warp skips a missing row
+        const int64_t srow = (static_cast<int64_t>(d) * B + b) * N + row;
+        if (SAVE) xsave[srow * DIM + lane] = from_f<T>(xr[r]);
+        xr[r] = decoder_layer<T, SAVE>(xr[r], lane, sBuf[warp], sA, sZ, sW1,
+                                       sW2, sV, hl, l,
+                                       SAVE ? attnsave + srow * hl : nullptr);
+      }
     }
   }
 
@@ -209,15 +192,17 @@ decoder_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
   }
 }
 
-template <typename T>
+template <typename T, bool SAVE>
 int launch(const void* x, const void* a, const void* z, const void* w1,
-           const void* w2, const void* vecs, void* y, int B, int N, int depth,
-           int hl, int l, void* stream) {
+           const void* w2, const void* vecs, void* y, void* xsave,
+           void* attnsave, int B, int N, int depth, int hl, int l,
+           void* stream) {
   const dim3 grid((N + ROWS_PER_CTA - 1) / ROWS_PER_CTA, B);
-  decoder_stack_fwd_kernel<T><<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  decoder_stack_fwd_kernel<T, SAVE><<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const T*>(z),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
-      static_cast<const float*>(vecs), static_cast<T*>(y), B, N, depth, hl, l);
+      static_cast<const float*>(vecs), static_cast<T*>(y),
+      static_cast<T*>(xsave), static_cast<T*>(attnsave), B, N, depth, hl, l);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -227,12 +212,34 @@ extern "C" int decoder_stack_fwd_f32(const void* x, const void* a, const void* z
                                      const void* w1, const void* w2,
                                      const void* vecs, void* y, int B, int N,
                                      int depth, int hl, int l, void* stream) {
-  return launch<float>(x, a, z, w1, w2, vecs, y, B, N, depth, hl, l, stream);
+  return launch<float, false>(x, a, z, w1, w2, vecs, y, nullptr, nullptr, B, N,
+                              depth, hl, l, stream);
 }
 
 extern "C" int decoder_stack_fwd_bf16(const void* x, const void* a, const void* z,
                                       const void* w1, const void* w2,
                                       const void* vecs, void* y, int B, int N,
                                       int depth, int hl, int l, void* stream) {
-  return launch<__nv_bfloat16>(x, a, z, w1, w2, vecs, y, B, N, depth, hl, l, stream);
+  return launch<__nv_bfloat16, false>(x, a, z, w1, w2, vecs, y, nullptr, nullptr,
+                                      B, N, depth, hl, l, stream);
+}
+
+extern "C" int decoder_stack_fwd_save_f32(const void* x, const void* a,
+                                          const void* z, const void* w1,
+                                          const void* w2, const void* vecs,
+                                          void* y, void* xsave, void* attnsave,
+                                          int B, int N, int depth, int hl,
+                                          int l, void* stream) {
+  return launch<float, true>(x, a, z, w1, w2, vecs, y, xsave, attnsave, B, N,
+                             depth, hl, l, stream);
+}
+
+extern "C" int decoder_stack_fwd_save_bf16(const void* x, const void* a,
+                                           const void* z, const void* w1,
+                                           const void* w2, const void* vecs,
+                                           void* y, void* xsave, void* attnsave,
+                                           int B, int N, int depth, int hl,
+                                           int l, void* stream) {
+  return launch<__nv_bfloat16, true>(x, a, z, w1, w2, vecs, y, xsave, attnsave,
+                                     B, N, depth, hl, l, stream);
 }

@@ -57,7 +57,11 @@ def tile_width(root_dir: str, split: str) -> int:
 
 def load_levir_split(root_dir: str, split: str, img_size: int = 256,
                      label_transform: str = "norm",
-                     patch: Optional[int] = None) -> LevirPairs:
+                     patch: Optional[int] = None,
+                     allow_missing_labels: bool = False) -> LevirPairs:
+    """Decode a split. A missing label raises unless
+    ``allow_missing_labels``, which substitutes an all-zero mask (for
+    inference-only splits; their metrics mean nothing)."""
     names = sorted(os.listdir(os.path.join(root_dir, split, "A")))
     a_list, b_list, l_list = [], [], []
     for name in names:
@@ -67,11 +71,16 @@ def load_levir_split(root_dir: str, split: str, img_size: int = 256,
             os.path.join(root_dir, split, "B", name)).convert("RGB"))
         lbl_path = os.path.join(root_dir, split, "label",
                                 name.replace(".jpg", ".png"))
-        if not os.path.exists(lbl_path):
-            raise FileNotFoundError(f"label missing for {name} at {lbl_path}")
-        lbl = np.array(Image.open(lbl_path), dtype=np.uint8)
-        if label_transform == "norm":
-            lbl = lbl // 255
+        if os.path.exists(lbl_path):
+            lbl = np.array(Image.open(lbl_path), dtype=np.uint8)
+            if label_transform == "norm":
+                lbl = lbl // 255
+        elif allow_missing_labels:
+            lbl = np.zeros(img_a.shape[:2], np.uint8)
+        else:
+            raise FileNotFoundError(
+                f"label missing for {name} at {lbl_path}; pass "
+                "allow_missing_labels=True for inference-only splits")
         origin = crop_origin(img_a.shape[1], img_size, patch)
         if origin is not None:
             y0, x0 = origin

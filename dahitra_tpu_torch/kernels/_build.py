@@ -8,7 +8,8 @@ Each ``csrc/<name>.cu`` is compiled at first use with
 into ``build/`` at the repository root and loaded with ``ctypes``. Each
 source has a plain C interface, so a build takes seconds (a source that
 includes PyTorch's headers would take minutes). The file name carries a hash
-of the source, so an edited source is rebuilt. Nothing here runs at import:
+of the source and of every ``csrc/*.cuh`` header, so an edited source or
+header is rebuilt. Nothing here runs at import:
 the package imports on a host with no ``nvcc`` and no card.
 """
 from __future__ import annotations
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:12]
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

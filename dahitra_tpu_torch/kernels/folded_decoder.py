@@ -1,120 +1,287 @@
-"""K1 forward: the cross-attention decoder stack as a hand-written CUDA
-kernel for Hopper.
+"""K1 and K2: the cross-attention decoder stack, forward and backward, as
+hand-written CUDA kernels for Hopper.
 
-Replaces dahitra_tpu/pallas/folded_decoder.py ``_fwd_kernel`` (via
-``folded_decoder_fwd``, forward without saves): the production "noshift"
-forward of dahitra_tpu/nn/decoder_vjp.py ``_layer_fwd`` over the whole
-depth. The memory-token side (``build_az`` in nn/decoder_vjp.py) is computed
-outside, as in the JAX package; the kernel consumes the per-sample
+* K1, ``decoder_stack_fwd``, replaces dahitra_tpu/pallas/folded_decoder.py
+  ``_fwd_kernel`` (via ``folded_decoder_fwd``): the production "noshift"
+  forward of dahitra_tpu/nn/decoder_vjp.py ``_layer_fwd`` over the whole
+  depth. With ``save=True`` (training) it also writes each layer's input
+  ``x_in`` (D, B, N, 32) and attention (D, B, N, hl) in ``dtype``, as
+  ``_fwd_kernel(save=True)`` does, and counts in ``launches_save`` instead
+  of ``launches``; its ``y`` is the same bit for bit.
+* K2, ``decoder_stack_bwd``, replaces ``_bwd_kernel`` (via
+  ``_folded_bwd_call`` and ``_fds_bwd``): the reverse pass over every layer,
+  from the saves, with the numerics of decoder_vjp ``_layer_bwd``.
+
+The memory-token side (``build_az`` in nn/decoder_vjp.py) is computed
+outside, as in the JAX package; the kernels consume the per-sample
 A (D, B, 32, hl) and Z (D, B, hl, 32).
 
-Source: ``csrc/decoder_fwd.cu``. Bound on this card: operations (~8 kFLOP
-per 32-wide row per layer at hl = 32 against 128-256 bytes of the row for the
-whole stack). Design: one warp per row, lane = channel; the residual stays
-in registers across all layers (x read once, written once) and each layer's
-weights are staged in shared memory. The products run on the fp32 FMA pipe;
-tensor-core tiles are later work.
+Sources: ``csrc/decoder_fwd.cu``, ``csrc/decoder_bwd.cu``. Bound on this
+card: operations (K1 ~8 kFLOP, K2 ~20 kFLOP per 32-wide row per layer at
+hl = 32, against 2 * (32 + hl) bytes of saves per row and layer in bf16).
+Design: one warp per row, lane = channel, each layer's weights staged in
+shared memory; K1 keeps the residual in registers across all layers, K2
+keeps per-CTA weight-gradient partials in registers and sums them in a
+second, fixed-order pass. The products run on the fp32 FMA pipe; tensor-core
+tiles are later work.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
 from dahitra_tpu_torch.kernels import _build
 
-# Launches of the CUDA kernel in this process; the plain version never counts.
+# Launches of the CUDA kernels in this process; the plain versions never
+# count. ``launches``: K1 without saves; ``launches_save``: K1 with saves;
+# ``launches_bwd``: K2.
 launches = 0
+launches_save = 0
+launches_bwd = 0
 
 _DIM = 32
 _MAX_HL = 128
 _CLAMP = 80.0  # dahitra_tpu/nn/decoder_vjp.py _NOSHIFT_CLAMP
-_FNS = {torch.float32: "decoder_stack_fwd_f32",
-        torch.bfloat16: "decoder_stack_fwd_bf16"}
+_TILE = 32  # rows per K2 tile (csrc/decoder_bwd.cu TILE)
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Rows of vecs: per-layer vectors in this order.
 VEC_KEYS = ("ln1_scale", "ln1_bias", "bo", "ln2_scale", "ln2_bias", "b1", "b2")
 
 
-def _layer_norm(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
-    """decoder_vjp._ln_stats / _ln_apply: fp32, two-pass variance."""
-    mu = x32.mean(-1, keepdim=True)
-    var = (x32 - mu).square().mean(-1, keepdim=True)
-    return (x32 - mu) * torch.rsqrt(var + 1e-5) * scale + bias
+def _acc(dtype):
+    """Accumulation type: fp32, or float64 for float64 inputs (the
+    exact-arithmetic check of the backward)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _ln_stats(x):
+    """decoder_vjp._ln_stats: mean and rsqrt(var + eps), two-pass."""
+    mu = x.mean(-1, keepdim=True)
+    return mu, torch.rsqrt((x - mu).square().mean(-1, keepdim=True) + 1e-5)
+
+
+def _ln_bwd(dg, xhat, rs, scale):
+    """decoder_vjp._ln_bwd: (dx, dscale, dbias), sums over the rows."""
+    dxh = dg * scale
+    dx = rs * (dxh - dxh.mean(-1, keepdim=True)
+               - xhat * (dxh * xhat).mean(-1, keepdim=True))
+    return dx, (dg * xhat).sum((0, 1)), dg.sum((0, 1))
+
+
+def _gelu_grad(t):
+    cdf = 0.5 * (1.0 + torch.erf(t * 0.5 ** 0.5))
+    return cdf + t * torch.exp(-0.5 * t * t) / math.sqrt(2.0 * math.pi)
+
+
+def _group_sum(v, heads):
+    b, n, hl = v.shape
+    return v.view(b, n, heads, hl // heads).sum(-1, keepdim=True) \
+        .expand(b, n, heads, hl // heads).reshape(b, n, hl)
 
 
 def decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth: int, heads: int,
-                            dtype) -> torch.Tensor:
+                            dtype, save: bool = False):
     """The kernel's function in plain PyTorch, rounding to ``dtype`` where
-    decoder_vjp._layer_fwd rounds. Shapes as in ``decoder_stack_fwd``."""
+    decoder_vjp._layer_fwd rounds. Shapes as in ``decoder_stack_fwd``; with
+    ``save``, returns (y, xsave, attnsave) as the kernel does."""
+    acc = _acc(dtype)
     b, n, dim = x.shape
-    hl = a.shape[-1]
-    l = hl // heads
     scale = dim ** -0.5
+    xs, ats = [], []
     for d in range(depth):
         ln1s, ln1b, bo, ln2s, ln2b, b1, b2 = vecs[d]
-        hn = _layer_norm(x.float(), ln1s, ln1b).to(dtype)
-        dots = torch.matmul(hn, a[d]).float() * scale
+        mu, rs = _ln_stats(x.to(acc))
+        hn = ((x.to(acc) - mu) * rs * ln1s + ln1b).to(dtype)
+        dots = torch.matmul(hn, a[d]).to(acc) * scale
         e = torch.exp(dots.clamp(-_CLAMP, _CLAMP))
-        den = e.view(b, n, heads, l).sum(-1, keepdim=True)
-        attn = (e.view(b, n, heads, l) / den).view(b, n, hl).to(dtype)
+        attn = (e / _group_sum(e, heads)).to(dtype)
+        if save:
+            xs.append(x)
+            ats.append(attn)
         x1 = x + torch.matmul(attn, z[d]) + bo.to(dtype)
-        g = _layer_norm(x1.float(), ln2s, ln2b).to(dtype)
+        mu1, rs1 = _ln_stats(x1.to(acc))
+        g = ((x1.to(acc) - mu1) * rs1 * ln2s + ln2b).to(dtype)
         t = torch.matmul(g, w1[d]) + b1.to(dtype)
-        h = F.gelu(t.float()).to(dtype)
+        h = F.gelu(t.to(acc)).to(dtype)
         x = x1 + torch.matmul(h, w2[d]) + b2.to(dtype)
+    if save:
+        return x, torch.stack(xs), torch.stack(ats)
     return x
 
 
-def _fn(dtype):
-    fn = getattr(_build.load("decoder_fwd"), _FNS[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def decoder_stack_bwd_plain(xsave, attnsave, dy, a, z, w1, w2, vecs,
+                            depth: int, heads: int, dtype):
+    """K2's function in plain PyTorch: decoder_vjp._layer_bwd / _vjp_bwd on
+    the kernel operands, rounding where they round. Returns
+    (dx, da, dz, dw1, dw2, dvecs) as ``decoder_stack_bwd`` does; the ln1 rows
+    of dvecs are the x side only."""
+    acc = _acc(dtype)
+    dim = dy.shape[-1]
+    scale = dim ** -0.5
+    dy = dy.to(dtype)
+    da, dz, dw1, dw2, dvecs = [], [], [], [], []
+    for d in range(depth - 1, -1, -1):
+        ln1s, ln1b, bo, ln2s, ln2b, b1, b2 = vecs[d]
+        x, attn = xsave[d], attnsave[d]
+        # recompute (the forward's operations)
+        mu, rs = _ln_stats(x.to(acc))
+        xhat = (x.to(acc) - mu) * rs
+        hn = (xhat * ln1s + ln1b).to(dtype)
+        x1 = x + torch.matmul(attn, z[d]) + bo.to(dtype)
+        mu1, rs1 = _ln_stats(x1.to(acc))
+        xhat1 = (x1.to(acc) - mu1) * rs1
+        g = (xhat1 * ln2s + ln2b).to(dtype)
+        t = (torch.matmul(g, w1[d]) + b1.to(dtype)).to(acc)
+        hg = F.gelu(t).to(dtype)
+        # feed-forward backward
+        dw2.append(torch.einsum("bnm,bnc->mc", hg.to(acc), dy.to(acc)))
+        db2 = dy.to(acc).sum((0, 1))
+        dt32 = torch.matmul(dy, w2[d].t()).to(acc) * _gelu_grad(t)
+        dt = dt32.to(dtype)
+        dw1.append(torch.einsum("bnc,bnm->cm", g.to(acc), dt.to(acc)))
+        dg = torch.matmul(dt, w1[d].t()).to(acc)
+        dx1_ln, dls2, dlb2 = _ln_bwd(dg, xhat1, rs1, ln2s)
+        dx1 = dy + dx1_ln.to(dtype)
+        dbo = dx1.to(acc).sum((0, 1))
+        # attention backward: the group softmax in fp32
+        a32 = attn.to(acc)
+        dattn = torch.matmul(dx1, z[d].transpose(-1, -2)).to(acc)
+        dl = (a32 * (dattn - _group_sum(a32 * dattn, heads)) * scale).to(dtype)
+        dhn = torch.matmul(dl, a[d].transpose(-1, -2)).to(acc)
+        da.append(torch.einsum("bnc,bnj->bcj", hn.to(acc), dl.to(acc)).to(dtype))
+        dz.append(torch.einsum("bnj,bnc->bjc", a32, dx1.to(acc)).to(dtype))
+        dx_ln, dls1, dlb1 = _ln_bwd(dhn, xhat, rs, ln1s)
+        dy = dx1 + dx_ln.to(dtype)
+        dvecs.append(torch.stack([dls1, dlb1, dbo, dls2, dlb2, dt32.sum((0, 1)),
+                                  db2]))
+    rev = lambda ts: torch.stack(ts[::-1])  # noqa: E731
+    return dy, rev(da), rev(dz), rev(dw1), rev(dw2), rev(dvecs)
+
+
+def _fn(lib, name, dtype, n_ptr, n_int):
+    fn = getattr(_build.load(lib), f"{name}_{_DTYPES[dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int,
-                      dtype) -> torch.Tensor:
+def _check(what, tensors, dtype, heads, hl, shapes_ok):
+    """Raise unless every operand is a contiguous tensor on one CUDA device
+    with the kernel's dtypes and shapes. The last tensor is vecs (fp32)."""
+    if tensors[0].device.type != "cuda" \
+            or any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{what}: all operands must be on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if dtype not in _DTYPES or any(t.dtype != dtype for t in tensors[:-1]) \
+            or tensors[-1].dtype != torch.float32:
+        raise TypeError(f"{what}: need the activations and weights in {dtype} "
+                        "(float32 or bfloat16) and vecs in float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: operands must be contiguous")
+    if not shapes_ok or hl > _MAX_HL or hl % heads:
+        raise ValueError(f"{what}: need dim = mlp_dim = {_DIM}, "
+                         f"hl = heads * tokens <= {_MAX_HL} and the shapes "
+                         "of the docstring, got "
+                         f"{[tuple(t.shape) for t in tensors]}, heads {heads}")
+
+
+def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
+                      save: bool = False):
     """Decoder-stack forward over ``depth`` layers.
 
     x: (B, N, 32); a: (D, B, 32, hl); z: (D, B, hl, 32); w1, w2: (D, 32, 32)
     laid out (in, out), all in ``dtype``; vecs: (D, 7, 32) fp32 rows in
-    ``VEC_KEYS`` order. Returns (B, N, 32) in ``dtype``. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise.
+    ``VEC_KEYS`` order. Returns y (B, N, 32) in ``dtype``, or with ``save``
+    (y, xsave (D, B, N, 32), attnsave (D, B, N, hl)). CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise.
     """
-    global launches
+    global launches, launches_save
     if x.device.type == "cpu":
         return decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth, heads,
-                                       dtype)
-    tensors = (x, a, z, w1, w2, vecs)
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
-        raise ValueError("decoder_stack_fwd: all operands must be on one "
-                         f"CUDA device, got {[str(t.device) for t in tensors]}")
-    if dtype not in _FNS or any(t.dtype != dtype for t in tensors[:5]) \
-            or vecs.dtype != torch.float32:
-        raise TypeError(f"decoder_stack_fwd: need x, a, z, w1, w2 in {dtype} "
-                        "(float32 or bfloat16) and vecs in float32, got "
-                        f"{[t.dtype for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("decoder_stack_fwd: operands must be contiguous")
+                                       dtype, save)
     b, n, dim = x.shape
     hl = a.shape[-1]
-    if dim != _DIM or w1.shape != (depth, _DIM, _DIM) \
-            or w2.shape != (depth, _DIM, _DIM):
-        raise ValueError(f"decoder_stack_fwd: dim and mlp_dim must be {_DIM}, "
-                         f"got x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
-                         f"w2 {tuple(w2.shape)}")
-    if hl > _MAX_HL or hl % heads or a.shape != (depth, b, _DIM, hl) \
-            or z.shape != (depth, b, hl, _DIM) or vecs.shape != (depth, 7, _DIM):
-        raise ValueError(f"decoder_stack_fwd: need hl <= {_MAX_HL}, a "
-                         f"(D, B, 32, hl), z (D, B, hl, 32), vecs (D, 7, 32); "
-                         f"got a {tuple(a.shape)}, z {tuple(z.shape)}, "
-                         f"vecs {tuple(vecs.shape)}, heads {heads}")
+    shapes_ok = (dim == _DIM and w1.shape == w2.shape == (depth, _DIM, _DIM)
+                 and a.shape == (depth, b, _DIM, hl)
+                 and z.shape == (depth, b, hl, _DIM)
+                 and vecs.shape == (depth, 7, _DIM))
+    _check("decoder_stack_fwd", (x, a, z, w1, w2, vecs), dtype, heads, hl,
+           shapes_ok)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _fn(dtype)(x.data_ptr(), a.data_ptr(), z.data_ptr(),
-                        w1.data_ptr(), w2.data_ptr(), vecs.data_ptr(),
-                        y.data_ptr(), b, n, depth, hl, hl // heads, stream)
+    ptrs = [t.data_ptr() for t in (x, a, z, w1, w2, vecs, y)]
+    if save:
+        xsave = torch.empty((depth, b, n, _DIM), dtype=dtype, device=x.device)
+        attnsave = torch.empty((depth, b, n, hl), dtype=dtype, device=x.device)
+        status = _fn("decoder_fwd", "decoder_stack_fwd_save", dtype, 9, 5)(
+            *ptrs, xsave.data_ptr(), attnsave.data_ptr(), b, n, depth, hl,
+            hl // heads, stream)
+        _build.check(status, "decoder_stack_fwd(save)")
+        launches_save += 1
+        return y, xsave, attnsave
+    status = _fn("decoder_fwd", "decoder_stack_fwd", dtype, 7, 5)(
+        *ptrs, b, n, depth, hl, hl // heads, stream)
     _build.check(status, "decoder_stack_fwd")
     launches += 1
     return y
+
+
+def _bwd_rows_per_cta(b: int, n: int, n_sm: int) -> int:
+    """K2's rows per CTA: a multiple of its 32-row tile, chosen so that about
+    two CTAs run per SM. Fewer, longer CTAs keep the partial-sum scratch
+    small (tens of MB at the batch-8 training shapes)."""
+    tiles = -(-n // _TILE)
+    cps = max(1, min(tiles, -(-2 * n_sm // b)))
+    return -(-tiles // cps) * _TILE
+
+
+def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
+                      heads: int, dtype):
+    """Decoder-stack backward (K2) from the forward's saves.
+
+    xsave (D, B, N, 32), attnsave (D, B, N, hl), dy (B, N, 32), a, z, w1,
+    w2 as in ``decoder_stack_fwd``, all in ``dtype``; vecs (D, 7, 32) fp32.
+    Returns dx (B, N, 32) and da, dz (per sample) in ``dtype``, and dw1, dw2
+    (D, 32, 32) and dvecs (D, 7, 32) in fp32; the ln1 rows of dvecs are the
+    x side only. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise.
+    """
+    global launches_bwd
+    if dy.device.type == "cpu":
+        return decoder_stack_bwd_plain(xsave, attnsave, dy, a, z, w1, w2, vecs,
+                                       depth, heads, dtype)
+    b, n, dim = dy.shape
+    hl = a.shape[-1]
+    shapes_ok = (dim == _DIM and xsave.shape == (depth, b, n, _DIM)
+                 and attnsave.shape == (depth, b, n, hl)
+                 and w1.shape == w2.shape == (depth, _DIM, _DIM)
+                 and a.shape == (depth, b, _DIM, hl)
+                 and z.shape == (depth, b, hl, _DIM)
+                 and vecs.shape == (depth, 7, _DIM))
+    _check("decoder_stack_bwd", (xsave, attnsave, dy, a, z, w1, w2, vecs),
+           dtype, heads, hl, shapes_ok)
+    dev = dy.device
+    rows = _bwd_rows_per_cta(
+        b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    cps = -(-n // rows)
+    part = torch.empty(b * cps * depth * (2 * _DIM * _DIM + 2 * _DIM * hl
+                                          + 7 * _DIM),
+                       dtype=torch.float32, device=dev)
+    dx = torch.empty_like(dy)
+    da, dz = torch.empty_like(a), torch.empty_like(z)
+    dw1 = torch.empty((depth, _DIM, _DIM), dtype=torch.float32, device=dev)
+    dw2 = torch.empty_like(dw1)
+    dvecs = torch.empty((depth, 7, _DIM), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = _fn("decoder_bwd", "decoder_stack_bwd", dtype, 15, 6)(
+        *[t.data_ptr() for t in (xsave, attnsave, dy, a, z, w1, w2, vecs, dx,
+                                 da, dz, dw1, dw2, dvecs, part)],
+        b, n, depth, hl, hl // heads, rows, stream)
+    _build.check(status, "decoder_stack_bwd")
+    launches_bwd += 1
+    return dx, da, dz, dw1, dw2, dvecs

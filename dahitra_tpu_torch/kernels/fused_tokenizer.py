@@ -13,6 +13,13 @@ byte of x in fp32). Design: one 1024-thread CTA per sample, x read twice,
 logits kept in shared memory, warp partials summed in a fixed order. Known
 limit: B CTAs only (16 at eval batch 8); splitting N across CTAs is later
 work, and needed for xBD's N = 65536.
+
+``SemanticTokenizerFn`` makes it differentiable: its forward is the kernel
+(the plain version on the CPU) and its backward is PyTorch operations. The
+JAX package has no backward kernel for the tokenizer (XLA differentiates
+``SemanticTokenizer``, dahitra_tpu/nn/blocks.py:638-646), so the backward is
+not a kernel port: it recomputes the logits and the fp32 softmax from the
+saved x and w and rounds where XLA's autodiff rounds.
 """
 from __future__ import annotations
 
@@ -80,3 +87,34 @@ def semantic_tokenizer(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check(status, "semantic_tokenizer")
     launches += 1
     return out
+
+
+class SemanticTokenizerFn(torch.autograd.Function):
+    """``semantic_tokenizer`` with its gradient. Backward, from the saved
+    x (B, N, C) and w (C, L) in the compute dtype T:
+
+        attn32 = softmax_N(rnd(x . w)),  attn = rnd(attn32)
+        dattn  = rnd(dtokens . x^T)
+        dlogits = rnd(attn32 * (dattn - sum_N(attn32 * dattn)))
+        dx = rnd(rnd(attn . dtokens) + rnd(dlogits . w^T))
+        dw = rnd(sum_{B,N} x^T . dlogits)
+    """
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return semantic_tokenizer(x, w)
+
+    @staticmethod
+    def backward(ctx, dtokens):
+        x, w = ctx.saved_tensors
+        dtokens = dtokens.to(x.dtype)
+        attn32 = torch.softmax(torch.matmul(x, w).float(), dim=1)
+        attn = attn32.to(x.dtype)
+        dattn = torch.einsum("blc,bnc->bnl", dtokens, x).float()
+        dlogits = (attn32 * (dattn - (attn32 * dattn).sum(1, keepdim=True))
+                   ).to(x.dtype)
+        dx = (torch.einsum("bnl,blc->bnc", attn, dtokens)
+              + torch.matmul(dlogits, w.t()))
+        dw = torch.einsum("bnc,bnl->cl", x, dlogits)
+        return dx, dw

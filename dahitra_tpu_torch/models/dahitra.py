@@ -1,5 +1,5 @@
 """DAHiTra, the hierarchical-transformer UNet change detector
-(``newUNetTrans``), eval forward.
+(``newUNetTrans``), eval and train forward.
 
 Counterpart of dahitra_tpu/models/dahitra.py (``DAHiTraUNet`` and
 ``TransDiffModule``, :67-322). The module tree carries the reference's
@@ -11,8 +11,9 @@ is ``_trans_diff`` over the flat per-scale attributes (``conv_squeeze_3``,
 
 Scales: 1/4 ("3", 64 ch, decoder depth 8, 8 heads), 1/8 ("4", 128 ch, depth
 4, 4 heads), 1/16 ("5", 256 ch, depth 4, 4 heads); every width is 32.
-Per forward, the K3 tokenizer runs once per scale and the K1 decoder stack
-twice per scale (the two dates batch-stacked, then the difference).
+Per forward, the K3 tokenizer runs once per scale and the decoder stack
+twice per scale (the two dates batch-stacked, then the difference): K1
+without saves in eval, K1 with saves and then K2 in a training step.
 """
 from __future__ import annotations
 
@@ -45,13 +46,18 @@ class DAHiTraUNet(nn.Module):
     quirk: positional embeddings only at the coarsest scale, read from the
     suffix-3 parameters. ``decode_dates=False`` skips the per-date decoder
     passes (the xBD copy); by default it follows ``not pos_coarsest_only``
-    as in the JAX model.
+    as in the JAX model. The positional embeddings are drawn N(0, 1) from
+    ``generator`` (seed 0 when none is given), as the flax initializer
+    does; ``nn/init.py`` leaves them as they are.
     """
 
     def __init__(self, output_nc: int = 2, img_size: int = 256,
                  pos_coarsest_only: bool = False,
-                 decode_dates: Optional[bool] = None, dtype=torch.float32):
+                 decode_dates: Optional[bool] = None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
         dim = _DIM
         self.dtype = dtype
         self.decode_dates = (not pos_coarsest_only if decode_dates is None
@@ -75,10 +81,11 @@ class DAHiTraUNet(nn.Module):
             p = self.pos_ref[r]
             if p is not None:
                 self.register_parameter(f"pos_embedding_{p}", nn.Parameter(
-                    torch.zeros(1, 2 * _TOKENS, dim)))
+                    torch.randn(1, 2 * _TOKENS, dim, generator=gen)))
                 s = img_size // stride
                 self.register_parameter(f"pos_embedding_decoder_{p}",
-                                        nn.Parameter(torch.zeros(1, dim, s, s)))
+                                        nn.Parameter(torch.randn(
+                                            1, dim, s, s, generator=gen)))
         self.conv_layer2_0 = TwoLayerConv(128, dim, dtype)
         self.conv_layer2 = UpConv(dim, dim, dtype)
         self.conv_layer3 = UpConv(dim, dim, dtype)
@@ -142,31 +149,34 @@ class DAHiTraUNet(nn.Module):
                              padding=1, dtype=self.dtype)
         return self._decode(r, diff_x, (t2 - t1).abs())
 
-    def forward_single(self, x: torch.Tensor):
+    def forward_single(self, x: torch.Tensor, train: bool = False,
+                       pair: bool = False):
         """4-scale trunk (networks.py:1118-1138); the maxpool reads the
         post-ReLU stem (the reference's in-place ReLU)."""
-        x_2 = torch.relu(self.resnet.stem_preact(x))
-        x_4 = self.resnet.layer1(max_pool_3x3_s2(x_2))
-        x_8 = self.resnet.layer2(x_4)
-        x_16 = self.resnet.layer3(max_pool_3x3_s2(x_8))
+        r = self.resnet
+        x_2 = torch.relu(r.stem_preact(x, train, pair))
+        x_4 = r.layer1(max_pool_3x3_s2(x_2), train, pair)
+        x_8 = r.layer2(x_4, train, pair)
+        x_16 = r.layer3(max_pool_3x3_s2(x_8), train, pair)
         return x_2, x_4, x_8, x_16
 
     def forward(self, x1: torch.Tensor, x2: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
         """NHWC images (B, H, W, 3) twice, or one (B, H, W, 6) -> logits
-        (B, H, W, output_nc) in the compute dtype."""
-        if train:
-            raise NotImplementedError(
-                "train mode (PairBatchNorm batch statistics) comes with the "
-                "training slice; see ROADMAP.md section 1")
+        (B, H, W, output_nc) in the compute dtype.
+
+        ``train=True`` is dahitra.py:278-304 in the split-heads form: one
+        [date1; date2] trunk pass whose BatchNorms take per-date batch
+        statistics, the trans modules on the split halves, and
+        ``conv_layer2_0``'s BatchNorm over the channel-concatenated pair."""
         if x2 is None:
             x1, x2 = x1[..., :3], x1[..., 3:]
-        feats = self.forward_single(torch.cat([x1, x2], 0))
+        feats = self.forward_single(torch.cat([x1, x2], 0), train, pair=train)
         (a2, b2), (a4, b4), (a8, b8), (a16, b16) = (f.chunk(2, 0) for f in feats)
         out5 = upsample_nearest(self._trans_diff("5", a16, b16))
         out4 = self.conv_layer4(self._trans_diff("4", a8, b8) + out5)
         out3 = self.conv_layer3(self._trans_diff("3", a4, b4) + out4)
-        out2 = self.conv_layer2_0(torch.cat([a2, b2], -1))
+        out2 = self.conv_layer2_0(torch.cat([a2, b2], -1), train)
         out2 = self.conv_layer2(out2 + out3)
         return conv2d_nhwc(out2, self.classifier.weight, self.classifier.bias,
                            padding=1, dtype=self.dtype)

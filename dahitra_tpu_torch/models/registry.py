@@ -6,6 +6,8 @@ Counterpart of dahitra_tpu/models/registry.py. This slice ports
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from dahitra_tpu_torch.models.dahitra import DAHiTraUNet
@@ -29,10 +31,14 @@ _PENDING = {
 
 
 def define_g(net_g: str, dtype=torch.float32, img_size: int = 256,
-             output_nc: int = 2) -> torch.nn.Module:
-    """Build a model by its reference ``--net_G`` key (random weights)."""
+             output_nc: int = 2,
+             generator: Optional[torch.Generator] = None
+             ) -> torch.nn.Module:
+    """Build a model by its reference ``--net_G`` key (random weights; the
+    draws the port makes itself come from ``generator``)."""
     if net_g == "newUNetTrans":
-        return DAHiTraUNet(output_nc=output_nc, img_size=img_size, dtype=dtype)
+        return DAHiTraUNet(output_nc=output_nc, img_size=img_size, dtype=dtype,
+                           generator=generator)
     if net_g in _PENDING:
         raise NotImplementedError(
             f"--net_G {net_g} is not ported yet: ROADMAP.md section 1, "

@@ -1,4 +1,4 @@
-"""Primitive blocks of the DAHiTra eval path.
+"""Primitive blocks of the DAHiTra eval and train paths.
 
 Counterpart of dahitra_tpu/nn/blocks.py. Public layouts follow the JAX
 package: NHWC images and (B, N, C) sequences; convolutions run through
@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dahitra_tpu_torch.kernels.fused_tokenizer import semantic_tokenizer
+from dahitra_tpu_torch.kernels.fused_tokenizer import SemanticTokenizerFn
 from dahitra_tpu_torch.nn.decoder_vjp import decoder_stack, pack_decoder_params
 
 
@@ -50,10 +50,21 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm: fp32 running statistics and arithmetic, output
-    in ``dtype`` (dahitra_tpu/nn/resnet.py PairBatchNorm with
-    ``use_running_average`` and ``_bn_out_dtype``). Train mode waits for the
-    training slice."""
+    """BatchNorm with fp32 statistics and arithmetic and its output in
+    ``dtype``: dahitra_tpu/nn/resnet.py ``PairBatchNorm`` (:45-113) with
+    ``_bn_out_dtype``.
+
+    Eval (``train=False``) normalizes by the running statistics. Train takes
+    the batch statistics over every axis but the last, with the biased
+    variance ``max(E[x^2] - mu^2, 0)``, and updates the running statistics
+    as flax does, ``ra <- 0.9 ra + 0.1 stat`` (the running variance takes
+    the biased batch variance; ``nn.BatchNorm2d`` would feed it the unbiased
+    one). ``pair=True`` reads the leading batch axis as [date1; date2]:
+    each half is normalized by its own statistics and the running statistics
+    take the two sequential updates, ``m (m ra + (1 - m) s1) + (1 - m) s2``.
+    """
+
+    momentum = 0.9
 
     def __init__(self, channels: int, dtype=torch.float32, eps: float = 1e-5):
         super().__init__()
@@ -64,9 +75,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(self.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                pair: bool = False) -> torch.Tensor:
+        xf = x.float()
+        mean, var = self.running_mean, self.running_var
+        if train:
+            xf = xf.reshape(2 if pair else 1, -1, x.shape[-1])
+            gmean = xf.mean(1)
+            gvar = ((xf * xf).mean(1) - gmean * gmean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                for s_mean, s_var in zip(gmean, gvar):
+                    mean = m * mean + (1 - m) * s_mean
+                    var = m * var + (1 - m) * s_var
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(var)
+            mean, var = gmean[:, None], gvar[:, None]
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).reshape(x.shape).to(self.dtype)
 
 
 class TwoLayerConv(nn.Sequential):
@@ -80,9 +106,9 @@ class TwoLayerConv(nn.Sequential):
             nn.Conv2d(in_channels, out_channels, 3, padding=1))
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = conv2d_nhwc(x, self[0].weight, padding=1, dtype=self.dtype)
-        x = torch.relu(self[1](x))
+        x = torch.relu(self[1](x, train))
         return conv2d_nhwc(x, self[3].weight, self[3].bias, padding=1,
                            dtype=self.dtype)
 
@@ -110,7 +136,8 @@ def _dense(x: torch.Tensor, linear: nn.Linear, dtype) -> torch.Tensor:
 
 
 class FeedForward(nn.Module):
-    """Linear-GELU-Dropout-Linear-Dropout (help_funcs.py:52-63); eval only."""
+    """Linear-GELU-Dropout-Linear-Dropout (help_funcs.py:52-63); the
+    dropout rate is 0, so train and eval compute the same."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32):
         super().__init__()
@@ -261,7 +288,8 @@ class TransformerDecoder(nn.Module):
 class SemanticTokenizer(nn.Module):
     """Spatial-attention token pooling (networks.py:312-319): a 1x1 conv to
     L logits per pixel, a softmax over the pixels, attention-weighted sums
-    of the features. Runs through the K3 kernel on the card. Its one
+    of the features. Runs through the K3 kernel on the card, with its
+    gradient in PyTorch operations (``SemanticTokenizerFn``). Its one
     parameter is the reference's ``conv_token`` weight (L, C, 1, 1)."""
 
     def __init__(self, dim: int, token_len: int, dtype=torch.float32):
@@ -274,5 +302,5 @@ class SemanticTokenizer(nn.Module):
         """x: (B, H, W, C) -> tokens (B, L, C) in the compute dtype."""
         b, h, w, c = x.shape
         wt = self.weight.view(-1, c).t().to(self.dtype).contiguous()
-        return semantic_tokenizer(
+        return SemanticTokenizerFn.apply(
             x.reshape(b, h * w, c).to(self.dtype).contiguous(), wt)

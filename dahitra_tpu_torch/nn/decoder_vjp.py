@@ -1,19 +1,27 @@
 """The cross-attention decoder stack in production "noshift" numerics.
 
-Counterpart of dahitra_tpu/nn/decoder_vjp.py (forward only):
-``decoder_stack_plain`` is the plain PyTorch forward of ``_layer_fwd`` /
-``_stack_fwd``, and ``decoder_stack`` is the same function through the K1
-kernel (kernels/folded_decoder.py). Both take the stacked parameter dict of
-``pack_decoder_params`` (dahitra_tpu/pallas/fused_decoder.py:40) in the flax
-layout, Linear kernels (in, out).
+Counterpart of dahitra_tpu/nn/decoder_vjp.py: ``decoder_stack_plain`` is the
+plain PyTorch forward of ``_layer_fwd`` / ``_stack_fwd``, and
+``decoder_stack`` is the same function through the kernels of
+kernels/folded_decoder.py, differentiable as the JAX ``custom_vjp`` is
+(``_vjp_fwd`` / ``_vjp_bwd``, in the split of folded_decoder.py ``_fds_bwd``):
+``DecoderStack`` is a ``torch.autograd.Function`` over the kernel operands
+whose forward is K1 with saves and whose backward is K2. Without a gradient
+(``torch.no_grad``, ``inference_mode``) the forward is K1 without saves.
+Both take the stacked parameter dict of ``pack_decoder_params``
+(dahitra_tpu/pallas/fused_decoder.py:40) in the flax layout, Linear kernels
+(in, out).
 
 Per layer: fp32 LayerNorm shared by query and memory (PreNorm2), dots
 rounded to ``dtype`` then scaled by dim**-0.5 (the model-dim quirk),
 ``exp(clip(dots, +-80))`` over each head's token group, and the residual
-kept in ``dtype``. The memory side, ``build_az`` (folded_decoder.py:78), is
-tiny and stays in PyTorch. The n-chunking of ``decoder_stack_auto`` works
-around an XLA limit and has no counterpart; the backward (K2) comes with the
-training slice.
+kept in ``dtype``. The memory side, ``build_az`` (folded_decoder.py:78), and
+the ``vecs`` stack are tiny and stay ordinary differentiable PyTorch, so
+autograd carries the memory-token chains (dWq, dWk, dWv, dWo, dm) and the
+memory side of the LayerNorm-1 gradient into the parameters; K2 returns the
+x side of that gradient through ``vecs``, and the two meet in the one
+parameter. The n-chunking of ``decoder_stack_auto`` works around an XLA limit
+and has no counterpart.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from typing import Dict, Tuple
 import torch
 
 from dahitra_tpu_torch.kernels.folded_decoder import (VEC_KEYS,
+                                                      decoder_stack_bwd,
                                                       decoder_stack_fwd,
                                                       decoder_stack_fwd_plain)
 
@@ -80,12 +89,40 @@ def build_az(m: torch.Tensor, packed: Packed, depth: int, heads: int,
     return torch.stack(a_list), torch.stack(z_list)
 
 
-def _operands(x, m, packed, depth, heads, dtype):
+def _operands(x, m, packed, depth, heads, dtype, weights_dtype=None):
+    """(x, a, z, w1, w2, vecs): the kernel operands, w1 and w2 in
+    ``weights_dtype`` (default ``dtype``)."""
     a, z = build_az(m, packed, depth, heads, dtype)
     vecs = torch.stack([packed[k].float() for k in VEC_KEYS], dim=1)
+    wdt = weights_dtype or dtype
     return (x.to(dtype).contiguous(), a.contiguous(), z.contiguous(),
-            packed["w1"].to(dtype).contiguous(),
-            packed["w2"].to(dtype).contiguous(), vecs.contiguous())
+            packed["w1"].to(wdt).contiguous(),
+            packed["w2"].to(wdt).contiguous(), vecs.contiguous())
+
+
+class DecoderStack(torch.autograd.Function):
+    """The stack over its kernel operands (x, a, z, w1, w2, vecs): forward
+    K1 with saves, backward K2. w1 and w2 come in fp32 and are cast to
+    ``dtype`` here, so their fp32 gradients reach the parameters unrounded,
+    as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, a, z, w1, w2, vecs, depth, heads, dtype):
+        w1c, w2c = w1.to(dtype).contiguous(), w2.to(dtype).contiguous()
+        y, xsave, attnsave = decoder_stack_fwd(x, a, z, w1c, w2c, vecs, depth,
+                                               heads, dtype, save=True)
+        ctx.save_for_backward(xsave, attnsave, a, z, w1c, w2c, vecs)
+        ctx.meta = (depth, heads, dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        depth, heads, dtype = ctx.meta
+        xsave, attnsave, a, z, w1c, w2c, vecs = ctx.saved_tensors
+        dx, da, dz, dw1, dw2, dvecs = decoder_stack_bwd(
+            xsave, attnsave, dy.to(dtype).contiguous(), a, z, w1c, w2c, vecs,
+            depth, heads, dtype)
+        return dx, da, dz, dw1, dw2, dvecs, None, None, None
 
 
 def decoder_stack_plain(x: torch.Tensor, m: torch.Tensor, packed: Packed,
@@ -98,6 +135,13 @@ def decoder_stack_plain(x: torch.Tensor, m: torch.Tensor, packed: Packed,
 
 def decoder_stack(x: torch.Tensor, m: torch.Tensor, packed: Packed,
                   depth: int, heads: int, dtype) -> torch.Tensor:
-    """``decoder_stack_plain`` through the K1 kernel on a CUDA tensor."""
-    return decoder_stack_fwd(*_operands(x, m, packed, depth, heads, dtype),
-                             depth, heads, dtype)
+    """``decoder_stack_plain`` through the kernels on a CUDA tensor (their
+    plain versions on the CPU). When a gradient is needed this is
+    ``DecoderStack`` (K1 with saves, then K2); otherwise K1 without saves."""
+    ops = _operands(x, m, packed, depth, heads, dtype,
+                    weights_dtype=torch.float32)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        return DecoderStack.apply(*ops, depth, heads, dtype)
+    x, a, z, w1, w2, vecs = ops
+    return decoder_stack_fwd(x, a, z, w1.to(dtype), w2.to(dtype), vecs, depth,
+                             heads, dtype)

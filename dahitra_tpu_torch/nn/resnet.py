@@ -1,14 +1,17 @@
-"""ResNet trunk (torchvision layout), eval mode, NHWC.
+"""ResNet trunk (torchvision layout), NHWC.
 
 Counterpart of dahitra_tpu/nn/resnet.py: ``BasicBlock``, ``ResNetLayer``
-and ``ResNetTrunk`` with eval-mode BatchNorm (fp32 statistics, output in the
-compute dtype, as ``_bn_out_dtype`` has it). Parameter names follow
+and ``ResNetTrunk`` with ``BatchNorm`` (fp32 statistics, output in the
+compute dtype, as ``_bn_out_dtype`` has it). ``train`` and ``pair`` thread
+through every block as in resnet.py:130-290: in train mode with ``pair``,
+the leading batch axis is [date1; date2] and each BatchNorm takes per-date
+statistics (``PairBatchNorm(pair=True)``). Parameter names follow
 torchvision (``conv1``, ``bn1``, ``layerN.M.conv1``, ``downsample.0/1``).
 
 Quirk kept: the vendored torchvision BasicBlock resets dilation to 1, so
 ``replace_stride_with_dilation`` only removes a layer's stride
-(resnet.py:8-11). Train-mode PairBatchNorm, the Bottleneck block and
-resnet50 wait for the training slice (ROADMAP.md section 1).
+(resnet.py:8-11). The Bottleneck block and resnet50 are not ported yet
+(ROADMAP.md section 1).
 """
 from __future__ import annotations
 
@@ -37,17 +40,18 @@ class BasicBlock(nn.Module):
                 nn.Conv2d(in_channels, filters, 1, stride, bias=False),
                 BatchNorm(filters, dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                pair: bool = False) -> torch.Tensor:
         y = conv2d_nhwc(x, self.conv1.weight, stride=self.stride, padding=1,
                         dtype=self.dtype)
-        y = torch.relu(self.bn1(y))
+        y = torch.relu(self.bn1(y, train, pair))
         y = self.bn2(conv2d_nhwc(y, self.conv2.weight, padding=1,
-                                 dtype=self.dtype))
+                                 dtype=self.dtype), train, pair)
         identity = x
         if self.downsample is not None:
             identity = self.downsample[1](conv2d_nhwc(
                 x, self.downsample[0].weight, stride=self.stride,
-                dtype=self.dtype))
+                dtype=self.dtype), train, pair)
         return torch.relu(y + identity)
 
 
@@ -60,6 +64,12 @@ class ResNetLayer(nn.Sequential):
             BasicBlock(in_channels if i == 0 else filters, filters,
                        stride if i == 0 else 1, dtype)
             for i in range(num_blocks)])
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                pair: bool = False) -> torch.Tensor:
+        for block in self:
+            x = block(x, train, pair)
+        return x
 
 
 class ResNetTrunk(nn.Module):
@@ -91,17 +101,20 @@ class ResNetTrunk(nn.Module):
             c_in = widths[i]
         self.num_layers = num_layers
 
-    def stem_preact(self, x: torch.Tensor) -> torch.Tensor:
+    def stem_preact(self, x: torch.Tensor, train: bool = False,
+                    pair: bool = False) -> torch.Tensor:
         """conv1 -> bn1, without the ReLU."""
         return self.bn1(conv2d_nhwc(x, self.conv1.weight, stride=2, padding=3,
-                                    dtype=self.dtype))
+                                    dtype=self.dtype), train, pair)
 
-    def stem(self, x: torch.Tensor) -> torch.Tensor:
+    def stem(self, x: torch.Tensor, train: bool = False,
+             pair: bool = False) -> torch.Tensor:
         """conv1 -> bn1 -> relu -> maxpool (torchvision stem)."""
-        return max_pool_3x3_s2(torch.relu(self.stem_preact(x)))
+        return max_pool_3x3_s2(torch.relu(self.stem_preact(x, train, pair)))
 
-    def forward(self, x: torch.Tensor, num_stages: int = None) -> torch.Tensor:
-        x = self.stem(x)
+    def forward(self, x: torch.Tensor, num_stages: int = None,
+                train: bool = False, pair: bool = False) -> torch.Tensor:
+        x = self.stem(x, train, pair)
         for i in range(num_stages or self.num_layers):
-            x = getattr(self, f"layer{i + 1}")(x)
+            x = getattr(self, f"layer{i + 1}")(x, train, pair)
         return x

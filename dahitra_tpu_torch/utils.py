@@ -29,6 +29,9 @@ class Logger:
             with open(self.path, "a") as f:
                 f.write(msg)
 
+    def write_dict(self, d: dict) -> None:
+        self.write(" ".join(f"{k}: {v}" for k, v in d.items()) + "\n")
+
 
 class Timer:
     """Wall-clock rate since construction (the ``imps`` field)."""

@@ -5,7 +5,8 @@ imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances, scale-normalized: fp32 1e-4 (summation order), bf16 2e-2.
+Tolerances, scale-normalized: forward fp32 1e-4 (summation order) and bf16
+2e-2; gradients fp32 1e-4 and bf16 6e-2 (tests/test_decoder_vjp.py:27-30).
 """
 import pytest
 import torch
@@ -13,10 +14,12 @@ import torch
 from dahitra_tpu_torch.kernels import folded_decoder as fd
 from dahitra_tpu_torch.kernels import fused_tokenizer as ft
 from dahitra_tpu_torch.nn.blocks import TransformerDecoder
-from dahitra_tpu_torch.nn.decoder_vjp import _operands, pack_decoder_params
+from dahitra_tpu_torch.nn.decoder_vjp import (_operands, decoder_stack,
+                                              pack_decoder_params)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GTOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
 
 
 @pytest.fixture
@@ -50,6 +53,72 @@ def test_decoder_stack_kernel_matches_plain(card, dtype, b, n, depth, heads):
     assert fd.launches == before + 1
     ref = fd.decoder_stack_fwd_plain(*ops, depth, heads, dtype)
     assert _scaled_err(got, ref) <= TOL[dtype]
+
+
+def _stack_case(card, dtype, b, n, depth, heads, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    dec = TransformerDecoder(32, depth, heads, 64, 32).to(card)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g).to(card))
+    x = torch.randn(b, n, 32, generator=g).to(card, dtype)
+    m = torch.randn(b, 4, 32, generator=g).to(card, dtype)
+    with torch.no_grad():
+        ops = _operands(x, m, pack_decoder_params(dec), depth, heads, dtype)
+    return dec, x, m, ops, torch.randn(b, n, 32, generator=g).to(card, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,depth,heads", [(2, 100, 1, 32), (3, 100, 8, 8),
+                                             (2, 256, 8, 32)])
+def test_save_forward_and_backward_kernels_match_plain(card, dtype, b, n,
+                                                       depth, heads):
+    """K1 with saves and K2 at ragged n (100), depth 1 and 8 and the widest
+    hl = 128. K1-save's y is K1's bit for bit."""
+    _, _, _, ops, dy = _stack_case(card, dtype, b, n, depth, heads)
+    before = (fd.launches_save, fd.launches_bwd)
+    y, xs, ats = fd.decoder_stack_fwd(*ops, depth, heads, dtype, save=True)
+    got = fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], depth, heads, dtype)
+    torch.cuda.synchronize()
+    assert (fd.launches_save, fd.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, fd.decoder_stack_fwd(*ops, depth, heads, dtype))
+    ref_y, ref_xs, ref_ats = fd.decoder_stack_fwd_plain(*ops, depth, heads,
+                                                        dtype, save=True)
+    for g, r in ((y, ref_y), (xs, ref_xs), (ats, ref_ats)):
+        assert _scaled_err(g, r) <= TOL[dtype]
+    # K2 from the kernel's own saves against the plain backward from them.
+    ref = fd.decoder_stack_bwd_plain(xs, ats, dy, *ops[1:], depth, heads, dtype)
+    for name, g, r in zip(("dx", "da", "dz", "dw1", "dw2", "dvecs"), got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert _scaled_err(g, r) <= GTOL[dtype], name
+    again = fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], depth, heads, dtype)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))  # fixed order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_step_uses_only_save_and_backward_kernels(card, dtype,
+                                                           monkeypatch):
+    """One autograd step through decoder_stack launches K1-save and K2 once
+    each, never K1 without saves and never the plain versions; under
+    no_grad it is K1 without saves."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called on the card")
+
+    dec, x, m, _, dy = _stack_case(card, dtype, 2, 256, 4, 4, seed=1)
+    monkeypatch.setattr(fd, "decoder_stack_fwd_plain", refuse)
+    monkeypatch.setattr(fd, "decoder_stack_bwd_plain", refuse)
+    x.requires_grad_(True)
+    before = (fd.launches, fd.launches_save, fd.launches_bwd)
+    y = decoder_stack(x, m, pack_decoder_params(dec), 4, 4, dtype)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (fd.launches, fd.launches_save, fd.launches_bwd) == (
+        before[0], before[1] + 1, before[2] + 1)
+    assert x.grad is not None and torch.isfinite(x.grad.float()).all()
+    assert all(p.grad is not None for p in dec.parameters())
+    with torch.no_grad():
+        decoder_stack(x, m, pack_decoder_params(dec), 4, 4, dtype)
+    assert fd.launches == before[0] + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,12 +1,17 @@
-"""The port's DAHiTra (``newUNetTrans``) eval forward against the flax model.
+"""The port's DAHiTra (``newUNetTrans``) against the flax model: the eval
+forward, and the train-mode forward, BN statistics and gradients.
 
 Weights come from the flax init (with seeded numpy BN statistics and
 biases, so those paths carry values) through ``flax_to_state_dict``; inputs
 are seeded numpy. At 128 px every decoder call has n > 4 * n_kv, so all six
 take the decoder stack, as at 256 px (at 64 px the 1/16 decoder has
 n = 16 = 4 * n_kv and leaves it). The logits must agree to 1e-4,
-scale-normalized.
+scale-normalized; in train mode so must the updated BN statistics, and the
+gradients of ``levir_train_loss`` to 1e-3 of the gradient's scale.
 """
+import functools
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +21,7 @@ import jax.numpy as jnp
 from flax import traverse_util
 
 from dahitra_tpu.core.torch_import import convert_dahitra
+from dahitra_tpu.losses.cd import levir_train_loss as jax_levir_train_loss
 from dahitra_tpu.models.dahitra import DAHiTraUNet as JaxDAHiTra
 from dahitra_tpu_torch.core.checkpoint import (load_checkpoint, load_weights,
                                                save_checkpoint)
@@ -23,6 +29,7 @@ from dahitra_tpu_torch.core.flax_import import (flax_to_state_dict,
                                                 load_reference_checkpoint)
 from dahitra_tpu_torch.kernels import folded_decoder as fd
 from dahitra_tpu_torch.kernels import fused_tokenizer as ft
+from dahitra_tpu_torch.losses.cd import levir_train_loss
 from dahitra_tpu_torch.models.dahitra import DAHiTraUNet
 from dahitra_tpu_torch.models.registry import define_g
 
@@ -135,10 +142,6 @@ def test_xbd_variant_keys_match_flax_tree():
 
 
 def test_train_mode_and_unported_keys_raise():
-    model = define_g("newUNetTrans", img_size=64)
-    x = torch.zeros(1, 64, 64, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(x, x, train=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         define_g("base_transformer_pos_s4_dd8")
     with pytest.raises(NotImplementedError, match="not recognized"):
@@ -168,3 +171,121 @@ def test_checkpoint_round_trip_and_reference_keys(tmp_path, port_model):
     torch.save({"model_G_state_dict": ref}, path)
     with pytest.raises(KeyError, match="classifier.bias"):
         load_weights(model, load_reference_checkpoint(str(path)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_train_step(dtype):
+    """The flax model's train step (dahitra_tpu/train/engine.py:129-158),
+    jitted once per dtype: (params, stats, x1, x2, label) -> (loss, (logits,
+    new batch_stats)), grads."""
+    model = JaxDAHiTra(img_size=IMG, dtype=dtype)
+
+    def loss_fn(p, stats, x1, x2, label):
+        logits, mut = model.apply({"params": p, "batch_stats": stats},
+                                  x1.astype(dtype), x2.astype(dtype), True,
+                                  mutable=["batch_stats"])
+        loss = jax_levir_train_loss(logits.astype(jnp.float32), label, 2)
+        return loss, (logits, mut["batch_stats"])
+
+    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+
+
+def _jax_train(params, stats, x1, x2, label, dtype=jnp.float32):
+    """(loss, logits, new batch_stats, grads) of the flax train step."""
+    (loss, (logits, new_stats)), grads = _jax_train_step(dtype)(
+        params, stats, x1, x2, label)
+    return float(loss), np.asarray(logits, np.float32), new_stats, grads
+
+
+def _port_train(params, stats, x1, x2, label, dtype=torch.float32):
+    model = DAHiTraUNet(img_size=IMG, dtype=dtype)
+    load_weights(model, flax_to_state_dict(params, stats))
+    logits = model(torch.from_numpy(x1).to(dtype),
+                   torch.from_numpy(x2).to(dtype), train=True)
+    loss = levir_train_loss(logits.float(), torch.from_numpy(label), 2)
+    loss.backward()
+    return model, loss.item(), logits.detach().float().numpy()
+
+
+@pytest.fixture(scope="module")
+def train_case(flax_case):
+    x1, x2, params, stats, _ = flax_case
+    label = (np.random.RandomState(7).rand(2, IMG, IMG) < 0.3).astype(
+        np.uint8)
+    return (x1, x2, params, stats, label,
+            _jax_train(params, stats, x1, x2, label))
+
+
+def test_train_logits_and_batch_stats_match_flax(train_case):
+    """Train-mode forward (per-date BN statistics in the trunk, ordinary BN
+    in conv_layer2_0) and the updated running statistics, fp32, to 1e-4."""
+    x1, x2, params, stats, label, (ref_loss, ref, ref_stats, _) = train_case
+    model, loss, got = _port_train(params, stats, x1, x2, label)
+    sc = np.abs(ref).max()
+    np.testing.assert_allclose(got / sc, ref / sc, rtol=1e-4, atol=1e-4)
+    assert loss == pytest.approx(ref_loss, rel=1e-5)
+    want = flax_to_state_dict(params, jax.tree.map(np.asarray, ref_stats))
+    bufs = dict(model.named_buffers())
+    assert len(bufs) == 2 * sum(1 for k in want if k.endswith("running_var"))
+    for k, v in bufs.items():
+        r = want[k].numpy()
+        sc = max(np.abs(r).max(), 1e-3)
+        np.testing.assert_allclose(v.numpy() / sc, r / sc, rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+    assert fd.launches_save == fd.launches_bwd == 0  # CPU: plain versions
+
+
+def test_train_grads_match_flax(train_case):
+    """Every parameter's gradient of levir_train_loss against jax.grad,
+    mapped through flax_to_state_dict, to 1e-3 of the gradient's scale (its
+    largest element over all 314 tensors).
+
+    Not each tensor's own scale: fp32 summation order moves a few ReLU
+    inputs within ~1e-6 of zero across the kink, and each flip moves the
+    gradients of the convolutions below it by about 1 % of their own
+    largest element. The test measures it on JAX alone, with the first
+    date's input moved by 1e-6, and prints both comparisons as one JSON
+    line (pytest -s): per tensor on its own scale (worst, and how many
+    tensors exceed 1e-3) and on the gradient's scale."""
+    x1, x2, params, stats, label, (_, _, _, ref_grads) = train_case
+    model, _, _ = _port_train(params, stats, x1, x2, label)
+    named = dict(model.named_parameters())
+    assert len(named) == 314
+
+    def as_sd(grads):
+        sd = flax_to_state_dict(jax.tree.map(np.asarray, grads), stats)
+        return {k: sd[k].numpy() for k in named}
+
+    want = as_sd(ref_grads)
+    scale = max(np.abs(v).max() for v in want.values())
+
+    def compare(got):
+        errs = {k: np.abs(got[k] - want[k]).max() for k in named}
+        own = [errs[k] / np.abs(want[k]).max() for k in named]
+        return {"worst_over_scale": float(max(errs.values()) / scale),
+                "worst_own_scale": float(max(own)),
+                "tensors_own_over_1e-3": int(sum(o > 1e-3 for o in own))}
+
+    moved = x1 + 1e-6 * np.random.RandomState(9).normal(
+        size=x1.shape).astype(np.float32)
+    port = compare({k: p.grad.numpy() for k, p in named.items()})
+    jax_self = compare(as_sd(_jax_train(params, stats, moved, x2, label)[3]))
+    print(json.dumps({"port_vs_jax": port, "jax_vs_jax_input_moved_1e-6":
+                      jax_self}))
+    assert port["worst_over_scale"] <= 1e-3, port
+
+
+def test_bf16_train_loss_and_grads_match_flax(flax_case, train_case):
+    """bf16 compute: the loss to 2e-2 relative, and the cosine similarity
+    of all gradients flattened together at least 0.99."""
+    x1, x2, params, stats, label, _ = train_case
+    ref_loss, _, _, ref_grads = _jax_train(params, stats, x1, x2, label,
+                                           jnp.bfloat16)
+    model, loss, _ = _port_train(params, stats, x1, x2, label, torch.bfloat16)
+    assert loss == pytest.approx(ref_loss, rel=2e-2)
+    want = flax_to_state_dict(jax.tree.map(np.asarray, ref_grads), stats)
+    named = dict(model.named_parameters())
+    got = np.concatenate([named[k].grad.numpy().ravel() for k in named])
+    ref = np.concatenate([want[k].numpy().ravel() for k in named])
+    cos = got @ ref / (np.linalg.norm(got) * np.linalg.norm(ref))
+    assert cos >= 0.99, cos

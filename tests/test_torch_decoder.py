@@ -2,9 +2,14 @@
 
 ``decoder_stack_plain`` (the plain PyTorch version of the K1 kernel) is held
 against ``decoder_vjp.decoder_stack`` and, in bf16, against the Pallas K1
-kernel ``folded_decoder_fwd`` run in interpret mode. Same seeded numpy
-inputs and packed weights through both packages. Tolerances are those of
-tests/test_decoder_vjp.py:27-30, scale-normalized: fp32 1e-5, bf16 2e-2.
+kernel ``folded_decoder_fwd`` run in interpret mode. The gradients of
+``decoder_stack`` (the autograd Function whose forward is K1 with saves and
+whose backward is K2, here their plain versions) are held against
+``jax.vjp`` of ``decoder_vjp.decoder_stack`` and, in bf16, of
+``folded_decoder_stack`` with the Pallas K1 and K2 in interpret mode. Same
+seeded numpy inputs and packed weights through both packages. Tolerances
+are those of tests/test_decoder_vjp.py:27-30, scale-normalized: forward
+fp32 1e-5 and bf16 2e-2, gradients fp32 1e-4 and bf16 6e-2.
 """
 import numpy as np
 import pytest
@@ -17,6 +22,7 @@ from dahitra_tpu.core.torch_import import _convert_decoder
 from dahitra_tpu.nn.blocks import TransformerDecoder as JaxDecoder
 from dahitra_tpu.nn.decoder_vjp import decoder_stack as jax_decoder_stack
 from dahitra_tpu.pallas.folded_decoder import build_az as jax_build_az
+from dahitra_tpu.pallas import folded_decoder as jfd
 from dahitra_tpu.pallas.folded_decoder import folded_decoder_fwd
 from dahitra_tpu_torch.kernels import folded_decoder as fd
 from dahitra_tpu_torch.nn.blocks import TransformerDecoder
@@ -26,6 +32,7 @@ from dahitra_tpu_torch.nn.decoder_vjp import (_operands, build_az,
 
 DIM = 32
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+GTOL = {"float32": 1e-4, "bfloat16": 6e-2}
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -161,3 +168,135 @@ def test_module_gate_matches_flax(n):
     with torch.no_grad():
         got = port(torch.from_numpy(x), torch.from_numpy(m))
     _close(got, ref, TOL["float32"])
+
+
+def _port_vjp(x, m, packed, dy, depth, heads, tdt):
+    """(y, dx, dm, {key: dparam}) of the port's decoder_stack."""
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    mt = torch.from_numpy(m).to(tdt).requires_grad_()
+    pt = {k: v.requires_grad_() for k, v in _to_torch(packed).items()}
+    y = decoder_stack(xt, mt, pt, depth, heads, tdt)
+    grads = torch.autograd.grad(y, [xt, mt, *pt.values()],
+                                torch.from_numpy(dy).to(tdt))
+    return y.detach(), grads[0], grads[1], dict(zip(pt, grads[2:]))
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("depth,heads", [(2, 4), (8, 8)])
+def test_stack_grads_match_decoder_vjp(depth, heads, dname):
+    """dx, dm and all 13 packed gradients against jax.vjp of the JAX
+    package's hand-written VJP."""
+    tdt, jdt = DTYPES[dname]
+    packed = _packed(depth, heads, seed=14)
+    x, m = _inputs(2, 64, seed=15)
+    dy = np.random.RandomState(16).normal(size=x.shape).astype(np.float32)
+    ref_y, vjp = jax.vjp(
+        lambda x_, m_, p_: jax_decoder_stack(x_, m_, p_, depth, heads, jdt),
+        jnp.asarray(x, jdt), jnp.asarray(m, jdt),
+        {k: jnp.asarray(v) for k, v in packed.items()})
+    rdx, rdm, rdp = vjp(jnp.asarray(dy, jdt))
+    y, dx, dm, dp = _port_vjp(x, m, packed, dy, depth, heads, tdt)
+    _close(y, ref_y, TOL[dname])
+    _close(dx, rdx, GTOL[dname])
+    _close(dm, rdm, GTOL[dname])
+    assert set(dp) == set(rdp) and len(dp) == 13
+    for k in dp:
+        _close(dp[k], rdp[k], GTOL[dname])
+
+
+@pytest.mark.parametrize("depth,heads", [(2, 4), (8, 8)])
+def test_stack_grads_match_pallas_k2_interpret(depth, heads, monkeypatch):
+    """bf16 against jax.vjp of folded_decoder_stack: K1 with saves and the
+    Pallas K2 run in interpret mode on the CPU."""
+    monkeypatch.setattr(jfd, "_INTERPRET", True)
+    packed = _packed(depth, heads, seed=17)
+    x, m = _inputs(2, 64, seed=18)
+    dy = np.random.RandomState(19).normal(size=x.shape).astype(np.float32)
+    ref_y, vjp = jax.vjp(
+        lambda x_, m_, p_: jfd.folded_decoder_stack(x_, m_, p_, depth, heads),
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(m, jnp.bfloat16),
+        {k: jnp.asarray(v) for k, v in packed.items()})
+    rdx, rdm, rdp = vjp(jnp.asarray(dy, jnp.bfloat16))
+    y, dx, dm, dp = _port_vjp(x, m, packed, dy, depth, heads, torch.bfloat16)
+    _close(y, ref_y, TOL["bfloat16"])
+    for got, ref in ((dx, rdx), (dm, rdm), *((dp[k], rdp[k]) for k in dp)):
+        _close(got, ref, GTOL["bfloat16"])
+
+
+def test_plain_backward_is_the_forward_gradient_in_float64():
+    """In float64 (no rounding) the plain K2 is the exact gradient of the
+    plain K1 with saves: torch autograd through decoder_stack_fwd_plain."""
+    depth, heads = 3, 4
+    rng = np.random.RandomState(20)
+    hl = 4 * heads
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(shift + scale * rng.normal(size=shape)
+                                ).requires_grad_()
+
+    x, a, z = t(2, 48, DIM), t(depth, 2, DIM, hl, scale=0.3), \
+        t(depth, 2, hl, DIM, scale=0.3)
+    w1, w2 = t(depth, DIM, DIM, scale=0.2), t(depth, DIM, DIM, scale=0.2)
+    vecs = t(depth, 7, DIM, scale=0.3)
+    ops = (x, a, z, w1, w2, vecs)
+    y, xs, ats = fd.decoder_stack_fwd_plain(*ops, depth, heads, torch.float64,
+                                            save=True)
+    dy = torch.from_numpy(rng.normal(size=y.shape))
+    ref = torch.autograd.grad(y, ops, dy)
+    got = fd.decoder_stack_bwd_plain(xs.detach(), ats.detach(), dy,
+                                     *(o.detach() for o in ops[1:]), depth,
+                                     heads, torch.float64)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float64
+        torch.testing.assert_close(g, r, rtol=1e-10, atol=1e-10)
+
+
+def test_save_forward_returns_the_kernel_saves():
+    """The plain K1 with saves: the same y, each layer's input and its
+    attention rows (summing to 1 over each head's tokens)."""
+    packed = _to_torch(_packed(3, 4, seed=21))
+    x, m = (torch.from_numpy(t) for t in _inputs(2, 64, seed=22))
+    ops = _operands(x, m, packed, 3, 4, torch.float32)
+    y, xs, ats = fd.decoder_stack_fwd(*ops, 3, 4, torch.float32, save=True)
+    torch.testing.assert_close(y, fd.decoder_stack_fwd(*ops, 3, 4,
+                                                       torch.float32),
+                               rtol=0, atol=0)
+    assert xs.shape == (3, 2, 64, DIM) and ats.shape == (3, 2, 64, 16)
+    torch.testing.assert_close(xs[0], ops[0], rtol=0, atol=0)
+    torch.testing.assert_close(ats.view(3, 2, 64, 4, 4).sum(-1),
+                               torch.ones(3, 2, 64, 4))
+    assert fd.launches_save == fd.launches_bwd == 0
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_module_grads_match_flax(n):
+    """TransformerDecoder's parameter gradients on both sides of the gate
+    (layer by layer at n = 16, the stack at n = 64) against jax.grad of the
+    flax module."""
+    depth, heads = 3, 4
+    port = TransformerDecoder(DIM, depth, heads, 16, DIM)
+    rng = np.random.RandomState(23)
+    with torch.no_grad():
+        for p in port.parameters():
+            p.add_(torch.from_numpy(
+                rng.normal(0, 0.1, p.shape).astype(np.float32)))
+    sd = {f"d.{k}": v.numpy() for k, v in port.state_dict().items()}
+    params = {}
+    _convert_decoder(sd, "d", depth, params, ())
+    x, m = _inputs(2, n, seed=24)
+    dy = rng.normal(size=x.shape).astype(np.float32)
+    flax_dec = JaxDecoder(DIM, depth, heads, 16, DIM)
+    ref = jax.grad(lambda p: jnp.sum(flax_dec.apply(
+        {"params": p}, jnp.asarray(x), jnp.asarray(m)) * dy))(params)
+    out = port(torch.from_numpy(x), torch.from_numpy(m))
+    (out * torch.from_numpy(dy)).sum().backward()
+    grads = {f"d.{k}": p.grad.numpy() for k, p in port.named_parameters()}
+    got = {}
+    _convert_decoder(grads, "d", depth, got, ())
+    flat_ref = jax.tree_util.tree_flatten_with_path(ref)[0]
+    assert len(flat_ref) == len(grads) == 13 * depth
+    for path, r in flat_ref:
+        g = got
+        for key in path:
+            g = g[key.key]
+        _close(torch.from_numpy(np.asarray(g)), r, GTOL["float32"])
