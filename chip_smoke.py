@@ -14,8 +14,12 @@ entry points ``dahitra_tpu_torch.cli.eval_cd`` and
      shape the main paths give it, in fp32 and bf16, and time the kernel,
      the plain version and, where one exists, a single PyTorch call that
      computes the same function: K1 and K1-save (the decoder-stack forward
-     without and with saves), K2 (its backward, from K1-save's saves) and
-     K3 (the tokenizer);
+     without and with saves), K2 (its backward, from K1-save's saves), K3
+     (the tokenizer) and K4 (the fused decoder of
+     ``TransformerDecoder(pallas=True)``, in the fp32 and the bf16 model's
+     mode, and its bf16-I/O instance at one shape); then K4's gradients
+     (``FusedDecoderFn``) on the card against autograd of
+     ``plain_decoder_stack`` on the CPU at the 1/4-scale dates shape;
   4. write a seeded synthetic LEVIR tree (4 tiles of 1024 px = 64 patches of
      256 px) and a seeded ``best_ckpt.pt``;
   5. run ``eval_cd`` on the card at batch 8, once in fp32 and once with
@@ -31,11 +35,24 @@ entry points ``dahitra_tpu_torch.cli.eval_cd`` and
      validation batches x (6 K1, 3 K3);
   8. hold the card's fp32 training gradients (kernels) against the port's
      plain path on the CPU: one batch of 2 at 256 px, no augmentation, every
-     parameter's gradient and the updated BN running statistics.
+     parameter's gradient and the updated BN running statistics;
+  9. the pallas eval forward: ``newUNetTrans`` from phase 4's checkpoint
+     with ``pallas = True`` on its three decoders, 8 batch-8 forwards over
+     the 64 synthetic patches, fp32 then bf16: 6 K4 and 3 K3 launches per
+     forward, no K1, K1-save or K2; in fp32 the logits against the default
+     (K1) path of the same weights on the card;
+ 10. the pallas train step: a ``CDTrainer`` with ``pallas = True`` on its
+     decoders, 4 batch-8 steps per dtype: 6 K4 and 3 K3 launches per step,
+     no K1, K1-save or K2, finite losses; the default path's step time on
+     the same trainer beside it;
+ 11. phase 8 with ``pallas = True`` on both sides (the CPU side runs
+     ``fused_decoder_plain`` and the ``plain_decoder_stack`` backward).
 
-``--profile`` adds, after phase 8, a torch.profiler breakdown of the
-batch-8 forward and of one batch-8 training step by kernel class, with the
-device's idle share.
+Every launch counter is set to 0 just before each main-path run (phases 5,
+7, 9, 10) and read just after. ``--profile`` adds a torch.profiler
+breakdown of the batch-8 forward and of one batch-8 training step by kernel
+class, with the device's idle share, on the default path and with
+``pallas = True``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when no
@@ -109,6 +126,36 @@ def scaled_err(got, ref):
     ref = ref.float()
     err = (got.float() - ref).abs().max().item()
     return err, err / max(ref.abs().max().item(), 1e-3)
+
+
+def _reset_counts() -> None:
+    from dahitra_tpu_torch.kernels import folded_decoder as fd
+    from dahitra_tpu_torch.kernels import fused_decoder as kd
+    from dahitra_tpu_torch.kernels import fused_tokenizer as ft
+
+    fd.launches = fd.launches_save = fd.launches_bwd = ft.launches = 0
+    kd.launches = 0
+
+
+def _read_counts() -> dict:
+    from dahitra_tpu_torch.kernels import folded_decoder as fd
+    from dahitra_tpu_torch.kernels import fused_decoder as kd
+    from dahitra_tpu_torch.kernels import fused_tokenizer as ft
+
+    return {"k1": fd.launches, "k1_save": fd.launches_save,
+            "k2": fd.launches_bwd, "k3": ft.launches, "k4": kd.launches}
+
+
+def _set_pallas(model, on: bool) -> None:
+    """``pallas = on`` on the model's three decoder stacks, as a JAX user
+    sets the field (no flag selects it)."""
+    from dahitra_tpu_torch.nn.blocks import TransformerDecoder
+
+    decs = [mod for mod in model.modules() if isinstance(mod, TransformerDecoder)]
+    if len(decs) != 3:
+        fail(f"expected 3 TransformerDecoders, found {len(decs)}")
+    for dec in decs:
+        dec.pallas = on
 
 
 def _decoder_operands(torch, dtype, gen, b, n, depth, heads):
@@ -277,9 +324,118 @@ def check_k3(torch, dtype, gen):
     return rows
 
 
+def _k4_operands(torch, gen, b, n, depth, heads, io_dtype):
+    """Seeded x (B, N, 32) in ``io_dtype``, fp32 memory tokens m (B, 4, 32)
+    and the packed fp32 weights of one decoder call, on the card."""
+    from dahitra_tpu_torch.nn.blocks import TransformerDecoder
+    from dahitra_tpu_torch.nn.decoder_vjp import pack_decoder_params
+
+    dec = TransformerDecoder(DIM, depth, heads, 64, DIM)
+    with torch.no_grad():
+        for prm in dec.parameters():
+            prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+        packed = {k: v.cuda() for k, v in pack_decoder_params(dec).items()}
+    x = torch.randn(b, n, DIM, generator=gen).cuda().to(io_dtype)
+    m = torch.randn(b, TOKENS, DIM, generator=gen).cuda()
+    return x, m, packed
+
+
+def _k4_cost(b, n, depth, heads, io_size):
+    """K4's bytes (x read and y written, m and the fp32 weights read once)
+    and operations: K1's row work plus the memory side once per sample and
+    layer (k and v, 2 * 2 * L * 32 * inner; A and Z, 2 * 2 * heads * L *
+    dim_head * 32)."""
+    hl, inner = heads * TOKENS, heads * 64
+    nbytes = 2 * b * n * DIM * io_size + b * TOKENS * DIM * 4 \
+        + depth * (4 * DIM * inner + 2 * DIM * DIM + 7 * DIM) * 4
+    ops = _k1_ops(b, n, depth, hl) + b * depth * (
+        2 * 2 * TOKENS * DIM * inner + 2 * 2 * heads * TOKENS * 64 * DIM)
+    return nbytes, ops
+
+
+def check_k4(torch, dtype, gen):
+    """K4 against ``fused_decoder_plain`` at every main-path decoder shape in
+    the mode of the ``dtype`` model: fp32 I/O (the decoder input is fp32 in
+    both models, after the positional add), operands fp32 (``precise``) in
+    the fp32 model and bf16 in the bf16 one. No single PyTorch call
+    computes the stack, so no library yardstick. Returns the per-forward
+    rows and, for the bf16 model, the bf16-I/O instance at s4/diff."""
+    from dahitra_tpu_torch.kernels import fused_decoder as kd
+
+    dname = str(dtype).split(".")[-1]
+    precise = dtype == torch.float32
+    cases = [(shape, torch.float32) for shape in K1_SHAPES]
+    if not precise:
+        cases.append((K1_SHAPES[1], torch.bfloat16))
+    rows, io_rows = [], []
+    for (name, b, n, depth, heads), io in cases:
+        x, m, packed = _k4_operands(torch, gen, b, n, depth, heads, io)
+        got = kd.fused_transformer_decoder(x, m, packed, depth, heads, precise)
+        ref = kd.fused_decoder_plain(x, m, packed, depth, heads, precise)
+        torch.cuda.synchronize()
+        err, serr = scaled_err(got, ref)
+        if not (got.dtype == io and torch.isfinite(got.float()).all()
+                and serr <= TOL[dname]):
+            fail(f"K4 {name} {dname} (I/O {io}): scaled error {serr:.3e} > "
+                 f"{TOL[dname]}")
+        nbytes, ops = _k4_cost(b, n, depth, heads, torch.finfo(io).bits // 8)
+        bms, by = bound(nbytes, ops, dname)
+        row = {"shape": name, "B": b, "N": n, "depth": depth,
+               "hl": heads * TOKENS, "io": str(io).split(".")[-1],
+               "max_abs_err": err, "scaled_err": serr,
+               "ms": time_ms(lambda: kd.fused_transformer_decoder(
+                   x, m, packed, depth, heads, precise), torch),
+               "plain_ms": time_ms(lambda: kd.fused_decoder_plain(
+                   x, m, packed, depth, heads, precise), torch),
+               "bound_ms": bms, "bound_by": by, "library_ms": None}
+        (rows if io == torch.float32 else io_rows).append(row)
+    return rows, io_rows
+
+
+def check_k4_grads(torch, gen) -> dict:
+    """``FusedDecoderFn``'s gradients on the card (x, m and all 13 packed
+    tensors; the backward is autograd of ``plain_decoder_stack`` there)
+    against autograd of ``plain_decoder_stack`` on the CPU, fp32, at the
+    1/4-scale dates shape, each to GTOL scale-normalized. Also times one
+    forward and backward on the card."""
+    from dahitra_tpu_torch.kernels import fused_decoder as kd
+
+    name, b, n, depth, heads = K1_SHAPES[0]
+    x, m, packed = _k4_operands(torch, gen, b, n, depth, heads, torch.float32)
+    dy = torch.randn(b, n, DIM, generator=gen)
+
+    def grads(dev, fn):
+        leaves = [t.detach().to(dev).requires_grad_()
+                  for t in (x, m, *(packed[k] for k in kd.ORDER))]
+        return torch.autograd.grad(fn(leaves), leaves, dy.to(dev))
+
+    def card(leaves):
+        return kd.FusedDecoderFn.apply(depth, heads, torch.float32, *leaves)
+
+    def cpu(leaves):
+        return kd.plain_decoder_stack(leaves[0], leaves[1],
+                                      dict(zip(kd.ORDER, leaves[2:])), depth,
+                                      heads, torch.float32)
+
+    got = grads("cuda", card)
+    ref = grads("cpu", cpu)
+    torch.cuda.synchronize()
+    errs = {k: scaled_err(g.cpu(), r)[1]
+            for k, g, r in zip(("x", "m", *kd.ORDER), got, ref)}
+    worst = max((e, k) for k, e in errs.items())
+    if not (all(torch.isfinite(g).all() for g in got)
+            and worst[0] <= GTOL["float32"]):
+        fail(f"K4 gradients on the card disagree with the CPU: {errs}")
+    return {"k4_grads_vs_cpu_plain": {
+        "shape": name, "worst_scaled_err": worst[0], "at": worst[1],
+        "tolerance": GTOL["float32"],
+        "fwd_bwd_ms": time_ms(lambda: grads("cuda", card), torch, reps=3,
+                              rounds=3)}}
+
+
 def summarize(name, source, replaces, dname, rows, launches, tol):
     """One kernel entry: times summed over the kernel's launches in one
-    batch-8 forward (K1, K3) or training step (K1-save, K2), errors the
+    batch-8 forward (K1, K3, K4) or training step (K1-save, K2), errors the
     worst over those shapes."""
     lib = [r["library_ms"] for r in rows]
     bound_ms = sum(r["bound_ms"] for r in rows)
@@ -300,7 +456,10 @@ def summarize(name, source, replaces, dname, rows, launches, tol):
 
 
 # Kernel-name fragments -> class, first match wins (torch.profiler names).
-_CLASSES = (("K1-save decoder_stack_fwd (save)", (", true>",)),
+_CLASSES = (("K4 fused_decoder", ("fused_decoder",)),
+            ("K1-save decoder_stack_fwd (save)",
+             ("decoder_stack_fwd_kernel<float, true>",
+              "decoder_stack_fwd_kernel<__nv_bfloat16, true>")),
             ("K1 decoder_stack_fwd", ("decoder_stack_fwd",)),
             ("K2 decoder_stack_bwd", ("decoder_stack_bwd",)),
             ("K3 semantic_tokenizer", ("tokenizer_kernel",)),
@@ -355,7 +514,7 @@ def _batch(torch, n, seed):
                           dtype=torch.uint8).cuda())
 
 
-def profile_forward(torch, state_dict, dtype) -> dict:
+def profile_forward(torch, state_dict, dtype, pallas: bool = False) -> dict:
     """torch.profiler over five batch-8 forwards of the port's model."""
     from dahitra_tpu_torch.core.checkpoint import load_weights
     from dahitra_tpu_torch.data.augment import normalize_images
@@ -364,38 +523,148 @@ def profile_forward(torch, state_dict, dtype) -> dict:
     model = define_g("newUNetTrans", dtype=dtype, img_size=IMG)
     load_weights(model, state_dict)
     model.cuda().eval()
+    _set_pallas(model, pallas)
     a_u8, b_u8, _ = _batch(torch, BATCH, 1)
     a, b = normalize_images(a_u8, dtype), normalize_images(b_u8, dtype)
     with torch.inference_mode():
         out = _profile(torch, lambda: model(a, b), reps=5)
-    return {"profile": "forward", "dtype": str(dtype).split(".")[-1], **out}
+    return {"profile": "forward", "dtype": str(dtype).split(".")[-1],
+            "pallas": pallas, **out}
 
 
-def profile_train_step(torch, tmp, dtype) -> dict:
-    """torch.profiler over three batch-8 training steps of ``CDTrainer``
-    (augmentation, train forward, loss, backward, AdamW)."""
+def _trainer(torch, tmp, dtype, tag):
+    """A ``CDTrainer`` on the card with no data of its own, for
+    ``train_step`` on a seeded batch."""
     import types
 
     from dahitra_tpu_torch.train.engine import CDTrainer
 
     args = types.SimpleNamespace(
-        n_class=2, checkpoint_dir=os.path.join(tmp, f"profile_{dtype}"),
+        n_class=2, checkpoint_dir=os.path.join(tmp, f"{tag}_{dtype}"),
         max_epochs=1, bf16=dtype == torch.bfloat16, seed=0,
         net_G="newUNetTrans", img_size=IMG, lr=5e-4, batch_size=BATCH)
     empty = {k: np.zeros((0, 1), np.uint8) for k in ("a", "b", "label")}
-    trainer = CDTrainer(args, empty, empty, device="cuda")
+    return CDTrainer(args, empty, empty, device="cuda")
+
+
+def profile_train_step(torch, tmp, dtype, pallas: bool = False) -> dict:
+    """torch.profiler over three batch-8 training steps of ``CDTrainer``
+    (augmentation, train forward, loss, backward, AdamW)."""
+    trainer = _trainer(torch, tmp, dtype, "profile")
+    _set_pallas(trainer.model, pallas)
     batch = _batch(torch, BATCH, 2)
     out = _profile(torch, lambda: trainer.train_step(*batch), reps=3)
     return {"profile": "train_step", "dtype": str(dtype).split(".")[-1],
-            **out}
+            "pallas": pallas, **out}
+
+
+def _patches(torch, tmp):
+    """The 64 synthetic 256 px test patches (4 tiles of 1024 px, 16 patches
+    each) as uint8 pairs on the card."""
+    from dahitra_tpu_torch.data.levir import load_levir_split
+
+    tiles = load_levir_split(os.path.join(tmp, "data", "LEVIR_CD"), "test",
+                             4 * IMG)
+    k = 4 * IMG // IMG
+    return [torch.from_numpy(t.reshape(-1, k, IMG, k, IMG, 3)
+                             .transpose(0, 1, 3, 2, 4, 5)
+                             .reshape(-1, IMG, IMG, 3).copy()).cuda()
+            for t in (tiles.a, tiles.b)]
+
+
+def run_pallas_eval(torch, tmp, dtype) -> dict:
+    """Batch-8 forwards of ``newUNetTrans`` (phase 4's checkpoint) over the
+    64 synthetic patches with ``pallas = True`` on its decoders, launch
+    counters set to 0 just before and read just after: 6 K4 and 3 K3 per
+    forward, no K1, K1-save or K2. One default-path pass warms up first;
+    the rates are means over two passes of each path taken in turns
+    (pallas, default, default, pallas; the first is the counted one). In
+    fp32 the pallas logits must agree with the default (K1) path's on the
+    same weights to 1e-3 scale-normalized, with argmax agreement >= 99.9 %."""
+    from dahitra_tpu_torch.core.checkpoint import load_checkpoint, load_weights
+    from dahitra_tpu_torch.data.augment import normalize_images
+    from dahitra_tpu_torch.models.registry import define_g
+
+    dname = str(dtype).split(".")[-1]
+    model = define_g("newUNetTrans", dtype=dtype, img_size=IMG)
+    load_weights(model, load_checkpoint(os.path.join(tmp, "ckpt", "smoke"))[0])
+    model.cuda().eval()
+    a, b = _patches(torch, tmp)
+
+    def run(pallas):
+        _set_pallas(model, pallas)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.inference_mode():
+            out = torch.cat([model(normalize_images(a[i:i + BATCH], dtype),
+                                   normalize_images(b[i:i + BATCH], dtype))
+                             for i in range(0, len(a), BATCH)])
+        torch.cuda.synchronize()
+        return out, len(a) / (time.time() - t0)
+
+    run(False)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    logits, rate = run(True)
+    got = _read_counts()
+    n_fwd = len(a) // BATCH
+    want = {"k1": 0, "k1_save": 0, "k2": 0, "k3": 3 * n_fwd, "k4": 6 * n_fwd}
+    if got != want or not torch.isfinite(logits.float()).all():
+        fail(f"pallas eval {dname}: launches {got} != {want} or logits not "
+             "finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref, d1 = run(False)
+    d2, p2 = run(False)[1], run(True)[1]
+    out = {"pallas_eval": dname, "pairs_per_s": (rate + p2) / 2,
+           "default_path_pairs_per_s": (d1 + d2) / 2,
+           "peak_mem_gib": peak, "launches": got}
+    if dtype == torch.float32:
+        _, serr = scaled_err(logits, ref)
+        agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        out["vs_k1_path"] = {"scaled_err": serr, "argmax_agreement": agree}
+        if not (serr <= 1e-3 and agree >= 0.999):
+            fail(f"pallas eval fp32 disagrees with the K1 path: {out}")
+    return out
+
+
+def run_pallas_train(torch, tmp, dtype, steps: int = 4) -> dict:
+    """``steps`` batch-8 ``CDTrainer.train_step`` calls with ``pallas = True``
+    on the model's decoders, launch counters set to 0 just before and read
+    just after: 6 K4 and 3 K3 per step, no K1, K1-save or K2, finite
+    losses. One default-path step warms up first; the step times are means
+    over two runs of ``steps`` steps of each path on the same trainer,
+    taken in turns (pallas, default, default, pallas; the first is the
+    counted one)."""
+    dname = str(dtype).split(".")[-1]
+    trainer = _trainer(torch, tmp, dtype, "pallas")
+    batch = _batch(torch, BATCH, 2)
+
+    def run(pallas):
+        _set_pallas(trainer.model, pallas)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses = [trainer.train_step(*batch)[0] for _ in range(steps)]
+        torch.cuda.synchronize()
+        return [v.item() for v in losses], (time.time() - t0) / steps * 1e3
+
+    trainer.train_step(*batch)
+    _reset_counts()
+    losses, step_ms = run(True)
+    got = _read_counts()
+    want = {"k1": 0, "k1_save": 0, "k2": 0, "k3": 3 * steps, "k4": 6 * steps}
+    if got != want or not all(np.isfinite(losses)):
+        fail(f"pallas train {dname}: launches {got} != {want} or losses "
+             f"{losses}")
+    d1, d2, p2 = run(False)[1], run(False)[1], run(True)[1]
+    return {"pallas_train": dname, "step_ms": (step_ms + p2) / 2,
+            "default_path_step_ms": (d1 + d2) / 2, "losses": losses,
+            "launches": got}
 
 
 def run_training(torch, root, flag, dname) -> dict:
     """``main_cd`` for EPOCHS epochs at batch 8 on the synthetic splits,
     launch counters set to 0 just before and read just after."""
     from dahitra_tpu_torch.cli import main_cd
-    from dahitra_tpu_torch.kernels import folded_decoder as fd
-    from dahitra_tpu_torch.kernels import fused_tokenizer as ft
 
     os.environ["DAHITRA_DATA_ROOT"] = os.path.join(root, "data")
     argv = ["--checkpoint_root", os.path.join(root, "ckpt"),
@@ -404,15 +673,14 @@ def run_training(torch, root, flag, dname) -> dict:
             "--max_epochs", str(EPOCHS), "--log_every", "2", "--skip_test",
             "--device", "cuda", *flag]
     torch.cuda.reset_peak_memory_stats()
-    fd.launches = fd.launches_save = fd.launches_bwd = ft.launches = 0
+    _reset_counts()
     history = main_cd.main(argv)
     torch.cuda.synchronize()
-    got = {"k1": fd.launches, "k1_save": fd.launches_save,
-           "k2": fd.launches_bwd, "k3": ft.launches}
+    got = _read_counts()
     steps = EPOCHS * TRAIN_PAIRS // BATCH
     vals = EPOCHS * VAL_PAIRS // BATCH
     want = {"k1": 6 * vals, "k1_save": 6 * steps, "k2": 6 * steps,
-            "k3": 3 * (steps + vals)}
+            "k3": 3 * (steps + vals), "k4": 0}
     if got != want:
         fail(f"training {dname}: launches {got} != {want}")
     ckpt = os.path.join(root, "ckpt", f"train_{dname}")
@@ -431,7 +699,7 @@ def run_training(torch, root, flag, dname) -> dict:
             "launches": got}
 
 
-def check_train_grads(torch, root) -> dict:
+def check_train_grads(torch, root, pallas: bool = False) -> dict:
     """The card's fp32 training gradients against the port's plain path on
     the CPU: one batch of 2 at 256 px, no augmentation, train-mode forward,
     ``levir_train_loss`` and backward. Every parameter's gradient must agree
@@ -445,7 +713,9 @@ def check_train_grads(torch, root) -> dict:
     convolutions below it by about 1 % of their own largest element
     (tests/test_torch_dahitra.py::test_train_grads_match_flax measures the
     same on JAX alone). The worst per-tensor error on its own scale is
-    printed beside."""
+    printed beside. With ``pallas`` both models set ``pallas = True`` on
+    their decoders (K4 and the plain-stack backward on the card, their plain
+    versions on the CPU)."""
     import copy
 
     from dahitra_tpu_torch.data.augment import augment_pairs
@@ -460,6 +730,7 @@ def check_train_grads(torch, root) -> dict:
     gen = torch.Generator().manual_seed(3)
     model = init_weights(define_g("newUNetTrans", img_size=IMG,
                                   generator=gen), "normal", 0.02, gen)
+    _set_pallas(model, pallas)
     models = {"cpu": model, "cuda": copy.deepcopy(model).cuda()}
     for dev, m in models.items():
         a, b, label = augment_pairs(*(t.to(dev) for t in batch), train=False)
@@ -475,7 +746,8 @@ def check_train_grads(torch, root) -> dict:
     cuda_bufs = dict(models["cuda"].named_buffers())
     worst_stat = max((scaled_err(cuda_bufs[k].cpu(), v)[1], k)
                      for k, v in model.named_buffers())
-    out = {"train_grads_vs_cpu_plain": {
+    out = {"train_grads_vs_cpu_plain" + ("_pallas" if pallas else ""): {
+        "pallas": pallas,
         "worst_grad_err_over_scale": worst[0], "at": worst[1],
         "grad_scale": scale, "worst_grad_err_own_scale": worst_own[0],
         "own_at": worst_own[1], "n_params": len(errs),
@@ -498,8 +770,6 @@ def main() -> None:
         from dahitra_tpu_torch.core.checkpoint import save_checkpoint
         from dahitra_tpu_torch.data.synthetic import write_synthetic_levir
         from dahitra_tpu_torch.kernels import _build
-        from dahitra_tpu_torch.kernels import folded_decoder as fd
-        from dahitra_tpu_torch.kernels import fused_tokenizer as ft
         from dahitra_tpu_torch.models.registry import define_g
         from dahitra_tpu_torch.utils import disable_tf32
     except ImportError as e:
@@ -527,10 +797,13 @@ def main() -> None:
         checks[("k1_save", dname)], checks[("k2", dname)] = \
             check_k1_save_k2(torch, dtype, gen)
         checks[("k3", dname)] = check_k3(torch, dtype, gen)
-        for kid in ("k1", "k1_save", "k2", "k3"):
+        checks[("k4", dname)], io_rows = check_k4(torch, dtype, gen)
+        checks[("k4_io", dname)] = io_rows
+        for kid in ("k1", "k1_save", "k2", "k3", "k4", "k4_io"):
             for r in checks[(kid, dname)]:
                 print(json.dumps({"check": f"{kid}[{dname}]", **r}),
                       flush=True)
+    print(json.dumps(check_k4_grads(torch, gen)), flush=True)
 
     # 4. synthetic LEVIR and a seeded checkpoint
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -555,13 +828,12 @@ def main() -> None:
                 "--batch_size", str(BATCH), "--num_patches", "16",
                 "--device", "cuda", *flag]
         torch.cuda.reset_peak_memory_stats()
-        fd.launches = fd.launches_save = fd.launches_bwd = ft.launches = 0
+        _reset_counts()
         scores = eval_cd.main(argv)
         torch.cuda.synchronize()
-        launches[dname] = {"k1": fd.launches, "k1_save": fd.launches_save,
-                           "k2": fd.launches_bwd, "k3": ft.launches}
+        launches[dname] = _read_counts()
         want = {"k1": 6 * n_forward, "k1_save": 0, "k2": 0,
-                "k3": 3 * n_forward}
+                "k3": 3 * n_forward, "k4": 0}
         if launches[dname] != want:
             fail(f"{dname} launches {launches[dname]} != {want}")
         finite = all(0.0 <= scores[k] <= 1.0 for k in ("acc", "miou", "mf1"))
@@ -611,12 +883,26 @@ def main() -> None:
     # 8. the card's training gradients against the plain path on the CPU
     print(json.dumps(check_train_grads(torch, train_root)), flush=True)
 
+    # 9-10. the pallas path (K4): eval forwards, then train steps
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        out = run_pallas_eval(torch, tmp, dtype)
+        launches[dname]["pallas_k4"] = out["launches"]["k4"]
+        print(json.dumps(out), flush=True)
+        print(json.dumps(run_pallas_train(torch, tmp, dtype)), flush=True)
+
+    # 11. the pallas path's training gradients against the CPU
+    print(json.dumps(check_train_grads(torch, train_root, pallas=True)),
+          flush=True)
+
     if "--profile" in sys.argv[1:]:
         sd = model.state_dict()
         for dtype in (torch.float32, torch.bfloat16):
-            print(json.dumps(profile_forward(torch, sd, dtype)), flush=True)
-            print(json.dumps(profile_train_step(torch, tmp, dtype)),
-                  flush=True)
+            for pallas in (False, True):
+                print(json.dumps(profile_forward(torch, sd, dtype, pallas)),
+                      flush=True)
+                print(json.dumps(profile_train_step(torch, tmp, dtype,
+                                                    pallas)), flush=True)
 
     kernels = []
     src = "dahitra_tpu_torch/csrc/"
@@ -634,7 +920,10 @@ def main() -> None:
                       checks[("k2", dname)], lc["train_k2"], GTOL),
             summarize("semantic_tokenizer", src + "tokenizer.cu",
                       "dahitra_tpu/pallas/fused_tokenizer.py:42", dname,
-                      checks[("k3", dname)], lc["k3"], TOL)]
+                      checks[("k3", dname)], lc["k3"], TOL),
+            summarize("fused_decoder", src + "fused_decoder.cu",
+                      "dahitra_tpu/pallas/fused_decoder.py:102", dname,
+                      checks[("k4", dname)], lc["pallas_k4"], TOL)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dahitra_tpu_torch.kernels.fused_decoder import (ORDER, FusedDecoderFn,
+                                                     pick_tile)
 from dahitra_tpu_torch.kernels.fused_tokenizer import SemanticTokenizerFn
 from dahitra_tpu_torch.nn.decoder_vjp import decoder_stack, pack_decoder_params
 
@@ -253,29 +255,43 @@ class TransformerDecoder(nn.Module):
     """depth x [x += CrossAttn(LN(x), LN(m)); x += FF(LN(x))]
     (help_funcs.py:170-186).
 
-    Dispatch as in dahitra_tpu/nn/blocks.py:596-602: with a softmax, at
-    most 16 memory tokens, more than 4 queries per token and
-    heads * tokens <= 128, the stack runs as ``decoder_stack`` (the K1
-    kernel on the card; "noshift" numerics, output in ``dtype``); otherwise
-    layer by layer with the max-shifted softmax, residual in its input type.
+    Dispatch as in dahitra_tpu/nn/blocks.py:584-623. With ``pallas`` set
+    (None means False, as in the JAX module), a softmax, a token count n
+    that ``pick_tile`` takes, heads * tokens <= 128 and x's width ``dim``,
+    the stack runs as ``FusedDecoderFn`` (the K4 kernel on the card; x as
+    it comes, fp32 residual, output in x's dtype). Otherwise, with a
+    softmax, at most 16 memory tokens, more than 4 queries per token and
+    heads * tokens <= 128, it runs as ``decoder_stack`` (the K1 kernel on
+    the card; "noshift" numerics, output in ``dtype``); otherwise layer by
+    layer with the max-shifted softmax, residual in its input type.
     """
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
-                 mlp_dim: int, softmax: bool = True, dtype=torch.float32):
+                 mlp_dim: int, softmax: bool = True, dtype=torch.float32,
+                 pallas: Optional[bool] = None):
         super().__init__()
         self.dim, self.depth, self.heads = dim, depth, heads
-        self.softmax, self.dtype = softmax, dtype
+        self.softmax, self.dtype, self.pallas = softmax, dtype, pallas
         self.layers = nn.ModuleList([nn.ModuleList([
             Residual(PreNorm(dim, CrossAttention(dim, heads, dim_head, softmax,
                                                  dtype))),
             Residual(PreNorm(dim, FeedForward(dim, mlp_dim, dtype))),
         ]) for _ in range(depth)])
 
+    def uses_fused(self, n: int, n_kv: int, x_dim: int) -> bool:
+        return bool(self.pallas and self.softmax and pick_tile(n) is not None
+                    and self.heads * n_kv <= 128 and x_dim == self.dim)
+
     def uses_stack(self, n: int, n_kv: int, x_dim: int) -> bool:
         return (self.softmax and n_kv <= 16 and n > 4 * n_kv
                 and self.heads * n_kv <= 128 and x_dim == self.dim)
 
     def forward(self, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        if self.uses_fused(x.shape[-2], m.shape[-2], x.shape[-1]):
+            packed = pack_decoder_params(self)
+            return FusedDecoderFn.apply(self.depth, self.heads, self.dtype, x,
+                                        m, *(packed[k] for k in ORDER)
+                                        ).to(x.dtype)
         if self.uses_stack(x.shape[-2], m.shape[-2], x.shape[-1]):
             return decoder_stack(x.to(self.dtype), m.to(self.dtype),
                                  pack_decoder_params(self), self.depth,

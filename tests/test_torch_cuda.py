@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from dahitra_tpu_torch.kernels import folded_decoder as fd
+from dahitra_tpu_torch.kernels import fused_decoder as kd
 from dahitra_tpu_torch.kernels import fused_tokenizer as ft
 from dahitra_tpu_torch.nn.blocks import TransformerDecoder
 from dahitra_tpu_torch.nn.decoder_vjp import (_operands, decoder_stack,
@@ -134,6 +135,74 @@ def test_tokenizer_kernel_matches_plain(card, dtype, b, n, l):
     assert _scaled_err(got, ft.semantic_tokenizer_plain(x, w)) <= TOL[dtype]
 
 
+# K4 instances: (x dtype, precise). The fp32 model, the bf16 model (fp32
+# decoder input, bf16 operands), bf16 I/O, and bf16 I/O with fp32 operands.
+K4_MODES = [(torch.float32, True), (torch.float32, False),
+            (torch.bfloat16, False), (torch.bfloat16, True)]
+
+
+def _k4_case(card, io, b, n, depth, heads, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    dec = TransformerDecoder(32, depth, heads, 64, 32)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g))
+        packed = {k: v.to(card) for k, v in pack_decoder_params(dec).items()}
+    x = torch.randn(b, n, 32, generator=g).to(card, io)
+    m = torch.randn(b, 4, 32, generator=g).to(card)
+    return x, m, packed
+
+
+@pytest.mark.parametrize("io,precise", K4_MODES)
+@pytest.mark.parametrize("b,n,depth,heads", [(2, 4096, 8, 8), (16, 256, 4, 4),
+                                             (3, 100, 2, 32)])
+def test_fused_decoder_kernel_matches_plain(card, io, precise, b, n, depth,
+                                            heads):
+    """K4 at a 1/4-scale and a 1/16-scale shape, a ragged n (100) with the
+    widest hl = 128; a rerun gives the same bits."""
+    x, m, packed = _k4_case(card, io, b, n, depth, heads)
+    before = kd.launches
+    got = kd.fused_transformer_decoder(x, m, packed, depth, heads, precise)
+    torch.cuda.synchronize()
+    assert kd.launches == before + 1 and got.dtype == io
+    ref = kd.fused_decoder_plain(x, m, packed, depth, heads, precise)
+    # bf16 operands or a bf16 output: one rounding flip in bf16 moves a value
+    # by up to an ulp of bf16.
+    tol = TOL[torch.float32 if precise and io == torch.float32
+              else torch.bfloat16]
+    assert _scaled_err(got, ref) <= tol
+    assert torch.equal(got, kd.fused_transformer_decoder(x, m, packed, depth,
+                                                         heads, precise))
+
+
+def test_fused_decoder_grads_match_cpu(card, monkeypatch):
+    """FusedDecoderFn on the card (K4 forward, the plain-stack backward)
+    against autograd of plain_decoder_stack on the CPU, fp32: x, m and all
+    13 packed gradients. The card's forward never takes the plain
+    version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called on the card")
+
+    depth, heads = 4, 8
+    x, m, packed = _k4_case(card, torch.float32, 2, 512, depth, heads, seed=3)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(4))
+    leaves = {dev: [t.detach().to(dev).requires_grad_()
+                    for t in (x, m, *(packed[k] for k in kd.ORDER))]
+              for dev in ("cpu", "cuda")}
+    ref = torch.autograd.grad(
+        kd.plain_decoder_stack(leaves["cpu"][0], leaves["cpu"][1],
+                               dict(zip(kd.ORDER, leaves["cpu"][2:])), depth,
+                               heads, torch.float32), leaves["cpu"], dy)
+    monkeypatch.setattr(kd, "fused_decoder_plain", refuse)
+    before = kd.launches
+    y = kd.FusedDecoderFn.apply(depth, heads, torch.float32, *leaves["cuda"])
+    got = torch.autograd.grad(y, leaves["cuda"], dy.to(card))
+    torch.cuda.synchronize()
+    assert kd.launches == before + 1
+    for name, g, r in zip(("x", "m", *kd.ORDER), got, ref):
+        assert _scaled_err(g.cpu(), r) <= GTOL[torch.float32], name
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     x = torch.randn(2, 64, 16, device=card)
     with pytest.raises(ValueError):
@@ -141,3 +210,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(TypeError):
         ft.semantic_tokenizer(torch.randn(2, 64, 32, device=card).half(),
                               torch.randn(32, 4, device=card).half())
+    x, m, packed = _k4_case(card, torch.float32, 1, 128, 1, 4)
+    with pytest.raises(TypeError):
+        kd.fused_transformer_decoder(x.half(), m, packed, 1, 4, True)
+    with pytest.raises(ValueError):
+        kd.fused_transformer_decoder(x, torch.randn(1, 40, 32, device=card),
+                                     packed, 1, 4, True)
