@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
-(``newUNetTrans``) at its published width and 256 px, through the user's
-entry points ``dahitra_tpu_torch.cli.eval_cd`` and
+(``newUNetTrans``) at its published width, at 256 px and then at 512 and
+1024 px, through the user's entry points ``dahitra_tpu_torch.cli.eval_cd`` and
 ``dahitra_tpu_torch.cli.main_cd``. Phases, each fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
@@ -17,7 +17,13 @@ entry points ``dahitra_tpu_torch.cli.eval_cd`` and
      without and with saves), K2 (its backward, from K1-save's saves), K3
      (the tokenizer) and K4 (the fused decoder of
      ``TransformerDecoder(pallas=True)``, in the fp32 and the bf16 model's
-     mode, and its bf16-I/O instance at one shape); then K4's gradients
+     mode, and its bf16-I/O instance at one shape); the decoder kernels also
+     at the 1/4-scale dates shape of 512 px, and K3 at the three scales of
+     512 px at batch 8 and of 1024 px at batch 2, each K3 call twice for the
+     same bits and timed a second time behind a queue of other work
+     (``device_ms``), where the host's launch rate does not hide the device
+     time (an empty kernel's launch time is printed beside); then K4's
+     gradients
      (``FusedDecoderFn``) on the card against autograd of
      ``plain_decoder_stack`` on the CPU at the 1/4-scale dates shape;
   4. write a seeded synthetic LEVIR tree (4 tiles of 1024 px = 64 patches of
@@ -46,10 +52,23 @@ entry points ``dahitra_tpu_torch.cli.eval_cd`` and
      no K1, K1-save or K2, finite losses; the default path's step time on
      the same trainer beside it;
  11. phase 8 with ``pallas = True`` on both sides (the CPU side runs
-     ``fused_decoder_plain`` and the ``plain_decoder_stack`` backward).
+     ``fused_decoder_plain`` and the ``plain_decoder_stack`` backward);
+ 12. ``eval_cd --img_size 512`` at batch 8 over 16 synthetic 512 px tiles
+     and ``eval_cd --img_size 1024`` at batch 2 over phase 4's four 1024 px
+     tiles (the reference's loader crops only tiles wider than twice
+     ``img_size``, so each size reads tiles of its own width), fp32 then
+     bf16: 2 forwards each, 6 K1 and 3 K3 launches per forward, finite
+     scores; then the card's fp32 forward of one 512 px pair against the
+     plain path on the CPU;
+ 13. ``main_cd --img_size 512`` at batch 4 for one epoch over 8 synthetic
+     512 px ``train`` pairs and 4 ``val`` pairs, fp32 then bf16: 2 steps x
+     (6 K1-save, 6 K2, 3 K3) and one validation forward (6 K1, 3 K3); then
+     one ``CDTrainer.train_step`` at 1024 px on a seeded batch per dtype, on
+     the default path (6 K1-save, 6 K2, 3 K3) and with ``pallas = True``
+     (6 K4, 3 K3): finite loss, step time and peak memory.
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10) and read just after. ``--profile`` adds a torch.profiler
+7, 9, 10, 12, 13) and read just after. ``--profile`` adds a torch.profiler
 breakdown of the batch-8 forward and of one batch-8 training step by kernel
 class, with the device's idle share, on the default path and with
 ``pallas = True``.
@@ -88,7 +107,19 @@ K1_SHAPES = [(f"{r}/{what}", b, n, depth, heads)
              for r, n, depth, heads in (("s4", 4096, 8, 8), ("s8", 1024, 4, 4),
                                         ("s16", 256, 4, 4))
              for what, b in (("dates", 2 * BATCH), ("diff", BATCH))]
-K3_SHAPES = [(f"s{s}", 2 * BATCH, (IMG // s) ** 2) for s in (4, 8, 16)]
+# The 1/4-scale dates decode of 512 px at batch 8: the decoder kernels' first
+# N above 4096.
+K1_SHAPE_512 = ("512/s4/dates", 2 * BATCH, (512 // 4) ** 2, 8, 8)
+# Tokenizer calls per forward (both dates batch-stacked): (name, batch,
+# pixels) at 256 and 512 px batch 8 and 1024 px batch 2.
+K3_SHAPES = [(f"{img}/s{s}", 2 * b, (img // s) ** 2)
+             for img, b in ((IMG, BATCH), (512, BATCH), (1024, 2))
+             for s in (4, 8, 16)]
+# Off the main paths: 1024 px at batch 4, whose 1/4-scale x (67 MB in fp32)
+# is the first to exceed the card's 50 MB L2, so the kernel's second read of
+# x comes from device memory.
+K3_SHAPES.append(("1024b4/s4", 8, (1024 // 4) ** 2))
+STEP_1024_BATCH = 2  # pairs per batch of the 1024 px train step
 TOKENS = 4
 DIM = 32
 
@@ -98,15 +129,24 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, torch, reps: int = 10, rounds: int = 5) -> float:
+def time_ms(fn, torch, reps: int = 10, rounds: int = 5,
+            queued: bool = False) -> float:
     """Median over ``rounds`` of the mean time of ``reps`` back-to-back
-    calls, by CUDA events, after one warm-up call."""
+    calls, by CUDA events, after one warm-up call. With ``queued`` each
+    round first queues about 5 ms of other work (two 4096^2 fp32 products),
+    so the host enqueues the calls while the device is busy and the events
+    bracket device time alone: for a call whose kernels take less time than
+    the host needs to enqueue them."""
     fn()
+    blocker = torch.zeros(4096, 4096, device="cuda") if queued else None
     torch.cuda.synchronize()
     out = []
     for _ in range(rounds):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.mm(blocker, blocker)
+            torch.mm(blocker, blocker)
         s.record()
         for _ in range(reps):
             fn()
@@ -126,6 +166,19 @@ def scaled_err(got, ref):
     ref = ref.float()
     err = (got.float() - ref).abs().max().item()
     return err, err / max(ref.abs().max().item(), 1e-3)
+
+
+def _size_of(name: str) -> str:
+    """Image-size group of a shape name: "512/s4/dates" -> "512",
+    "1024b4/s4" -> "1024b4", "s4/dates" -> "256"."""
+    head = name.split("/")[0]
+    return str(IMG) if head.startswith("s") else head
+
+
+def _reps(n: int) -> dict:
+    """Fewer timed calls at the large shapes, whose plain versions take
+    tens of milliseconds."""
+    return {"reps": 3, "rounds": 3} if n > 4096 else {}
 
 
 def _reset_counts() -> None:
@@ -188,7 +241,7 @@ def check_k1(torch, dtype, gen):
 
     dname = str(dtype).split(".")[-1]
     rows = []
-    for name, b, n, depth, heads in K1_SHAPES:
+    for name, b, n, depth, heads in K1_SHAPES + [K1_SHAPE_512]:
         ops_in, _ = _decoder_operands(torch, dtype, gen, b, n, depth, heads)
         got = fd.decoder_stack_fwd(*ops_in, depth, heads, dtype)
         ref = fd.decoder_stack_fwd_plain(*ops_in, depth, heads, dtype)
@@ -205,9 +258,10 @@ def check_k1(torch, dtype, gen):
             "shape": name, "B": b, "N": n, "depth": depth, "hl": hl,
             "max_abs_err": err, "scaled_err": serr,
             "ms": time_ms(lambda: fd.decoder_stack_fwd(*ops_in, depth, heads,
-                                                       dtype), torch),
+                                                       dtype), torch,
+                          **_reps(n)),
             "plain_ms": time_ms(lambda: fd.decoder_stack_fwd_plain(
-                *ops_in, depth, heads, dtype), torch),
+                *ops_in, depth, heads, dtype), torch, **_reps(n)),
             "bound_ms": bms, "bound_by": by, "library_ms": None})
     return rows
 
@@ -222,7 +276,7 @@ def check_k1_save_k2(torch, dtype, gen):
     dname = str(dtype).split(".")[-1]
     size = torch.finfo(dtype).bits // 8
     fwd_rows, bwd_rows = [], []
-    for name, b, n, depth, heads in K1_SHAPES:
+    for name, b, n, depth, heads in K1_SHAPES + [K1_SHAPE_512]:
         ops_in, dy = _decoder_operands(torch, dtype, gen, b, n, depth, heads)
         hl = heads * TOKENS
         got = fd.decoder_stack_fwd(*ops_in, depth, heads, dtype, save=True)
@@ -255,9 +309,9 @@ def check_k1_save_k2(torch, dtype, gen):
             "max_abs_err": max(e[0] for e in errs),
             "scaled_err": max(e[1] for e in errs),
             "ms": time_ms(lambda: fd.decoder_stack_fwd(
-                *ops_in, depth, heads, dtype, save=True), torch),
+                *ops_in, depth, heads, dtype, save=True), torch, **_reps(n)),
             "plain_ms": time_ms(lambda: fd.decoder_stack_fwd_plain(
-                *ops_in, depth, heads, dtype, save=True), torch),
+                *ops_in, depth, heads, dtype, save=True), torch, **_reps(n)),
             "bound_ms": bms, "bound_by": by, "library_ms": None})
         # K2: reads the saves, dy and the weights; writes dx, dA, dZ (T)
         # and dW1, dW2, dvecs (fp32). Per row and layer: ten products
@@ -276,17 +330,42 @@ def check_k1_save_k2(torch, dtype, gen):
             "max_abs_err": max(e[0] for e in gerrs),
             "scaled_err": max(e[1] for e in gerrs),
             "ms": time_ms(lambda: fd.decoder_stack_bwd(
-                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch),
+                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch,
+                **_reps(n)),
             "plain_ms": time_ms(lambda: fd.decoder_stack_bwd_plain(
-                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch),
+                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch,
+                **_reps(n)),
             "bound_ms": bms, "bound_by": by, "library_ms": None})
     return fwd_rows, bwd_rows
 
 
+def empty_launch_ms(torch) -> float:
+    """One launch of an empty kernel (``csrc/launch_floor.cu``), back to
+    back on the current stream behind queued work: the floor under any
+    kernel's time."""
+    import ctypes
+
+    from dahitra_tpu_torch.kernels import _build
+
+    fn = _build.load("launch_floor").empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        _build.check(fn(stream), "empty_launch")
+
+    return time_ms(launch, torch, reps=100, queued=True)
+
+
 def check_k3(torch, dtype, gen):
-    """K3 against its plain version at every main-path tokenizer shape;
-    the library yardstick is one scaled_dot_product_attention call with the
-    L token-logit columns as queries and the pixels as keys and values."""
+    """K3 against its plain version at every main-path tokenizer shape (256
+    and 512 px at batch 8, 1024 px at batch 2); a second call must give the
+    same bits. ``ms`` is timed as every kernel's is, the calls made back to
+    back on an idle card, which at these sizes is mostly the host's time to
+    enqueue two kernels; ``device_ms`` is the same calls enqueued behind
+    queued work, device time alone. The library
+    yardstick is one scaled_dot_product_attention call with the L
+    token-logit columns as queries and the pixels as keys and values."""
     import torch.nn.functional as F
 
     from dahitra_tpu_torch.kernels import fused_tokenizer as ft
@@ -302,13 +381,15 @@ def check_k3(torch, dtype, gen):
         err, serr = scaled_err(got, ref)
         if not (torch.isfinite(got.float()).all() and serr <= TOL[dname]):
             fail(f"K3 {name} {dname}: scaled error {serr:.3e} > {TOL[dname]}")
+        if not torch.equal(got, ft.semantic_tokenizer(x, w)):
+            fail(f"K3 {name} {dname}: a second run gave other bits")
         q = w.t().unsqueeze(0).expand(b, TOKENS, DIM)
         lib = F.scaled_dot_product_attention(q, x, x, scale=1.0)
         _, lib_err = scaled_err(lib, ref)
         if lib_err > 10 * TOL[dname]:
             fail(f"K3 {name}: library yardstick disagrees ({lib_err:.3e})")
-        size = torch.finfo(dtype).bits // 8
-        nbytes = (b * n * DIM + DIM * TOKENS + b * TOKENS * DIM) * size
+        itemsize = torch.finfo(dtype).bits // 8
+        nbytes = (b * n * DIM + DIM * TOKENS + b * TOKENS * DIM) * itemsize
         # logits and pooling products, plus max, exp, sum and scale per
         # logit.
         ops = b * n * (4 * DIM * TOKENS + 5 * TOKENS)
@@ -317,6 +398,8 @@ def check_k3(torch, dtype, gen):
             "shape": name, "B": b, "N": n, "L": TOKENS,
             "max_abs_err": err, "scaled_err": serr,
             "ms": time_ms(lambda: ft.semantic_tokenizer(x, w), torch),
+            "device_ms": time_ms(lambda: ft.semantic_tokenizer(x, w), torch,
+                                 queued=True),
             "plain_ms": time_ms(lambda: ft.semantic_tokenizer_plain(x, w), torch),
             "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -364,7 +447,7 @@ def check_k4(torch, dtype, gen):
 
     dname = str(dtype).split(".")[-1]
     precise = dtype == torch.float32
-    cases = [(shape, torch.float32) for shape in K1_SHAPES]
+    cases = [(shape, torch.float32) for shape in K1_SHAPES + [K1_SHAPE_512]]
     if not precise:
         cases.append((K1_SHAPES[1], torch.bfloat16))
     rows, io_rows = [], []
@@ -384,9 +467,9 @@ def check_k4(torch, dtype, gen):
                "hl": heads * TOKENS, "io": str(io).split(".")[-1],
                "max_abs_err": err, "scaled_err": serr,
                "ms": time_ms(lambda: kd.fused_transformer_decoder(
-                   x, m, packed, depth, heads, precise), torch),
+                   x, m, packed, depth, heads, precise), torch, **_reps(n)),
                "plain_ms": time_ms(lambda: kd.fused_decoder_plain(
-                   x, m, packed, depth, heads, precise), torch),
+                   x, m, packed, depth, heads, precise), torch, **_reps(n)),
                "bound_ms": bms, "bound_by": by, "library_ms": None}
         (rows if io == torch.float32 else io_rows).append(row)
     return rows, io_rows
@@ -433,25 +516,42 @@ def check_k4_grads(torch, gen) -> dict:
                               rounds=3)}}
 
 
-def summarize(name, source, replaces, dname, rows, launches, tol):
-    """One kernel entry: times summed over the kernel's launches in one
-    batch-8 forward (K1, K3, K4) or training step (K1-save, K2), errors the
-    worst over those shapes."""
+def _sums(rows) -> dict:
     lib = [r["library_ms"] for r in rows]
     bound_ms = sum(r["bound_ms"] for r in rows)
     by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    device = ({"device_ms": sum(r["device_ms"] for r in rows)}
+              if "device_ms" in rows[0] else {})
     return {
-        "name": f"{name}[{dname}]", "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "scaled_err": max(r["scaled_err"] for r in rows),
-        "tolerance": tol[dname],
-        "ms": sum(r["ms"] for r in rows),
+        "ms": sum(r["ms"] for r in rows), **device,
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": bound_ms,
         "bound_by": "operations" if by_ops >= bound_ms / 2 else "bytes",
         "library_ms": None if None in lib else sum(lib),
-        "per_forward_shapes": rows,
+    }
+
+
+def summarize(name, source, replaces, dname, rows, launches, tol,
+              by_phase=None, **extra):
+    """One kernel entry: times summed over the kernel's launches in one
+    batch-8 forward (K1, K3, K4) or training step (K1-save, K2) at 256 px,
+    errors the worst over those shapes; the shapes of the larger images
+    under ``other_sizes``, summed per image size; ``launches_by_phase`` the
+    kernel's count in every main-path run."""
+    by_size = {}
+    for r in rows:
+        by_size.setdefault(_size_of(r["shape"]), []).append(r)
+    main = by_size.pop(str(IMG))
+    return {
+        "name": f"{name}[{dname}]", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        **_sums(main), "tolerance": tol[dname],
+        "per_forward_shapes": main,
+        "other_sizes": {k: {**_sums(v), "shapes": v}
+                        for k, v in by_size.items()},
+        "launches_by_phase": by_phase or {}, **extra,
     }
 
 
@@ -462,7 +562,7 @@ _CLASSES = (("K4 fused_decoder", ("fused_decoder",)),
               "decoder_stack_fwd_kernel<__nv_bfloat16, true>")),
             ("K1 decoder_stack_fwd", ("decoder_stack_fwd",)),
             ("K2 decoder_stack_bwd", ("decoder_stack_bwd",)),
-            ("K3 semantic_tokenizer", ("tokenizer_kernel",)),
+            ("K3 semantic_tokenizer", ("stats_kernel", "pool_kernel")),
             ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad",
                                      "implicit", "fft", "winograd",
                                      "complex")),
@@ -477,6 +577,11 @@ def _profile(torch, fn, reps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     call_ms = time_ms(fn, torch, reps=reps, rounds=3)
+    # A process's first profiler window starts the tracer inside its
+    # window and inflates that window's device times: spend one first.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -504,13 +609,13 @@ def _profile(torch, fn, reps: int) -> dict:
                     for n, ms, c in kernels[:12]]}
 
 
-def _batch(torch, n, seed):
+def _batch(torch, n, seed, img: int = IMG):
     g = torch.Generator().manual_seed(seed)
-    return (torch.randint(0, 256, (n, IMG, IMG, 3), generator=g,
+    return (torch.randint(0, 256, (n, img, img, 3), generator=g,
                           dtype=torch.uint8).cuda(),
-            torch.randint(0, 256, (n, IMG, IMG, 3), generator=g,
+            torch.randint(0, 256, (n, img, img, 3), generator=g,
                           dtype=torch.uint8).cuda(),
-            torch.randint(0, 2, (n, IMG, IMG), generator=g,
+            torch.randint(0, 2, (n, img, img), generator=g,
                           dtype=torch.uint8).cuda())
 
 
@@ -532,7 +637,7 @@ def profile_forward(torch, state_dict, dtype, pallas: bool = False) -> dict:
             "pallas": pallas, **out}
 
 
-def _trainer(torch, tmp, dtype, tag):
+def _trainer(torch, tmp, dtype, tag, img: int = IMG, batch: int = BATCH):
     """A ``CDTrainer`` on the card with no data of its own, for
     ``train_step`` on a seeded batch."""
     import types
@@ -542,7 +647,7 @@ def _trainer(torch, tmp, dtype, tag):
     args = types.SimpleNamespace(
         n_class=2, checkpoint_dir=os.path.join(tmp, f"{tag}_{dtype}"),
         max_epochs=1, bf16=dtype == torch.bfloat16, seed=0,
-        net_G="newUNetTrans", img_size=IMG, lr=5e-4, batch_size=BATCH)
+        net_G="newUNetTrans", img_size=img, lr=5e-4, batch_size=batch)
     empty = {k: np.zeros((0, 1), np.uint8) for k in ("a", "b", "label")}
     return CDTrainer(args, empty, empty, device="cuda")
 
@@ -661,40 +766,138 @@ def run_pallas_train(torch, tmp, dtype, steps: int = 4) -> dict:
             "launches": got}
 
 
-def run_training(torch, root, flag, dname) -> dict:
-    """``main_cd`` for EPOCHS epochs at batch 8 on the synthetic splits,
-    launch counters set to 0 just before and read just after."""
+def run_eval(torch, data_root, ckpt_root, project, flag, dname, img, batch,
+             n_pairs, patches=None) -> dict:
+    """``eval_cd`` on the card over ``n_pairs`` pairs of ``img`` px, launch
+    counters set to 0 just before and read just after: 6 K1 and 3 K3 per
+    forward, no K1-save, K2 or K4; scores in range, and a score block per
+    patch where the 16-patch sweep applies."""
+    from dahitra_tpu_torch.cli import eval_cd
+
+    os.environ["DAHITRA_DATA_ROOT"] = data_root
+    argv = ["--checkpoint_root", ckpt_root, "--project_name", project,
+            "--data_name", "LEVIR", "--split", "test", "--img_size", str(img),
+            "--batch_size", str(batch), "--num_patches", str(patches or 16),
+            "--device", "cuda", *flag]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    scores = eval_cd.main(argv)
+    torch.cuda.synchronize()
+    got = _read_counts()
+    n_forward = n_pairs // batch
+    want = {"k1": 6 * n_forward, "k1_save": 0, "k2": 0, "k3": 3 * n_forward,
+            "k4": 0}
+    if got != want:
+        fail(f"eval {img} px {dname}: launches {got} != {want}")
+    in_range = all(0.0 <= scores[k] <= 1.0 for k in ("acc", "miou", "mf1"))
+    if not in_range or len(scores.get("per_group", [])) != (patches or 0):
+        fail(f"eval {img} px {dname}: scores out of range or patch blocks "
+             f"missing: {scores}")
+    return {"eval": dname, "img_size": img, "batch": batch, "pairs": n_pairs,
+            "pairs_per_s": scores["imps"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": got,
+            "scores": {k: scores[k] for k in ("acc", "miou", "mf1", "F1_1",
+                                              "iou_1")}}
+
+
+def check_forward_vs_cpu(torch, model, data_root, img, n_pairs, patch=None
+                         ) -> dict:
+    """The card's fp32 forward (kernels) of ``n_pairs`` test pairs against
+    the port's plain path on the CPU: <= 1e-3 scale-normalized, argmax
+    agreement >= 99.9 %. Leaves ``model`` on the card."""
+    from dahitra_tpu_torch.data.augment import normalize_images
+    from dahitra_tpu_torch.data.levir import load_levir_split
+
+    pairs = load_levir_split(os.path.join(data_root, "LEVIR_CD"), "test", img,
+                             patch=patch)
+    a_u8 = torch.from_numpy(pairs.a[:n_pairs])
+    b_u8 = torch.from_numpy(pairs.b[:n_pairs])
+    with torch.inference_mode():
+        ref = model.cpu().eval()(normalize_images(a_u8), normalize_images(b_u8))
+        got = model.cuda()(normalize_images(a_u8.cuda()),
+                           normalize_images(b_u8.cuda())).cpu()
+    _, serr = scaled_err(got, ref)
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    out = {"forward_vs_cpu_plain": {"img_size": img, "pairs": n_pairs,
+                                    "scaled_err": serr,
+                                    "argmax_agreement": agree}}
+    if not (torch.isfinite(got).all() and serr <= 1e-3 and agree >= 0.999):
+        fail(f"card forward disagrees with the CPU plain path: {out} "
+             "(tolerance 1e-3, agreement 0.999)")
+    return out
+
+
+def run_training(torch, root, flag, dname, img: int = IMG, batch: int = BATCH,
+                 epochs: int = EPOCHS, train_pairs: int = TRAIN_PAIRS,
+                 val_pairs: int = VAL_PAIRS) -> dict:
+    """``main_cd`` for ``epochs`` epochs on the synthetic splits under
+    ``root``, launch counters set to 0 just before and read just after."""
     from dahitra_tpu_torch.cli import main_cd
 
     os.environ["DAHITRA_DATA_ROOT"] = os.path.join(root, "data")
     argv = ["--checkpoint_root", os.path.join(root, "ckpt"),
             "--project_name", f"train_{dname}", "--data_name", "LEVIR",
-            "--img_size", str(IMG), "--batch_size", str(BATCH),
-            "--max_epochs", str(EPOCHS), "--log_every", "2", "--skip_test",
+            "--img_size", str(img), "--batch_size", str(batch),
+            "--max_epochs", str(epochs), "--log_every", "2", "--skip_test",
             "--device", "cuda", *flag]
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     history = main_cd.main(argv)
     torch.cuda.synchronize()
     got = _read_counts()
-    steps = EPOCHS * TRAIN_PAIRS // BATCH
-    vals = EPOCHS * VAL_PAIRS // BATCH
+    steps = epochs * train_pairs // batch
+    vals = epochs * val_pairs // batch
     want = {"k1": 6 * vals, "k1_save": 6 * steps, "k2": 6 * steps,
             "k3": 3 * (steps + vals), "k4": 0}
     if got != want:
-        fail(f"training {dname}: launches {got} != {want}")
+        fail(f"training {img} px {dname}: launches {got} != {want}")
     ckpt = os.path.join(root, "ckpt", f"train_{dname}")
     missing = [f for f in ("best_ckpt.pt", "log.txt", "train_acc.npy",
                            "val_acc.npy")
                if not os.path.exists(os.path.join(ckpt, f))]
     losses = [h["loss"] for h in history]
-    if missing or len(history) != EPOCHS \
+    if missing or len(history) != epochs \
             or not all(np.isfinite(losses)):
-        fail(f"training {dname}: artifacts missing {missing} or losses "
-             f"{losses}")
-    return {"train": dname, "pairs_per_s_by_epoch": [h["imps"]
-                                                      for h in history],
+        fail(f"training {img} px {dname}: artifacts missing {missing} or "
+             f"losses {losses}")
+    return {"train": dname, "img_size": img, "batch": batch,
+            "pairs_per_s_by_epoch": [h["imps"] for h in history],
             "loss_by_epoch": losses,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": got}
+
+
+def run_step_1024(torch, tmp, dtype, pallas: bool) -> dict:
+    """One ``CDTrainer.train_step`` at 1024 px on a seeded batch (a first
+    step warms up and lets cuDNN choose), launch counters set to 0 just
+    before and read just after: 6 K1-save, 6 K2 and 3 K3 on the default
+    path, 6 K4 and 3 K3 with ``pallas = True``; finite loss."""
+    dname = str(dtype).split(".")[-1]
+    batch = STEP_1024_BATCH
+    torch.cuda.empty_cache()
+    trainer = _trainer(torch, tmp, dtype, f"step1024_{int(pallas)}", img=1024,
+                       batch=batch)
+    _set_pallas(trainer.model, pallas)
+    data = _batch(torch, batch, 4, img=1024)
+    trainer.train_step(*data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.time()
+    loss = trainer.train_step(*data)[0].item()
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3
+    got = _read_counts()
+    want = {"k1": 0, "k1_save": 0, "k2": 0, "k3": 3, "k4": 6} if pallas else \
+        {"k1": 0, "k1_save": 6, "k2": 6, "k3": 3, "k4": 0}
+    if got != want or not np.isfinite(loss):
+        fail(f"1024 px step {dname} pallas={pallas}: launches {got} != {want} "
+             f"or loss {loss}")
+    return {"train_step_1024": dname, "pallas": pallas, "batch": batch,
+            "step_ms": step_ms, "loss": loss,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "launches": got}
 
@@ -766,8 +969,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
     try:
-        from dahitra_tpu_torch.cli import eval_cd
-        from dahitra_tpu_torch.core.checkpoint import save_checkpoint
+        from dahitra_tpu_torch.core.checkpoint import (load_checkpoint,
+                                                        save_checkpoint)
         from dahitra_tpu_torch.data.synthetic import write_synthetic_levir
         from dahitra_tpu_torch.kernels import _build
         from dahitra_tpu_torch.models.registry import define_g
@@ -790,6 +993,8 @@ def main() -> None:
     # 3. kernels against their plain versions
     torch.manual_seed(0)
     gen = torch.Generator().manual_seed(0)
+    floor_ms = empty_launch_ms(torch)
+    print(json.dumps({"empty_launch_ms": floor_ms}), flush=True)
     checks = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -818,66 +1023,28 @@ def main() -> None:
           flush=True)
 
     # 5. the eval path, fp32 then bf16
-    n_forward = 64 // BATCH
-    launches = {}
-    for flag, dname in (([], "float32"), (["--bf16"], "bfloat16")):
-        os.environ["DAHITRA_DATA_ROOT"] = os.path.join(tmp, "data")
-        argv = ["--checkpoint_root", os.path.join(tmp, "ckpt"),
-                "--project_name", "smoke", "--data_name", "LEVIR",
-                "--split", "test", "--img_size", str(IMG),
-                "--batch_size", str(BATCH), "--num_patches", "16",
-                "--device", "cuda", *flag]
-        torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
-        scores = eval_cd.main(argv)
-        torch.cuda.synchronize()
-        launches[dname] = _read_counts()
-        want = {"k1": 6 * n_forward, "k1_save": 0, "k2": 0,
-                "k3": 3 * n_forward, "k4": 0}
-        if launches[dname] != want:
-            fail(f"{dname} launches {launches[dname]} != {want}")
-        finite = all(0.0 <= scores[k] <= 1.0 for k in ("acc", "miou", "mf1"))
-        if not finite or len(scores.get("per_group", [])) != 16:
-            fail(f"{dname} scores out of range or patch blocks missing: "
-                 f"{scores}")
-        print(json.dumps({"eval": dname, "pairs_per_s": scores["imps"],
-                          "peak_mem_gib": torch.cuda.max_memory_allocated()
-                          / 2 ** 30, "launches": launches[dname],
-                          "scores": {k: scores[k] for k in
-                                     ("acc", "miou", "mf1", "F1_1", "iou_1")}}),
-              flush=True)
+    dtypes = (([], "float32"), (["--bf16"], "bfloat16"))
+    by_phase = {"float32": {}, "bfloat16": {}}
+    for flag, dname in dtypes:
+        out = run_eval(torch, os.path.join(tmp, "data"),
+                       os.path.join(tmp, "ckpt"), "smoke", flag, dname, IMG,
+                       BATCH, 64, patches=16)
+        by_phase[dname]["eval_256"] = out["launches"]
+        print(json.dumps(out), flush=True)
 
     # 6. the card's forward (kernels) against the plain path on the CPU
-    from dahitra_tpu_torch.data.augment import normalize_images
-    from dahitra_tpu_torch.data.levir import load_levir_split
-
-    pairs = load_levir_split(os.path.join(tmp, "data", "LEVIR_CD"), "test",
-                             IMG, patch=5)
-    a_u8 = torch.from_numpy(pairs.a[:2])
-    b_u8 = torch.from_numpy(pairs.b[:2])
-    with torch.inference_mode():
-        ref = model.eval()(normalize_images(a_u8), normalize_images(b_u8))
-        cuda_model = model.cuda()
-        got = cuda_model(normalize_images(a_u8.cuda()),
-                         normalize_images(b_u8.cuda())).cpu()
-    _, serr = scaled_err(got, ref)
-    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    print(json.dumps({"forward_vs_cpu_plain": {"scaled_err": serr,
-                                               "argmax_agreement": agree}}),
-          flush=True)
-    if not (torch.isfinite(got).all() and serr <= 1e-3 and agree >= 0.999):
-        fail(f"card forward disagrees with the CPU plain path: scaled error "
-             f"{serr:.3e} (tolerance 1e-3), argmax agreement {agree:.5f}")
+    print(json.dumps(check_forward_vs_cpu(torch, model,
+                                          os.path.join(tmp, "data"), IMG, 2,
+                                          patch=5)), flush=True)
 
     # 7. the training path, fp32 then bf16
     train_root = os.path.join(tmp, "train")
     for split, n, seed in (("train", TRAIN_PAIRS, 1), ("val", VAL_PAIRS, 2)):
         write_synthetic_levir(os.path.join(train_root, "data"), n_tiles=n,
                               size=IMG, split=split, seed=seed)
-    for flag, dname in (([], "float32"), (["--bf16"], "bfloat16")):
+    for flag, dname in dtypes:
         out = run_training(torch, train_root, flag, dname)
-        launches[dname].update({f"train_{k}": v
-                                for k, v in out["launches"].items()})
+        by_phase[dname]["train_256"] = out["launches"]
         print(json.dumps(out), flush=True)
 
     # 8. the card's training gradients against the plain path on the CPU
@@ -887,16 +1054,62 @@ def main() -> None:
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         out = run_pallas_eval(torch, tmp, dtype)
-        launches[dname]["pallas_k4"] = out["launches"]["k4"]
+        by_phase[dname]["pallas_eval_256"] = out["launches"]
         print(json.dumps(out), flush=True)
-        print(json.dumps(run_pallas_train(torch, tmp, dtype)), flush=True)
+        out = run_pallas_train(torch, tmp, dtype)
+        by_phase[dname]["pallas_train_256"] = out["launches"]
+        print(json.dumps(out), flush=True)
 
     # 11. the pallas path's training gradients against the CPU
     print(json.dumps(check_train_grads(torch, train_root, pallas=True)),
           flush=True)
 
+    # 12. eval at 512 px (16 tiles of 512 px, batch 8) and at 1024 px (phase
+    # 4's tiles, batch 2), each with a seeded checkpoint of its size
+    del model
+    root512 = os.path.join(tmp, "px512")
+    write_synthetic_levir(os.path.join(root512, "data"), n_tiles=16, size=512,
+                          seed=3)
+    models = {}
+    for img in (512, 1024):
+        models[img] = define_g("newUNetTrans", img_size=img)
+        models[img].init_weights(torch.Generator().manual_seed(img))
+        save_checkpoint(os.path.join(tmp, "ckpt", f"smoke{img}"),
+                        models[img].state_dict(), best_val_acc=0.0,
+                        best_epoch_id=0)
+    for img, batch, n_pairs, data in (
+            (512, BATCH, 16, os.path.join(root512, "data")),
+            (1024, 2, 4, os.path.join(tmp, "data"))):
+        for flag, dname in dtypes:
+            out = run_eval(torch, data, os.path.join(tmp, "ckpt"),
+                           f"smoke{img}", flag, dname, img, batch, n_pairs)
+            by_phase[dname][f"eval_{img}"] = out["launches"]
+            print(json.dumps(out), flush=True)
+    print(json.dumps(check_forward_vs_cpu(torch, models[512],
+                                          os.path.join(root512, "data"), 512,
+                                          1)), flush=True)
+    del models
+
+    # 13. training at 512 px (batch 4, one epoch over 8 pairs, 4 val pairs),
+    # then one train step at 1024 px per dtype and path
+    for split, n, seed in (("train", 8, 4), ("val", 4, 5)):
+        write_synthetic_levir(os.path.join(root512, "data"), n_tiles=n,
+                              size=512, split=split, seed=seed)
+    for flag, dname in dtypes:
+        out = run_training(torch, root512, flag, dname, img=512, batch=4,
+                           epochs=1, train_pairs=8, val_pairs=4)
+        by_phase[dname]["train_512"] = out["launches"]
+        print(json.dumps(out), flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for pallas in (False, True):
+            out = run_step_1024(torch, tmp, dtype, pallas)
+            by_phase[dname]["pallas_step_1024" if pallas
+                            else "step_1024"] = out["launches"]
+            print(json.dumps(out), flush=True)
+
     if "--profile" in sys.argv[1:]:
-        sd = model.state_dict()
+        sd = load_checkpoint(os.path.join(tmp, "ckpt", "smoke"))[0]
         for dtype in (torch.float32, torch.bfloat16):
             for pallas in (False, True):
                 print(json.dumps(profile_forward(torch, sd, dtype, pallas)),
@@ -906,24 +1119,31 @@ def main() -> None:
 
     kernels = []
     src = "dahitra_tpu_torch/csrc/"
+    # (name, source, TPU kernel, checks, the 256 px phase whose count is
+    # ``launches``, counter, tolerances, extra keys)
+    table = (
+        ("decoder_stack_fwd", "decoder_fwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:180", "k1", "eval_256", "k1",
+         TOL, {}),
+        ("decoder_stack_fwd_save", "decoder_fwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:180", "k1_save", "train_256",
+         "k1_save", TOL, {}),
+        ("decoder_stack_bwd", "decoder_bwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:320", "k2", "train_256", "k2",
+         GTOL, {}),
+        ("semantic_tokenizer", "tokenizer.cu",
+         "dahitra_tpu/pallas/fused_tokenizer.py:42", "k3", "eval_256", "k3",
+         TOL, {"empty_launch_ms": floor_ms}),
+        ("fused_decoder", "fused_decoder.cu",
+         "dahitra_tpu/pallas/fused_decoder.py:102", "k4", "pallas_eval_256",
+         "k4", TOL, {}))
     for dname in ("float32", "bfloat16"):
-        lc = launches[dname]
-        kernels += [
-            summarize("decoder_stack_fwd", src + "decoder_fwd.cu",
-                      "dahitra_tpu/pallas/folded_decoder.py:180", dname,
-                      checks[("k1", dname)], lc["k1"], TOL),
-            summarize("decoder_stack_fwd_save", src + "decoder_fwd.cu",
-                      "dahitra_tpu/pallas/folded_decoder.py:180", dname,
-                      checks[("k1_save", dname)], lc["train_k1_save"], TOL),
-            summarize("decoder_stack_bwd", src + "decoder_bwd.cu",
-                      "dahitra_tpu/pallas/folded_decoder.py:320", dname,
-                      checks[("k2", dname)], lc["train_k2"], GTOL),
-            summarize("semantic_tokenizer", src + "tokenizer.cu",
-                      "dahitra_tpu/pallas/fused_tokenizer.py:42", dname,
-                      checks[("k3", dname)], lc["k3"], TOL),
-            summarize("fused_decoder", src + "fused_decoder.cu",
-                      "dahitra_tpu/pallas/fused_decoder.py:102", dname,
-                      checks[("k4", dname)], lc["pallas_k4"], TOL)]
+        for name, source, replaces, kid, phase, counter, tol, extra in table:
+            kernels.append(summarize(
+                name, src + source, replaces, dname, checks[(kid, dname)],
+                by_phase[dname][phase][counter], tol,
+                {ph: c[counter] for ph, c in by_phase[dname].items()},
+                **extra))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

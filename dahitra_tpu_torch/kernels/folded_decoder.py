@@ -24,6 +24,12 @@ shared memory; K1 keeps the residual in registers across all layers, K2
 keeps per-CTA weight-gradient partials in registers and sums them in a
 second, fixed-order pass. The products run on the fp32 FMA pipe; tensor-core
 tiles are later work.
+
+The kernels are built for ``mlp_dim`` = ``dim`` = 32, with the feed-forward
+bias ``b1`` as row 5 of ``vecs``. The plain versions take any ``mlp_dim``:
+w1 (D, 32, mlp_dim), w2 (D, mlp_dim, 32) and ``b1`` (D, mlp_dim) fp32 as an
+argument of its own (row 5 of ``vecs`` is then unused). On a CUDA tensor such
+a call raises: the ``mlp_dim`` != 32 kernel instances are not built yet.
 """
 from __future__ import annotations
 
@@ -83,16 +89,19 @@ def _group_sum(v, heads):
 
 
 def decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth: int, heads: int,
-                            dtype, save: bool = False):
+                            dtype, save: bool = False, b1=None):
     """The kernel's function in plain PyTorch, rounding to ``dtype`` where
     decoder_vjp._layer_fwd rounds. Shapes as in ``decoder_stack_fwd``; with
-    ``save``, returns (y, xsave, attnsave) as the kernel does."""
+    ``save``, returns (y, xsave, attnsave) as the kernel does. ``b1``
+    (D, mlp_dim) replaces row 5 of ``vecs`` where mlp_dim != 32."""
     acc = _acc(dtype)
     b, n, dim = x.shape
     scale = dim ** -0.5
     xs, ats = [], []
     for d in range(depth):
-        ln1s, ln1b, bo, ln2s, ln2b, b1, b2 = vecs[d]
+        ln1s, ln1b, bo, ln2s, ln2b, b1d, b2 = vecs[d]
+        if b1 is not None:
+            b1d = b1[d]
         mu, rs = _ln_stats(x.to(acc))
         hn = ((x.to(acc) - mu) * rs * ln1s + ln1b).to(dtype)
         dots = torch.matmul(hn, a[d]).to(acc) * scale
@@ -104,7 +113,7 @@ def decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth: int, heads: int,
         x1 = x + torch.matmul(attn, z[d]) + bo.to(dtype)
         mu1, rs1 = _ln_stats(x1.to(acc))
         g = ((x1.to(acc) - mu1) * rs1 * ln2s + ln2b).to(dtype)
-        t = torch.matmul(g, w1[d]) + b1.to(dtype)
+        t = torch.matmul(g, w1[d]) + b1d.to(dtype)
         h = F.gelu(t.to(acc)).to(dtype)
         x = x1 + torch.matmul(h, w2[d]) + b2.to(dtype)
     if save:
@@ -113,18 +122,21 @@ def decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth: int, heads: int,
 
 
 def decoder_stack_bwd_plain(xsave, attnsave, dy, a, z, w1, w2, vecs,
-                            depth: int, heads: int, dtype):
+                            depth: int, heads: int, dtype, b1=None):
     """K2's function in plain PyTorch: decoder_vjp._layer_bwd / _vjp_bwd on
     the kernel operands, rounding where they round. Returns
     (dx, da, dz, dw1, dw2, dvecs) as ``decoder_stack_bwd`` does; the ln1 rows
-    of dvecs are the x side only."""
+    of dvecs are the x side only. With ``b1`` (D, mlp_dim) given, row 5 of
+    dvecs is zero and db1 (D, mlp_dim) is returned as a seventh value."""
     acc = _acc(dtype)
     dim = dy.shape[-1]
     scale = dim ** -0.5
     dy = dy.to(dtype)
-    da, dz, dw1, dw2, dvecs = [], [], [], [], []
+    da, dz, dw1, dw2, dvecs, db1 = [], [], [], [], [], []
     for d in range(depth - 1, -1, -1):
-        ln1s, ln1b, bo, ln2s, ln2b, b1, b2 = vecs[d]
+        ln1s, ln1b, bo, ln2s, ln2b, b1d, b2 = vecs[d]
+        if b1 is not None:
+            b1d = b1[d]
         x, attn = xsave[d], attnsave[d]
         # recompute (the forward's operations)
         mu, rs = _ln_stats(x.to(acc))
@@ -134,7 +146,7 @@ def decoder_stack_bwd_plain(xsave, attnsave, dy, a, z, w1, w2, vecs,
         mu1, rs1 = _ln_stats(x1.to(acc))
         xhat1 = (x1.to(acc) - mu1) * rs1
         g = (xhat1 * ln2s + ln2b).to(dtype)
-        t = (torch.matmul(g, w1[d]) + b1.to(dtype)).to(acc)
+        t = (torch.matmul(g, w1[d]) + b1d.to(dtype)).to(acc)
         hg = F.gelu(t).to(dtype)
         # feed-forward backward
         dw2.append(torch.einsum("bnm,bnc->mc", hg.to(acc), dy.to(acc)))
@@ -155,10 +167,13 @@ def decoder_stack_bwd_plain(xsave, attnsave, dy, a, z, w1, w2, vecs,
         dz.append(torch.einsum("bnj,bnc->bjc", a32, dx1.to(acc)).to(dtype))
         dx_ln, dls1, dlb1 = _ln_bwd(dhn, xhat, rs, ln1s)
         dy = dx1 + dx_ln.to(dtype)
-        dvecs.append(torch.stack([dls1, dlb1, dbo, dls2, dlb2, dt32.sum((0, 1)),
-                                  db2]))
+        db1.append(dt32.sum((0, 1)))
+        dvecs.append(torch.stack([dls1, dlb1, dbo, dls2, dlb2,
+                                  db1[-1] if b1 is None
+                                  else torch.zeros_like(db2), db2]))
     rev = lambda ts: torch.stack(ts[::-1])  # noqa: E731
-    return dy, rev(da), rev(dz), rev(dw1), rev(dw2), rev(dvecs)
+    out = (dy, rev(da), rev(dz), rev(dw1), rev(dw2), rev(dvecs))
+    return out if b1 is None else (*out, rev(db1))
 
 
 def _fn(lib, name, dtype, n_ptr, n_int):
@@ -190,20 +205,31 @@ def _check(what, tensors, dtype, heads, hl, shapes_ok):
                          f"{[tuple(t.shape) for t in tensors]}, heads {heads}")
 
 
+def _refuse_mlp_dim(what, w1, b1):
+    """The kernels exist for mlp_dim = 32 only; off the CPU any other width
+    raises (the plain version never runs there)."""
+    if b1 is not None or w1.shape[-1] != _DIM:
+        raise ValueError(f"{what}: mlp_dim = {w1.shape[-1]}; the kernel "
+                         f"instance for mlp_dim != {_DIM} is not built yet "
+                         "(the plain version runs on CPU tensors only)")
+
+
 def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
-                      save: bool = False):
+                      save: bool = False, b1=None):
     """Decoder-stack forward over ``depth`` layers.
 
     x: (B, N, 32); a: (D, B, 32, hl); z: (D, B, hl, 32); w1, w2: (D, 32, 32)
     laid out (in, out), all in ``dtype``; vecs: (D, 7, 32) fp32 rows in
     ``VEC_KEYS`` order. Returns y (B, N, 32) in ``dtype``, or with ``save``
     (y, xsave (D, B, N, 32), attnsave (D, B, N, hl)). CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise.
+    plain version, which also takes mlp_dim != 32 with ``b1`` (D, mlp_dim);
+    CUDA tensors launch the kernel or raise.
     """
     global launches, launches_save
     if x.device.type == "cpu":
         return decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth, heads,
-                                       dtype, save)
+                                       dtype, save, b1)
+    _refuse_mlp_dim("decoder_stack_fwd", w1, b1)
     b, n, dim = x.shape
     hl = a.shape[-1]
     shapes_ok = (dim == _DIM and w1.shape == w2.shape == (depth, _DIM, _DIM)
@@ -241,20 +267,22 @@ def _bwd_rows_per_cta(b: int, n: int, n_sm: int) -> int:
 
 
 def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
-                      heads: int, dtype):
+                      heads: int, dtype, b1=None):
     """Decoder-stack backward (K2) from the forward's saves.
 
     xsave (D, B, N, 32), attnsave (D, B, N, hl), dy (B, N, 32), a, z, w1,
     w2 as in ``decoder_stack_fwd``, all in ``dtype``; vecs (D, 7, 32) fp32.
     Returns dx (B, N, 32) and da, dz (per sample) in ``dtype``, and dw1, dw2
     (D, 32, 32) and dvecs (D, 7, 32) in fp32; the ln1 rows of dvecs are the
-    x side only. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise.
+    x side only. CPU tensors take the plain version (with ``b1``, for
+    mlp_dim != 32, it returns db1 as a seventh value); CUDA tensors launch
+    the kernel or raise.
     """
     global launches_bwd
     if dy.device.type == "cpu":
         return decoder_stack_bwd_plain(xsave, attnsave, dy, a, z, w1, w2, vecs,
-                                       depth, heads, dtype)
+                                       depth, heads, dtype, b1)
+    _refuse_mlp_dim("decoder_stack_bwd", w1, b1)
     b, n, dim = dy.shape
     hl = a.shape[-1]
     shapes_ok = (dim == _DIM and xsave.shape == (depth, b, n, _DIM)

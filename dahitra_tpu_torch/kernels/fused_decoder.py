@@ -194,11 +194,17 @@ def fused_transformer_decoder(x: torch.Tensor, m: torch.Tensor, packed: Packed,
     ``packed``: the 13 stacked parameters of ``pack_decoder_params`` (any
     float type, read as fp32), inner width heads * dim_head, mlp_dim 32,
     heads * L <= 128. Returns (B, N, 32) in x's dtype. CPU tensors take
-    ``fused_decoder_plain``; CUDA tensors launch the kernel or raise.
+    ``fused_decoder_plain`` (any mlp_dim); CUDA tensors launch the kernel or
+    raise.
     """
     global launches
     if x.device.type == "cpu":
         return fused_decoder_plain(x, m, packed, depth, heads, precise)
+    if packed["w1"].shape[-1] != _DIM:
+        raise ValueError("fused_transformer_decoder: mlp_dim = "
+                         f"{packed['w1'].shape[-1]}; the kernel instance for "
+                         f"mlp_dim != {_DIM} is not built yet (the plain "
+                         "version runs on CPU tensors only)")
     ts = (x, m, *(packed[k] for k in ORDER))
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError("fused_transformer_decoder: all operands must be on "

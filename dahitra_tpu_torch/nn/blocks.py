@@ -264,6 +264,9 @@ class TransformerDecoder(nn.Module):
     heads * tokens <= 128, it runs as ``decoder_stack`` (the K1 kernel on
     the card; "noshift" numerics, output in ``dtype``); otherwise layer by
     layer with the max-shifted softmax, residual in its input type.
+    ``mlp_dim`` may differ from ``dim`` on every path, as in the JAX module;
+    the kernels are built for ``mlp_dim`` = 32, so on the card the first two
+    paths then raise a ``ValueError`` naming ``mlp_dim``.
     """
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,

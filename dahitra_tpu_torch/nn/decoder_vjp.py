@@ -89,11 +89,22 @@ def build_az(m: torch.Tensor, packed: Packed, depth: int, heads: int,
     return torch.stack(a_list), torch.stack(z_list)
 
 
+def _split_b1(packed: Packed):
+    """The feed-forward bias (D, mlp_dim) in fp32 where mlp_dim != dim: it
+    does not fit ``vecs`` and travels beside the operands. None otherwise."""
+    b1 = packed["b1"]
+    return None if b1.shape[-1] == packed["b2"].shape[-1] else b1.float()
+
+
 def _operands(x, m, packed, depth, heads, dtype, weights_dtype=None):
     """(x, a, z, w1, w2, vecs): the kernel operands, w1 and w2 in
-    ``weights_dtype`` (default ``dtype``)."""
+    ``weights_dtype`` (default ``dtype``). Where mlp_dim != dim, row 5 of
+    vecs is zero and ``_split_b1`` carries b1."""
     a, z = build_az(m, packed, depth, heads, dtype)
-    vecs = torch.stack([packed[k].float() for k in VEC_KEYS], dim=1)
+    wide = _split_b1(packed) is not None
+    rows = [torch.zeros_like(packed["b2"], dtype=torch.float32)
+            if wide and k == "b1" else packed[k].float() for k in VEC_KEYS]
+    vecs = torch.stack(rows, dim=1)
     wdt = weights_dtype or dtype
     return (x.to(dtype).contiguous(), a.contiguous(), z.contiguous(),
             packed["w1"].to(wdt).contiguous(),
@@ -101,28 +112,29 @@ def _operands(x, m, packed, depth, heads, dtype, weights_dtype=None):
 
 
 class DecoderStack(torch.autograd.Function):
-    """The stack over its kernel operands (x, a, z, w1, w2, vecs): forward
-    K1 with saves, backward K2. w1 and w2 come in fp32 and are cast to
-    ``dtype`` here, so their fp32 gradients reach the parameters unrounded,
-    as in the JAX package."""
+    """The stack over its kernel operands (x, a, z, w1, w2, vecs) and b1
+    (None unless mlp_dim != dim): forward K1 with saves, backward K2. w1 and
+    w2 come in fp32 and are cast to ``dtype`` here, so their fp32 gradients
+    reach the parameters unrounded, as in the JAX package."""
 
     @staticmethod
-    def forward(ctx, x, a, z, w1, w2, vecs, depth, heads, dtype):
+    def forward(ctx, x, a, z, w1, w2, vecs, b1, depth, heads, dtype):
         w1c, w2c = w1.to(dtype).contiguous(), w2.to(dtype).contiguous()
         y, xsave, attnsave = decoder_stack_fwd(x, a, z, w1c, w2c, vecs, depth,
-                                               heads, dtype, save=True)
-        ctx.save_for_backward(xsave, attnsave, a, z, w1c, w2c, vecs)
+                                               heads, dtype, save=True, b1=b1)
+        ctx.save_for_backward(xsave, attnsave, a, z, w1c, w2c, vecs, b1)
         ctx.meta = (depth, heads, dtype)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         depth, heads, dtype = ctx.meta
-        xsave, attnsave, a, z, w1c, w2c, vecs = ctx.saved_tensors
-        dx, da, dz, dw1, dw2, dvecs = decoder_stack_bwd(
+        xsave, attnsave, a, z, w1c, w2c, vecs, b1 = ctx.saved_tensors
+        dx, da, dz, dw1, dw2, dvecs, *db1 = decoder_stack_bwd(
             xsave, attnsave, dy.to(dtype).contiguous(), a, z, w1c, w2c, vecs,
-            depth, heads, dtype)
-        return dx, da, dz, dw1, dw2, dvecs, None, None, None
+            depth, heads, dtype, b1=b1)
+        return (dx, da, dz, dw1, dw2, dvecs, db1[0] if db1 else None, None,
+                None, None)
 
 
 def decoder_stack_plain(x: torch.Tensor, m: torch.Tensor, packed: Packed,
@@ -130,7 +142,7 @@ def decoder_stack_plain(x: torch.Tensor, m: torch.Tensor, packed: Packed,
     """x: (B, N, dim) queries, m: (B, L, dim) memory tokens -> (B, N, dim)
     in ``dtype``; plain PyTorch on any device."""
     return decoder_stack_fwd_plain(*_operands(x, m, packed, depth, heads, dtype),
-                                   depth, heads, dtype)
+                                   depth, heads, dtype, b1=_split_b1(packed))
 
 
 def decoder_stack(x: torch.Tensor, m: torch.Tensor, packed: Packed,
@@ -140,8 +152,10 @@ def decoder_stack(x: torch.Tensor, m: torch.Tensor, packed: Packed,
     ``DecoderStack`` (K1 with saves, then K2); otherwise K1 without saves."""
     ops = _operands(x, m, packed, depth, heads, dtype,
                     weights_dtype=torch.float32)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
-        return DecoderStack.apply(*ops, depth, heads, dtype)
+    b1 = _split_b1(packed)
+    if torch.is_grad_enabled() and (any(t.requires_grad for t in ops)
+                                    or (b1 is not None and b1.requires_grad)):
+        return DecoderStack.apply(*ops, b1, depth, heads, dtype)
     x, a, z, w1, w2, vecs = ops
     return decoder_stack_fwd(x, a, z, w1.to(dtype), w2.to(dtype), vecs, depth,
-                             heads, dtype)
+                             heads, dtype, b1=b1)

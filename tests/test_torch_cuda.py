@@ -122,17 +122,56 @@ def test_autograd_step_uses_only_save_and_backward_kernels(card, dtype,
     assert fd.launches == before[0] + 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,l", [(2, 4096, 4), (3, 1000, 16), (1, 64, 1)])
-def test_tokenizer_kernel_matches_plain(card, dtype, b, n, l):
-    g = torch.Generator().manual_seed(1)
+def _tokenizer_case(card, dtype, b, n, l, seed=1):
+    g = torch.Generator().manual_seed(seed)
     x = torch.randn(b, n, 32, generator=g).to(card, dtype)
     w = (torch.randn(32, l, generator=g) * 32 ** -0.5).to(card, dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,l", [(2, 4096, 4), (3, 1000, 16), (1, 64, 1),
+                                   (2, 16384, 4), (1, 65536, 4),
+                                   (16, 256, 4), (5, 129, 3)])
+def test_tokenizer_kernel_matches_plain(card, dtype, b, n, l):
+    """The 256, 512 and 1024 px 1/4-scale maps (N = 4096, 16384, 65536), a
+    ragged last chunk (N = 1000, 129), one short tile (N = 64) and the
+    widest L."""
+    x, w = _tokenizer_case(card, dtype, b, n, l)
     before = ft.launches
     got = ft.semantic_tokenizer(x, w)
     torch.cuda.synchronize()
     assert ft.launches == before + 1
+    assert torch.isfinite(got.float()).all()
     assert _scaled_err(got, ft.semantic_tokenizer_plain(x, w)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,l", [(2, 16384, 4), (3, 1000, 16), (16, 4096, 4)])
+def test_tokenizer_rerun_gives_the_same_bits(card, dtype, b, n, l):
+    """Every sum has a fixed order: reruns agree bit for bit, whichever CTA
+    of a sample finishes last and sums the partial tokens."""
+    x, w = _tokenizer_case(card, dtype, b, n, l, seed=2)
+    first = ft.semantic_tokenizer(x, w)
+    for _ in range(20):
+        assert torch.equal(first, ft.semantic_tokenizer(x, w))
+
+
+def test_tokenizer_combines_chunks_of_very_different_maxima(card):
+    """One chunk's logits dwarf the others': no NaN from the combine."""
+    x, w = _tokenizer_case(card, torch.float32, 2, 4096, 4, seed=3)
+    x[:, 300:310] *= 40.0
+    got = ft.semantic_tokenizer(x, w)
+    assert torch.isfinite(got).all()
+    assert _scaled_err(got, ft.semantic_tokenizer_plain(x, w)) <= 1e-4
+
+
+def test_tokenizer_matches_its_split_plain_version(card):
+    """The kernel against the same algorithm in PyTorch at its own chunk."""
+    x, w = _tokenizer_case(card, torch.float32, 4, 65536, 4, seed=4)
+    chunk = ft._chunk(4, 65536, ft._n_sm(x.device.index))
+    ref = ft.semantic_tokenizer_split_plain(x, w, chunk)
+    assert _scaled_err(ft.semantic_tokenizer(x, w), ref) <= 1e-4
 
 
 # K4 instances: (x dtype, precise). The fp32 model, the bf16 model (fp32

@@ -289,3 +289,33 @@ def test_bf16_train_loss_and_grads_match_flax(flax_case, train_case):
     ref = np.concatenate([want[k].numpy().ravel() for k in named])
     cos = got @ ref / (np.linalg.norm(got) * np.linalg.norm(ref))
     assert cos >= 0.99, cos
+
+
+def test_eval_logits_match_flax_at_another_img_size():
+    """The size-dependent parts (decoder positional embeddings sized by
+    ``img_size``, the tokenizer's N, the decoder gate) at a second size:
+    64 px, batch 1, where the 1/16 decoder has n = 16 = 4 * n_kv and runs
+    layer by layer in both packages while the other two take the stack."""
+    img = 64
+    rng = np.random.RandomState(7)
+    x1 = rng.uniform(-1, 1, (1, img, img, 3)).astype(np.float32)
+    x2 = rng.uniform(-1, 1, (1, img, img, 3)).astype(np.float32)
+    model = JaxDAHiTra(img_size=img)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(x1),
+                                    jnp.asarray(x2))
+    params = jax.tree.map(np.asarray, variables["params"])
+    stats = _perturb(variables["batch_stats"], rng, {"var"},
+                     lambda v: rng.uniform(0.5, 1.5, v.shape)
+                     .astype(np.float32))
+    ref = np.asarray(jax.jit(lambda p, s, a, b: model.apply(
+        {"params": p, "batch_stats": s}, a, b, False))(params, stats, x1, x2))
+    port = DAHiTraUNet(img_size=img).eval()
+    sd = flax_to_state_dict(params, stats)
+    assert sd["pos_embedding_decoder_3"].shape == (1, 32, img // 4, img // 4)
+    load_weights(port, sd)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x1), torch.from_numpy(x2))
+    assert got.shape == ref.shape == (1, img, img, 2)
+    sc = np.abs(ref).max()
+    np.testing.assert_allclose(got.numpy() / sc, ref / sc, rtol=1e-4,
+                               atol=1e-4)

@@ -300,3 +300,116 @@ def test_module_grads_match_flax(n):
         for key in path:
             g = g[key.key]
         _close(torch.from_numpy(np.asarray(g)), r, GTOL["float32"])
+
+
+def _wide_decoder(seed, dtype=torch.float32):
+    """A port TransformerDecoder with mlp_dim = 64 != dim (BIT's decoder
+    width), seeded numpy weights, and the same weights as flax params."""
+    depth, heads = 2, 8
+    port = TransformerDecoder(DIM, depth, heads, 64, 64, dtype=dtype)
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for p in port.parameters():
+            p.add_(torch.from_numpy(
+                rng.normal(0, 0.1, p.shape).astype(np.float32)))
+    sd = {f"d.{k}": v.numpy() for k, v in port.state_dict().items()}
+    params = {}
+    _convert_decoder(sd, "d", depth, params, ())
+    return port, params, depth, heads
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_module_with_wide_mlp_matches_flax(dname):
+    """mlp_dim = 64 with dim = 32: forward and every parameter's gradient,
+    and dx and dm, against the flax module with the same weights."""
+    tdt, jdt = DTYPES[dname]
+    port, params, depth, heads = _wide_decoder(25, tdt)
+    assert port.uses_stack(256, 4, DIM)
+    x, m = _inputs(2, 256, seed=26)
+    dy = np.random.RandomState(27).normal(size=x.shape).astype(np.float32)
+    flax_dec = JaxDecoder(DIM, depth, heads, 64, 64, dtype=jdt)
+
+    def loss(p, x_, m_):
+        y = flax_dec.apply({"params": p}, x_, m_)
+        return jnp.sum(y.astype(jnp.float32) * dy), y
+
+    (_, ref_y), (rdp, rdx, rdm) = jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True)(params, jnp.asarray(x),
+                                               jnp.asarray(m))
+    xt = torch.from_numpy(x).requires_grad_()
+    mt = torch.from_numpy(m).requires_grad_()
+    out = port(xt, mt)
+    assert out.dtype == tdt and out.shape == (2, 256, DIM)
+    _close(out.detach(), ref_y, TOL[dname])
+    (out.float() * torch.from_numpy(dy)).sum().backward()
+    _close(xt.grad, rdx, GTOL[dname])
+    _close(mt.grad, rdm, GTOL[dname])
+    grads = {f"d.{k}": p.grad.numpy() for k, p in port.named_parameters()}
+    got = {}
+    _convert_decoder(grads, "d", depth, got, ())
+    flat_ref = jax.tree_util.tree_flatten_with_path(rdp)[0]
+    assert len(flat_ref) == len(grads) == 13 * depth
+    for path, r in flat_ref:
+        g = got
+        for key in path:
+            g = g[key.key]
+        assert np.asarray(g).shape == r.shape
+        _close(torch.from_numpy(np.asarray(g)), r, GTOL[dname])
+
+
+def test_wide_mlp_plain_backward_is_the_forward_gradient_in_float64():
+    """With b1 (D, 64) beside vecs the plain K2 is still the exact gradient
+    of the plain K1 with saves, db1 included."""
+    depth, heads, mlp = 2, 4, 64
+    rng = np.random.RandomState(28)
+    hl = 4 * heads
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(scale * rng.normal(size=shape)).requires_grad_()
+
+    ops = (t(2, 48, DIM), t(depth, 2, DIM, hl, scale=0.3),
+           t(depth, 2, hl, DIM, scale=0.3), t(depth, DIM, mlp, scale=0.2),
+           t(depth, mlp, DIM, scale=0.2), t(depth, 7, DIM, scale=0.3))
+    b1 = t(depth, mlp, scale=0.3)
+    y, xs, ats = fd.decoder_stack_fwd_plain(*ops, depth, heads, torch.float64,
+                                            save=True, b1=b1)
+    dy = torch.from_numpy(rng.normal(size=y.shape))
+    ref = torch.autograd.grad(y, (*ops, b1), dy)
+    got = fd.decoder_stack_bwd_plain(xs.detach(), ats.detach(), dy,
+                                     *(o.detach() for o in ops[1:]), depth,
+                                     heads, torch.float64, b1=b1.detach())
+    assert len(got) == 7 and got[6].shape == (depth, mlp)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("which", ["fwd", "fwd_save", "bwd", "fused"])
+def test_wrappers_raise_by_name_for_wide_mlp_off_cpu(which):
+    """Off the CPU the kernels exist for mlp_dim = 32 only: every wrapper
+    raises a ValueError that names mlp_dim and never runs its plain
+    version."""
+    from dahitra_tpu_torch.kernels import fused_decoder as kd
+    from dahitra_tpu_torch.nn.decoder_vjp import (_split_b1,
+                                                  pack_decoder_params)
+
+    port, _, depth, heads = _wide_decoder(29)
+    x, m = (torch.from_numpy(t) for t in _inputs(2, 64, seed=30))
+    with torch.no_grad():
+        packed = pack_decoder_params(port)
+        ops = [t.to("meta") for t in _operands(x, m, packed, depth, heads,
+                                               torch.float32)]
+        b1 = _split_b1(packed).to("meta")
+    with pytest.raises(ValueError, match="mlp_dim"):
+        if which == "fused":
+            kd.fused_transformer_decoder(
+                x.to("meta"), m.to("meta"),
+                {k: v.to("meta") for k, v in packed.items()}, depth, heads,
+                True)
+        elif which == "bwd":
+            xs = torch.empty(depth, 2, 64, DIM, device="meta")
+            ats = torch.empty(depth, 2, 64, 4 * heads, device="meta")
+            fd.decoder_stack_bwd(xs, ats, ops[0], *ops[1:], depth, heads,
+                                 torch.float32, b1=b1)
+        else:
+            fd.decoder_stack_fwd(*ops, depth, heads, torch.float32,
+                                 save=which == "fwd_save", b1=b1)

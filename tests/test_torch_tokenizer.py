@@ -5,6 +5,12 @@ flax ``SemanticTokenizer`` and the Pallas K3 kernel ``fused_semantic_tokenizer``
 Its gradient (``SemanticTokenizerFn``: the K3 forward, a PyTorch-ops
 backward) is held against ``jax.vjp`` of the flax module.
 
+The CUDA kernel splits the N pixels into chunks and combines per-chunk
+softmax statistics; ``semantic_tokenizer_split_plain`` is that algorithm in
+PyTorch, held here against the plain version and the flax module. The
+port's ``SemanticTokenizer`` module is held against the flax module at the
+1/4-scale sizes of 512 and 1024 px images (N = 16384, 65536).
+
 Tolerances, scale-normalized: fp32 1e-5; bf16 2e-2 (logits, attention and
 tokens each rounded to bf16, in a different summation order); gradients
 fp32 1e-4 and bf16 6e-2 (tests/test_decoder_vjp.py:27-30).
@@ -19,6 +25,7 @@ import jax.numpy as jnp
 import dahitra_tpu.pallas.fused_tokenizer as jft
 from dahitra_tpu.nn.blocks import SemanticTokenizer as JaxTokenizer
 from dahitra_tpu_torch.kernels import fused_tokenizer as ft
+from dahitra_tpu_torch.nn.blocks import SemanticTokenizer
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 GTOL = {"float32": 1e-4, "bfloat16": 6e-2}
@@ -105,3 +112,75 @@ def test_gradient_matches_flax_vjp(dname):
     dx, dw = torch.autograd.grad(got, (xt, wt), torch.from_numpy(dt).to(tdt))
     _close(dx, np.asarray(rdx, np.float32).reshape(2, 256, 32), GTOL[dname])
     _close(dw, np.asarray(rdk, np.float32).reshape(32, 4), GTOL[dname])
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l", [1, 4, 16])
+@pytest.mark.parametrize("n,chunk", [(1024, 256), (1024, 128), (1000, 256),
+                                     (64, 128)])
+def test_split_plain_matches_plain(n, chunk, l, dname):
+    """Chunks that divide N, chunks that do not (a short last chunk) and one
+    chunk larger than N."""
+    tdt, _ = DTYPES[dname]
+    x, w = (torch.from_numpy(t).to(tdt) for t in _inputs(3, n, l=l, seed=6))
+    got = ft.semantic_tokenizer_split_plain(x, w, chunk)
+    assert got.dtype == tdt and got.shape == (3, l, 32)
+    _close(got, ft.semantic_tokenizer_plain(x, w).float().numpy(), TOL[dname])
+
+
+def test_split_plain_combines_chunks_of_very_different_maxima():
+    """One chunk's logits dwarf the others': the combine rescales the small
+    chunks' sums to nothing without a NaN."""
+    x, w = (torch.from_numpy(t) for t in _inputs(2, 512, seed=7))
+    x[:, 300:310] *= 40.0
+    got = ft.semantic_tokenizer_split_plain(x, w, 128)
+    assert torch.isfinite(got).all()
+    _close(got, ft.semantic_tokenizer_plain(x, w).numpy(), TOL["float32"])
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_split_plain_matches_flax_module(dname):
+    tdt, jdt = DTYPES[dname]
+    x, w = _inputs(n=1000, seed=8)
+    ref = JaxTokenizer(4, dtype=jdt).apply(
+        {"params": {"conv_token": {"kernel": w.reshape(1, 1, 32, 4)}}},
+        jnp.asarray(x, jdt).reshape(2, 25, 40, 32))
+    got = ft.semantic_tokenizer_split_plain(torch.from_numpy(x).to(tdt),
+                                            torch.from_numpy(w).to(tdt), 256)
+    _close(got, ref, TOL[dname])
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("side", [128, 256])
+def test_module_matches_flax_at_large_n(side, dname):
+    """The port's module at N = 16384 and 65536 (the 1/4-scale maps of 512
+    and 1024 px images), which the card's first kernel refused."""
+    tdt, jdt = DTYPES[dname]
+    x, w = _inputs(n=side * side, seed=9)
+    ref = JaxTokenizer(4, dtype=jdt).apply(
+        {"params": {"conv_token": {"kernel": w.reshape(1, 1, 32, 4)}}},
+        jnp.asarray(x, jdt).reshape(2, side, side, 32))
+    mod = SemanticTokenizer(32, 4, dtype=tdt)
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(w.T.copy()).view(4, 32, 1, 1))
+        got = mod(torch.from_numpy(x).view(2, side, side, 32))
+    assert got.dtype == tdt
+    _close(got, ref, TOL[dname])
+
+
+@pytest.mark.parametrize("n", [12544, 16384, 65536, 100000])
+def test_wrapper_refuses_no_n(n):
+    """No size limit: the first kernel kept a sample's N * L logits in one
+    CTA's shared memory and the wrapper raised above 220 KB (N = 14080 at
+    L = 4). The wrapper takes every N, and the launch geometry keeps its
+    chunk a whole number of tiles with a grid that covers a 132-SM card about
+    twice."""
+    x, w = (torch.from_numpy(t) for t in _inputs(1, n, seed=10))
+    got = ft.semantic_tokenizer(x, w)
+    assert got.shape == (1, 4, 32) and torch.isfinite(got).all()
+    assert not hasattr(ft, "_SMEM_LIMIT")
+    for b in (1, 4, 16):
+        chunk = ft._chunk(b, n, 132)
+        ctas = b * -(-n // chunk)
+        assert chunk % ft._TILE == 0 and chunk >= ft._TILE
+        assert ctas <= 2 * 132 + b and (ctas >= 132 or chunk == ft._TILE)
