@@ -14,7 +14,8 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
      shape the main paths give it, in fp32 and bf16, and time the kernel,
      the plain version and, where one exists, a single PyTorch call that
      computes the same function: K1 and K1-save (the decoder-stack forward
-     without and with saves), K2 (its backward, from K1-save's saves), K3
+     without and with saves), K2 (its backward, from K1-save's saves, rerun
+     for the same bits; the bf16 instance on tensor cores), K3
      (the tokenizer) and K4 (the fused decoder of
      ``TransformerDecoder(pallas=True)``, in the fp32 and the bf16 model's
      mode, and its bf16-I/O instance at one shape); the decoder kernels also
@@ -269,8 +270,8 @@ def check_k1(torch, dtype, gen):
 def check_k1_save_k2(torch, dtype, gen):
     """K1 with saves (y and both saves) and K2 (every gradient, from the
     kernel's own saves) against their plain versions at every training
-    decoder shape; no single PyTorch call computes either, so no library
-    yardstick."""
+    decoder shape, and a K2 rerun for the same bits; no single PyTorch call
+    computes either, so no library yardstick."""
     from dahitra_tpu_torch.kernels import folded_decoder as fd
 
     dname = str(dtype).split(".")[-1]
@@ -290,6 +291,10 @@ def check_k1_save_k2(torch, dtype, gen):
         if not torch.equal(got[0], fd.decoder_stack_fwd(*ops_in, depth, heads,
                                                         dtype)):
             fail(f"K1-save {name} {dname}: y differs from K1's")
+        again = fd.decoder_stack_bwd(got[1], got[2], dy, *ops_in[1:], depth,
+                                     heads, dtype)
+        if not all(torch.equal(g, h) for g, h in zip(grads, again)):
+            fail(f"K2 {name} {dname}: a second run gave other bits")
         errs = [scaled_err(g, r) for g, r in zip(got, ref)]
         gerrs = [scaled_err(g, r) for g, r in zip(grads, gref)]
         if not (all(torch.isfinite(g.float()).all() for g in got + grads)
@@ -571,8 +576,9 @@ _CLASSES = (("K4 fused_decoder", ("fused_decoder",)),
 
 
 def _profile(torch, fn, reps: int) -> dict:
-    """Device time by kernel class over ``reps`` calls of ``fn``, and the
-    device's idle share against the CUDA-event time of one call."""
+    """Device time by kernel class over ``reps`` calls of ``fn``, the
+    device's idle share against the CUDA-event time of one call, and each
+    kernel's launches per call (its counter over the profiled calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -582,11 +588,13 @@ def _profile(torch, fn, reps: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         fn()
         torch.cuda.synchronize()
+    _reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    launches = {k: c / reps for k, c in _read_counts().items()}
     # Device-side kernel events only: an operator row (aten::...) repeats
     # the time of the kernels it launched, and a user annotation's device
     # range ("Optimizer.step#AdamW.step") spans kernels already counted.
@@ -604,7 +612,7 @@ def _profile(torch, fn, reps: int) -> dict:
     kernels.sort(key=lambda k: -k[1])
     return {"batch": BATCH, "call_ms": call_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / call_ms),
-            "by_class_ms": by_class,
+            "by_class_ms": by_class, "launches_per_call": launches,
             "top": [{"kernel": n[:90], "ms": ms, "calls": c}
                     for n, ms, c in kernels[:12]]}
 

@@ -19,11 +19,12 @@ A (D, B, 32, hl) and Z (D, B, hl, 32).
 Sources: ``csrc/decoder_fwd.cu``, ``csrc/decoder_bwd.cu``. Bound on this
 card: operations (K1 ~8 kFLOP, K2 ~20 kFLOP per 32-wide row per layer at
 hl = 32, against 2 * (32 + hl) bytes of saves per row and layer in bf16).
-Design: one warp per row, lane = channel, each layer's weights staged in
-shared memory; K1 keeps the residual in registers across all layers, K2
-keeps per-CTA weight-gradient partials in registers and sums them in a
-second, fixed-order pass. The products run on the fp32 FMA pipe; tensor-core
-tiles are later work.
+Design: K1 and K2's fp32 instance run one warp per row, lane = channel,
+each layer's weights staged in shared memory, the products on the fp32 FMA
+pipe; K1 keeps the residual in registers across all layers. K2's bf16
+instance runs its six per-row products on tensor cores (``mma.sync``, a
+warp per 16 rows, chained in registers). K2 writes per-CTA weight-gradient
+partials and sums them in a second, fixed-order pass.
 
 The kernels are built for ``mlp_dim`` = ``dim`` = 32, with the feed-forward
 bias ``b1`` as row 5 of ``vecs``. The plain versions take any ``mlp_dim``:
@@ -51,7 +52,12 @@ launches_bwd = 0
 _DIM = 32
 _MAX_HL = 128
 _CLAMP = 80.0  # dahitra_tpu/nn/decoder_vjp.py _NOSHIFT_CLAMP
-_TILE = 32  # rows per K2 tile (csrc/decoder_bwd.cu TILE)
+# Rows per K2 CTA tile (csrc/decoder_bwd.cu): TILE of the fp32 instance,
+# MMA_TILE (4 warps of 16 rows) of the bf16 one.
+_BWD_TILE = {torch.float32: 32, torch.bfloat16: 64}
+# Tokens per head that the bf16 K2 takes: a softmax group lies inside one
+# 8-column mma tile.
+_BWD_MMA_L = (1, 2, 4, 8)
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Rows of vecs: per-layer vectors in this order.
 VEC_KEYS = ("ln1_scale", "ln1_bias", "bo", "ln2_scale", "ln2_bias", "b1", "b2")
@@ -257,13 +263,13 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
     return y
 
 
-def _bwd_rows_per_cta(b: int, n: int, n_sm: int) -> int:
-    """K2's rows per CTA: a multiple of its 32-row tile, chosen so that about
-    two CTAs run per SM. Fewer, longer CTAs keep the partial-sum scratch
-    small (tens of MB at the batch-8 training shapes)."""
-    tiles = -(-n // _TILE)
+def _bwd_rows_per_cta(b: int, n: int, n_sm: int, tile: int) -> int:
+    """K2's rows per CTA: a multiple of its ``tile`` rows (``_BWD_TILE``),
+    chosen so that about two CTAs run per SM. Fewer, longer CTAs keep the
+    partial-sum scratch small (tens of MB at the batch-8 training shapes)."""
+    tiles = -(-n // tile)
     cps = max(1, min(tiles, -(-2 * n_sm // b)))
-    return -(-tiles // cps) * _TILE
+    return -(-tiles // cps) * tile
 
 
 def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
@@ -293,9 +299,14 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
                  and vecs.shape == (depth, 7, _DIM))
     _check("decoder_stack_bwd", (xsave, attnsave, dy, a, z, w1, w2, vecs),
            dtype, heads, hl, shapes_ok)
+    if dtype == torch.bfloat16 and (hl % 2 or hl // heads not in _BWD_MMA_L):
+        raise ValueError(f"decoder_stack_bwd: the bfloat16 kernel takes "
+                         f"{_BWD_MMA_L} tokens per head and an even hl, got "
+                         f"hl {hl}, heads {heads}")
     dev = dy.device
     rows = _bwd_rows_per_cta(
-        b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+        b, n, torch.cuda.get_device_properties(dev).multi_processor_count,
+        _BWD_TILE[dtype])
     cps = -(-n // rows)
     part = torch.empty(b * cps * depth * (2 * _DIM * _DIM + 2 * _DIM * hl
                                           + 7 * _DIM),

@@ -69,13 +69,23 @@ def _stack_case(card, dtype, b, n, depth, heads, seed=0):
     return dec, x, m, ops, torch.randn(b, n, 32, generator=g).to(card, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,depth,heads", [(2, 100, 1, 32), (3, 100, 8, 8),
-                                             (2, 256, 8, 32)])
+# K2's bf16 instance (tensor cores, 16-row warp tiles, 64-row CTA tiles) at
+# its edges: n below one warp tile (5), n = 16 k + 1, one sample, hl = 8
+# (zero-padded to 16: two whole zero heads) and the 256 px dates depth.
+K2_BF16_EDGES = [(torch.bfloat16, 2, 5, 2, 4), (torch.bfloat16, 2, 113, 2, 8),
+                 (torch.bfloat16, 1, 300, 4, 8), (torch.bfloat16, 2, 100, 2, 2),
+                 (torch.bfloat16, 2, 4096, 8, 8)]
+
+
+@pytest.mark.parametrize("dtype,b,n,depth,heads", [
+    (dtype, *shape) for shape in [(2, 100, 1, 32), (3, 100, 8, 8),
+                                  (2, 256, 8, 32)]
+    for dtype in (torch.float32, torch.bfloat16)] + K2_BF16_EDGES)
 def test_save_forward_and_backward_kernels_match_plain(card, dtype, b, n,
                                                        depth, heads):
     """K1 with saves and K2 at ragged n (100), depth 1 and 8 and the widest
-    hl = 128. K1-save's y is K1's bit for bit."""
+    hl = 128, and K2's bf16 edges (``K2_BF16_EDGES``). K1-save's y is K1's
+    bit for bit; a K2 rerun gives the same bits."""
     _, _, _, ops, dy = _stack_case(card, dtype, b, n, depth, heads)
     before = (fd.launches_save, fd.launches_bwd)
     y, xs, ats = fd.decoder_stack_fwd(*ops, depth, heads, dtype, save=True)
@@ -94,6 +104,15 @@ def test_save_forward_and_backward_kernels_match_plain(card, dtype, b, n,
         assert _scaled_err(g, r) <= GTOL[dtype], name
     again = fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], depth, heads, dtype)
     assert all(torch.equal(g, h) for g, h in zip(got, again))  # fixed order
+
+
+def test_bf16_backward_refuses_groups_wider_than_an_mma_tile(card):
+    """The bf16 K2 takes 1, 2, 4 or 8 tokens per head (a softmax group
+    inside one 8-column mma tile); 16 raises by name."""
+    _, _, _, ops, dy = _stack_case(card, torch.bfloat16, 1, 64, 1, 4)
+    _, xs, ats = fd.decoder_stack_fwd(*ops, 1, 4, torch.bfloat16, save=True)
+    with pytest.raises(ValueError, match="tokens per head"):
+        fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], 1, 1, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
