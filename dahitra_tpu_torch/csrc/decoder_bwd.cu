@@ -57,8 +57,11 @@
 // once per layer in bf16 (hl zero-padded to a multiple of 16: whole zero
 // heads, whose attn, dattn and dl are zero) and read as B fragments with
 // ldmatrix (.trans for the k-major orientation), rows padded to stay free
-// of bank conflicts. The four weight-side sums stay on the FMA pipe, from a
-// bf16 tile of factors, each thread owning pairs of entries.
+// of bank conflicts. The four weight-side sums (dW1 += g^T dt, dW2 += hg^T
+// dy, dA += hn^T dl, dZ += attn^T dx1) run on the tensor cores too: each
+// 16-row tile's factors go to shared memory in bf16 (exact: all are bf16
+// values), and the warps take 16 x 16 output blocks in index order, 16 rows
+// per k-step, both operands read with ldmatrix.trans.
 #include <type_traits>
 
 #include "decoder_common.cuh"
@@ -392,7 +395,7 @@ __host__ __device__ __forceinline__ size_t mma_smem_bytes(int hl) {
   const int hlp = pad16(hl);
   return 2 * (DIM * (hlp + 8)             // A [c][j]
               + hlp * WLD + 2 * DIM * WLD  // Z [j][c], W1 [c][m], W2 [m][c]
-              + MMA_TILE * (6 * DIM + 2 * hlp))  // tile factors
+              + MMA_TILE * (6 * WLD + 2 * (hlp + 8)))  // tile factors
          + 4 * (NV + MMA_WARPS * NV);     // vectors, per-warp vector sums
 }
 
@@ -519,13 +522,13 @@ __device__ __forceinline__ void vec_sum(const float (&v)[16], float (&keep)[8], 
     }
 }
 
-// Stores a 32-wide vector of the warp's rows to a bf16 tile (rows of 32).
+// Stores a 32-wide vector of the warp's rows to a bf16 tile (rows of WLD).
 __device__ __forceinline__ void tile_store(__nv_bfloat16* tile, int row0, int t,
                                            const float (&v)[16]) {
 #pragma unroll
   for (int p = 0; p < 8; ++p) {
     const int n = p >> 1, r = p & 1;
-    *reinterpret_cast<uint32_t*>(tile + (row0 + 8 * r) * DIM + 8 * n + 2 * t) =
+    *reinterpret_cast<uint32_t*>(tile + (row0 + 8 * r) * WLD + 8 * n + 2 * t) =
         pack2(v[2 * p], v[2 * p + 1]);
   }
 }
@@ -545,32 +548,37 @@ __device__ __forceinline__ void row_load(const __nv_bfloat16* src, int64_t row0,
   }
 }
 
-// Pairs of neighbouring entries (e, e + 1) of one weight-side sum over the
-// tile's rows: out[e..e+1] (+)= sum_r X[r][xi] * Y[r][yi..yi+1], where
-// e = 2 * p, (xi, yi) = split(e). Written when `first`, else added.
-template <typename Split>
-__device__ __forceinline__ void pair_sums(float* out, int n_entries, const __nv_bfloat16* X,
-                                          int ldx, const __nv_bfloat16* Y, int ldy,
-                                          int rows, bool first, int tid, Split split) {
-  for (int p = tid; 2 * p < n_entries; p += MMA_THREADS) {
-    int xi, yi;
-    split(2 * p, xi, yi);
-    float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll 4
-    for (int r = 0; r < rows; ++r) {
-      const float xv = __bfloat162float(X[r * ldx + xi]);
-      const uint32_t u = *reinterpret_cast<const uint32_t*>(Y + r * ldy + yi);
-      s0 = fmaf(xv, lo_f(u), s0);
-      s1 = fmaf(xv, hi_f(u), s1);
-    }
-    float2* o = reinterpret_cast<float2*>(out + 2 * p);
-    if (first) {
-      *o = make_float2(s0, s1);
-    } else {
-      const float2 prev = *o;
-      *o = make_float2(prev.x + s0, prev.y + s1);
-    }
+// One 16 x 16 block (rows m0.., columns n0..) of a weight-side sum over the
+// tile's first `ksteps` 16-row steps, out (+)= X^T . Y, with X [r][m] and Y
+// [r][n] bf16 tiles: both operands k-major, read with ldmatrix.trans.
+// Entries at rows >= m_lim or columns >= n_lim are not written; the block
+// is written when `first`, else added.
+__device__ __forceinline__ void mma_block(float* out, int ldo, int m_lim, int n_lim,
+                                          const __nv_bfloat16* X, int ldx,
+                                          const __nv_bfloat16* Y, int ldy, int m0,
+                                          int n0, int ksteps, bool first, int lane) {
+  float c[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const __nv_bfloat16* p =
+        X + (16 * ks + (lane & 7) + 8 * (lane >> 4)) * ldx + m0 + 8 * ((lane >> 3) & 1);
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    uint32_t a[4];
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr));
+    mma_pair<true>(c, a, Y, ldy, 16 * ks, n0, lane);
   }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + g + 8 * r, col = n0 + 8 * h + 2 * t;
+      if (row < m_lim && col < n_lim) {
+        float2* o = reinterpret_cast<float2*>(out + row * ldo + col);
+        const float2 prev = first ? make_float2(0.0f, 0.0f) : *o;
+        *o = make_float2(prev.x + c[4 * h + 2 * r], prev.y + c[4 * h + 2 * r + 1]);
+      }
+    }
 }
 
 // Operands as decoder_stack_bwd_rows with T = bf16; l, the tokens per head,
@@ -593,15 +601,15 @@ decoder_stack_bwd_rows_mma(const __nv_bfloat16* __restrict__ xsave,
   __nv_bfloat16* sZ = sA + DIM * ald;                               // [j][c]
   __nv_bfloat16* sW1 = sZ + hlp * WLD;                              // [c][m]
   __nv_bfloat16* sW2 = sW1 + DIM * WLD;                             // [m][c]
-  __nv_bfloat16* tHg = sW2 + DIM * WLD;  // MMA_TILE x 32 each
-  __nv_bfloat16* tDy = tHg + MMA_TILE * DIM;
-  __nv_bfloat16* tG = tDy + MMA_TILE * DIM;
-  __nv_bfloat16* tDt = tG + MMA_TILE * DIM;
-  __nv_bfloat16* tHn = tDt + MMA_TILE * DIM;
-  __nv_bfloat16* tDx1 = tHn + MMA_TILE * DIM;
-  __nv_bfloat16* tAttn = tDx1 + MMA_TILE * DIM;  // MMA_TILE x hlp
-  __nv_bfloat16* tDl = tAttn + MMA_TILE * hlp;   // MMA_TILE x hlp
-  float* sV = reinterpret_cast<float*>(tDl + MMA_TILE * hlp);
+  __nv_bfloat16* tHg = sW2 + DIM * WLD;  // MMA_TILE rows of WLD each
+  __nv_bfloat16* tDy = tHg + MMA_TILE * WLD;
+  __nv_bfloat16* tG = tDy + MMA_TILE * WLD;
+  __nv_bfloat16* tDt = tG + MMA_TILE * WLD;
+  __nv_bfloat16* tHn = tDt + MMA_TILE * WLD;
+  __nv_bfloat16* tDx1 = tHn + MMA_TILE * WLD;
+  __nv_bfloat16* tAttn = tDx1 + MMA_TILE * WLD;  // MMA_TILE rows of ald
+  __nv_bfloat16* tDl = tAttn + MMA_TILE * ald;   // MMA_TILE rows of ald
+  float* sV = reinterpret_cast<float*>(tDl + MMA_TILE * ald);
   float* sRed = sV + NV;  // MMA_WARPS x 7 x 32
 
   const int b = blockIdx.y;
@@ -665,7 +673,7 @@ decoder_stack_bwd_rows_mma(const __nv_bfloat16* __restrict__ xsave,
             at[q] = ((r ? ok1 : ok0) && col < hl)
                 ? *reinterpret_cast<const uint32_t*>(attnsave + (srow + 8 * r) * hl + col)
                 : 0u;
-            *reinterpret_cast<uint32_t*>(tAttn + (lrow + 8 * r) * hlp + col) = at[q];
+            *reinterpret_cast<uint32_t*>(tAttn + (lrow + 8 * r) * ald + col) = at[q];
           }
           mma_pair<true>(acc, at, sZ, WLD, 16 * kk, 0, lane);
           mma_pair<true>(acc + 8, at, sZ, WLD, 16 * kk, 16, lane);
@@ -741,7 +749,7 @@ decoder_stack_bwd_rows_mma(const __nv_bfloat16* __restrict__ xsave,
           uint32_t dl[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            const int off = (lrow + 8 * (q & 1)) * hlp + 16 * jj + 8 * (q >> 1) + 2 * t;
+            const int off = (lrow + 8 * (q & 1)) * ald + 16 * jj + 8 * (q >> 1) + 2 * t;
             const uint32_t u = *reinterpret_cast<const uint32_t*>(tAttn + off);
             at[2 * q] = lo_f(u);
             at[2 * q + 1] = hi_f(u);
@@ -770,7 +778,7 @@ decoder_stack_bwd_rows_mma(const __nv_bfloat16* __restrict__ xsave,
             dl[q] = pack2(rnd<__nv_bfloat16>(at[2 * q] * (dat[2 * q] - s[2 * q]) * SCALE),
                           rnd<__nv_bfloat16>(at[2 * q + 1] * (dat[2 * q + 1] - s[2 * q + 1])
                                              * SCALE));
-            const int off = (lrow + 8 * (q & 1)) * hlp + 16 * jj + 8 * (q >> 1) + 2 * t;
+            const int off = (lrow + 8 * (q & 1)) * ald + 16 * jj + 8 * (q >> 1) + 2 * t;
             *reinterpret_cast<uint32_t*>(tDl + off) = dl[q];
           }
           mma_pair<false>(acc, dl, sA, ald, 16 * jj, 0, lane);  // dl . A^T
@@ -797,18 +805,30 @@ decoder_stack_bwd_rows_mma(const __nv_bfloat16* __restrict__ xsave,
       }
       __syncthreads();
 
-      // Weight-side sums over the tile's rows, each thread its own pairs.
-      const int rows = min(MMA_TILE, r_end - t0);
-      const bool first = t0 == r_begin;
-      float* out = part + (static_cast<int64_t>(cta) * depth + d) * ps;
-      pair_sums(out, NW, tG, DIM, tDt, DIM, rows, first, tid,  // dW1 [c][m]
-                [](int e, int& xi, int& yi) { xi = e >> 5; yi = e & (DIM - 1); });
-      pair_sums(out + NW, NW, tHg, DIM, tDy, DIM, rows, first, tid,  // dW2 [m][c]
-                [](int e, int& xi, int& yi) { xi = e >> 5; yi = e & (DIM - 1); });
-      pair_sums(out + 2 * NW, n_az, tHn, DIM, tDl, hlp, rows, first, tid,  // dA [c][j]
-                [hl](int e, int& xi, int& yi) { xi = e / hl; yi = e - xi * hl; });
-      pair_sums(out + 2 * NW + n_az, n_az, tAttn, hlp, tDx1, DIM, rows, first, tid,
-                [](int e, int& xi, int& yi) { xi = e >> 5; yi = e & (DIM - 1); });  // dZ [j][c]
+      // Weight-side sums over the tile's rows on tensor cores: 16 x 16
+      // blocks of dW1 += g^T dt, dW2 += hg^T dy, dA += hn^T dl and
+      // dZ += attn^T dx1, dealt to the warps in index order.
+      {
+        const int ksteps = (min(MMA_TILE, r_end - t0) + 15) >> 4;
+        const bool first = t0 == r_begin;
+        float* out = part + (static_cast<int64_t>(cta) * depth + d) * ps;
+        const int nb = hlp >> 4;  // 16-column blocks of hl
+        for (int job = warp; job < 8 + 4 * nb; job += MMA_WARPS) {
+          if (job < 8) {  // dW1 [c][m], dW2 [m][c]
+            const int w = job >> 2, m0 = 16 * ((job >> 1) & 1), n0 = 16 * (job & 1);
+            mma_block(out + w * NW, DIM, DIM, DIM, w ? tHg : tG, WLD, w ? tDy : tDt,
+                      WLD, m0, n0, ksteps, first, lane);
+          } else if (job < 8 + 2 * nb) {  // dA [c][j]
+            const int k = job - 8;
+            mma_block(out + 2 * NW, hl, DIM, hl, tHn, WLD, tDl, ald, 16 * (k & 1),
+                      16 * (k >> 1), ksteps, first, lane);
+          } else {  // dZ [j][c]
+            const int k = job - 8 - 2 * nb;
+            mma_block(out + 2 * NW + n_az, DIM, hl, DIM, tAttn, ald, tDx1, WLD,
+                      16 * (k >> 1), 16 * (k & 1), ksteps, first, lane);
+          }
+        }
+      }
       __syncthreads();
     }
 

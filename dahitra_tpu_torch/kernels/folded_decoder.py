@@ -22,9 +22,10 @@ hl = 32, against 2 * (32 + hl) bytes of saves per row and layer in bf16).
 Design: K1 and K2's fp32 instance run one warp per row, lane = channel,
 each layer's weights staged in shared memory, the products on the fp32 FMA
 pipe; K1 keeps the residual in registers across all layers. K2's bf16
-instance runs its six per-row products on tensor cores (``mma.sync``, a
-warp per 16 rows, chained in registers). K2 writes per-CTA weight-gradient
-partials and sums them in a second, fixed-order pass.
+instance runs its six per-row products (a warp per 16 rows, chained in
+registers) and its four weight-side sums on tensor cores (``mma.sync``).
+K2 writes per-CTA weight-gradient partials and sums them in a second,
+fixed-order pass.
 
 The kernels are built for ``mlp_dim`` = ``dim`` = 32, with the feed-forward
 bias ``b1`` as row 5 of ``vecs``. The plain versions take any ``mlp_dim``:
