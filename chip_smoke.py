@@ -15,7 +15,8 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
      the plain version and, where one exists, a single PyTorch call that
      computes the same function: K1 and K1-save (the decoder-stack forward
      without and with saves), K2 (its backward, from K1-save's saves, rerun
-     for the same bits; the bf16 instance on tensor cores), K3
+     for the same bits and also timed behind queued work, ``device_ms``;
+     the bf16 instance on tensor cores), K3
      (the tokenizer) and K4 (the fused decoder of
      ``TransformerDecoder(pallas=True)``, in the fp32 and the bf16 model's
      mode, and its bf16-I/O instance at one shape); the decoder kernels also
@@ -337,6 +338,9 @@ def check_k1_save_k2(torch, dtype, gen):
             "ms": time_ms(lambda: fd.decoder_stack_bwd(
                 got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch,
                 **_reps(n)),
+            "device_ms": time_ms(lambda: fd.decoder_stack_bwd(
+                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch,
+                queued=True, **_reps(n)),
             "plain_ms": time_ms(lambda: fd.decoder_stack_bwd_plain(
                 got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch,
                 **_reps(n)),

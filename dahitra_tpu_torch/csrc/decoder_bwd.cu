@@ -931,6 +931,19 @@ int launch(const void* xsave, const void* attnsave, const void* dy,
 
 }  // namespace
 
+// CTAs of the bf16 row kernel that one SM holds at once for this hl (its
+// registers and shared memory decide), written to *out: the wrapper sizes
+// the grid to one full wave.
+extern "C" int decoder_stack_bwd_ctas_per_sm_bf16(int hl, int* out) {
+  const size_t smem = mma_smem_bytes(hl);
+  cudaError_t err = cudaFuncSetAttribute(decoder_stack_bwd_rows_mma,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, decoder_stack_bwd_rows_mma, MMA_THREADS, smem));
+}
+
 #define DECODER_BWD_ENTRY(NAME, T)                                                   \
   extern "C" int NAME(const void* xsave, const void* attnsave, const void* dy,      \
                       const void* a, const void* z, const void* w1, const void* w2, \

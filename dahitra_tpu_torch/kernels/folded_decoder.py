@@ -264,13 +264,35 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
     return y
 
 
-def _bwd_rows_per_cta(b: int, n: int, n_sm: int, tile: int) -> int:
+def _bwd_rows_per_cta(b: int, n: int, slots: int, tile: int) -> int:
     """K2's rows per CTA: a multiple of its ``tile`` rows (``_BWD_TILE``),
-    chosen so that about two CTAs run per SM. Fewer, longer CTAs keep the
-    partial-sum scratch small (tens of MB at the batch-8 training shapes)."""
+    chosen so that the grid is about ``slots`` CTAs, the number the card
+    runs at once (``_bwd_slots``). Fewer, longer CTAs keep the partial-sum
+    scratch small (tens of MB at the batch-8 training shapes)."""
     tiles = -(-n // tile)
-    cps = max(1, min(tiles, -(-2 * n_sm // b)))
+    cps = max(1, min(tiles, -(-slots // b)))
     return -(-tiles // cps) * tile
+
+
+_slots = {}
+
+
+def _bwd_slots(dev, dtype, hl: int) -> int:
+    """CTAs of K2's row kernel that the card runs at once: two per SM for
+    the fp32 instance; for the bf16 one, as many as its registers and
+    shared memory let an SM hold at this hl, asked of the CUDA occupancy
+    calculator once per device and hl."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if dtype == torch.float32:
+        return 2 * n_sm
+    key = (dev.index, hl)
+    if key not in _slots:
+        per_sm = ctypes.c_int(0)
+        fn = _build.load("decoder_bwd").decoder_stack_bwd_ctas_per_sm_bf16
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+        _build.check(fn(hl, ctypes.byref(per_sm)), "decoder_stack_bwd occupancy")
+        _slots[key] = max(1, per_sm.value) * n_sm
+    return _slots[key]
 
 
 def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
@@ -305,9 +327,8 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
                          f"{_BWD_MMA_L} tokens per head and an even hl, got "
                          f"hl {hl}, heads {heads}")
     dev = dy.device
-    rows = _bwd_rows_per_cta(
-        b, n, torch.cuda.get_device_properties(dev).multi_processor_count,
-        _BWD_TILE[dtype])
+    rows = _bwd_rows_per_cta(b, n, _bwd_slots(dev, dtype, hl),
+                             _BWD_TILE[dtype])
     cps = -(-n // rows)
     part = torch.empty(b * cps * depth * (2 * _DIM * _DIM + 2 * _DIM * hl
                                           + 7 * _DIM),

@@ -23,10 +23,10 @@ TOKENS = 4
 @pytest.mark.parametrize("b", [1, 2, 8, 16, 64])
 def test_rows_per_cta_gives_whole_tiles_and_covers_every_row_once(dtype, b):
     tile = fd._BWD_TILE[dtype]
-    for n_sm in (132, 114):
+    for slots in (2 * 132, 3 * 132, 2 * 114):
         for n in (1, 5, 16, 17, 63, 64, 65, 100, 113, 256, 1024, 4096, 4097,
                   16384, 65536):
-            rows = fd._bwd_rows_per_cta(b, n, n_sm, tile)
+            rows = fd._bwd_rows_per_cta(b, n, slots, tile)
             assert rows > 0 and rows % tile == 0, (n, rows)
             cps = -(-n // rows)
             owner = np.zeros(n, np.int64)
@@ -35,8 +35,8 @@ def test_rows_per_cta_gives_whole_tiles_and_covers_every_row_once(dtype, b):
                 assert lo < hi, (n, c)  # no empty CTA
                 owner[lo:hi] += 1
             assert (owner == 1).all(), n
-            # About two CTAs per SM once there are rows enough for them.
-            assert b * cps <= max(b, 2 * n_sm + b), (n, cps)
+            # About one wave of the card's CTA slots, given rows enough.
+            assert b * cps <= slots + b, (n, cps)
 
 
 def _operands(dtype, depth, b, n, heads, seed):
