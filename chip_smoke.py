@@ -9,14 +9,17 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``dahitra_tpu_torch/csrc`` (one nvcc per
-     source, all started together);
+     source, all started together, beside one more nvcc of K2's source with
+     ``-Xptxas -v``), and print the registers and spills of both K2
+     instances and the CTAs per SM of each at every main-path hl (CUDA's
+     occupancy calculator, which sizes K2's grid);
   3. hold each kernel against its plain PyTorch version on the card at every
      shape the main paths give it, in fp32 and bf16, and time the kernel,
      the plain version and, where one exists, a single PyTorch call that
      computes the same function: K1 and K1-save (the decoder-stack forward
      without and with saves), K2 (its backward, from K1-save's saves, rerun
      for the same bits and also timed behind queued work, ``device_ms``;
-     the bf16 instance on tensor cores), K3
+     both instances on tensor cores, fp32 as three bf16 pieces), K3
      (the tokenizer) and K4 (the fused decoder of
      ``TransformerDecoder(pallas=True)``, in the fp32 and the bf16 model's
      mode, and its bf16-I/O instance at one shape); the decoder kernels also
@@ -84,6 +87,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -228,6 +232,65 @@ def _decoder_operands(torch, dtype, gen, b, n, depth, heads):
         ops = _operands(x, m, pack_decoder_params(dec.cuda()), depth, heads,
                         dtype)
     return ops, dy
+
+
+# K2's row kernel per instance: how its products run (the kernels line).
+K2_DESIGN = {
+    "float32": "tensor cores: mma.sync m16n8k16 bf16, each fp32 operand split "
+               "exactly into three bf16 pieces, six piece products per "
+               "product; weight-side sums on the FMA pipe",
+    "bfloat16": "tensor cores: mma.sync m16n8k16 bf16, the per-row products "
+                "and the weight-side sums"}
+
+
+def start_ptxas_report(tmp):
+    """One more nvcc of K2's source with the build's flags and ``-Xptxas
+    -v``, started beside the build; ``k2_resources`` reads it."""
+    from dahitra_tpu_torch.kernels import _build
+
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+           os.path.join(tmp, "decoder_bwd_ptxas.so"),
+           str(_build._CSRC / "decoder_bwd.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def k2_resources(torch, proc) -> dict:
+    """Registers and spill bytes of both K2 row-kernel instances (ptxas) and
+    the CTAs per SM of each at every main-path hl (the occupancy entry that
+    sizes K2's grid)."""
+    from dahitra_tpu_torch.kernels import folded_decoder as fd
+
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc -Xptxas -v of decoder_bwd.cu failed:\n{log}")
+    out, inst = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            inst = ("float32" if "rows_mmaIfE" in name else "bfloat16"
+                    if "rows_mmaI13__nv_bfloat16E" in name else None)
+            continue
+        if inst is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if spill:
+            out.setdefault(inst, {}).update(
+                spill_store_bytes=int(spill.group(1)),
+                spill_load_bytes=int(spill.group(2)))
+        if regs:
+            out.setdefault(inst, {})["registers"] = int(regs.group(1))
+    hls = sorted({heads * TOKENS for *_, heads in K1_SHAPES + [K1_SHAPE_512]})
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        if "registers" not in out.get(dname, {}):
+            fail(f"no ptxas report of K2's {dname} row kernel:\n{log}")
+        out[dname]["ctas_per_sm"] = {hl: fd._bwd_ctas_per_sm(dtype, hl)
+                                     for hl in hls}
+    return out
 
 
 def _k1_ops(b, n, depth, hl):
@@ -997,10 +1060,14 @@ def main() -> None:
     print(smi, flush=True)
     disable_tf32()
 
-    # 2. build
+    # 2. build, and K2's registers, spills and CTAs per SM
     t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    ptxas = start_ptxas_report(tmp)
     _build.build(_build.sources())
     print(f"build: {_build.sources()} in {time.time() - t0:.1f} s", flush=True)
+    resources = k2_resources(torch, ptxas)
+    print(json.dumps({"k2_resources": resources}), flush=True)
 
     # 3. kernels against their plain versions
     torch.manual_seed(0)
@@ -1023,7 +1090,6 @@ def main() -> None:
     print(json.dumps(check_k4_grads(torch, gen)), flush=True)
 
     # 4. synthetic LEVIR and a seeded checkpoint
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     t0 = time.time()
     write_synthetic_levir(os.path.join(tmp, "data"), n_tiles=4, size=1024,
                           seed=0)
@@ -1142,10 +1208,11 @@ def main() -> None:
          "k1_save", TOL, {}),
         ("decoder_stack_bwd", "decoder_bwd.cu",
          "dahitra_tpu/pallas/folded_decoder.py:320", "k2", "train_256", "k2",
-         GTOL, {}),
+         GTOL, {"design": K2_DESIGN, "resources": resources}),
         ("semantic_tokenizer", "tokenizer.cu",
          "dahitra_tpu/pallas/fused_tokenizer.py:42", "k3", "eval_256", "k3",
-         TOL, {"empty_launch_ms": floor_ms}),
+         TOL, {"empty_launch_ms": {"float32": floor_ms,
+                                   "bfloat16": floor_ms}}),
         ("fused_decoder", "fused_decoder.cu",
          "dahitra_tpu/pallas/fused_decoder.py:102", "k4", "pallas_eval_256",
          "k4", TOL, {}))
@@ -1155,7 +1222,7 @@ def main() -> None:
                 name, src + source, replaces, dname, checks[(kid, dname)],
                 by_phase[dname][phase][counter], tol,
                 {ph: c[counter] for ph, c in by_phase[dname].items()},
-                **extra))
+                **{k: v[dname] for k, v in extra.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,13 +19,15 @@ A (D, B, 32, hl) and Z (D, B, hl, 32).
 Sources: ``csrc/decoder_fwd.cu``, ``csrc/decoder_bwd.cu``. Bound on this
 card: operations (K1 ~8 kFLOP, K2 ~20 kFLOP per 32-wide row per layer at
 hl = 32, against 2 * (32 + hl) bytes of saves per row and layer in bf16).
-Design: K1 and K2's fp32 instance run one warp per row, lane = channel,
-each layer's weights staged in shared memory, the products on the fp32 FMA
-pipe; K1 keeps the residual in registers across all layers. K2's bf16
-instance runs its six per-row products (a warp per 16 rows, chained in
-registers) and its four weight-side sums on tensor cores (``mma.sync``).
-K2 writes per-CTA weight-gradient partials and sums them in a second,
-fixed-order pass.
+Design: K1 runs one warp per row, lane = channel, each layer's weights
+staged in shared memory, the products on the fp32 FMA pipe, the residual in
+registers across all layers. K2 runs its six per-row products on tensor
+cores (``mma.sync`` bf16, a warp per 16 rows, chained in registers); in fp32
+each operand is split exactly into three bf16 pieces and a product is six
+piece products. K2's bf16 instance runs its four weight-side sums on tensor
+cores too, the fp32 one on the FMA pipe. K2 writes per-CTA weight-gradient
+partials and sums them in a second, fixed-order pass. K2 takes 1, 2, 4 or 8
+tokens per head and an even hl (DAHiTra has 4 tokens, BIT 4 or 8).
 
 The kernels are built for ``mlp_dim`` = ``dim`` = 32, with the feed-forward
 bias ``b1`` as row 5 of ``vecs``. The plain versions take any ``mlp_dim``:
@@ -53,11 +55,11 @@ launches_bwd = 0
 _DIM = 32
 _MAX_HL = 128
 _CLAMP = 80.0  # dahitra_tpu/nn/decoder_vjp.py _NOSHIFT_CLAMP
-# Rows per K2 CTA tile (csrc/decoder_bwd.cu): TILE of the fp32 instance,
-# MMA_TILE (4 warps of 16 rows) of the bf16 one.
-_BWD_TILE = {torch.float32: 32, torch.bfloat16: 64}
-# Tokens per head that the bf16 K2 takes: a softmax group lies inside one
-# 8-column mma tile.
+# Rows per K2 CTA tile of each instance (csrc/decoder_bwd.cu TILE: 4 warps
+# of 16 rows).
+_BWD_TILE = {torch.float32: 64, torch.bfloat16: 64}
+# Tokens per head that K2 takes: a softmax group lies inside one 8-column
+# mma tile.
 _BWD_MMA_L = (1, 2, 4, 8)
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Rows of vecs: per-layer vectors in this order.
@@ -277,21 +279,25 @@ def _bwd_rows_per_cta(b: int, n: int, slots: int, tile: int) -> int:
 _slots = {}
 
 
+def _bwd_ctas_per_sm(dtype, hl: int) -> int:
+    """CTAs of K2's row kernel in ``dtype`` that one SM holds at once at this
+    hl, as the CUDA occupancy calculator counts them (registers and shared
+    memory decide)."""
+    per_sm = ctypes.c_int(0)
+    fn = getattr(_build.load("decoder_bwd"),
+                 f"decoder_stack_bwd_ctas_per_sm_{_DTYPES[dtype]}")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    _build.check(fn(hl, ctypes.byref(per_sm)), "decoder_stack_bwd occupancy")
+    return max(1, per_sm.value)
+
+
 def _bwd_slots(dev, dtype, hl: int) -> int:
-    """CTAs of K2's row kernel that the card runs at once: two per SM for
-    the fp32 instance; for the bf16 one, as many as its registers and
-    shared memory let an SM hold at this hl, asked of the CUDA occupancy
-    calculator once per device and hl."""
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    if dtype == torch.float32:
-        return 2 * n_sm
-    key = (dev.index, hl)
+    """CTAs of K2's row kernel that the card runs at once: what one SM
+    holds at this hl times the SMs, asked once per device, dtype and hl."""
+    key = (dev.index, dtype, hl)
     if key not in _slots:
-        per_sm = ctypes.c_int(0)
-        fn = _build.load("decoder_bwd").decoder_stack_bwd_ctas_per_sm_bf16
-        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-        _build.check(fn(hl, ctypes.byref(per_sm)), "decoder_stack_bwd occupancy")
-        _slots[key] = max(1, per_sm.value) * n_sm
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        _slots[key] = _bwd_ctas_per_sm(dtype, hl) * n_sm
     return _slots[key]
 
 
@@ -322,10 +328,10 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
                  and vecs.shape == (depth, 7, _DIM))
     _check("decoder_stack_bwd", (xsave, attnsave, dy, a, z, w1, w2, vecs),
            dtype, heads, hl, shapes_ok)
-    if dtype == torch.bfloat16 and (hl % 2 or hl // heads not in _BWD_MMA_L):
-        raise ValueError(f"decoder_stack_bwd: the bfloat16 kernel takes "
-                         f"{_BWD_MMA_L} tokens per head and an even hl, got "
-                         f"hl {hl}, heads {heads}")
+    if hl % 2 or hl // heads not in _BWD_MMA_L:
+        raise ValueError(f"decoder_stack_bwd: the kernel takes {_BWD_MMA_L} "
+                         f"tokens per head and an even hl, got hl {hl}, "
+                         f"heads {heads}")
     dev = dy.device
     rows = _bwd_rows_per_cta(b, n, _bwd_slots(dev, dtype, hl),
                              _BWD_TILE[dtype])

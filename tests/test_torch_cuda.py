@@ -69,23 +69,25 @@ def _stack_case(card, dtype, b, n, depth, heads, seed=0):
     return dec, x, m, ops, torch.randn(b, n, 32, generator=g).to(card, dtype)
 
 
-# K2's bf16 instance (tensor cores, 16-row warp tiles, 64-row CTA tiles) at
-# its edges: n below one warp tile (5), n = 16 k + 1, one sample, hl = 8
-# (zero-padded to 16: two whole zero heads) and the 256 px dates depth.
-K2_BF16_EDGES = [(torch.bfloat16, 2, 5, 2, 4), (torch.bfloat16, 2, 113, 2, 8),
-                 (torch.bfloat16, 1, 300, 4, 8), (torch.bfloat16, 2, 100, 2, 2),
-                 (torch.bfloat16, 2, 4096, 8, 8)]
+# K2 (tensor cores, 16-row warp tiles, 64-row CTA tiles) at its edges, in
+# both dtypes: n below one warp tile (5), n = 16 k + 1, one sample, hl = 8
+# (zero-padded to 16: two whole zero heads), hl = 64 at a ragged n, and the
+# 256 px dates depth at N = 4096.
+K2_EDGES = [(dtype, *shape) for shape in [(2, 5, 2, 4), (2, 113, 2, 8),
+                                          (1, 300, 4, 8), (2, 100, 2, 2),
+                                          (2, 200, 2, 16), (2, 4096, 8, 8)]
+            for dtype in (torch.float32, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("dtype,b,n,depth,heads", [
     (dtype, *shape) for shape in [(2, 100, 1, 32), (3, 100, 8, 8),
                                   (2, 256, 8, 32)]
-    for dtype in (torch.float32, torch.bfloat16)] + K2_BF16_EDGES)
+    for dtype in (torch.float32, torch.bfloat16)] + K2_EDGES)
 def test_save_forward_and_backward_kernels_match_plain(card, dtype, b, n,
                                                        depth, heads):
     """K1 with saves and K2 at ragged n (100), depth 1 and 8 and the widest
-    hl = 128, and K2's bf16 edges (``K2_BF16_EDGES``). K1-save's y is K1's
-    bit for bit; a K2 rerun gives the same bits."""
+    hl = 128, and K2's edges (``K2_EDGES``). K1-save's y is K1's bit for
+    bit; a K2 rerun gives the same bits."""
     _, _, _, ops, dy = _stack_case(card, dtype, b, n, depth, heads)
     before = (fd.launches_save, fd.launches_bwd)
     y, xs, ats = fd.decoder_stack_fwd(*ops, depth, heads, dtype, save=True)
@@ -106,13 +108,24 @@ def test_save_forward_and_backward_kernels_match_plain(card, dtype, b, n,
     assert all(torch.equal(g, h) for g, h in zip(got, again))  # fixed order
 
 
-def test_bf16_backward_refuses_groups_wider_than_an_mma_tile(card):
-    """The bf16 K2 takes 1, 2, 4 or 8 tokens per head (a softmax group
-    inside one 8-column mma tile); 16 raises by name."""
-    _, _, _, ops, dy = _stack_case(card, torch.bfloat16, 1, 64, 1, 4)
-    _, xs, ats = fd.decoder_stack_fwd(*ops, 1, 4, torch.bfloat16, save=True)
-    with pytest.raises(ValueError, match="tokens per head"):
-        fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], 1, 1, torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["16 tokens per head", "odd hl"])
+def test_backward_refuses_what_its_kernel_does_not_take(card, dtype, case):
+    """K2 takes 1, 2, 4 or 8 tokens per head (a softmax group inside one
+    8-column mma tile) and an even hl; 16 tokens per head (hl 16, one head)
+    and hl 15 (15 heads of one token) raise by name, before any launch."""
+    _, _, _, ops, dy = _stack_case(card, dtype, 1, 64, 1, 4)
+    _, xs, ats = fd.decoder_stack_fwd(*ops, 1, 4, dtype, save=True)
+    a, z = ops[1], ops[2]
+    heads = 1
+    if case == "odd hl":
+        ats, a, z = (ats[..., :15].contiguous(), a[..., :15].contiguous(),
+                     z[:, :, :15].contiguous())
+        heads = 15
+    before = fd.launches_bwd
+    with pytest.raises(ValueError, match="tokens per head and an even hl"):
+        fd.decoder_stack_bwd(xs, ats, dy, a, z, *ops[3:], 1, heads, dtype)
+    assert fd.launches_bwd == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
