@@ -238,7 +238,7 @@ def _decoder_operands(torch, dtype, gen, b, n, depth, heads):
 K2_DESIGN = {
     "float32": "tensor cores: mma.sync m16n8k16 bf16, each fp32 operand split "
                "exactly into three bf16 pieces, six piece products per "
-               "product; weight-side sums on the FMA pipe",
+               "product, for the per-row products and the weight-side sums",
     "bfloat16": "tensor cores: mma.sync m16n8k16 bf16, the per-row products "
                 "and the weight-side sums"}
 

@@ -54,10 +54,10 @@
 // fragments with ldmatrix (.trans for the k-major orientation), rows padded
 // to stay free of bank conflicts. Each 16-row tile's factors of the four
 // weight-side sums (dW1 += g^T dt, dW2 += hg^T dy, dA += hn^T dl, dZ +=
-// attn^T dx1) go to shared memory in T. In bf16 the sums run on the tensor
-// cores: the warps take 16 x 16 output blocks in index order, 16 rows per
-// k-step, both operands read with ldmatrix.trans. In fp32 each thread adds
-// its fixed entries over the tile's rows on the FMA pipe.
+// attn^T dx1) go to shared memory in T, and the sums run on the tensor cores
+// too: the warps take 16 x 16 output blocks in index order, 16 rows per
+// k-step, both operands read with ldmatrix.trans in bf16, read by hand and
+// split into three pieces in fp32.
 #include <type_traits>
 
 #include "decoder_common.cuh"
@@ -337,25 +337,12 @@ __device__ __forceinline__ void row_load(const T* src, int64_t row0, bool ok0, b
   }
 }
 
-// One 16 x 16 block (rows m0.., columns n0..) of a bf16 weight-side sum
-// over the tile's first `ksteps` 16-row steps, out (+)= X^T . Y, with X
-// [r][m] and Y [r][n] bf16 tiles: both operands k-major, read with
-// ldmatrix.trans. Entries at rows >= m_lim or columns >= n_lim are not
-// written; the block is written when `first`, else added.
-__device__ __forceinline__ void mma_block(float* out, int ldo, int m_lim, int n_lim,
-                                          const __nv_bfloat16* X, int ldx,
-                                          const __nv_bfloat16* Y, int ldy, int m0,
-                                          int n0, int ksteps, bool first, int lane) {
-  float c[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int ks = 0; ks < ksteps; ++ks) {
-    const __nv_bfloat16* p =
-        X + (16 * ks + (lane & 7) + 8 * (lane >> 4)) * ldx + m0 + 8 * ((lane >> 3) & 1);
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    uint32_t a[1][4];
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(a[0][0]), "=r"(a[0][1]), "=r"(a[0][2]), "=r"(a[0][3]) : "r"(addr));
-    mma_pair<true, 1>(c, a, Y, 0, ldy, 16 * ks, n0, lane);
-  }
+// Writes (when `first`) or adds a 16 x 16 block c (rows m0.., columns n0..,
+// fragment layout) to out, rows of ldo; entries at rows >= m_lim or columns
+// >= n_lim are not written.
+__device__ __forceinline__ void block_store(float* out, int ldo, int m_lim, int n_lim,
+                                            int m0, int n0, const float (&c)[8],
+                                            bool first, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -370,18 +357,55 @@ __device__ __forceinline__ void mma_block(float* out, int ldo, int m_lim, int n_
     }
 }
 
-// An fp32 weight-side sum on the FMA pipe: out[e] (+)= the sum over the
-// tile's first `rows` rows, in row order, of X[r][e / n] * Y[r][e % n] for
-// this thread's entries e < m * n; written when `first`, else added.
-__device__ __forceinline__ void fma_sums(float* out, int m, int n, const float* X, int ldx,
-                                         const float* Y, int ldy, int rows, bool first,
-                                         int tid) {
-  for (int e = tid; e < m * n; e += THREADS) {
-    const int i = e / n, j = e - (e / n) * n;
-    float s = 0.0f;
-    for (int r = 0; r < rows; ++r) s = fmaf(X[r * ldx + i], Y[r * ldy + j], s);
-    out[e] = first ? s : out[e] + s;
+// One 16 x 16 block (rows m0.., columns n0..) of a weight-side sum over the
+// tile's first `ksteps` 16-row steps, out (+)= X^T . Y, with X [r][m] and Y
+// [r][n] factor tiles (block_store writes it). bf16: both operands k-major,
+// read with ldmatrix.trans.
+__device__ __forceinline__ void mma_block(float* out, int ldo, int m_lim, int n_lim,
+                                          const __nv_bfloat16* X, int ldx,
+                                          const __nv_bfloat16* Y, int ldy, int m0,
+                                          int n0, int ksteps, bool first, int lane) {
+  float c[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const __nv_bfloat16* p =
+        X + (16 * ks + (lane & 7) + 8 * (lane >> 4)) * ldx + m0 + 8 * ((lane >> 3) & 1);
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    uint32_t a[1][4];
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(a[0][0]), "=r"(a[0][1]), "=r"(a[0][2]), "=r"(a[0][3]) : "r"(addr));
+    mma_pair<true, 1>(c, a, Y, 0, ldy, 16 * ks, n0, lane);
   }
+  block_store(out, ldo, m_lim, n_lim, m0, n0, c, first, lane);
+}
+
+// fp32: each fragment element is read by hand (a pair of k rows; rows of
+// ld = 4 mod 16 floats keep each read free of bank conflicts) and split
+// into three pieces, six piece products per k-step.
+__device__ __forceinline__ void mma_block(float* out, int ldo, int m_lim, int n_lim,
+                                          const float* X, int ldx, const float* Y, int ldy,
+                                          int m0, int n0, int ksteps, bool first, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float c[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const float* x = X + (16 * ks + 2 * t) * ldx + m0 + g;
+    const float* y = Y + (16 * ks + 2 * t) * ldy + n0 + g;
+    uint32_t a[3][4], b[2][3][2];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // A[m][k] = X[k][m]: m = m0 + g + 8 (q & 1)
+      const float* p = x + 8 * (q >> 1) * ldx + 8 * (q & 1);
+      split_pair<3>(p[0], p[ldx], a, q);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // B[k][n] = Y[k][n]: n = n0 + 8h + g
+        const float* p = y + 8 * q * ldy + 8 * h;
+        split_pair<3>(p[0], p[ldy], b[h], q);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) mma_split<3>(c + 4 * h, a, b[h]);
+  }
+  block_store(out, ldo, m_lim, n_lim, m0, n0, c, first, lane);
 }
 
 // xsave: (D, B, N, 32), attnsave: (D, B, N, hl), dy, dx: (B, N, 32), all T;
@@ -391,11 +415,11 @@ __device__ __forceinline__ void fma_sums(float* out, int m, int n, const float* 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ attnsave,
-                       const T* __restrict__ dy_in, const T* __restrict__ a,
-                       const T* __restrict__ z, const T* __restrict__ w1,
-                       const T* __restrict__ w2, const float* __restrict__ vecs, T* dx,
-                       float* __restrict__ part, int B, int N, int depth, int hl, int l,
-                       int rows_per_cta) {
+                           const T* __restrict__ dy_in, const T* __restrict__ a,
+                           const T* __restrict__ z, const T* __restrict__ w1,
+                           const T* __restrict__ w2, const float* __restrict__ vecs,
+                           T* dx, float* __restrict__ part, int B, int N, int depth,
+                           int hl, int l, int rows_per_cta) {
   constexpr int P = pieces<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hlp = pad16(hl);
@@ -609,35 +633,28 @@ decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ at
       }
       __syncthreads();
 
-      // Weight-side sums over the tile's rows: dW1 += g^T dt, dW2 += hg^T
-      // dy, dA += hn^T dl and dZ += attn^T dx1.
+      // Weight-side sums over the tile's rows on tensor cores: 16 x 16
+      // blocks of dW1 += g^T dt, dW2 += hg^T dy, dA += hn^T dl and
+      // dZ += attn^T dx1, dealt to the warps in index order.
       {
-        const int rows = min(TILE, r_end - t0);
+        const int ksteps = (min(TILE, r_end - t0) + 15) >> 4;
         const bool first = t0 == r_begin;
         float* out = part + (static_cast<int64_t>(cta) * depth + d) * ps;
-        if constexpr (P == 1) {  // 16 x 16 blocks, dealt to the warps in index order
-          const int ksteps = (rows + 15) >> 4;
-          const int nb = hlp >> 4;  // 16-column blocks of hl
-          for (int job = warp; job < 8 + 4 * nb; job += WARPS) {
-            if (job < 8) {  // dW1 [c][m], dW2 [m][c]
-              const int w = job >> 2, m0 = 16 * ((job >> 1) & 1), n0 = 16 * (job & 1);
-              mma_block(out + w * NW, DIM, DIM, DIM, w ? tHg : tG, tld, w ? tDy : tDt, tld,
-                        m0, n0, ksteps, first, lane);
-            } else if (job < 8 + 2 * nb) {  // dA [c][j]
-              const int k = job - 8;
-              mma_block(out + 2 * NW, hl, DIM, hl, tHn, tld, tDl, tlh, 16 * (k & 1),
-                        16 * (k >> 1), ksteps, first, lane);
-            } else {  // dZ [j][c]
-              const int k = job - 8 - 2 * nb;
-              mma_block(out + 2 * NW + n_az, DIM, hl, DIM, tAttn, tlh, tDx1, tld,
-                        16 * (k >> 1), 16 * (k & 1), ksteps, first, lane);
-            }
+        const int nb = hlp >> 4;  // 16-column blocks of hl
+        for (int job = warp; job < 8 + 4 * nb; job += WARPS) {
+          if (job < 8) {  // dW1 [c][m], dW2 [m][c]
+            const int w = job >> 2, m0 = 16 * ((job >> 1) & 1), n0 = 16 * (job & 1);
+            mma_block(out + w * NW, DIM, DIM, DIM, w ? tHg : tG, tld, w ? tDy : tDt, tld,
+                      m0, n0, ksteps, first, lane);
+          } else if (job < 8 + 2 * nb) {  // dA [c][j]
+            const int k = job - 8;
+            mma_block(out + 2 * NW, hl, DIM, hl, tHn, tld, tDl, tlh, 16 * (k & 1),
+                      16 * (k >> 1), ksteps, first, lane);
+          } else {  // dZ [j][c]
+            const int k = job - 8 - 2 * nb;
+            mma_block(out + 2 * NW + n_az, DIM, hl, DIM, tAttn, tlh, tDx1, tld,
+                      16 * (k >> 1), 16 * (k & 1), ksteps, first, lane);
           }
-        } else {
-          fma_sums(out, DIM, DIM, tG, tld, tDt, tld, rows, first, tid);
-          fma_sums(out + NW, DIM, DIM, tHg, tld, tDy, tld, rows, first, tid);
-          fma_sums(out + 2 * NW, DIM, hl, tHn, tld, tDl, tlh, rows, first, tid);
-          fma_sums(out + 2 * NW + n_az, hl, DIM, tAttn, tlh, tDx1, tld, rows, first, tid);
         }
       }
       __syncthreads();

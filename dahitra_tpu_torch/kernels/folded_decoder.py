@@ -24,9 +24,9 @@ staged in shared memory, the products on the fp32 FMA pipe, the residual in
 registers across all layers. K2 runs its six per-row products on tensor
 cores (``mma.sync`` bf16, a warp per 16 rows, chained in registers); in fp32
 each operand is split exactly into three bf16 pieces and a product is six
-piece products. K2's bf16 instance runs its four weight-side sums on tensor
-cores too, the fp32 one on the FMA pipe. K2 writes per-CTA weight-gradient
-partials and sums them in a second, fixed-order pass. K2 takes 1, 2, 4 or 8
+piece products; its four weight-side sums run on tensor cores too. K2
+writes per-CTA weight-gradient partials and sums them in a second,
+fixed-order pass. K2 takes 1, 2, 4 or 8
 tokens per head and an even hl (DAHiTra has 4 tokens, BIT 4 or 8).
 
 The kernels are built for ``mlp_dim`` = ``dim`` = 32, with the feed-forward
