@@ -55,9 +55,9 @@ launches_bwd = 0
 _DIM = 32
 _MAX_HL = 128
 _CLAMP = 80.0  # dahitra_tpu/nn/decoder_vjp.py _NOSHIFT_CLAMP
-# Rows per K2 CTA tile of each instance (csrc/decoder_bwd.cu TILE: 4 warps
+# Rows per K2 CTA tile, both instances (csrc/decoder_bwd.cu TILE: 4 warps
 # of 16 rows).
-_BWD_TILE = {torch.float32: 64, torch.bfloat16: 64}
+_BWD_TILE = 64
 # Tokens per head that K2 takes: a softmax group lies inside one 8-column
 # mma tile.
 _BWD_MMA_L = (1, 2, 4, 8)
@@ -266,14 +266,14 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
     return y
 
 
-def _bwd_rows_per_cta(b: int, n: int, slots: int, tile: int) -> int:
-    """K2's rows per CTA: a multiple of its ``tile`` rows (``_BWD_TILE``),
+def _bwd_rows_per_cta(b: int, n: int, slots: int) -> int:
+    """K2's rows per CTA: a multiple of its tile (``_BWD_TILE`` rows),
     chosen so that the grid is about ``slots`` CTAs, the number the card
     runs at once (``_bwd_slots``). Fewer, longer CTAs keep the partial-sum
     scratch small (tens of MB at the batch-8 training shapes)."""
-    tiles = -(-n // tile)
+    tiles = -(-n // _BWD_TILE)
     cps = max(1, min(tiles, -(-slots // b)))
-    return -(-tiles // cps) * tile
+    return -(-tiles // cps) * _BWD_TILE
 
 
 _slots = {}
@@ -333,8 +333,7 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
                          f"tokens per head and an even hl, got hl {hl}, "
                          f"heads {heads}")
     dev = dy.device
-    rows = _bwd_rows_per_cta(b, n, _bwd_slots(dev, dtype, hl),
-                             _BWD_TILE[dtype])
+    rows = _bwd_rows_per_cta(b, n, _bwd_slots(dev, dtype, hl))
     cps = -(-n // rows)
     part = torch.empty(b * cps * depth * (2 * _DIM * _DIM + 2 * _DIM * hl
                                           + 7 * _DIM),

@@ -1,9 +1,9 @@
 """What K2 (csrc/decoder_bwd.cu, ``decoder_stack_bwd_rows_mma``) relies on,
 held on the CPU.
 
-* The launch geometry: ``_bwd_rows_per_cta`` gives each CTA whole tiles of
-  its instance (64 rows in both dtypes), every row to exactly one CTA, no
-  CTA empty.
+* The launch geometry: ``_bwd_rows_per_cta`` gives each CTA whole 64-row
+  tiles, every row to exactly one CTA, no CTA empty, at the CTA slots each
+  instance has.
 * The padding rule: the kernel pads hl up to a multiple of 16 with zero
   columns of A, zero rows of Z and zero attention. With whole heads of zeros
   appended, ``decoder_stack_bwd_plain`` returns the same dx, dW1, dW2 and
@@ -25,14 +25,19 @@ DIM = 32
 TOKENS = 4
 
 
+# CTAs per SM of K2's row kernel (CUDA's occupancy calculator on the H100,
+# PERF.md): fp32 2 at every hl, bf16 3 at hl <= 64 and 2 at 128.
+CTAS_PER_SM = {torch.float32: (2,), torch.bfloat16: (2, 3)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b", [1, 2, 8, 16, 64])
 def test_rows_per_cta_gives_whole_tiles_and_covers_every_row_once(dtype, b):
-    tile = fd._BWD_TILE[dtype]
-    for slots in (2 * 132, 3 * 132, 2 * 114):
+    tile = fd._BWD_TILE
+    for slots in [k * sms for k in CTAS_PER_SM[dtype] for sms in (132, 114)]:
         for n in (1, 5, 16, 17, 63, 64, 65, 100, 113, 256, 1024, 4096, 4097,
                   16384, 65536):
-            rows = fd._bwd_rows_per_cta(b, n, slots, tile)
+            rows = fd._bwd_rows_per_cta(b, n, slots)
             assert rows > 0 and rows % tile == 0, (n, rows)
             cps = -(-n // rows)
             owner = np.zeros(n, np.int64)
