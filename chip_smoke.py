@@ -9,17 +9,19 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``dahitra_tpu_torch/csrc`` (one nvcc per
-     source, all started together, beside one more nvcc of K2's source with
-     ``-Xptxas -v``), and print the registers and spills of both K2
-     instances and the CTAs per SM of each at every main-path hl (CUDA's
-     occupancy calculator, which sizes K2's grid);
+     source, all started together, beside one more nvcc of each decoder
+     source, K1's and K2's, with ``-Xptxas -v``), and print the registers,
+     spills and ``HMMA.16816.F32.BF16`` instructions (``cuobjdump -sass``)
+     of the row kernels' instances (K1 and K1-save, K2; fp32 and bf16) and
+     the CTAs per SM of each at every main-path hl (CUDA's occupancy
+     calculator, which sizes K2's grid);
   3. hold each kernel against its plain PyTorch version on the card at every
      shape the main paths give it, in fp32 and bf16, and time the kernel,
      the plain version and, where one exists, a single PyTorch call that
      computes the same function: K1 and K1-save (the decoder-stack forward
-     without and with saves), K2 (its backward, from K1-save's saves, rerun
-     for the same bits and also timed behind queued work, ``device_ms``;
-     both instances on tensor cores, fp32 as three bf16 pieces), K3
+     without and with saves) and K2 (its backward, from K1-save's saves),
+     each rerun for the same bits and also timed behind queued work
+     (``device_ms``; all three on tensor cores, fp32 as three bf16 pieces), K3
      (the tokenizer) and K4 (the fused decoder of
      ``TransformerDecoder(pallas=True)``, in the fp32 and the bf16 model's
      mode, and its bf16-I/O instance at one shape); the decoder kernels also
@@ -234,43 +236,68 @@ def _decoder_operands(torch, dtype, gen, b, n, depth, heads):
     return ops, dy
 
 
-# K2's row kernel per instance: how its products run (the kernels line).
+# How the row kernels' products run, per instance (the kernels line).
+K1_DESIGN = {
+    "float32": "FMA pipe: one warp per token row, lane = channel",
+    "bfloat16": "tensor cores: mma.sync m16n8k16 bf16, the four per-row "
+                "products (hn.A, attn.Z, g.W1, h.W2), a warp per 16 rows kept "
+                "in registers across the layers"}
 K2_DESIGN = {
     "float32": "tensor cores: mma.sync m16n8k16 bf16, each fp32 operand split "
                "exactly into three bf16 pieces, six piece products per "
                "product, for the per-row products and the weight-side sums",
     "bfloat16": "tensor cores: mma.sync m16n8k16 bf16, the per-row products "
                 "and the weight-side sums"}
+# Row-kernel instances whose registers, spills, tensor-core instructions
+# and CTAs per SM phase 2 reports, per source: (instance, a fragment of its
+# mangled name, dtype, flags of the source's occupancy entry).
+_MANGLED = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
+ROW_KERNELS = {
+    "decoder_fwd": [(dname + "_save" * save, f"rows_mmaI{_MANGLED[dname]}Lb{save}E",
+                     dname, (save,))
+                    for dname in ("bfloat16",) for save in (0, 1)],
+    "decoder_bwd": [(dname, f"rows_mmaI{_MANGLED[dname]}E", dname, ())
+                    for dname in ("float32", "bfloat16")]}
 
 
-def start_ptxas_report(tmp):
-    """One more nvcc of K2's source with the build's flags and ``-Xptxas
-    -v``, started beside the build; ``k2_resources`` reads it."""
+def start_ptxas_report(tmp, source):
+    """One more nvcc of ``csrc/<source>.cu`` with the build's flags and
+    ``-Xptxas -v``, started beside the build; ``row_kernel_resources`` reads
+    it."""
     from dahitra_tpu_torch.kernels import _build
 
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-           os.path.join(tmp, "decoder_bwd_ptxas.so"),
-           str(_build._CSRC / "decoder_bwd.cu")]
+           os.path.join(tmp, f"{source}_ptxas.so"),
+           str(_build._CSRC / f"{source}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
-def k2_resources(torch, proc) -> dict:
-    """Registers and spill bytes of both K2 row-kernel instances (ptxas) and
-    the CTAs per SM of each at every main-path hl (the occupancy entry that
-    sizes K2's grid)."""
+def row_kernel_resources(torch, tmp, source, proc) -> dict:
+    """Registers and spill bytes (ptxas) and ``HMMA.16816.F32.BF16``
+    instructions (``cuobjdump -sass``) of each instance of
+    ``ROW_KERNELS[source]``, and its CTAs per SM at every main-path hl (the
+    source's occupancy entry; it sizes K2's grid)."""
+    from dahitra_tpu_torch.kernels import _build
     from dahitra_tpu_torch.kernels import folded_decoder as fd
 
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        fail(f"nvcc -Xptxas -v of decoder_bwd.cu failed:\n{log}")
+        fail(f"nvcc -Xptxas -v of {source}.cu failed:\n{log}")
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+         os.path.join(tmp, f"{source}_ptxas.so")],
+        capture_output=True, text=True, check=True).stdout
+    instances = ROW_KERNELS[source]
+
+    def instance(line):
+        return next((inst for inst, frag, *_ in instances if frag in line), None)
+
     out, inst = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            name = entry.group(1)
-            inst = ("float32" if "rows_mmaIfE" in name else "bfloat16"
-                    if "rows_mmaI13__nv_bfloat16E" in name else None)
+            inst = instance(entry.group(1))
             continue
         if inst is None:
             continue
@@ -283,13 +310,21 @@ def k2_resources(torch, proc) -> dict:
                 spill_load_bytes=int(spill.group(2)))
         if regs:
             out.setdefault(inst, {})["registers"] = int(regs.group(1))
+    inst = None
+    for line in sass.splitlines():
+        func = re.search(r"Function : (\S+)", line)
+        if func:
+            inst = instance(func.group(1))
+        elif inst is not None and "HMMA.16816.F32.BF16" in line:
+            out.setdefault(inst, {})["hmma"] = out[inst].get("hmma", 0) + 1
     hls = sorted({heads * TOKENS for *_, heads in K1_SHAPES + [K1_SHAPE_512]})
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        if "registers" not in out.get(dname, {}):
-            fail(f"no ptxas report of K2's {dname} row kernel:\n{log}")
-        out[dname]["ctas_per_sm"] = {hl: fd._bwd_ctas_per_sm(dtype, hl)
-                                     for hl in hls}
+    for inst, _, dname, flags in instances:
+        if "registers" not in out.get(inst, {}) or not out[inst].get("hmma"):
+            fail(f"no ptxas report or no HMMA.16816.F32.BF16 of {source}.cu's "
+                 f"{inst} row kernel:\n{log}")
+        out[inst]["ctas_per_sm"] = {
+            hl: fd._ctas_per_sm(source, getattr(torch, dname), hl, *flags)
+            for hl in hls}
     return out
 
 
@@ -301,7 +336,8 @@ def _k1_ops(b, n, depth, hl):
 
 
 def check_k1(torch, dtype, gen):
-    """K1 against its plain version at every main-path decoder shape."""
+    """K1 against its plain version at every main-path decoder shape, and a
+    rerun for the same bits."""
     from dahitra_tpu_torch.kernels import folded_decoder as fd
 
     dname = str(dtype).split(".")[-1]
@@ -314,6 +350,9 @@ def check_k1(torch, dtype, gen):
         err, serr = scaled_err(got, ref)
         if not (torch.isfinite(got.float()).all() and serr <= TOL[dname]):
             fail(f"K1 {name} {dname}: scaled error {serr:.3e} > {TOL[dname]}")
+        if not torch.equal(got, fd.decoder_stack_fwd(*ops_in, depth, heads,
+                                                     dtype)):
+            fail(f"K1 {name} {dname}: a second run gave other bits")
         hl = heads * TOKENS
         size = torch.finfo(dtype).bits // 8
         nbytes = (2 * b * n * DIM + sum(t.numel() for t in ops_in[1:5])) * size \
@@ -325,6 +364,8 @@ def check_k1(torch, dtype, gen):
             "ms": time_ms(lambda: fd.decoder_stack_fwd(*ops_in, depth, heads,
                                                        dtype), torch,
                           **_reps(n)),
+            "device_ms": time_ms(lambda: fd.decoder_stack_fwd(
+                *ops_in, depth, heads, dtype), torch, queued=True, **_reps(n)),
             "plain_ms": time_ms(lambda: fd.decoder_stack_fwd_plain(
                 *ops_in, depth, heads, dtype), torch, **_reps(n)),
             "bound_ms": bms, "bound_by": by, "library_ms": None})
@@ -334,8 +375,8 @@ def check_k1(torch, dtype, gen):
 def check_k1_save_k2(torch, dtype, gen):
     """K1 with saves (y and both saves) and K2 (every gradient, from the
     kernel's own saves) against their plain versions at every training
-    decoder shape, and a K2 rerun for the same bits; no single PyTorch call
-    computes either, so no library yardstick."""
+    decoder shape, and a rerun of each for the same bits; no single PyTorch
+    call computes either, so no library yardstick."""
     from dahitra_tpu_torch.kernels import folded_decoder as fd
 
     dname = str(dtype).split(".")[-1]
@@ -355,6 +396,9 @@ def check_k1_save_k2(torch, dtype, gen):
         if not torch.equal(got[0], fd.decoder_stack_fwd(*ops_in, depth, heads,
                                                         dtype)):
             fail(f"K1-save {name} {dname}: y differs from K1's")
+        if not all(torch.equal(g, h) for g, h in zip(got, fd.decoder_stack_fwd(
+                *ops_in, depth, heads, dtype, save=True))):
+            fail(f"K1-save {name} {dname}: a second run gave other bits")
         again = fd.decoder_stack_bwd(got[1], got[2], dy, *ops_in[1:], depth,
                                      heads, dtype)
         if not all(torch.equal(g, h) for g, h in zip(grads, again)):
@@ -379,6 +423,9 @@ def check_k1_save_k2(torch, dtype, gen):
             "scaled_err": max(e[1] for e in errs),
             "ms": time_ms(lambda: fd.decoder_stack_fwd(
                 *ops_in, depth, heads, dtype, save=True), torch, **_reps(n)),
+            "device_ms": time_ms(lambda: fd.decoder_stack_fwd(
+                *ops_in, depth, heads, dtype, save=True), torch, queued=True,
+                **_reps(n)),
             "plain_ms": time_ms(lambda: fd.decoder_stack_fwd_plain(
                 *ops_in, depth, heads, dtype, save=True), torch, **_reps(n)),
             "bound_ms": bms, "bound_by": by, "library_ms": None})
@@ -631,7 +678,8 @@ def summarize(name, source, replaces, dname, rows, launches, tol,
 _CLASSES = (("K4 fused_decoder", ("fused_decoder",)),
             ("K1-save decoder_stack_fwd (save)",
              ("decoder_stack_fwd_kernel<float, true>",
-              "decoder_stack_fwd_kernel<__nv_bfloat16, true>")),
+              "decoder_stack_fwd_rows_mma<float, true>",
+              "decoder_stack_fwd_rows_mma<__nv_bfloat16, true>")),
             ("K1 decoder_stack_fwd", ("decoder_stack_fwd",)),
             ("K2 decoder_stack_bwd", ("decoder_stack_bwd",)),
             ("K3 semantic_tokenizer", ("stats_kernel", "pool_kernel")),
@@ -1060,14 +1108,16 @@ def main() -> None:
     print(smi, flush=True)
     disable_tf32()
 
-    # 2. build, and K2's registers, spills and CTAs per SM
+    # 2. build, and the decoder row kernels' registers, spills, HMMA
+    # instructions and CTAs per SM
     t0 = time.time()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    ptxas = start_ptxas_report(tmp)
+    ptxas = {src: start_ptxas_report(tmp, src) for src in ROW_KERNELS}
     _build.build(_build.sources())
     print(f"build: {_build.sources()} in {time.time() - t0:.1f} s", flush=True)
-    resources = k2_resources(torch, ptxas)
-    print(json.dumps({"k2_resources": resources}), flush=True)
+    resources = {src: row_kernel_resources(torch, tmp, src, proc)
+                 for src, proc in ptxas.items()}
+    print(json.dumps({"row_kernel_resources": resources}), flush=True)
 
     # 3. kernels against their plain versions
     torch.manual_seed(0)
@@ -1197,18 +1247,21 @@ def main() -> None:
 
     kernels = []
     src = "dahitra_tpu_torch/csrc/"
+    fwd_res = resources["decoder_fwd"]
+    k1_res = {d: fwd_res.get(d) for d in ("float32", "bfloat16")}
+    k1_save_res = {d: fwd_res.get(d + "_save") for d in ("float32", "bfloat16")}
     # (name, source, TPU kernel, checks, the 256 px phase whose count is
     # ``launches``, counter, tolerances, extra keys)
     table = (
         ("decoder_stack_fwd", "decoder_fwd.cu",
          "dahitra_tpu/pallas/folded_decoder.py:180", "k1", "eval_256", "k1",
-         TOL, {}),
+         TOL, {"design": K1_DESIGN, "resources": k1_res}),
         ("decoder_stack_fwd_save", "decoder_fwd.cu",
          "dahitra_tpu/pallas/folded_decoder.py:180", "k1_save", "train_256",
-         "k1_save", TOL, {}),
+         "k1_save", TOL, {"design": K1_DESIGN, "resources": k1_save_res}),
         ("decoder_stack_bwd", "decoder_bwd.cu",
          "dahitra_tpu/pallas/folded_decoder.py:320", "k2", "train_256", "k2",
-         GTOL, {"design": K2_DESIGN, "resources": resources}),
+         GTOL, {"design": K2_DESIGN, "resources": resources["decoder_bwd"]}),
         ("semantic_tokenizer", "tokenizer.cu",
          "dahitra_tpu/pallas/fused_tokenizer.py:42", "k3", "eval_256", "k3",
          TOL, {"empty_launch_ms": {"float32": floor_ms,

@@ -22,27 +22,44 @@
 // where nn/decoder_vjp._layer_fwd rounds. The TPU kernel's 4-pixel lane
 // fold, kron lifts and hi/lo bf16 split exist for the MXU and are dropped.
 //
-// Design: one warp per token row, lane = channel. A CTA owns
-// WARPS * ROWS_PER_WARP consecutive rows of one sample and keeps them in
-// registers across all layers, so x is read once and written once. Each
-// layer's A, Z, W1, W2 and vectors are staged in shared memory as fp32.
-// LN statistics are warp shuffles; values a lane must broadcast (hn, the
-// attention row, g, gelu(t)) go through a per-warp shared buffer.
-//
 // Bound on this card: ~8.2 kFLOP per row per layer (at hl = 32) against 128
 // (bf16) or 256 (fp32) bytes per row for the whole stack, so the work is
-// bounded by operations, not bytes. This first version runs its products on
-// the fp32 FMA pipe and reads one shared-memory operand per FMA; moving the
-// row products onto tensor cores (mma/wgmma over 64-row tiles) is later work.
-#include "decoder_common.cuh"
+// bounded by operations, not bytes.
+//
+// Design (bf16): the four per-row products (hn.A, attn.Z, g.W1, h.W2) run
+// on the tensor cores as mma.sync m16n8k16 with fp32 accumulation. A warp
+// owns 16 rows, kept in registers across all layers in the fragment layout
+// of decoder_mma.cuh, so x is read once and y written once. A product's
+// accumulators, rounded where _layer_fwd rounds and packed to bf16 pairs,
+// are the A fragment of the next product: hn -> dots, 16 columns of hl at
+// a time -> softmax -> attn, whose 16 columns are at once one k-step of
+// attn.Z; then x1 -> g -> t -> h -> x2. LayerNorm statistics and the
+// softmax group sums (l = 1, 2, 4 or 8 consecutive columns: the pair a
+// thread holds, then shuffles 1 and 2 lanes apart) stay inside the quad of
+// lanes that holds a row. Each layer's A, Z, W1 and W2 are staged once per
+// CTA in bf16, rows padded for ldmatrix, hl zero-padded to a multiple of
+// 16: whole zero heads (l divides 16), whose attention stays in its own
+// group and meets zero rows of Z. attn.Z and g.W1 take K2's k-step order,
+// so K2's recomputed x1 and g are these bits. With SAVE, x_in and the
+// first hl columns of attn are stored from the fragments.
+//
+// fp32 still runs the first version: one warp per token row, lane =
+// channel, the products on the fp32 FMA pipe with one shared-memory operand
+// per FMA, LN statistics as warp shuffles and a per-warp shared buffer for
+// the values a lane must broadcast.
+#include "decoder_mma.cuh"
 
 namespace {
 
 using namespace decoder;
 
-constexpr int WARPS = 8;
+constexpr int NV = 7 * DIM;    // the seven vectors
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int TILE = WARPS * 16;  // rows per CTA
+constexpr int FMA_WARPS = 8;
 constexpr int ROWS_PER_WARP = 4;
-constexpr int ROWS_PER_CTA = WARPS * ROWS_PER_WARP;
+constexpr int ROWS_PER_CTA = FMA_WARPS * ROWS_PER_WARP;
 
 // One layer for one row. With SAVE, the row's attention (hl values, rounded
 // to T) is stored at attn_out.
@@ -127,7 +144,7 @@ __device__ float decoder_layer(float v, int lane, float* buf, const float* sA,
 // [ln1_scale, ln1_bias, bo, ln2_scale, ln2_bias, b1, b2]. With SAVE,
 // xsave: (D, B, N, 32) and attnsave: (D, B, N, hl) in T.
 template <typename T, bool SAVE>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(FMA_WARPS * 32)
 decoder_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
                          const T* __restrict__ z, const T* __restrict__ w1,
                          const T* __restrict__ w2, const float* __restrict__ vecs,
@@ -139,7 +156,7 @@ decoder_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
   __shared__ float sW1[DIM * DIM];
   __shared__ float sW2[DIM * DIM];
   __shared__ float sV[7 * DIM];
-  __shared__ float sBuf[WARPS][MAX_HL];
+  __shared__ float sBuf[FMA_WARPS][MAX_HL];
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -157,15 +174,15 @@ decoder_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
   for (int d = 0; d < depth; ++d) {
     __syncthreads();  // every warp is done with layer d-1's weights
     const int64_t az_off = (static_cast<int64_t>(d) * B + b) * DIM * hl;
-    for (int i = tid; i < DIM * hl; i += WARPS * 32) {
+    for (int i = tid; i < DIM * hl; i += FMA_WARPS * 32) {
       sA[i] = to_f(a[az_off + i]);
       sZ[i] = to_f(z[az_off + i]);
     }
-    for (int i = tid; i < DIM * DIM; i += WARPS * 32) {
+    for (int i = tid; i < DIM * DIM; i += FMA_WARPS * 32) {
       sW1[i] = to_f(w1[d * DIM * DIM + i]);
       sW2[i] = to_f(w2[d * DIM * DIM + i]);
     }
-    for (int i = tid; i < 7 * DIM; i += WARPS * 32) {
+    for (int i = tid; i < 7 * DIM; i += FMA_WARPS * 32) {
       const int k = i / DIM;
       const float v = vecs[d * 7 * DIM + i];
       // bo, b1, b2 enter the stack cast to T; the LN parameters stay fp32.
@@ -193,17 +210,227 @@ decoder_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
 }
 
 template <typename T, bool SAVE>
-int launch(const void* x, const void* a, const void* z, const void* w1,
+int launch_fma(const void* x, const void* a, const void* z, const void* w1,
            const void* w2, const void* vecs, void* y, void* xsave,
            void* attnsave, int B, int N, int depth, int hl, int l,
            void* stream) {
   const dim3 grid((N + ROWS_PER_CTA - 1) / ROWS_PER_CTA, B);
-  decoder_stack_fwd_kernel<T, SAVE><<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  decoder_stack_fwd_kernel<T, SAVE><<<grid, FMA_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const T*>(z),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
       static_cast<const float*>(vecs), static_cast<T*>(y),
       static_cast<T*>(xsave), static_cast<T*>(attnsave), B, N, depth, hl, l);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One layer for the warp's 16 rows, v (fragment layout) in and out; rows
+// whose ok flag is false compute on zeros and store nothing. With SAVE, x_in
+// is stored at xsave (row srow and srow + 8) and the attention row at
+// attnsave, its first hl columns.
+template <typename T, bool SAVE>
+__device__ __forceinline__ void layer_rows(float (&v)[16], const __nv_bfloat16* sA,
+                                           const __nv_bfloat16* sZ,
+                                           const __nv_bfloat16* sW1,
+                                           const __nv_bfloat16* sW2, const float* sV,
+                                           int plane, int hl, int l, bool ok0, bool ok1,
+                                           int64_t srow, T* xsave, T* attnsave, int lane) {
+  constexpr int P = pieces<T>();
+  const int t = lane & 3;
+  const int hlp = pad16(hl);
+  if (SAVE) {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int n = p >> 1, r = p & 1;
+      if (r ? ok1 : ok0)
+        st_pair(xsave + (srow + 8 * r) * DIM + 8 * n + 2 * t, v[2 * p], v[2 * p + 1]);
+    }
+  }
+  float xhat[16], rs[2], u[16], acc[16];
+  uint32_t fr[2][P][4];
+
+  // ---- attention: dots = hn . A and attn . Z, 16 columns of hl at a time ----
+  ln_rows(v, xhat, rs);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
+    u[i] = rnd<T>(xhat[i] * sV[ch] + sV[DIM + ch]);  // hn
+    acc[i] = 0.0f;
+  }
+  frag32<P>(fr, u);
+  for (int jj = 0; jj < hlp / 16; ++jj) {
+    float e[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, s[8];
+    mma_pair<true, P>(e, fr[0], sA, plane, hlp + 8, 0, 16 * jj, lane);
+    mma_pair<true, P>(e, fr[1], sA, plane, hlp + 8, 16, 16 * jj, lane);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float dots = rnd<T>(e[i]) * SCALE;
+      e[i] = expf(fminf(fmaxf(dots, -CLAMP), CLAMP));
+      s[i] = e[i];
+    }
+    // The group sum over l consecutive columns: the pair a thread holds,
+    // then lanes 1 and 2 apart.
+    if (l >= 2) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s[2 * q] = s[2 * q + 1] = s[2 * q] + s[2 * q + 1];
+    }
+    if (l >= 4) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
+    }
+    if (l >= 8) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
+    }
+    uint32_t at[P][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float a0 = rnd<T>(e[2 * q] / s[2 * q]);
+      const float a1 = rnd<T>(e[2 * q + 1] / s[2 * q + 1]);
+      const int r = q & 1, col = 16 * jj + 8 * (q >> 1) + 2 * t;
+      if (SAVE && (r ? ok1 : ok0) && col < hl)
+        st_pair(attnsave + (srow + 8 * r) * hl + col, a0, a1);
+      split_pair<P>(a0, a1, at, q);
+    }
+    mma_pair<true, P>(acc, at, sZ, plane, WLD, 16 * jj, 0, lane);  // ao = attn . Z
+    mma_pair<true, P>(acc + 8, at, sZ, plane, WLD, 16 * jj, 16, lane);
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
+    v[i] = rnd<T>(rnd<T>(v[i] + rnd<T>(acc[i])) + sV[2 * DIM + ch]);  // x1
+  }
+
+  // ---- feed-forward ----
+  ln_rows(v, xhat, rs);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
+    u[i] = rnd<T>(xhat[i] * sV[3 * DIM + ch] + sV[4 * DIM + ch]);  // g
+    acc[i] = 0.0f;
+  }
+  frag32<P>(fr, u);
+  mma_row32<true, P>(acc, fr, sW1, plane, lane);  // g . W1
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
+    u[i] = rnd<T>(gelu(rnd<T>(rnd<T>(acc[i]) + sV[5 * DIM + ch])));  // h
+    acc[i] = 0.0f;
+  }
+  frag32<P>(fr, u);
+  mma_row32<true, P>(acc, fr, sW2, plane, lane);  // h . W2
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
+    v[i] = rnd<T>(rnd<T>(v[i] + rnd<T>(acc[i])) + sV[6 * DIM + ch]);  // x2
+  }
+}
+
+template <typename T>
+__host__ __device__ __forceinline__ size_t smem_bytes(int hl) {
+  return 2 * pieces<T>() * plane_size(hl) + 4 * NV;  // weight planes, vectors
+}
+
+// x, y: (B, N, 32); a: (D, B, 32, hl); z: (D, B, hl, 32); w1, w2: (D, 32, 32)
+// laid out (in, out); vecs: (D, 7, 32) fp32 rows
+// [ln1_scale, ln1_bias, bo, ln2_scale, ln2_bias, b1, b2]. With SAVE,
+// xsave: (D, B, N, 32) and attnsave: (D, B, N, hl) in T. l, the tokens per
+// head, is 1, 2, 4 or 8 and hl is even. Grid (row tiles of TILE, B).
+template <typename T, bool SAVE>
+__global__ void __launch_bounds__(THREADS)
+decoder_stack_fwd_rows_mma(const T* __restrict__ x, const T* __restrict__ a,
+                           const T* __restrict__ z, const T* __restrict__ w1,
+                           const T* __restrict__ w2, const float* __restrict__ vecs,
+                           T* __restrict__ y, T* __restrict__ xsave,
+                           T* __restrict__ attnsave, int B, int N, int depth, int hl,
+                           int l) {
+  constexpr int P = pieces<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hlp = pad16(hl);
+  const int ald = hlp + 8;
+  const int plane = plane_size(hl);
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [c][j]
+  __nv_bfloat16* sZ = sA + DIM * ald;                               // [j][c]
+  __nv_bfloat16* sW1 = sZ + hlp * WLD;                              // [c][m]
+  __nv_bfloat16* sW2 = sW1 + DIM * WLD;                             // [m][c]
+  float* sV = reinterpret_cast<float*>(sA + P * plane);
+
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = blockIdx.x * TILE + warp * 16;  // the warp's first row
+  const bool active = wrow < N;                    // warp-uniform
+  const bool ok0 = wrow + g < N, ok1 = wrow + g + 8 < N;
+  const int64_t xrow = static_cast<int64_t>(b) * N + wrow + g;
+  const int n_az = DIM * hl;
+
+  float v[16];
+  row_load(x, xrow, ok0, ok1, t, v);
+  for (int d = 0; d < depth; ++d) {
+    __syncthreads();  // every warp is done with layer d-1's weights
+    const int64_t az_off = (static_cast<int64_t>(d) * B + b) * n_az;
+    for (int i = tid; i < DIM * hlp; i += THREADS) {
+      const int c = i / hlp, j = i - c * hlp;  // A[c][j], zero past hl
+      stage<P>(sA + c * ald + j, plane, j < hl ? to_f(a[az_off + c * hl + j]) : 0.0f);
+      const int jz = i >> 5, cz = i & (DIM - 1);  // Z[j][c], zero rows past hl
+      stage<P>(sZ + jz * WLD + cz, plane, jz < hl ? to_f(z[az_off + i]) : 0.0f);
+    }
+    for (int i = tid; i < DIM * DIM; i += THREADS) {
+      stage<P>(sW1 + (i >> 5) * WLD + (i & (DIM - 1)), plane, to_f(w1[d * DIM * DIM + i]));
+      stage<P>(sW2 + (i >> 5) * WLD + (i & (DIM - 1)), plane, to_f(w2[d * DIM * DIM + i]));
+    }
+    for (int i = tid; i < NV; i += THREADS) {
+      const int k = i / DIM;
+      const float val = vecs[d * NV + i];
+      // bo, b1, b2 enter the stack cast to T; the LN parameters stay fp32.
+      sV[i] = (k == 2 || k == 5 || k == 6) ? rnd<T>(val) : val;
+    }
+    __syncthreads();
+    if (active)
+      layer_rows<T, SAVE>(v, sA, sZ, sW1, sW2, sV, plane, hl, l, ok0, ok1,
+                          (static_cast<int64_t>(d) * B + b) * N + wrow + g, xsave,
+                          attnsave, lane);
+  }
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int n = p >> 1, r = p & 1;
+    if (r ? ok1 : ok0)
+      st_pair(y + (xrow + 8 * r) * DIM + 8 * n + 2 * t, v[2 * p], v[2 * p + 1]);
+  }
+}
+
+template <typename T, bool SAVE>
+cudaError_t set_smem(int hl) {
+  return cudaFuncSetAttribute(decoder_stack_fwd_rows_mma<T, SAVE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem_bytes<T>(hl)));
+}
+
+template <typename T, bool SAVE>
+int launch(const void* x, const void* a, const void* z, const void* w1,
+           const void* w2, const void* vecs, void* y, void* xsave,
+           void* attnsave, int B, int N, int depth, int hl, int l,
+           void* stream) {
+  const cudaError_t err = set_smem<T, SAVE>(hl);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + TILE - 1) / TILE, B);
+  decoder_stack_fwd_rows_mma<T, SAVE>
+      <<<grid, THREADS, smem_bytes<T>(hl), static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const T*>(z),
+          static_cast<const T*>(w1), static_cast<const T*>(w2),
+          static_cast<const float*>(vecs), static_cast<T*>(y),
+          static_cast<T*>(xsave), static_cast<T*>(attnsave), B, N, depth, hl, l);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the kernel that one SM holds at once for this hl (its registers
+// and shared memory decide), written to *out.
+template <typename T, bool SAVE>
+int ctas_per_sm(int hl, int* out) {
+  const cudaError_t err = set_smem<T, SAVE>(hl);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, decoder_stack_fwd_rows_mma<T, SAVE>, THREADS, smem_bytes<T>(hl)));
 }
 
 }  // namespace
@@ -212,8 +439,18 @@ extern "C" int decoder_stack_fwd_f32(const void* x, const void* a, const void* z
                                      const void* w1, const void* w2,
                                      const void* vecs, void* y, int B, int N,
                                      int depth, int hl, int l, void* stream) {
-  return launch<float, false>(x, a, z, w1, w2, vecs, y, nullptr, nullptr, B, N,
-                              depth, hl, l, stream);
+  return launch_fma<float, false>(x, a, z, w1, w2, vecs, y, nullptr, nullptr, B, N,
+                                  depth, hl, l, stream);
+}
+
+extern "C" int decoder_stack_fwd_save_f32(const void* x, const void* a,
+                                          const void* z, const void* w1,
+                                          const void* w2, const void* vecs,
+                                          void* y, void* xsave, void* attnsave,
+                                          int B, int N, int depth, int hl,
+                                          int l, void* stream) {
+  return launch_fma<float, true>(x, a, z, w1, w2, vecs, y, xsave, attnsave, B, N,
+                                 depth, hl, l, stream);
 }
 
 extern "C" int decoder_stack_fwd_bf16(const void* x, const void* a, const void* z,
@@ -224,16 +461,6 @@ extern "C" int decoder_stack_fwd_bf16(const void* x, const void* a, const void* 
                                       B, N, depth, hl, l, stream);
 }
 
-extern "C" int decoder_stack_fwd_save_f32(const void* x, const void* a,
-                                          const void* z, const void* w1,
-                                          const void* w2, const void* vecs,
-                                          void* y, void* xsave, void* attnsave,
-                                          int B, int N, int depth, int hl,
-                                          int l, void* stream) {
-  return launch<float, true>(x, a, z, w1, w2, vecs, y, xsave, attnsave, B, N,
-                             depth, hl, l, stream);
-}
-
 extern "C" int decoder_stack_fwd_save_bf16(const void* x, const void* a,
                                            const void* z, const void* w1,
                                            const void* w2, const void* vecs,
@@ -242,4 +469,9 @@ extern "C" int decoder_stack_fwd_save_bf16(const void* x, const void* a,
                                            int l, void* stream) {
   return launch<__nv_bfloat16, true>(x, a, z, w1, w2, vecs, y, xsave, attnsave,
                                      B, N, depth, hl, l, stream);
+}
+
+extern "C" int decoder_stack_fwd_ctas_per_sm_bf16(int hl, int save, int* out) {
+  return save ? ctas_per_sm<__nv_bfloat16, true>(hl, out)
+              : ctas_per_sm<__nv_bfloat16, false>(hl, out);
 }

@@ -16,18 +16,19 @@ The memory-token side (``build_az`` in nn/decoder_vjp.py) is computed
 outside, as in the JAX package; the kernels consume the per-sample
 A (D, B, 32, hl) and Z (D, B, hl, 32).
 
-Sources: ``csrc/decoder_fwd.cu``, ``csrc/decoder_bwd.cu``. Bound on this
-card: operations (K1 ~8 kFLOP, K2 ~20 kFLOP per 32-wide row per layer at
-hl = 32, against 2 * (32 + hl) bytes of saves per row and layer in bf16).
-Design: K1 runs one warp per row, lane = channel, each layer's weights
-staged in shared memory, the products on the fp32 FMA pipe, the residual in
-registers across all layers. K2 runs its six per-row products on tensor
-cores (``mma.sync`` bf16, a warp per 16 rows, chained in registers); in fp32
-each operand is split exactly into three bf16 pieces and a product is six
-piece products; its four weight-side sums run on tensor cores too. K2
-writes per-CTA weight-gradient partials and sums them in a second,
-fixed-order pass. K2 takes 1, 2, 4 or 8
-tokens per head and an even hl (DAHiTra has 4 tokens, BIT 4 or 8).
+Sources: ``csrc/decoder_fwd.cu``, ``csrc/decoder_bwd.cu`` and the fragment
+code they share, ``csrc/decoder_mma.cuh``. Bound on this card: operations
+(K1 ~8 kFLOP, K2 ~20 kFLOP per 32-wide row per layer at hl = 32, against
+2 * (32 + hl) bytes of saves per row and layer in bf16). Design: both run
+their per-row products on tensor cores (``mma.sync`` bf16, a warp per 16
+rows, each product's accumulators packed into the next one's A fragment);
+in fp32 each operand is split exactly into three bf16 pieces and a product
+is six piece products. K1 keeps the rows in registers across all layers
+and stages each layer's weights once per 64-row CTA; K2 runs its four
+weight-side sums on tensor cores too, writes per-CTA weight-gradient
+partials and sums them in a second, fixed-order pass. Both take 1, 2, 4 or
+8 tokens per head and an even hl (DAHiTra has 4 tokens, BIT 4 or 8); on a
+CUDA tensor anything else raises.
 
 The kernels are built for ``mlp_dim`` = ``dim`` = 32, with the feed-forward
 bias ``b1`` as row 5 of ``vecs``. The plain versions take any ``mlp_dim``:
@@ -58,9 +59,9 @@ _CLAMP = 80.0  # dahitra_tpu/nn/decoder_vjp.py _NOSHIFT_CLAMP
 # Rows per K2 CTA tile, both instances (csrc/decoder_bwd.cu TILE: 4 warps
 # of 16 rows).
 _BWD_TILE = 64
-# Tokens per head that K2 takes: a softmax group lies inside one 8-column
-# mma tile.
-_BWD_MMA_L = (1, 2, 4, 8)
+# Tokens per head that K1 and K2 take: a softmax group lies inside one
+# 8-column mma tile.
+_MMA_L = (1, 2, 4, 8)
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Rows of vecs: per-layer vectors in this order.
 VEC_KEYS = ("ln1_scale", "ln1_bias", "bo", "ln2_scale", "ln2_bias", "b1", "b2")
@@ -214,6 +215,13 @@ def _check(what, tensors, dtype, heads, hl, shapes_ok):
                          f"{[tuple(t.shape) for t in tensors]}, heads {heads}")
 
 
+def _refuse_group(what, hl, heads):
+    """The kernels take 1, 2, 4 or 8 tokens per head and an even hl."""
+    if hl % 2 or hl // heads not in _MMA_L:
+        raise ValueError(f"{what}: the kernel takes {_MMA_L} tokens per head "
+                         f"and an even hl, got hl {hl}, heads {heads}")
+
+
 def _refuse_mlp_dim(what, w1, b1):
     """The kernels exist for mlp_dim = 32 only; off the CPU any other width
     raises (the plain version never runs there)."""
@@ -247,6 +255,7 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
                  and vecs.shape == (depth, 7, _DIM))
     _check("decoder_stack_fwd", (x, a, z, w1, w2, vecs), dtype, heads, hl,
            shapes_ok)
+    _refuse_group("decoder_stack_fwd", hl, heads)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [t.data_ptr() for t in (x, a, z, w1, w2, vecs, y)]
@@ -279,15 +288,17 @@ def _bwd_rows_per_cta(b: int, n: int, slots: int) -> int:
 _slots = {}
 
 
-def _bwd_ctas_per_sm(dtype, hl: int) -> int:
-    """CTAs of K2's row kernel in ``dtype`` that one SM holds at once at this
-    hl, as the CUDA occupancy calculator counts them (registers and shared
-    memory decide)."""
+def _ctas_per_sm(lib: str, dtype, hl: int, *flags) -> int:
+    """CTAs of the row kernel of ``csrc/<lib>.cu`` in ``dtype`` that one SM
+    holds at once at this hl, as the CUDA occupancy calculator counts them
+    (registers and shared memory decide): ``decoder_bwd``, K2;
+    ``decoder_fwd``, K1 (flag 0) or K1-save (flag 1)."""
     per_sm = ctypes.c_int(0)
-    fn = getattr(_build.load("decoder_bwd"),
-                 f"decoder_stack_bwd_ctas_per_sm_{_DTYPES[dtype]}")
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    _build.check(fn(hl, ctypes.byref(per_sm)), "decoder_stack_bwd occupancy")
+    fn = getattr(_build.load(lib), f"decoder_stack_{lib[-3:]}_ctas_per_sm_"
+                 f"{_DTYPES[dtype]}")
+    fn.argtypes = [ctypes.c_int] * (1 + len(flags)) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(hl, *flags, ctypes.byref(per_sm)), f"{lib} occupancy")
     return max(1, per_sm.value)
 
 
@@ -297,7 +308,7 @@ def _bwd_slots(dev, dtype, hl: int) -> int:
     key = (dev.index, dtype, hl)
     if key not in _slots:
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        _slots[key] = _bwd_ctas_per_sm(dtype, hl) * n_sm
+        _slots[key] = _ctas_per_sm("decoder_bwd", dtype, hl) * n_sm
     return _slots[key]
 
 
@@ -328,10 +339,7 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
                  and vecs.shape == (depth, 7, _DIM))
     _check("decoder_stack_bwd", (xsave, attnsave, dy, a, z, w1, w2, vecs),
            dtype, heads, hl, shapes_ok)
-    if hl % 2 or hl // heads not in _BWD_MMA_L:
-        raise ValueError(f"decoder_stack_bwd: the kernel takes {_BWD_MMA_L} "
-                         f"tokens per head and an even hl, got hl {hl}, "
-                         f"heads {heads}")
+    _refuse_group("decoder_stack_bwd", hl, heads)
     dev = dy.device
     rows = _bwd_rows_per_cta(b, n, _bwd_slots(dev, dtype, hl))
     cps = -(-n // rows)

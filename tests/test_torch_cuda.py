@@ -69,32 +69,37 @@ def _stack_case(card, dtype, b, n, depth, heads, seed=0):
     return dec, x, m, ops, torch.randn(b, n, 32, generator=g).to(card, dtype)
 
 
-# K2 (tensor cores, 16-row warp tiles, 64-row CTA tiles) at its edges, in
-# both dtypes: n below one warp tile (5), n = 16 k + 1, one sample, hl = 8
-# (zero-padded to 16: two whole zero heads), hl = 64 at a ragged n, and the
-# 256 px dates depth at N = 4096.
-K2_EDGES = [(dtype, *shape) for shape in [(2, 5, 2, 4), (2, 113, 2, 8),
-                                          (1, 300, 4, 8), (2, 100, 2, 2),
-                                          (2, 200, 2, 16), (2, 4096, 8, 8)]
-            for dtype in (torch.float32, torch.bfloat16)]
+# The edges of K1, K1-save and K2 (tensor cores, 16-row warp tiles, 64-row
+# CTA tiles), in both dtypes: n below one warp tile (5), n = 16 k + 1, one
+# sample, hl = 8 (zero-padded to 16: two whole zero heads), hl = 64 at a
+# ragged n, and the 256 px dates depth at N = 4096.
+K1_K2_EDGES = [(dtype, *shape) for shape in [(2, 5, 2, 4), (2, 113, 2, 8),
+                                             (1, 300, 4, 8), (2, 100, 2, 2),
+                                             (2, 200, 2, 16), (2, 4096, 8, 8)]
+               for dtype in (torch.float32, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("dtype,b,n,depth,heads", [
     (dtype, *shape) for shape in [(2, 100, 1, 32), (3, 100, 8, 8),
                                   (2, 256, 8, 32)]
-    for dtype in (torch.float32, torch.bfloat16)] + K2_EDGES)
+    for dtype in (torch.float32, torch.bfloat16)] + K1_K2_EDGES)
 def test_save_forward_and_backward_kernels_match_plain(card, dtype, b, n,
                                                        depth, heads):
-    """K1 with saves and K2 at ragged n (100), depth 1 and 8 and the widest
-    hl = 128, and K2's edges (``K2_EDGES``). K1-save's y is K1's bit for
-    bit; a K2 rerun gives the same bits."""
+    """K1, K1-save and K2 at ragged n (100), depth 1 and 8 and the widest
+    hl = 128, and at their edges (``K1_K2_EDGES``). K1-save's y is K1's bit
+    for bit; reruns of K1, K1-save and K2 give the same bits."""
     _, _, _, ops, dy = _stack_case(card, dtype, b, n, depth, heads)
-    before = (fd.launches_save, fd.launches_bwd)
+    before = (fd.launches, fd.launches_save, fd.launches_bwd)
     y, xs, ats = fd.decoder_stack_fwd(*ops, depth, heads, dtype, save=True)
     got = fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], depth, heads, dtype)
+    y_k1 = fd.decoder_stack_fwd(*ops, depth, heads, dtype)
     torch.cuda.synchronize()
-    assert (fd.launches_save, fd.launches_bwd) == (before[0] + 1, before[1] + 1)
-    assert torch.equal(y, fd.decoder_stack_fwd(*ops, depth, heads, dtype))
+    assert (fd.launches, fd.launches_save, fd.launches_bwd) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert torch.equal(y, y_k1)
+    assert torch.equal(y_k1, fd.decoder_stack_fwd(*ops, depth, heads, dtype))
+    again = fd.decoder_stack_fwd(*ops, depth, heads, dtype, save=True)
+    assert all(torch.equal(g, h) for g, h in zip((y, xs, ats), again))
     ref_y, ref_xs, ref_ats = fd.decoder_stack_fwd_plain(*ops, depth, heads,
                                                         dtype, save=True)
     for g, r in ((y, ref_y), (xs, ref_xs), (ats, ref_ats)):
@@ -110,10 +115,13 @@ def test_save_forward_and_backward_kernels_match_plain(card, dtype, b, n,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["16 tokens per head", "odd hl"])
-def test_backward_refuses_what_its_kernel_does_not_take(card, dtype, case):
-    """K2 takes 1, 2, 4 or 8 tokens per head (a softmax group inside one
-    8-column mma tile) and an even hl; 16 tokens per head (hl 16, one head)
-    and hl 15 (15 heads of one token) raise by name, before any launch."""
+@pytest.mark.parametrize("which", ["forward", "forward with saves",
+                                   "backward"])
+def test_kernels_refuse_what_they_do_not_take(card, dtype, case, which):
+    """K1, K1-save and K2 take 1, 2, 4 or 8 tokens per head (a softmax
+    group inside one 8-column mma tile) and an even hl; 16 tokens per head
+    (hl 16, one head) and hl 15 (15 heads of one token) raise by name,
+    before any launch."""
     _, _, _, ops, dy = _stack_case(card, dtype, 1, 64, 1, 4)
     _, xs, ats = fd.decoder_stack_fwd(*ops, 1, 4, dtype, save=True)
     a, z = ops[1], ops[2]
@@ -122,10 +130,14 @@ def test_backward_refuses_what_its_kernel_does_not_take(card, dtype, case):
         ats, a, z = (ats[..., :15].contiguous(), a[..., :15].contiguous(),
                      z[:, :, :15].contiguous())
         heads = 15
-    before = fd.launches_bwd
+    before = (fd.launches, fd.launches_save, fd.launches_bwd)
     with pytest.raises(ValueError, match="tokens per head and an even hl"):
-        fd.decoder_stack_bwd(xs, ats, dy, a, z, *ops[3:], 1, heads, dtype)
-    assert fd.launches_bwd == before
+        if which == "backward":
+            fd.decoder_stack_bwd(xs, ats, dy, a, z, *ops[3:], 1, heads, dtype)
+        else:
+            fd.decoder_stack_fwd(ops[0], a, z, *ops[3:], 1, heads, dtype,
+                                 save=which == "forward with saves")
+    assert (fd.launches, fd.launches_save, fd.launches_bwd) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
