@@ -238,7 +238,10 @@ def _decoder_operands(torch, dtype, gen, b, n, depth, heads):
 
 # How the row kernels' products run, per instance (the kernels line).
 K1_DESIGN = {
-    "float32": "FMA pipe: one warp per token row, lane = channel",
+    "float32": "tensor cores: mma.sync m16n8k16 bf16, each fp32 operand split "
+               "exactly into three bf16 pieces, six piece products for each "
+               "of the four per-row products (hn.A, attn.Z, g.W1, h.W2), a "
+               "warp per 16 rows kept in registers across the layers",
     "bfloat16": "tensor cores: mma.sync m16n8k16 bf16, the four per-row "
                 "products (hn.A, attn.Z, g.W1, h.W2), a warp per 16 rows kept "
                 "in registers across the layers"}
@@ -255,7 +258,7 @@ _MANGLED = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
 ROW_KERNELS = {
     "decoder_fwd": [(dname + "_save" * save, f"rows_mmaI{_MANGLED[dname]}Lb{save}E",
                      dname, (save,))
-                    for dname in ("bfloat16",) for save in (0, 1)],
+                    for dname in ("float32", "bfloat16") for save in (0, 1)],
     "decoder_bwd": [(dname, f"rows_mmaI{_MANGLED[dname]}E", dname, ())
                     for dname in ("float32", "bfloat16")]}
 
@@ -677,8 +680,7 @@ def summarize(name, source, replaces, dname, rows, launches, tol,
 # Kernel-name fragments -> class, first match wins (torch.profiler names).
 _CLASSES = (("K4 fused_decoder", ("fused_decoder",)),
             ("K1-save decoder_stack_fwd (save)",
-             ("decoder_stack_fwd_kernel<float, true>",
-              "decoder_stack_fwd_rows_mma<float, true>",
+             ("decoder_stack_fwd_rows_mma<float, true>",
               "decoder_stack_fwd_rows_mma<__nv_bfloat16, true>")),
             ("K1 decoder_stack_fwd", ("decoder_stack_fwd",)),
             ("K2 decoder_stack_bwd", ("decoder_stack_bwd",)),

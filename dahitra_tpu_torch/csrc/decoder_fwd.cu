@@ -24,29 +24,37 @@
 //
 // Bound on this card: ~8.2 kFLOP per row per layer (at hl = 32) against 128
 // (bf16) or 256 (fp32) bytes per row for the whole stack, so the work is
-// bounded by operations, not bytes.
+// bounded by operations, not bytes: the fp32 FMA pipe's rate gives the
+// bound quoted in PERF.md; on the tensor cores the bf16 products take a
+// twelfth of it and the elementwise work (two LayerNorms, the clamped exp
+// and the divide, GELU, roundings) is the larger part.
 //
-// Design (bf16): the four per-row products (hn.A, attn.Z, g.W1, h.W2) run
-// on the tensor cores as mma.sync m16n8k16 with fp32 accumulation. A warp
-// owns 16 rows, kept in registers across all layers in the fragment layout
-// of decoder_mma.cuh, so x is read once and y written once. A product's
-// accumulators, rounded where _layer_fwd rounds and packed to bf16 pairs,
-// are the A fragment of the next product: hn -> dots, 16 columns of hl at
-// a time -> softmax -> attn, whose 16 columns are at once one k-step of
-// attn.Z; then x1 -> g -> t -> h -> x2. LayerNorm statistics and the
-// softmax group sums (l = 1, 2, 4 or 8 consecutive columns: the pair a
-// thread holds, then shuffles 1 and 2 lanes apart) stay inside the quad of
-// lanes that holds a row. Each layer's A, Z, W1 and W2 are staged once per
-// CTA in bf16, rows padded for ldmatrix, hl zero-padded to a multiple of
-// 16: whole zero heads (l divides 16), whose attention stays in its own
-// group and meets zero rows of Z. attn.Z and g.W1 take K2's k-step order,
-// so K2's recomputed x1 and g are these bits. With SAVE, x_in and the
-// first hl columns of attn are stored from the fragments.
+// Design, both instances: the four per-row products (hn.A, attn.Z, g.W1,
+// h.W2) run on the tensor cores as mma.sync m16n8k16 with bf16 operands
+// and fp32 accumulation. In bf16 every operand is a bf16 value at
+// _layer_fwd's rounding points, so each product is exact up to its
+// summation order. In fp32 every operand v is split exactly into three
+// bf16 pieces (hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid))
+// and a product is the six piece products lo.hi, hi.lo, mid.mid, mid.hi,
+// hi.mid, hi.hi, small terms first (K2's mma_split). A warp owns 16 rows,
+// kept in registers across all layers in the fragment layout of
+// decoder_mma.cuh, so x is read once and y written once. A product's
+// accumulators, rounded where _layer_fwd rounds and packed to bf16 pairs
+// (one piece or three), are the A fragment of the next product: hn ->
+// dots, 16 columns of hl at a time -> softmax -> attn, whose 16 columns
+// are at once one k-step of attn.Z; then x1 -> g -> t -> h -> x2.
+// LayerNorm statistics and the softmax group sums (l = 1, 2, 4 or 8
+// consecutive columns: the pair a thread holds, then shuffles 1 and 2
+// lanes apart) stay inside the quad of lanes that holds a row. Each
+// layer's A, Z, W1 and W2 are staged once per CTA as one bf16 plane or
+// three, rows padded for ldmatrix, hl zero-padded to a multiple of 16:
+// whole zero heads (l divides 16), whose attention stays in its own group
+// and meets zero rows of Z. attn.Z and g.W1 take K2's k-step order, so
+// K2's recomputed x1 and g are these bits. With SAVE, x_in and the first
+// hl columns of attn are stored from the fragments beside the same
+// arithmetic, so y is K1's bit for bit.
 //
-// fp32 still runs the first version: one warp per token row, lane =
-// channel, the products on the fp32 FMA pipe with one shared-memory operand
-// per FMA, LN statistics as warp shuffles and a per-warp shared buffer for
-// the values a lane must broadcast.
+// Grid: (row tiles of TILE rows, B), one 16-row tile per warp.
 #include "decoder_mma.cuh"
 
 namespace {
@@ -57,171 +65,6 @@ constexpr int NV = 7 * DIM;    // the seven vectors
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int TILE = WARPS * 16;  // rows per CTA
-constexpr int FMA_WARPS = 8;
-constexpr int ROWS_PER_WARP = 4;
-constexpr int ROWS_PER_CTA = FMA_WARPS * ROWS_PER_WARP;
-
-// One layer for one row. With SAVE, the row's attention (hl values, rounded
-// to T) is stored at attn_out.
-template <typename T, bool SAVE>
-__device__ float decoder_layer(float v, int lane, float* buf, const float* sA,
-                               const float* sZ, const float* sW1,
-                               const float* sW2, const float* sV, int hl,
-                               int l, T* attn_out) {
-  // ---- attention ----
-  const float hn = rnd<T>(layer_norm(v, sV[0 * DIM + lane], sV[1 * DIM + lane]));
-  buf[lane] = hn;
-  __syncwarp();
-  float e[MAX_HL / 32];
-#pragma unroll
-  for (int k = 0; k < MAX_HL / 32; ++k) {
-    const int j = lane + 32 * k;
-    e[k] = 0.0f;
-    if (j < hl) {
-      float acc = 0.0f;
-#pragma unroll 8
-      for (int c = 0; c < DIM; ++c) acc = fmaf(buf[c], sA[c * hl + j], acc);
-      const float dots = rnd<T>(acc) * SCALE;
-      e[k] = expf(fminf(fmaxf(dots, -CLAMP), CLAMP));
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < MAX_HL / 32; ++k) {
-    const int j = lane + 32 * k;
-    if (j < hl) buf[j] = e[k];
-  }
-  __syncwarp();
-  float attn[MAX_HL / 32];
-#pragma unroll
-  for (int k = 0; k < MAX_HL / 32; ++k) {
-    const int j = lane + 32 * k;
-    attn[k] = 0.0f;
-    if (j < hl) {
-      const int g0 = (j / l) * l;
-      float den = 0.0f;
-      for (int i = 0; i < l; ++i) den += buf[g0 + i];
-      attn[k] = rnd<T>(e[k] / den);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < MAX_HL / 32; ++k) {
-    const int j = lane + 32 * k;
-    if (j < hl) {
-      buf[j] = attn[k];
-      if (SAVE) attn_out[j] = from_f<T>(attn[k]);
-    }
-  }
-  __syncwarp();
-  float ao = 0.0f;
-  for (int j = 0; j < hl; ++j) ao = fmaf(buf[j], sZ[j * DIM + lane], ao);
-  const float x1 = rnd<T>(rnd<T>(v + rnd<T>(ao)) + sV[2 * DIM + lane]);
-
-  // ---- feed-forward ----
-  const float g = rnd<T>(layer_norm(x1, sV[3 * DIM + lane], sV[4 * DIM + lane]));
-  __syncwarp();
-  buf[lane] = g;
-  __syncwarp();
-  float t = 0.0f;
-#pragma unroll 8
-  for (int c = 0; c < DIM; ++c) t = fmaf(buf[c], sW1[c * DIM + lane], t);
-  t = rnd<T>(rnd<T>(t) + sV[5 * DIM + lane]);
-  const float h = rnd<T>(gelu(t));
-  __syncwarp();
-  buf[lane] = h;
-  __syncwarp();
-  float o = 0.0f;
-#pragma unroll 8
-  for (int c = 0; c < DIM; ++c) o = fmaf(buf[c], sW2[c * DIM + lane], o);
-  const float x2 = rnd<T>(rnd<T>(x1 + rnd<T>(o)) + sV[6 * DIM + lane]);
-  __syncwarp();
-  return x2;
-}
-
-// x, y: (B, N, 32); a: (D, B, 32, hl); z: (D, B, hl, 32); w1, w2: (D, 32, 32)
-// laid out (in, out); vecs: (D, 7, 32) fp32 rows
-// [ln1_scale, ln1_bias, bo, ln2_scale, ln2_bias, b1, b2]. With SAVE,
-// xsave: (D, B, N, 32) and attnsave: (D, B, N, hl) in T.
-template <typename T, bool SAVE>
-__global__ void __launch_bounds__(FMA_WARPS * 32)
-decoder_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
-                         const T* __restrict__ z, const T* __restrict__ w1,
-                         const T* __restrict__ w2, const float* __restrict__ vecs,
-                         T* __restrict__ y, T* __restrict__ xsave,
-                         T* __restrict__ attnsave, int B, int N, int depth,
-                         int hl, int l) {
-  __shared__ float sA[DIM * MAX_HL];
-  __shared__ float sZ[MAX_HL * DIM];
-  __shared__ float sW1[DIM * DIM];
-  __shared__ float sW2[DIM * DIM];
-  __shared__ float sV[7 * DIM];
-  __shared__ float sBuf[FMA_WARPS][MAX_HL];
-
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int row0 = blockIdx.x * ROWS_PER_CTA + warp * ROWS_PER_WARP;
-
-  float xr[ROWS_PER_WARP];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int row = row0 + r;
-    xr[r] = row < N ? to_f(x[(static_cast<int64_t>(b) * N + row) * DIM + lane]) : 0.0f;
-  }
-
-  for (int d = 0; d < depth; ++d) {
-    __syncthreads();  // every warp is done with layer d-1's weights
-    const int64_t az_off = (static_cast<int64_t>(d) * B + b) * DIM * hl;
-    for (int i = tid; i < DIM * hl; i += FMA_WARPS * 32) {
-      sA[i] = to_f(a[az_off + i]);
-      sZ[i] = to_f(z[az_off + i]);
-    }
-    for (int i = tid; i < DIM * DIM; i += FMA_WARPS * 32) {
-      sW1[i] = to_f(w1[d * DIM * DIM + i]);
-      sW2[i] = to_f(w2[d * DIM * DIM + i]);
-    }
-    for (int i = tid; i < 7 * DIM; i += FMA_WARPS * 32) {
-      const int k = i / DIM;
-      const float v = vecs[d * 7 * DIM + i];
-      // bo, b1, b2 enter the stack cast to T; the LN parameters stay fp32.
-      sV[i] = (k == 2 || k == 5 || k == 6) ? rnd<T>(v) : v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int row = row0 + r;
-      if (row < N) {  // warp-uniform: the whole warp skips a missing row
-        const int64_t srow = (static_cast<int64_t>(d) * B + b) * N + row;
-        if (SAVE) xsave[srow * DIM + lane] = from_f<T>(xr[r]);
-        xr[r] = decoder_layer<T, SAVE>(xr[r], lane, sBuf[warp], sA, sZ, sW1,
-                                       sW2, sV, hl, l,
-                                       SAVE ? attnsave + srow * hl : nullptr);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int row = row0 + r;
-    if (row < N) y[(static_cast<int64_t>(b) * N + row) * DIM + lane] = from_f<T>(xr[r]);
-  }
-}
-
-template <typename T, bool SAVE>
-int launch_fma(const void* x, const void* a, const void* z, const void* w1,
-           const void* w2, const void* vecs, void* y, void* xsave,
-           void* attnsave, int B, int N, int depth, int hl, int l,
-           void* stream) {
-  const dim3 grid((N + ROWS_PER_CTA - 1) / ROWS_PER_CTA, B);
-  decoder_stack_fwd_kernel<T, SAVE><<<grid, FMA_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const T*>(z),
-      static_cast<const T*>(w1), static_cast<const T*>(w2),
-      static_cast<const float*>(vecs), static_cast<T*>(y),
-      static_cast<T*>(xsave), static_cast<T*>(attnsave), B, N, depth, hl, l);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // One layer for the warp's 16 rows, v (fragment layout) in and out; rows
 // whose ok flag is false compute on zeros and store nothing. With SAVE, x_in
@@ -435,43 +278,23 @@ int ctas_per_sm(int hl, int* out) {
 
 }  // namespace
 
-extern "C" int decoder_stack_fwd_f32(const void* x, const void* a, const void* z,
-                                     const void* w1, const void* w2,
-                                     const void* vecs, void* y, int B, int N,
-                                     int depth, int hl, int l, void* stream) {
-  return launch_fma<float, false>(x, a, z, w1, w2, vecs, y, nullptr, nullptr, B, N,
-                                  depth, hl, l, stream);
-}
+#define DECODER_FWD_ENTRY(SUFFIX, T)                                                    \
+  extern "C" int decoder_stack_fwd_##SUFFIX(                                           \
+      const void* x, const void* a, const void* z, const void* w1, const void* w2,     \
+      const void* vecs, void* y, int B, int N, int depth, int hl, int l, void* stream) { \
+    return launch<T, false>(x, a, z, w1, w2, vecs, y, nullptr, nullptr, B, N, depth,   \
+                            hl, l, stream);                                            \
+  }                                                                                    \
+  extern "C" int decoder_stack_fwd_save_##SUFFIX(                                      \
+      const void* x, const void* a, const void* z, const void* w1, const void* w2,     \
+      const void* vecs, void* y, void* xsave, void* attnsave, int B, int N, int depth, \
+      int hl, int l, void* stream) {                                                   \
+    return launch<T, true>(x, a, z, w1, w2, vecs, y, xsave, attnsave, B, N, depth, hl, \
+                           l, stream);                                                 \
+  }                                                                                    \
+  extern "C" int decoder_stack_fwd_ctas_per_sm_##SUFFIX(int hl, int save, int* out) {  \
+    return save ? ctas_per_sm<T, true>(hl, out) : ctas_per_sm<T, false>(hl, out);      \
+  }
 
-extern "C" int decoder_stack_fwd_save_f32(const void* x, const void* a,
-                                          const void* z, const void* w1,
-                                          const void* w2, const void* vecs,
-                                          void* y, void* xsave, void* attnsave,
-                                          int B, int N, int depth, int hl,
-                                          int l, void* stream) {
-  return launch_fma<float, true>(x, a, z, w1, w2, vecs, y, xsave, attnsave, B, N,
-                                 depth, hl, l, stream);
-}
-
-extern "C" int decoder_stack_fwd_bf16(const void* x, const void* a, const void* z,
-                                      const void* w1, const void* w2,
-                                      const void* vecs, void* y, int B, int N,
-                                      int depth, int hl, int l, void* stream) {
-  return launch<__nv_bfloat16, false>(x, a, z, w1, w2, vecs, y, nullptr, nullptr,
-                                      B, N, depth, hl, l, stream);
-}
-
-extern "C" int decoder_stack_fwd_save_bf16(const void* x, const void* a,
-                                           const void* z, const void* w1,
-                                           const void* w2, const void* vecs,
-                                           void* y, void* xsave, void* attnsave,
-                                           int B, int N, int depth, int hl,
-                                           int l, void* stream) {
-  return launch<__nv_bfloat16, true>(x, a, z, w1, w2, vecs, y, xsave, attnsave,
-                                     B, N, depth, hl, l, stream);
-}
-
-extern "C" int decoder_stack_fwd_ctas_per_sm_bf16(int hl, int save, int* out) {
-  return save ? ctas_per_sm<__nv_bfloat16, true>(hl, out)
-              : ctas_per_sm<__nv_bfloat16, false>(hl, out);
-}
+DECODER_FWD_ENTRY(f32, float)
+DECODER_FWD_ENTRY(bf16, __nv_bfloat16)
