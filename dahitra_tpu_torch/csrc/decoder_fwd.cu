@@ -54,7 +54,13 @@
 // hl columns of attn are stored from the fragments beside the same
 // arithmetic, so y is K1's bit for bit.
 //
-// Grid: (row tiles of TILE rows, B), one 16-row tile per warp.
+// Grid: (row tiles of TILE rows, B), a 16-row tile per warp, 8 warps. Each
+// CTA stages every layer's weights, so larger CTAs stage less: against 4
+// warps (64 rows) on the H100, 8 warps took 11 % less time in fp32 (three
+// planes to stage) and 4-6 % less in bf16 at the N = 4096 and 16384
+// shapes, 2-12 % more at N = 256 and 1024, whose grids are below one wave;
+// per batch-8 forward at 256 px 9 % and 2 % less (PERF.md, PR 9). Staging
+// the split planes once per call is the next step if it matters.
 #include "decoder_mma.cuh"
 
 namespace {
@@ -62,7 +68,7 @@ namespace {
 using namespace decoder;
 
 constexpr int NV = 7 * DIM;    // the seven vectors
-constexpr int WARPS = 4;
+constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int TILE = WARPS * 16;  // rows per CTA
 

@@ -24,7 +24,7 @@ their per-row products on tensor cores (``mma.sync`` bf16, a warp per 16
 rows, each product's accumulators packed into the next one's A fragment);
 in fp32 each operand is split exactly into three bf16 pieces and a product
 is six piece products. K1 keeps the rows in registers across all layers
-and stages each layer's weights once per 64-row CTA; K2 runs its four
+and stages each layer's weights once per 128-row CTA; K2 runs its four
 weight-side sums on tensor cores too, writes per-CTA weight-gradient
 partials and sums them in a second, fixed-order pass. Both take 1, 2, 4 or
 8 tokens per head and an even hl (DAHiTra has 4 tokens, BIT 4 or 8); on a

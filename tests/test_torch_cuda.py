@@ -69,10 +69,10 @@ def _stack_case(card, dtype, b, n, depth, heads, seed=0):
     return dec, x, m, ops, torch.randn(b, n, 32, generator=g).to(card, dtype)
 
 
-# The edges of K1, K1-save and K2 (tensor cores, 16-row warp tiles, 64-row
-# CTA tiles), in both dtypes: n below one warp tile (5), n = 16 k + 1, one
-# sample, hl = 8 (zero-padded to 16: two whole zero heads), hl = 64 at a
-# ragged n, and the 256 px dates depth at N = 4096.
+# The edges of K1, K1-save and K2 (tensor cores, 16-row warp tiles; CTAs of
+# 128 rows in K1, tiles of 64 in K2), in both dtypes: n below one warp tile
+# (5), n = 16 k + 1, one sample, hl = 8 (zero-padded to 16: two whole zero
+# heads), hl = 64 at a ragged n, and the 256 px dates depth at N = 4096.
 K1_K2_EDGES = [(dtype, *shape) for shape in [(2, 5, 2, 4), (2, 113, 2, 8),
                                              (1, 300, 4, 8), (2, 100, 2, 2),
                                              (2, 200, 2, 16), (2, 4096, 8, 8)]
