@@ -1250,8 +1250,8 @@ def main() -> None:
     kernels = []
     src = "dahitra_tpu_torch/csrc/"
     fwd_res = resources["decoder_fwd"]
-    k1_res = {d: fwd_res.get(d) for d in ("float32", "bfloat16")}
-    k1_save_res = {d: fwd_res.get(d + "_save") for d in ("float32", "bfloat16")}
+    k1_res = {d: fwd_res[d] for d in ("float32", "bfloat16")}
+    k1_save_res = {d: fwd_res[d + "_save"] for d in ("float32", "bfloat16")}
     # (name, source, TPU kernel, checks, the 256 px phase whose count is
     # ``launches``, counter, tolerances, extra keys)
     table = (
