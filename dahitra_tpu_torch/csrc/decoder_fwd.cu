@@ -55,13 +55,14 @@
 // arithmetic, so y is K1's bit for bit.
 //
 // Grid: (row tiles of TILE rows, B), a 16-row tile per warp, 8 warps. Each
-// CTA stages every layer's weights, so larger CTAs stage less: against 4
-// warps (64 rows) on the H100, 8 warps took 11-12 % less time in fp32
-// (three planes to stage) and 4-6 % less in bf16 at N = 4096 and 16384;
-// at N = 256 and 1024, whose grids are below one wave, between 11 % less
-// and 13 % more; per batch-8 forward at 256 px 9 % (fp32) and 2 % (bf16)
-// less (PERF.md, PR 9). Staging the split planes once per call is the next
-// step if it matters.
+// CTA stages every layer's weights, so larger CTAs stage less. Against 4
+// warps (64 rows) on the H100, in two runs, 8 warps took 11-12 % less time
+// in fp32 (three planes to stage) at N = 16384 and at B = 8, N = 4096
+// (-12 % and +2 % at B = 16, N = 4096), 4-6 % less in bf16 at N >= 4096,
+// and between 11 % less and 13 % more at N = 256 and 1024, whose grids are
+// below one wave; per batch-8 forward at 256 px 2-9 % less in fp32 and 2 %
+// in bf16 (PERF.md, PR 9). Staging the split planes once per call is the
+// next step if it matters.
 #include "decoder_mma.cuh"
 
 namespace {
