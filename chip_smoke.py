@@ -10,11 +10,11 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``dahitra_tpu_torch/csrc`` (one nvcc per
      source, all started together, beside one more nvcc of each decoder
-     source, K1's and K2's, with ``-Xptxas -v``), and print the registers,
-     spills and ``HMMA.16816.F32.BF16`` instructions (``cuobjdump -sass``)
-     of the row kernels' instances (K1 and K1-save, K2; fp32 and bf16) and
-     the CTAs per SM of each at every main-path hl (CUDA's occupancy
-     calculator, which sizes K2's grid);
+     source, K1's, K2's and K4's, with ``-Xptxas -v``), and print the
+     registers, spills and ``HMMA.16816.F32.BF16`` instructions
+     (``cuobjdump -sass``) of the row kernels' instances (K1 and K1-save,
+     K2; fp32 and bf16; K4's four) and the CTAs per SM of each at every
+     main-path hl (CUDA's occupancy calculator, which sizes K2's grid);
   3. hold each kernel against its plain PyTorch version on the card at every
      shape the main paths give it, in fp32 and bf16, and time the kernel,
      the plain version and, where one exists, a single PyTorch call that
@@ -24,7 +24,10 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
      (``device_ms``; all three on tensor cores, fp32 as three bf16 pieces), K3
      (the tokenizer) and K4 (the fused decoder of
      ``TransformerDecoder(pallas=True)``, in the fp32 and the bf16 model's
-     mode, and its bf16-I/O instance at one shape); the decoder kernels also
+     mode, and its bf16-I/O instance at one shape; rerun for the same bits,
+     timed also behind queued work, its prologue and row kernel apart, and
+     the prologue's A and Z held against ``fused_decoder_az_plain``); the
+     decoder kernels also
      at the 1/4-scale dates shape of 512 px, and K3 at the three scales of
      512 px at batch 8 and of 1024 px at batch 2, each K3 call twice for the
      same bits and timed a second time behind a queue of other work
@@ -245,6 +248,19 @@ K1_DESIGN = {
     "bfloat16": "tensor cores: mma.sync m16n8k16 bf16, the four per-row "
                 "products (hn.A, attn.Z, g.W1, h.W2), a warp per 16 rows kept "
                 "in registers across the layers"}
+K4_DESIGN = {
+    "float32": "prologue: grid (layer, head, 4-sample chunk), the head's weight "
+               "slices staged in shared memory, fp32 FMA; rows: tensor cores, "
+               "mma.sync m16n8k16 bf16, each fp32 operand split exactly into "
+               "three bf16 pieces, six piece products for each of the four "
+               "per-row products, a warp per 16 rows kept in registers across "
+               "the layers, the max-shifted group softmax inside the quad",
+    "bfloat16": "prologue: grid (layer, head, 4-sample chunk), the head's "
+                "weight slices staged in shared memory, fp32 FMA; rows: tensor "
+                "cores, mma.sync m16n8k16 bf16 operands with fp32 "
+                "accumulation for the four per-row products, a warp per 16 "
+                "rows kept in registers across the layers, the max-shifted "
+                "group softmax inside the quad"}
 K2_DESIGN = {
     "float32": "tensor cores: mma.sync m16n8k16 bf16, each fp32 operand split "
                "exactly into three bf16 pieces, six piece products per "
@@ -260,7 +276,18 @@ ROW_KERNELS = {
                      dname, (save,))
                     for dname in ("float32", "bfloat16") for save in (0, 1)],
     "decoder_bwd": [(dname, f"rows_mmaI{_MANGLED[dname]}E", dname, ())
-                    for dname in ("float32", "bfloat16")]}
+                    for dname in ("float32", "bfloat16")],
+    # K4: (x's dtype, precise), named as its C entries.
+    "fused_decoder": [(f"{io}_{ops}",
+                       f"fused_decoder_rows_mmaI{_MANGLED[dname]}Lb{int(pr)}E",
+                       dname, (pr,))
+                      for io, dname in (("f32", "float32"), ("bf16", "bfloat16"))
+                      for ops, pr in (("precise", True), ("bf16ops", False))]}
+# The K4 row-kernel instance of each model: fp32 I/O in both, operands fp32
+# (precise) in the fp32 model and bf16 in the bf16 one; the bf16 model's
+# bf16-I/O instance beside it.
+K4_INSTANCES = {"float32": ("f32_precise",),
+                "bfloat16": ("f32_bf16ops", "bf16_bf16ops")}
 
 
 def start_ptxas_report(tmp, source):
@@ -276,13 +303,23 @@ def start_ptxas_report(tmp, source):
                             stderr=subprocess.STDOUT, text=True)
 
 
+def _ctas_per_sm(torch, source, dname, flags, hl) -> int:
+    """CTAs per SM of a row-kernel instance of ``ROW_KERNELS[source]`` at
+    this hl, from the source's occupancy entry."""
+    from dahitra_tpu_torch.kernels import folded_decoder as fd
+    from dahitra_tpu_torch.kernels import fused_decoder as kd
+
+    if source == "fused_decoder":
+        return kd.ctas_per_sm(getattr(torch, dname), *flags, hl)
+    return fd._ctas_per_sm(source, getattr(torch, dname), hl, *flags)
+
+
 def row_kernel_resources(torch, tmp, source, proc) -> dict:
     """Registers and spill bytes (ptxas) and ``HMMA.16816.F32.BF16``
     instructions (``cuobjdump -sass``) of each instance of
     ``ROW_KERNELS[source]``, and its CTAs per SM at every main-path hl (the
     source's occupancy entry; it sizes K2's grid)."""
     from dahitra_tpu_torch.kernels import _build
-    from dahitra_tpu_torch.kernels import folded_decoder as fd
 
     log, _ = proc.communicate()
     if proc.returncode != 0:
@@ -326,8 +363,7 @@ def row_kernel_resources(torch, tmp, source, proc) -> dict:
             fail(f"no ptxas report or no HMMA.16816.F32.BF16 of {source}.cu's "
                  f"{inst} row kernel:\n{log}")
         out[inst]["ctas_per_sm"] = {
-            hl: fd._ctas_per_sm(source, getattr(torch, dname), hl, *flags)
-            for hl in hls}
+            hl: _ctas_per_sm(torch, source, dname, flags, hl) for hl in hls}
     return out
 
 
@@ -562,9 +598,14 @@ def check_k4(torch, dtype, gen):
     """K4 against ``fused_decoder_plain`` at every main-path decoder shape in
     the mode of the ``dtype`` model: fp32 I/O (the decoder input is fp32 in
     both models, after the positional add), operands fp32 (``precise``) in
-    the fp32 model and bf16 in the bf16 one. No single PyTorch call
-    computes the stack, so no library yardstick. Returns the per-forward
-    rows and, for the bf16 model, the bf16-I/O instance at s4/diff."""
+    the fp32 model and bf16 in the bf16 one; a rerun for the same bits; the
+    prologue's A and Z (``fused_decoder_az``) against
+    ``fused_decoder_az_plain``. Timed as K1 is, and behind queued work
+    (``device_ms``), with the prologue (``prologue_ms``) and the row kernel
+    on its A and Z (``rows_ms``) timed apart, behind queued work. No single
+    PyTorch call computes the stack, so no library yardstick. Returns the
+    per-forward rows and, for the bf16 model, the bf16-I/O instance at
+    s4/diff."""
     from dahitra_tpu_torch.kernels import fused_decoder as kd
 
     dname = str(dtype).split(".")[-1]
@@ -575,21 +616,39 @@ def check_k4(torch, dtype, gen):
     rows, io_rows = [], []
     for (name, b, n, depth, heads), io in cases:
         x, m, packed = _k4_operands(torch, gen, b, n, depth, heads, io)
-        got = kd.fused_transformer_decoder(x, m, packed, depth, heads, precise)
+
+        def k4():
+            return kd.fused_transformer_decoder(x, m, packed, depth, heads,
+                                                precise)
+
+        got = k4()
         ref = kd.fused_decoder_plain(x, m, packed, depth, heads, precise)
+        a, z = kd.fused_decoder_az(m, packed, depth, heads, precise)
+        ref_a, ref_z = kd.fused_decoder_az_plain(m, packed, depth, heads,
+                                                 precise)
         torch.cuda.synchronize()
         err, serr = scaled_err(got, ref)
+        az_err = max(scaled_err(a, ref_a)[1], scaled_err(z, ref_z)[1])
         if not (got.dtype == io and torch.isfinite(got.float()).all()
-                and serr <= TOL[dname]):
-            fail(f"K4 {name} {dname} (I/O {io}): scaled error {serr:.3e} > "
-                 f"{TOL[dname]}")
+                and serr <= TOL[dname] and az_err <= TOL[dname]):
+            fail(f"K4 {name} {dname} (I/O {io}): scaled error {serr:.3e}, "
+                 f"prologue's {az_err:.3e} > {TOL[dname]}")
+        if not torch.equal(got, k4()):
+            fail(f"K4 {name} {dname} (I/O {io}): a second run gave other bits")
+        vecs = kd._vecs(packed)
         nbytes, ops = _k4_cost(b, n, depth, heads, torch.finfo(io).bits // 8)
         bms, by = bound(nbytes, ops, dname)
         row = {"shape": name, "B": b, "N": n, "depth": depth,
                "hl": heads * TOKENS, "io": str(io).split(".")[-1],
                "max_abs_err": err, "scaled_err": serr,
-               "ms": time_ms(lambda: kd.fused_transformer_decoder(
-                   x, m, packed, depth, heads, precise), torch, **_reps(n)),
+               "prologue_scaled_err": az_err,
+               "ms": time_ms(k4, torch, **_reps(n)),
+               "device_ms": time_ms(k4, torch, queued=True, **_reps(n)),
+               "prologue_ms": time_ms(lambda: kd.fused_decoder_az(
+                   m, packed, depth, heads, precise), torch, queued=True),
+               "rows_ms": time_ms(lambda: kd._rows(
+                   x, a, z, packed, vecs, depth, heads, precise), torch,
+                   queued=True, **_reps(n)),
                "plain_ms": time_ms(lambda: kd.fused_decoder_plain(
                    x, m, packed, depth, heads, precise), torch, **_reps(n)),
                "bound_ms": bms, "bound_by": by, "library_ms": None}
@@ -642,8 +701,8 @@ def _sums(rows) -> dict:
     lib = [r["library_ms"] for r in rows]
     bound_ms = sum(r["bound_ms"] for r in rows)
     by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
-    device = ({"device_ms": sum(r["device_ms"] for r in rows)}
-              if "device_ms" in rows[0] else {})
+    device = {k: sum(r[k] for r in rows)
+              for k in ("device_ms", "prologue_ms", "rows_ms") if k in rows[0]}
     return {
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "scaled_err": max(r["scaled_err"] for r in rows),
@@ -678,7 +737,8 @@ def summarize(name, source, replaces, dname, rows, launches, tol,
 
 
 # Kernel-name fragments -> class, first match wins (torch.profiler names).
-_CLASSES = (("K4 fused_decoder", ("fused_decoder",)),
+_CLASSES = (("K4 prologue", ("fused_decoder_prologue",)),
+            ("K4 rows", ("fused_decoder_rows",)),
             ("K1-save decoder_stack_fwd (save)",
              ("decoder_stack_fwd_rows_mma<float, true>",
               "decoder_stack_fwd_rows_mma<__nv_bfloat16, true>")),
@@ -1252,6 +1312,8 @@ def main() -> None:
     fwd_res = resources["decoder_fwd"]
     k1_res = {d: fwd_res[d] for d in ("float32", "bfloat16")}
     k1_save_res = {d: fwd_res[d + "_save"] for d in ("float32", "bfloat16")}
+    k4_res = {d: {i: resources["fused_decoder"][i] for i in K4_INSTANCES[d]}
+              for d in ("float32", "bfloat16")}
     # (name, source, TPU kernel, checks, the 256 px phase whose count is
     # ``launches``, counter, tolerances, extra keys)
     table = (
@@ -1270,7 +1332,7 @@ def main() -> None:
                                    "bfloat16": floor_ms}}),
         ("fused_decoder", "fused_decoder.cu",
          "dahitra_tpu/pallas/fused_decoder.py:102", "k4", "pallas_eval_256",
-         "k4", TOL, {}))
+         "k4", TOL, {"design": K4_DESIGN, "resources": k4_res}))
     for dname in ("float32", "bfloat16"):
         for name, source, replaces, kid, phase, counter, tol, extra in table:
             kernels.append(summarize(

@@ -1,5 +1,5 @@
 """K4: the fused cross-attention decoder stack (``TransformerDecoder(pallas=
-True)``) as a hand-written CUDA kernel for Hopper.
+True)``) as hand-written CUDA kernels for Hopper.
 
 Replaces dahitra_tpu/pallas/fused_decoder.py ``_decoder_kernel`` (via
 ``fused_transformer_decoder``), the forward of ``make_fused_decoder``. Its
@@ -18,7 +18,10 @@ numerics differ from K1's (kernels/folded_decoder.py) at almost every step:
   computed per layer and sample inside the kernel, from the packed weights.
 
 ``fused_decoder_plain`` is that function in plain PyTorch, at the kernel's
-rounding points; the tests and ``chip_smoke.py`` hold the kernel against it.
+rounding points, and ``fused_decoder_az_plain`` its memory side alone (A and
+Z, which ``fused_decoder_plain`` takes from it); the tests and
+``chip_smoke.py`` hold the kernels against them, the prologue alone through
+``fused_decoder_az``.
 
 The backward is the JAX package's rule as it is: autodiff of
 ``plain_decoder_stack`` (fused_decoder.py:181-218, one-pass clamped variance
@@ -26,15 +29,21 @@ LayerNorm, heads-split attention, casts to ``dtype``), recomputed from the
 saved inputs. It is plain JAX in the reference, so it is plain PyTorch here
 (``FusedDecoderFn``), not a kernel port.
 
-Source: ``csrc/fused_decoder.cu``. Bound on this card: operations, as K1
-(~8 kFLOP per 32-wide row per layer at hl = 32 against 256 bytes per row for
-the whole stack in fp32), plus a memory side of ~0.4 MFLOP per sample and
-layer at DAHiTra's 1/4 scale. Design: a prologue kernel, grid (depth, B),
-computes A and Z once per layer and sample into a scratch buffer, reading the
-weights from global memory (L2); the row kernel has K1's layout (one warp
-per row, lane = channel, A, Z, W1, W2 staged per layer in shared memory)
-and keeps each row's fp32 residual in registers through all layers. The
-products run on the fp32 FMA pipe.
+Source: ``csrc/fused_decoder.cu``, with the fragment code of
+``csrc/decoder_mma.cuh``. Bound on this card: operations (~9.8 kFLOP per
+32-wide row per layer at hl = 32, the four products and the elementwise
+work, against 256 bytes per row for the whole stack in fp32 I/O); the memory
+side adds ~0.4 MFLOP per sample and layer, under 1 % of it. Design: two
+kernels on one stream. The prologue, grid (depth, heads, ceil(B / 4)),
+stages one head's slices of Wq, Wk, Wv and Wo in shared memory and writes
+that head's columns of A and rows of Z for 4 samples, in fp32, to a scratch
+buffer. The row kernel is K1's template (``csrc/decoder_fwd.cu``): a warp
+per 16 rows held in registers through all layers, the four per-row products
+on ``mma.sync`` tensor cores with fp32 accumulation, bf16 operands or, when
+``precise``, each fp32 operand split exactly into three bf16 pieces; the
+group softmax shifted by its max inside the quad of lanes that holds a row.
+The kernels take 1, 2, 4, 8 or 16 tokens per head, heads * tokens <= 128 and
+mlp_dim = 32; on a CUDA tensor anything else raises.
 """
 from __future__ import annotations
 
@@ -48,16 +57,23 @@ import torch.nn.functional as F
 from dahitra_tpu_torch.kernels import _build
 from dahitra_tpu_torch.kernels.folded_decoder import VEC_KEYS
 
-# Launches of the CUDA kernel in this process (one per call: the prologue
-# and the row kernel); the plain version never counts.
+# Launches in this process; the plain versions never count. ``launches``:
+# ``fused_transformer_decoder``, one per call (the prologue and the row
+# kernel); ``launches_az``: ``fused_decoder_az``, the prologue alone.
 launches = 0
+launches_az = 0
 
 # The 13 packed tensors in the order of fused_decoder.py:270-271.
 ORDER = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo", "bo", "ln2_scale",
          "ln2_bias", "w1", "b1", "w2", "b2")
 _DIM = 32
 _MAX_HL = 128
+# Tokens per head that the row kernel takes: a softmax group lies inside
+# one 16-column slice of hl.
+_TOKENS = (1, 2, 4, 8, 16)
 _SMEM_LIMIT = 227 * 1024
+# csrc/fused_decoder.cu: memory tokens per prologue pass (PRO_ROWS).
+_PRO_ROWS = 16
 _IO = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # fused_decoder.py:69-71, Abramowitz & Stegun 7.1.26.
 _ERF_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
@@ -96,12 +112,10 @@ def _layer_norm(x, scale, bias):
     return (x - mu) * torch.rsqrt(var + 1e-5) * scale + bias
 
 
-def fused_decoder_plain(x: torch.Tensor, m: torch.Tensor, packed: Packed,
-                        depth: int, heads: int, precise: bool) -> torch.Tensor:
-    """K4's function in plain PyTorch (fused_decoder.py:126-178): x (B, N,
-    dim), m (B, L, dim), ``packed`` as ``pack_decoder_params`` gives it ->
-    (B, N, dim) in x's dtype. Each product is round(a) . round(b) with fp32
-    accumulation, round being bf16 unless ``precise``."""
+def _rounding(precise: bool):
+    """``_make_mm``: (rnd, mm), rnd rounding to the operand type (bf16, or
+    fp32 when ``precise``) and mm a product of rounded operands with fp32
+    accumulation."""
     op = torch.float32 if precise else torch.bfloat16
 
     def rnd(t):
@@ -110,29 +124,55 @@ def fused_decoder_plain(x: torch.Tensor, m: torch.Tensor, packed: Packed,
     def mm(a, b):
         return torch.matmul(rnd(a), rnd(b))
 
-    out_dtype = x.dtype
-    x, m = x.float(), m.float()
+    return rnd, mm
+
+
+def fused_decoder_az_plain(m: torch.Tensor, packed: Packed, depth: int,
+                           heads: int, precise: bool):
+    """K4's memory side in plain PyTorch (fused_decoder.py:136-148): per
+    layer d and sample, A = [Wq_h k_h^T]_h (32, heads * L) and Z = [v_h
+    Wo_h]_h (heads * L, 32) from k, v = LN1(m) Wk, LN1(m) Wv, each product
+    rounding its operands. m: (B, L, dim). Returns A (D, B, dim, hl) and Z
+    (D, B, hl, dim) in fp32, unrounded."""
+    rnd, mm = _rounding(precise)
+    m = m.float()
     b, l, dim = m.shape
-    scale = dim ** -0.5
-    p = {k: v.float() for k, v in packed.items()}
-    inner = p["wq"].shape[-1]
-    hd = inner // heads
+    p = {k: packed[k].float() for k in ("ln1_scale", "ln1_bias", "wq", "wk",
+                                        "wv", "wo")}
+    hd = p["wq"].shape[-1] // heads
+    a_s, z_s = [], []
     for d in range(depth):
-        xn = _layer_norm(x, p["ln1_scale"][d], p["ln1_bias"][d])
         mn = _layer_norm(m, p["ln1_scale"][d], p["ln1_bias"][d])
         k = mm(mn, p["wk"][d]).view(b, l, heads, hd)
         v = mm(mn, p["wv"][d]).view(b, l, heads, hd)
-        # A = [Wq_h K_h^T]_h (B, dim, hl), Z = [V_h Wo_h]_h (B, hl, dim)
-        af = torch.einsum("che,bjhe->bchj",
-                          rnd(p["wq"][d]).view(dim, heads, hd),
-                          rnd(k)).reshape(b, dim, heads * l)
-        zm = torch.einsum("bjhe,hec->bhjc", rnd(v),
-                          rnd(p["wo"][d]).view(heads, hd, dim)
-                          ).reshape(b, heads * l, dim)
-        dots = (mm(xn, af) * scale).unflatten(-1, (heads, l))
+        a_s.append(torch.einsum("che,bjhe->bchj",
+                                rnd(p["wq"][d]).view(dim, heads, hd),
+                                rnd(k)).reshape(b, dim, heads * l))
+        z_s.append(torch.einsum("bjhe,hec->bhjc", rnd(v),
+                                rnd(p["wo"][d]).view(heads, hd, dim)
+                                ).reshape(b, heads * l, dim))
+    return torch.stack(a_s), torch.stack(z_s)
+
+
+def fused_decoder_plain(x: torch.Tensor, m: torch.Tensor, packed: Packed,
+                        depth: int, heads: int, precise: bool) -> torch.Tensor:
+    """K4's function in plain PyTorch (fused_decoder.py:126-178): x (B, N,
+    dim), m (B, L, dim), ``packed`` as ``pack_decoder_params`` gives it ->
+    (B, N, dim) in x's dtype. Each product is round(a) . round(b) with fp32
+    accumulation, round being bf16 unless ``precise``."""
+    _, mm = _rounding(precise)
+    out_dtype = x.dtype
+    x = x.float()
+    scale = x.shape[-1] ** -0.5
+    l = m.shape[1]
+    a, z = fused_decoder_az_plain(m, packed, depth, heads, precise)
+    p = {k: v.float() for k, v in packed.items()}
+    for d in range(depth):
+        xn = _layer_norm(x, p["ln1_scale"][d], p["ln1_bias"][d])
+        dots = (mm(xn, a[d]) * scale).unflatten(-1, (heads, l))
         e = torch.exp(dots - dots.amax(-1, keepdim=True))
         attn = (e / e.sum(-1, keepdim=True)).flatten(-2)
-        x = x + mm(attn, zm) + p["bo"][d]
+        x = x + mm(attn, z[d]) + p["bo"][d]
         xn2 = _layer_norm(x, p["ln2_scale"][d], p["ln2_bias"][d])
         h = _gelu_as(mm(xn2, p["w1"][d]) + p["b1"][d])
         x = x + mm(h, p["w2"][d]) + p["b2"][d]
@@ -177,12 +217,113 @@ def plain_decoder_stack(x: torch.Tensor, m: torch.Tensor, packed: Packed,
     return x
 
 
-def _fn(io_dtype, precise: bool):
-    name = f"fused_decoder_{_IO[io_dtype]}_{'precise' if precise else 'bf16ops'}"
+def _ops(precise: bool) -> str:
+    return "precise" if precise else "bf16ops"
+
+
+def _fn(name: str, n_ptr: int, n_int: int):
     fn = getattr(_build.load("fused_decoder"), name)
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _prologue_smem(hd: int) -> int:
+    """Shared-memory bytes of the prologue (csrc/fused_decoder.cu
+    ``pro_smem_floats``): one head's Wq^T (rows padded by one), Wk, Wv and
+    Wo slices, and LN1(m), k_h and v_h of ``_PRO_ROWS`` tokens."""
+    return 4 * (hd * (_DIM + 1) + 3 * _DIM * hd + _PRO_ROWS * (_DIM + 2 * hd))
+
+
+def _rows_smem(hl: int, precise: bool) -> int:
+    """Shared-memory bytes of the row kernel (``rows_smem_bytes``): A, Z, W1
+    and W2 as one bf16 plane, or three when ``precise``, hl padded to 16 and
+    rows padded by 8; the seven fp32 vectors."""
+    hlp = -(-hl // 16) * 16
+    plane = _DIM * (hlp + 8) + hlp * (_DIM + 8) + 2 * _DIM * (_DIM + 8)
+    return 2 * (3 if precise else 1) * plane + 4 * 7 * _DIM
+
+
+def _check(what: str, ts, m: torch.Tensor, packed: Packed, depth: int,
+           heads: int, precise: bool) -> None:
+    """Raise unless the tensors ``ts`` lie on one CUDA device and the shapes
+    are ones the kernels take."""
+    if packed["w1"].shape[-1] != _DIM:
+        raise ValueError(f"{what}: mlp_dim = {packed['w1'].shape[-1]}; the "
+                         f"kernel instance for mlp_dim != {_DIM} is not built "
+                         "yet (the plain version runs on CPU tensors only)")
+    if ts[0].device.type != "cuda" or any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"{what}: all operands must be on one CUDA device, "
+                         f"got {[str(t.device) for t in ts]}")
+    b, l = m.shape[:2]
+    if l not in _TOKENS or heads * l > _MAX_HL:
+        raise ValueError(f"{what}: the kernels take {_TOKENS} tokens per head "
+                         f"and heads * tokens <= {_MAX_HL}, got {l} tokens "
+                         f"per head at {heads} heads")
+    inner = packed["wq"].shape[-1]
+    shapes_ok = (m.shape == (b, l, _DIM) and inner % heads == 0
+                 and all(packed[k].shape == (depth, _DIM, inner)
+                         for k in ("wq", "wk", "wv"))
+                 and packed["wo"].shape == (depth, inner, _DIM)
+                 and packed["w1"].shape == packed["w2"].shape
+                 == (depth, _DIM, _DIM)
+                 and all(packed[k].shape == (depth, _DIM) for k in VEC_KEYS))
+    smem = max(_prologue_smem(inner // heads),
+               _rows_smem(heads * l, precise))
+    if not shapes_ok or smem > _SMEM_LIMIT:
+        raise ValueError(f"{what}: need dim = mlp_dim = {_DIM} and {smem} <= "
+                         f"{_SMEM_LIMIT} bytes of shared memory per CTA, got "
+                         f"m {tuple(m.shape)}, heads {heads}, "
+                         f"{ {k: tuple(v.shape) for k, v in packed.items()} }")
+
+
+def _vecs(packed: Packed) -> torch.Tensor:
+    return torch.stack([packed[k].float() for k in VEC_KEYS], 1).contiguous()
+
+
+def _prologue(m, packed, vecs, depth: int, heads: int, precise: bool):
+    """Launches the prologue: A (D, B, 32, hl) and Z (D, B, hl, 32), fp32."""
+    b, l, _ = m.shape
+    hl = heads * l
+    mc = m.float().contiguous()
+    w = [packed[k].float().contiguous() for k in ("wq", "wk", "wv", "wo")]
+    a = torch.empty((depth, b, _DIM, hl), dtype=torch.float32, device=m.device)
+    z = torch.empty((depth, b, hl, _DIM), dtype=torch.float32, device=m.device)
+    status = _fn(f"fused_decoder_az_{_ops(precise)}", 8, 5)(
+        *[t.data_ptr() for t in (mc, *w, vecs, a, z)], b, depth, l, heads,
+        w[0].shape[-1], torch.cuda.current_stream(m.device).cuda_stream)
+    _build.check(status, "fused_decoder prologue")
+    return a, z
+
+
+def _rows(x, a, z, packed, vecs, depth: int, heads: int, precise: bool):
+    """Launches the row kernel on the prologue's A and Z: y like x."""
+    b, n, _ = x.shape
+    hl = a.shape[-1]
+    xc = x.contiguous()
+    w1, w2 = (packed[k].float().contiguous() for k in ("w1", "w2"))
+    y = torch.empty_like(xc)
+    status = _fn(f"fused_decoder_{_IO[x.dtype]}_{_ops(precise)}", 7, 5)(
+        *[t.data_ptr() for t in (xc, a, z, w1, w2, vecs, y)], b, n, depth, hl,
+        hl // heads, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "fused_decoder rows")
+    return y
+
+
+def fused_decoder_az(m: torch.Tensor, packed: Packed, depth: int, heads: int,
+                     precise: bool):
+    """The prologue alone: (A, Z) as ``fused_decoder_az_plain`` returns
+    them. CPU tensors take that plain version; CUDA tensors launch the
+    prologue kernel or raise."""
+    global launches_az
+    if m.device.type == "cpu":
+        return fused_decoder_az_plain(m, packed, depth, heads, precise)
+    _check("fused_decoder_az", (m, *(packed[k] for k in ORDER)), m, packed,
+           depth, heads, precise)
+    out = _prologue(m, packed, _vecs(packed), depth, heads, precise)
+    launches_az += 1
+    return out
 
 
 def fused_transformer_decoder(x: torch.Tensor, m: torch.Tensor, packed: Packed,
@@ -193,59 +334,40 @@ def fused_transformer_decoder(x: torch.Tensor, m: torch.Tensor, packed: Packed,
     x: (B, N, 32) in float32 or bfloat16; m: (B, L, 32) in any float type;
     ``packed``: the 13 stacked parameters of ``pack_decoder_params`` (any
     float type, read as fp32), inner width heads * dim_head, mlp_dim 32,
-    heads * L <= 128. Returns (B, N, 32) in x's dtype. CPU tensors take
-    ``fused_decoder_plain`` (any mlp_dim); CUDA tensors launch the kernel or
-    raise.
+    L in 1, 2, 4, 8 or 16 and heads * L <= 128. Returns (B, N, 32) in x's
+    dtype. CPU tensors take ``fused_decoder_plain`` (any shape); CUDA tensors
+    launch the prologue and the row kernel or raise.
     """
     global launches
     if x.device.type == "cpu":
         return fused_decoder_plain(x, m, packed, depth, heads, precise)
-    if packed["w1"].shape[-1] != _DIM:
-        raise ValueError("fused_transformer_decoder: mlp_dim = "
-                         f"{packed['w1'].shape[-1]}; the kernel instance for "
-                         f"mlp_dim != {_DIM} is not built yet (the plain "
-                         "version runs on CPU tensors only)")
-    ts = (x, m, *(packed[k] for k in ORDER))
-    if x.device.type != "cuda" or any(t.device != x.device for t in ts):
-        raise ValueError("fused_transformer_decoder: all operands must be on "
-                         f"one CUDA device, got {[str(t.device) for t in ts]}")
+    _check("fused_transformer_decoder", (x, m, *(packed[k] for k in ORDER)), m,
+           packed, depth, heads, precise)
     if x.dtype not in _IO:
         raise TypeError(f"fused_transformer_decoder: x is {x.dtype}; need "
                         "float32 or bfloat16")
-    b, n, dim = x.shape
-    l = m.shape[1]
-    hl = heads * l
-    inner = packed["wq"].shape[-1]
-    shapes_ok = (dim == _DIM and m.shape == (b, l, _DIM) and hl <= _MAX_HL
-                 and inner % heads == 0
-                 and all(packed[k].shape == (depth, _DIM, inner)
-                         for k in ("wq", "wk", "wv"))
-                 and packed["wo"].shape == (depth, inner, _DIM)
-                 and packed["w1"].shape == packed["w2"].shape
-                 == (depth, _DIM, _DIM)
-                 and all(packed[k].shape == (depth, _DIM) for k in VEC_KEYS))
-    smem = 4 * (l * _DIM + 2 * l * inner)
-    if not shapes_ok or smem > _SMEM_LIMIT:
-        raise ValueError("fused_transformer_decoder: need dim = mlp_dim = "
-                         f"{_DIM}, heads * tokens <= {_MAX_HL} and "
-                         f"{smem} <= {_SMEM_LIMIT} bytes of memory-side "
-                         f"shared memory, got x {tuple(x.shape)}, m "
-                         f"{tuple(m.shape)}, heads {heads}, "
-                         f"{ {k: tuple(v.shape) for k, v in packed.items()} }")
-    w = [packed[k].float().contiguous() for k in ("wq", "wk", "wv", "wo",
-                                                  "w1", "w2")]
-    vecs = torch.stack([packed[k].float() for k in VEC_KEYS], 1).contiguous()
-    xc, mc = x.contiguous(), m.float().contiguous()
-    a = torch.empty((depth, b, _DIM, hl), dtype=torch.float32, device=x.device)
-    z = torch.empty((depth, b, hl, _DIM), dtype=torch.float32, device=x.device)
-    y = torch.empty_like(xc)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _fn(x.dtype, precise)(
-        *[t.data_ptr() for t in (xc, mc, *w, vecs, a, z, y)],
-        b, n, depth, l, heads, inner, smem, stream)
-    _build.check(status, "fused_transformer_decoder")
+    if x.dim() != 3 or x.shape[0] != m.shape[0] or x.shape[-1] != _DIM:
+        raise ValueError("fused_transformer_decoder: need x (B, N, "
+                         f"{_DIM}) beside m {tuple(m.shape)}, got "
+                         f"{tuple(x.shape)}")
+    vecs = _vecs(packed)
+    a, z = _prologue(m, packed, vecs, depth, heads, precise)
+    y = _rows(x, a, z, packed, vecs, depth, heads, precise)
     launches += 1
     return y
+
+
+def ctas_per_sm(io_dtype, precise: bool, hl: int) -> int:
+    """CTAs of the row kernel instance (x's dtype, ``precise``) that one SM
+    holds at once at this hl, as the CUDA occupancy calculator counts them
+    (registers and shared memory decide)."""
+    per_sm = ctypes.c_int(0)
+    fn = getattr(_build.load("fused_decoder"),
+                 f"fused_decoder_ctas_per_sm_{_IO[io_dtype]}_{_ops(precise)}")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(hl, ctypes.byref(per_sm)), "fused_decoder occupancy")
+    return per_sm.value
 
 
 class FusedDecoderFn(torch.autograd.Function):

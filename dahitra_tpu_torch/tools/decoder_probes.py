@@ -7,8 +7,9 @@
 ``--warps`` (16 rows per warp, so the CTA's rows change) and times it against
 the source's own build behind queued work, both instances, at every phase-3
 decoder shape of ``chip_smoke.py``, checking that both give the same bits.
-``sass-diff`` builds ``csrc/decoder_bwd.cu`` (K2) here and in another
-checkout and counts the lines in which their ``cuobjdump -sass`` differ, the
+``sass-diff`` builds ``csrc/decoder_fwd.cu`` (K1 and K1-save) and
+``csrc/decoder_bwd.cu`` (K2) here and in another checkout and counts, per
+source, the lines in which their ``cuobjdump -sass`` differ, the
 anonymous-namespace hash in the kernel names aside. One JSON line each.
 """
 from __future__ import annotations
@@ -77,17 +78,19 @@ def cta_rows(warps: int) -> None:
 
 def sass_diff(other: str) -> None:
     tmp = Path(tempfile.mkdtemp(prefix="sass_diff_"))
-    sass = []
-    for tag, root in (("here", _ROOT), ("other", Path(other))):
-        _nvcc(root / "dahitra_tpu_torch" / "csrc" / "decoder_bwd.cu", tmp / f"{tag}.so")
-        out = subprocess.run(
-            [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
-             str(tmp / f"{tag}.so")], capture_output=True, text=True, check=True).stdout
-        sass.append(re.sub(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_decoder_bwd_cu_[0-9a-f]+",
-                           "ANON", out).splitlines())
-    differ = sum(a != b for a, b in zip(*sass)) + abs(len(sass[0]) - len(sass[1]))
-    print(json.dumps({"sass_diff": "decoder_bwd.cu", "lines": len(sass[0]),
-                      "differing_lines": differ}), flush=True)
+    for source in ("decoder_fwd", "decoder_bwd"):
+        sass = []
+        for tag, root in (("here", _ROOT), ("other", Path(other))):
+            out = tmp / f"{source}_{tag}.so"
+            _nvcc(root / "dahitra_tpu_torch" / "csrc" / f"{source}.cu", out)
+            dump = subprocess.run(
+                [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+                 str(out)], capture_output=True, text=True, check=True).stdout
+            sass.append(re.sub(rf"_GLOBAL__N__[0-9a-f]+_[0-9]+_{source}_cu_[0-9a-f]+",
+                               "ANON", dump).splitlines())
+        differ = sum(a != b for a, b in zip(*sass)) + abs(len(sass[0]) - len(sass[1]))
+        print(json.dumps({"sass_diff": f"{source}.cu", "lines": len(sass[0]),
+                          "differing_lines": differ}), flush=True)
 
 
 def main() -> None:

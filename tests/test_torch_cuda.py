@@ -224,7 +224,7 @@ K4_MODES = [(torch.float32, True), (torch.float32, False),
             (torch.bfloat16, False), (torch.bfloat16, True)]
 
 
-def _k4_case(card, io, b, n, depth, heads, seed=2):
+def _k4_case(card, io, b, n, depth, heads, seed=2, l=4):
     g = torch.Generator().manual_seed(seed)
     dec = TransformerDecoder(32, depth, heads, 64, 32)
     with torch.no_grad():
@@ -232,18 +232,25 @@ def _k4_case(card, io, b, n, depth, heads, seed=2):
             p.add_(0.1 * torch.randn(p.shape, generator=g))
         packed = {k: v.to(card) for k, v in pack_decoder_params(dec).items()}
     x = torch.randn(b, n, 32, generator=g).to(card, io)
-    m = torch.randn(b, 4, 32, generator=g).to(card)
+    m = torch.randn(b, l, 32, generator=g).to(card)
     return x, m, packed
 
 
+# (b, n, depth, heads, tokens per head): a 1/4-scale and a 1/16-scale shape;
+# a ragged n (100) at the widest hl = 128; l = 1, 2, 8 and 16, with an odd
+# hl (3), ragged n and hl = 128 at l = 16.
+K4_SHAPES = [(2, 4096, 8, 8, 4), (16, 256, 4, 4, 4), (3, 100, 2, 32, 4),
+             (2, 300, 2, 8, 1), (5, 257, 3, 3, 1), (2, 256, 2, 4, 2),
+             (2, 129, 2, 4, 8), (3, 200, 2, 8, 16), (1, 64, 1, 1, 16)]
+
+
 @pytest.mark.parametrize("io,precise", K4_MODES)
-@pytest.mark.parametrize("b,n,depth,heads", [(2, 4096, 8, 8), (16, 256, 4, 4),
-                                             (3, 100, 2, 32)])
+@pytest.mark.parametrize("b,n,depth,heads,l", K4_SHAPES)
 def test_fused_decoder_kernel_matches_plain(card, io, precise, b, n, depth,
-                                            heads):
-    """K4 at a 1/4-scale and a 1/16-scale shape, a ragged n (100) with the
-    widest hl = 128; a rerun gives the same bits."""
-    x, m, packed = _k4_case(card, io, b, n, depth, heads)
+                                            heads, l):
+    """K4 (prologue and row kernel) against fused_decoder_plain; a rerun
+    gives the same bits."""
+    x, m, packed = _k4_case(card, io, b, n, depth, heads, l=l)
     before = kd.launches
     got = kd.fused_transformer_decoder(x, m, packed, depth, heads, precise)
     torch.cuda.synchronize()
@@ -256,6 +263,39 @@ def test_fused_decoder_kernel_matches_plain(card, io, precise, b, n, depth,
     assert _scaled_err(got, ref) <= tol
     assert torch.equal(got, kd.fused_transformer_decoder(x, m, packed, depth,
                                                          heads, precise))
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("b,depth,heads,l", [(16, 8, 8, 4), (5, 3, 3, 1),
+                                             (3, 2, 8, 16), (9, 2, 32, 4)])
+def test_fused_decoder_prologue_matches_plain(card, precise, b, depth, heads,
+                                              l):
+    """The prologue alone (A and Z, fp32) against fused_decoder_az_plain:
+    B not a multiple of the 4 samples per CTA, odd hl, l = 16, hl = 128."""
+    _, m, packed = _k4_case(card, torch.float32, b, 1, depth, heads, l=l)
+    before = kd.launches_az
+    a, z = kd.fused_decoder_az(m, packed, depth, heads, precise)
+    torch.cuda.synchronize()
+    assert kd.launches_az == before + 1
+    ref_a, ref_z = kd.fused_decoder_az_plain(m, packed, depth, heads, precise)
+    # fp32 FMA sums in another order; with bf16 operands k and v are rounded
+    # to bf16, where one flipped rounding moves A by an ulp of bf16.
+    tol = 1e-5 if precise else TOL[torch.bfloat16]
+    assert _scaled_err(a, ref_a) <= tol and _scaled_err(z, ref_z) <= tol
+
+
+@pytest.mark.parametrize("l,heads", [(3, 4), (32, 4)])
+def test_fused_decoder_refuses_other_token_counts(card, l, heads):
+    """3 tokens per head, and 32 (hl = 128 but a group wider than a
+    16-column slice): a ValueError naming the tokens per head, from both
+    wrappers; no plain fallback."""
+    x, m, packed = _k4_case(card, torch.float32, 2, 128, 1, heads, l=l)
+    before = kd.launches, kd.launches_az
+    with pytest.raises(ValueError, match="tokens per head"):
+        kd.fused_transformer_decoder(x, m, packed, 1, heads, True)
+    with pytest.raises(ValueError, match="tokens per head"):
+        kd.fused_decoder_az(m, packed, 1, heads, True)
+    assert (kd.launches, kd.launches_az) == before
 
 
 def test_fused_decoder_grads_match_cpu(card, monkeypatch):
