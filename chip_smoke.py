@@ -4,8 +4,9 @@
 
 Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
 (``newUNetTrans``) at its published width, at 256 px and then at 512 and
-1024 px, through the user's entry points ``dahitra_tpu_torch.cli.eval_cd`` and
-``dahitra_tpu_torch.cli.main_cd``. Phases, each fatal on failure:
+1024 px, and of BIT (``base_transformer_pos_s4_dd8``) and ``base_resnet18``
+at 256 px, through the user's entry points ``dahitra_tpu_torch.cli.eval_cd``
+and ``dahitra_tpu_torch.cli.main_cd``. Phases, each fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``dahitra_tpu_torch/csrc`` (one nvcc per
@@ -13,8 +14,10 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
      source, K1's, K2's and K4's, with ``-Xptxas -v``), and print the
      registers, spills and ``HMMA.16816.F32.BF16`` instructions
      (``cuobjdump -sass``) of the row kernels' instances (K1 and K1-save,
-     K2; fp32 and bf16; K4's four) and the CTAs per SM of each at every
-     main-path hl (CUDA's occupancy calculator, which sizes K2's grid);
+     K2; fp32 and bf16; K4's four; each at mlp_dim 32 and 64, the suffix
+     ``_mlp64`` naming BIT's) and the CTAs per SM of each at every main-path
+     hl (16 and 32 for DAHiTra's, 32 and 64 for BIT's; CUDA's occupancy
+     calculator, which sizes K2's grid);
   3. hold each kernel against its plain PyTorch version on the card at every
      shape the main paths give it, in fp32 and bf16, and time the kernel,
      the plain version and, where one exists, a single PyTorch call that
@@ -35,7 +38,11 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
      time (an empty kernel's launch time is printed beside); then K4's
      gradients
      (``FusedDecoderFn``) on the card against autograd of
-     ``plain_decoder_stack`` on the CPU at the 1/4-scale dates shape;
+     ``plain_decoder_stack`` on the CPU at the 1/4-scale dates shape; then
+     the mlp_dim-64 instances of K1, K1-save, K2 and K4 (both model modes)
+     at BIT's shapes (``BIT_SHAPES``: ``_dd8`` at 256 and 512 px, hl 32,
+     and ``_t8_e2d4``, hl 64), against their plain versions, rerun for the
+     same bits and timed as above;
   4. write a seeded synthetic LEVIR tree (4 tiles of 1024 px = 64 patches of
      256 px) and a seeded ``best_ckpt.pt``;
   5. run ``eval_cd`` on the card at batch 8, once in fp32 and once with
@@ -75,10 +82,22 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
      (6 K1-save, 6 K2, 3 K3) and one validation forward (6 K1, 3 K3); then
      one ``CDTrainer.train_step`` at 1024 px on a seeded batch per dtype, on
      the default path (6 K1-save, 6 K2, 3 K3) and with ``pallas = True``
-     (6 K4, 3 K3): finite loss, step time and peak memory.
+     (6 K4, 3 K3): finite loss, step time and peak memory;
+ 14. BIT and ResNetCD (``run_bit_phase``): seeded ``base_transformer_pos_s4
+     _dd8`` and ``base_resnet18`` checkpoints; ``eval_cd --net_G
+     base_transformer_pos_s4_dd8`` at batch 8 over phase 4's 64 patches,
+     fp32 then bf16 (2 K1 and 2 K3 per forward, the decoder and the
+     tokenizer once per date); its fp32 forward of two patches against the
+     CPU plain path; ``main_cd`` with that key for 2 epochs on phase 7's
+     splits in both dtypes (2 K1-save, 2 K2, 2 K3 per step); its fp32
+     training gradients and BN statistics against the CPU plain path; its
+     pallas forwards (2 K4, 2 K3; fp32 logits within 1e-3 of the K1 path);
+     one ``eval_cd --net_G base_resnet18`` forward per dtype (no decoder or
+     tokenizer kernel). BIT's decoder has mlp_dim 64, so these phases launch
+     the mlp_dim-64 instances and no other decoder instance.
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10, 12, 13) and read just after. ``--profile`` adds a torch.profiler
+7, 9, 10, 12, 13, 14) and read just after. ``--profile`` adds a torch.profiler
 breakdown of the batch-8 forward and of one batch-8 training step by kernel
 class, with the device's idle share, on the default path and with
 ``pallas = True``.
@@ -133,6 +152,18 @@ K3_SHAPES.append(("1024b4/s4", 8, (1024 // 4) ** 2))
 STEP_1024_BATCH = 2  # pairs per batch of the 1024 px train step
 TOKENS = 4
 DIM = 32
+# BIT's decoder (mlp_dim 64), called once per date at batch 8: (name, batch,
+# pixels N, depth, heads, memory tokens, dim_head). "bit/dd8" is the main
+# path (base_transformer_pos_s4_dd8 at 256 px, 2 calls per forward);
+# "bit_t8/s4" base_transformer_pos_s4_dd8_t8_e2d4 (8 tokens per head, hl
+# 64); "bit512/dd8" the main path's key at 512 px.
+BIT_MLP = 64
+BIT_SHAPES = [("bit/dd8", BATCH, 4096, 8, 8, 4, 64),
+              ("bit_t8/s4", BATCH, 4096, 4, 8, 8, 8),
+              ("bit512/dd8", BATCH, (512 // 4) ** 2, 8, 8, 4, 64)]
+BIT_KEY = "base_transformer_pos_s4_dd8"
+# Calls of a shape per forward or step, where more than one.
+CALLS = {"bit/dd8": 2}
 
 
 def fail(msg: str) -> None:
@@ -210,33 +241,44 @@ def _read_counts() -> dict:
             "k2": fd.launches_bwd, "k3": ft.launches, "k4": kd.launches}
 
 
-def _set_pallas(model, on: bool) -> None:
-    """``pallas = on`` on the model's three decoder stacks, as a JAX user
-    sets the field (no flag selects it)."""
+def _set_pallas(model, on: bool, n_decoders: int = 3) -> None:
+    """``pallas = on`` on the model's decoder stacks (DAHiTra's three,
+    BIT's one), as a JAX user sets the field (no flag selects it)."""
     from dahitra_tpu_torch.nn.blocks import TransformerDecoder
 
     decs = [mod for mod in model.modules() if isinstance(mod, TransformerDecoder)]
-    if len(decs) != 3:
-        fail(f"expected 3 TransformerDecoders, found {len(decs)}")
+    if len(decs) != n_decoders:
+        fail(f"expected {n_decoders} TransformerDecoders, found {len(decs)}")
     for dec in decs:
         dec.pallas = on
 
 
-def _decoder_operands(torch, dtype, gen, b, n, depth, heads):
-    """Seeded kernel operands (x, a, z, w1, w2, vecs) of one decoder call
-    and a cotangent dy, on the card in ``dtype``."""
-    from dahitra_tpu_torch.nn.blocks import TransformerDecoder
-    from dahitra_tpu_torch.nn.decoder_vjp import _operands, pack_decoder_params
+def _shape(shape):
+    """(name, b, n, depth, heads, tokens, dim_head) of a shape entry; the
+    DAHiTra shapes leave out the 4 tokens and dim_head 64."""
+    name, b, n, depth, heads, *rest = shape
+    return (name, b, n, depth, heads, *(rest or (TOKENS, 64)))
 
-    dec = TransformerDecoder(DIM, depth, heads, 64, DIM)
+
+def _decoder_operands(torch, dtype, gen, b, n, depth, heads, mlp=DIM,
+                      tokens=TOKENS, dim_head=64):
+    """Seeded kernel operands (x, a, z, w1, w2, vecs) of one decoder call,
+    a cotangent dy and b1 (D, mlp) fp32 where mlp != 32 (else None), on
+    the card in ``dtype``."""
+    from dahitra_tpu_torch.nn.blocks import TransformerDecoder
+    from dahitra_tpu_torch.nn.decoder_vjp import (_operands, _split_b1,
+                                                  pack_decoder_params)
+
+    dec = TransformerDecoder(DIM, depth, heads, dim_head, mlp)
     with torch.no_grad():
         for prm in dec.parameters():
             prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
         x, m, dy = (torch.randn(b, k, DIM, generator=gen).cuda().to(dtype)
-                    for k in (n, TOKENS, n))
-        ops = _operands(x, m, pack_decoder_params(dec.cuda()), depth, heads,
-                        dtype)
-    return ops, dy
+                    for k in (n, tokens, n))
+        packed = pack_decoder_params(dec.cuda())
+        ops = _operands(x, m, packed, depth, heads, dtype)
+        b1 = _split_b1(packed)
+    return ops, dy, None if b1 is None else b1.contiguous()
 
 
 # How the row kernels' products run, per instance (the kernels line).
@@ -269,18 +311,24 @@ K2_DESIGN = {
                 "and the weight-side sums"}
 # Row-kernel instances whose registers, spills, tensor-core instructions
 # and CTAs per SM phase 2 reports, per source: (instance, a fragment of its
-# mangled name, dtype, flags of the source's occupancy entry).
+# mangled name, dtype, flags of the source's occupancy entry, mlp_dim). The
+# mlp_dim-64 instances (BIT's decoder) carry the suffix "_mlp64".
 _MANGLED = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
+_MLPS = ((DIM, ""), (BIT_MLP, f"_mlp{BIT_MLP}"))
 ROW_KERNELS = {
-    "decoder_fwd": [(dname + "_save" * save, f"rows_mmaI{_MANGLED[dname]}Lb{save}E",
-                     dname, (save,))
-                    for dname in ("float32", "bfloat16") for save in (0, 1)],
-    "decoder_bwd": [(dname, f"rows_mmaI{_MANGLED[dname]}E", dname, ())
-                    for dname in ("float32", "bfloat16")],
+    "decoder_fwd": [(dname + "_save" * save + sfx,
+                     f"rows_mmaI{_MANGLED[dname]}Lb{save}ELi{mlp}E", dname,
+                     (save, mlp), mlp)
+                    for mlp, sfx in _MLPS for dname in ("float32", "bfloat16")
+                    for save in (0, 1)],
+    "decoder_bwd": [(dname + sfx, f"rows_mmaI{_MANGLED[dname]}Li{mlp}E", dname,
+                     (mlp,), mlp)
+                    for mlp, sfx in _MLPS for dname in ("float32", "bfloat16")],
     # K4: (x's dtype, precise), named as its C entries.
-    "fused_decoder": [(f"{io}_{ops}",
-                       f"fused_decoder_rows_mmaI{_MANGLED[dname]}Lb{int(pr)}E",
-                       dname, (pr,))
+    "fused_decoder": [(f"{io}_{ops}{sfx}",
+                       f"fused_decoder_rows_mmaI{_MANGLED[dname]}Lb{int(pr)}"
+                       f"ELi{mlp}E", dname, (pr, mlp), mlp)
+                      for mlp, sfx in _MLPS
                       for io, dname in (("f32", "float32"), ("bf16", "bfloat16"))
                       for ops, pr in (("precise", True), ("bf16ops", False))]}
 # The K4 row-kernel instance of each model: fp32 I/O in both, operands fp32
@@ -312,6 +360,13 @@ def _ctas_per_sm(torch, source, dname, flags, hl) -> int:
     if source == "fused_decoder":
         return kd.ctas_per_sm(getattr(torch, dname), *flags, hl)
     return fd._ctas_per_sm(source, getattr(torch, dname), hl, *flags)
+
+
+# hl of the main paths' decoder calls: DAHiTra's (16, 32) for the mlp_dim-32
+# instances, BIT's (32, 64) for the mlp_dim-64 ones.
+MAIN_HLS = {DIM: sorted({_shape(s)[4] * _shape(s)[5]
+                         for s in K1_SHAPES + [K1_SHAPE_512]}),
+            BIT_MLP: sorted({_shape(s)[4] * _shape(s)[5] for s in BIT_SHAPES})}
 
 
 def row_kernel_resources(torch, tmp, source, proc) -> dict:
@@ -357,143 +412,161 @@ def row_kernel_resources(torch, tmp, source, proc) -> dict:
             inst = instance(func.group(1))
         elif inst is not None and "HMMA.16816.F32.BF16" in line:
             out.setdefault(inst, {})["hmma"] = out[inst].get("hmma", 0) + 1
-    hls = sorted({heads * TOKENS for *_, heads in K1_SHAPES + [K1_SHAPE_512]})
-    for inst, _, dname, flags in instances:
+    for inst, _, dname, flags, mlp in instances:
         if "registers" not in out.get(inst, {}) or not out[inst].get("hmma"):
             fail(f"no ptxas report or no HMMA.16816.F32.BF16 of {source}.cu's "
                  f"{inst} row kernel:\n{log}")
         out[inst]["ctas_per_sm"] = {
-            hl: _ctas_per_sm(torch, source, dname, flags, hl) for hl in hls}
+            hl: _ctas_per_sm(torch, source, dname, flags, hl)
+            for hl in MAIN_HLS[mlp]}
     return out
 
 
-def _k1_ops(b, n, depth, hl):
+def _k1_ops(b, n, depth, hl, mlp=DIM):
     """K1's operations: per row and layer the four products (2*32*hl twice,
-    2*32*32 twice) plus about 1400 + 5*hl elementwise operations (two
-    LayerNorms, the clamped exp and divide, GELU, bias and residual adds)."""
-    return b * n * depth * (4 * DIM * hl + 4 * DIM * DIM + 1400 + 5 * hl)
+    2*32*mlp twice) plus about 1400 + 5*hl elementwise operations at mlp 32
+    (two LayerNorms, the clamped exp and divide, GELU, bias and residual
+    adds) and about 20 more per hidden column beyond 32 (bias, GELU, the
+    roundings)."""
+    return b * n * depth * (4 * DIM * hl + 4 * DIM * mlp + 1400 + 5 * hl
+                            + 20 * (mlp - DIM))
 
 
-def check_k1(torch, dtype, gen):
-    """K1 against its plain version at every main-path decoder shape, and a
+def _k2_ops(b, n, depth, hl, mlp=DIM):
+    """K2's operations: per row and layer ten products (recomputed attn.Z
+    and g.W1, dy.W2^T, dt.W1^T, dx1.Z^T, dl.A^T and the four weight-side
+    sums), five of 2*32*hl and five of 2*32*mlp, plus about 2200 + 10*hl
+    elementwise operations at mlp 32 (two LayerNorms and their backward,
+    GELU and its derivative, the softmax backward, the vector sums) and
+    about 30 more per hidden column beyond 32."""
+    return b * n * depth * (10 * DIM * mlp + 10 * DIM * hl + 2200 + 10 * hl
+                            + 30 * (mlp - DIM))
+
+
+def _row(name, b, n, depth, hl, **kw):
+    """A check line's shape fields, with its calls per forward or step."""
+    return {"shape": name, "B": b, "N": n, "depth": depth, "hl": hl,
+            "calls": CALLS.get(name, 1), **kw}
+
+
+def check_k1(torch, dtype, gen, shapes=None, mlp=DIM):
+    """K1 (its mlp_dim ``mlp`` instance) against its plain version at every
+    decoder shape of ``shapes`` (the DAHiTra main paths' by default), and a
     rerun for the same bits."""
     from dahitra_tpu_torch.kernels import folded_decoder as fd
 
     dname = str(dtype).split(".")[-1]
     rows = []
-    for name, b, n, depth, heads in K1_SHAPES + [K1_SHAPE_512]:
-        ops_in, _ = _decoder_operands(torch, dtype, gen, b, n, depth, heads)
-        got = fd.decoder_stack_fwd(*ops_in, depth, heads, dtype)
-        ref = fd.decoder_stack_fwd_plain(*ops_in, depth, heads, dtype)
+    for shape in shapes or K1_SHAPES + [K1_SHAPE_512]:
+        name, b, n, depth, heads, tokens, dim_head = _shape(shape)
+        ops_in, _, b1 = _decoder_operands(torch, dtype, gen, b, n, depth,
+                                          heads, mlp, tokens, dim_head)
+
+        def k1():
+            return fd.decoder_stack_fwd(*ops_in, depth, heads, dtype, b1=b1)
+
+        got = k1()
+        ref = fd.decoder_stack_fwd_plain(*ops_in, depth, heads, dtype, b1=b1)
         torch.cuda.synchronize()
         err, serr = scaled_err(got, ref)
         if not (torch.isfinite(got.float()).all() and serr <= TOL[dname]):
             fail(f"K1 {name} {dname}: scaled error {serr:.3e} > {TOL[dname]}")
-        if not torch.equal(got, fd.decoder_stack_fwd(*ops_in, depth, heads,
-                                                     dtype)):
+        if not torch.equal(got, k1()):
             fail(f"K1 {name} {dname}: a second run gave other bits")
-        hl = heads * TOKENS
+        hl = heads * tokens
         size = torch.finfo(dtype).bits // 8
         nbytes = (2 * b * n * DIM + sum(t.numel() for t in ops_in[1:5])) * size \
-            + ops_in[5].numel() * 4
-        bms, by = bound(nbytes, _k1_ops(b, n, depth, hl), dname)
-        rows.append({
-            "shape": name, "B": b, "N": n, "depth": depth, "hl": hl,
-            "max_abs_err": err, "scaled_err": serr,
-            "ms": time_ms(lambda: fd.decoder_stack_fwd(*ops_in, depth, heads,
-                                                       dtype), torch,
-                          **_reps(n)),
-            "device_ms": time_ms(lambda: fd.decoder_stack_fwd(
-                *ops_in, depth, heads, dtype), torch, queued=True, **_reps(n)),
-            "plain_ms": time_ms(lambda: fd.decoder_stack_fwd_plain(
-                *ops_in, depth, heads, dtype), torch, **_reps(n)),
-            "bound_ms": bms, "bound_by": by, "library_ms": None})
+            + (ops_in[5].numel() + (0 if b1 is None else b1.numel())) * 4
+        bms, by = bound(nbytes, _k1_ops(b, n, depth, hl, mlp), dname)
+        rows.append(_row(
+            name, b, n, depth, hl, max_abs_err=err, scaled_err=serr,
+            ms=time_ms(k1, torch, **_reps(n)),
+            device_ms=time_ms(k1, torch, queued=True, **_reps(n)),
+            plain_ms=time_ms(lambda: fd.decoder_stack_fwd_plain(
+                *ops_in, depth, heads, dtype, b1=b1), torch, **_reps(n)),
+            bound_ms=bms, bound_by=by, library_ms=None))
     return rows
 
 
-def check_k1_save_k2(torch, dtype, gen):
+def check_k1_save_k2(torch, dtype, gen, shapes=None, mlp=DIM):
     """K1 with saves (y and both saves) and K2 (every gradient, from the
-    kernel's own saves) against their plain versions at every training
-    decoder shape, and a rerun of each for the same bits; no single PyTorch
-    call computes either, so no library yardstick."""
+    kernel's own saves), their mlp_dim ``mlp`` instances, against their
+    plain versions at every decoder shape of ``shapes`` (the DAHiTra
+    training paths' by default), and a rerun of each for the same bits; no
+    single PyTorch call computes either, so no library yardstick."""
     from dahitra_tpu_torch.kernels import folded_decoder as fd
 
     dname = str(dtype).split(".")[-1]
     size = torch.finfo(dtype).bits // 8
     fwd_rows, bwd_rows = [], []
-    for name, b, n, depth, heads in K1_SHAPES + [K1_SHAPE_512]:
-        ops_in, dy = _decoder_operands(torch, dtype, gen, b, n, depth, heads)
-        hl = heads * TOKENS
-        got = fd.decoder_stack_fwd(*ops_in, depth, heads, dtype, save=True)
+    for shape in shapes or K1_SHAPES + [K1_SHAPE_512]:
+        name, b, n, depth, heads, tokens, dim_head = _shape(shape)
+        ops_in, dy, b1 = _decoder_operands(torch, dtype, gen, b, n, depth,
+                                           heads, mlp, tokens, dim_head)
+        hl = heads * tokens
+
+        def k1_save():
+            return fd.decoder_stack_fwd(*ops_in, depth, heads, dtype,
+                                        save=True, b1=b1)
+
+        def k2():
+            return fd.decoder_stack_bwd(got[1], got[2], dy, *ops_in[1:], depth,
+                                        heads, dtype, b1=b1)
+
+        got = k1_save()
         ref = fd.decoder_stack_fwd_plain(*ops_in, depth, heads, dtype,
-                                         save=True)
-        grads = fd.decoder_stack_bwd(got[1], got[2], dy, *ops_in[1:], depth,
-                                     heads, dtype)
+                                         save=True, b1=b1)
+        grads = k2()
         gref = fd.decoder_stack_bwd_plain(got[1], got[2], dy, *ops_in[1:],
-                                          depth, heads, dtype)
+                                          depth, heads, dtype, b1=b1)
         torch.cuda.synchronize()
         if not torch.equal(got[0], fd.decoder_stack_fwd(*ops_in, depth, heads,
-                                                        dtype)):
+                                                        dtype, b1=b1)):
             fail(f"K1-save {name} {dname}: y differs from K1's")
-        if not all(torch.equal(g, h) for g, h in zip(got, fd.decoder_stack_fwd(
-                *ops_in, depth, heads, dtype, save=True))):
+        if not all(torch.equal(g, h) for g, h in zip(got, k1_save())):
             fail(f"K1-save {name} {dname}: a second run gave other bits")
-        again = fd.decoder_stack_bwd(got[1], got[2], dy, *ops_in[1:], depth,
-                                     heads, dtype)
-        if not all(torch.equal(g, h) for g, h in zip(grads, again)):
+        if not all(torch.equal(g, h) for g, h in zip(grads, k2())):
             fail(f"K2 {name} {dname}: a second run gave other bits")
         errs = [scaled_err(g, r) for g, r in zip(got, ref)]
         gerrs = [scaled_err(g, r) for g, r in zip(grads, gref)]
-        if not (all(torch.isfinite(g.float()).all() for g in got + grads)
+        if not (len(grads) == len(gref)
+                and all(torch.isfinite(g.float()).all() for g in got + grads)
                 and max(e[1] for e in errs) <= TOL[dname]
                 and max(e[1] for e in gerrs) <= GTOL[dname]):
             fail(f"K1-save/K2 {name} {dname}: scaled errors "
                  f"{[e[1] for e in errs]} (tolerance {TOL[dname]}), "
                  f"{[e[1] for e in gerrs]} (tolerance {GTOL[dname]})")
         weights = sum(t.numel() for t in ops_in[1:5]) * size \
-            + ops_in[5].numel() * 4
+            + (ops_in[5].numel() + (0 if b1 is None else b1.numel())) * 4
         saves = depth * b * n * (DIM + hl) * size
         # K1-save: K1's reads and writes plus the saves.
         nbytes = 2 * b * n * DIM * size + weights + saves
-        bms, by = bound(nbytes, _k1_ops(b, n, depth, hl), dname)
-        fwd_rows.append({
-            "shape": name, "B": b, "N": n, "depth": depth, "hl": hl,
-            "max_abs_err": max(e[0] for e in errs),
-            "scaled_err": max(e[1] for e in errs),
-            "ms": time_ms(lambda: fd.decoder_stack_fwd(
-                *ops_in, depth, heads, dtype, save=True), torch, **_reps(n)),
-            "device_ms": time_ms(lambda: fd.decoder_stack_fwd(
-                *ops_in, depth, heads, dtype, save=True), torch, queued=True,
+        bms, by = bound(nbytes, _k1_ops(b, n, depth, hl, mlp), dname)
+        fwd_rows.append(_row(
+            name, b, n, depth, hl, max_abs_err=max(e[0] for e in errs),
+            scaled_err=max(e[1] for e in errs),
+            ms=time_ms(k1_save, torch, **_reps(n)),
+            device_ms=time_ms(k1_save, torch, queued=True, **_reps(n)),
+            plain_ms=time_ms(lambda: fd.decoder_stack_fwd_plain(
+                *ops_in, depth, heads, dtype, save=True, b1=b1), torch,
                 **_reps(n)),
-            "plain_ms": time_ms(lambda: fd.decoder_stack_fwd_plain(
-                *ops_in, depth, heads, dtype, save=True), torch, **_reps(n)),
-            "bound_ms": bms, "bound_by": by, "library_ms": None})
+            bound_ms=bms, bound_by=by, library_ms=None))
         # K2: reads the saves, dy and the weights; writes dx, dA, dZ (T)
-        # and dW1, dW2, dvecs (fp32). Per row and layer: ten products
-        # (recomputed attn.Z and g.W1, dy.W2^T, dt.W1^T, dx1.Z^T, dl.A^T and
-        # the four weight-side sums), five of 2*32*32 and five of 2*32*hl,
-        # plus about 2200 + 10*hl elementwise operations (two LayerNorms
-        # and their backward, GELU and its derivative, the softmax
-        # backward, the vector sums).
+        # and dW1, dW2, dvecs and db1 (fp32).
         nbytes = saves + 2 * b * n * DIM * size + weights \
             + (ops_in[1].numel() + ops_in[2].numel()) * size \
-            + (2 * depth * DIM * DIM + depth * 7 * DIM) * 4
-        ops = b * n * depth * (10 * DIM * DIM + 10 * DIM * hl + 2200 + 10 * hl)
-        bms, by = bound(nbytes, ops, dname)
-        bwd_rows.append({
-            "shape": name, "B": b, "N": n, "depth": depth, "hl": hl,
-            "max_abs_err": max(e[0] for e in gerrs),
-            "scaled_err": max(e[1] for e in gerrs),
-            "ms": time_ms(lambda: fd.decoder_stack_bwd(
-                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch,
-                **_reps(n)),
-            "device_ms": time_ms(lambda: fd.decoder_stack_bwd(
-                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch,
-                queued=True, **_reps(n)),
-            "plain_ms": time_ms(lambda: fd.decoder_stack_bwd_plain(
-                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype), torch,
-                **_reps(n)),
-            "bound_ms": bms, "bound_by": by, "library_ms": None})
+            + (2 * depth * DIM * mlp + depth * 7 * DIM
+               + (0 if b1 is None else b1.numel())) * 4
+        bms, by = bound(nbytes, _k2_ops(b, n, depth, hl, mlp), dname)
+        bwd_rows.append(_row(
+            name, b, n, depth, hl, max_abs_err=max(e[0] for e in gerrs),
+            scaled_err=max(e[1] for e in gerrs),
+            ms=time_ms(k2, torch, **_reps(n)),
+            device_ms=time_ms(k2, torch, queued=True, **_reps(n)),
+            plain_ms=time_ms(lambda: fd.decoder_stack_bwd_plain(
+                got[1], got[2], dy, *ops_in[1:], depth, heads, dtype, b1=b1),
+                torch, **_reps(n)),
+            bound_ms=bms, bound_by=by, library_ms=None))
     return fwd_rows, bwd_rows
 
 
@@ -565,57 +638,63 @@ def check_k3(torch, dtype, gen):
     return rows
 
 
-def _k4_operands(torch, gen, b, n, depth, heads, io_dtype):
-    """Seeded x (B, N, 32) in ``io_dtype``, fp32 memory tokens m (B, 4, 32)
-    and the packed fp32 weights of one decoder call, on the card."""
+def _k4_operands(torch, gen, b, n, depth, heads, io_dtype, mlp=DIM,
+                 tokens=TOKENS, dim_head=64):
+    """Seeded x (B, N, 32) in ``io_dtype``, fp32 memory tokens m (B, tokens,
+    32) and the packed fp32 weights of one decoder call, on the card."""
     from dahitra_tpu_torch.nn.blocks import TransformerDecoder
     from dahitra_tpu_torch.nn.decoder_vjp import pack_decoder_params
 
-    dec = TransformerDecoder(DIM, depth, heads, 64, DIM)
+    dec = TransformerDecoder(DIM, depth, heads, dim_head, mlp)
     with torch.no_grad():
         for prm in dec.parameters():
             prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
         packed = {k: v.cuda() for k, v in pack_decoder_params(dec).items()}
     x = torch.randn(b, n, DIM, generator=gen).cuda().to(io_dtype)
-    m = torch.randn(b, TOKENS, DIM, generator=gen).cuda()
+    m = torch.randn(b, tokens, DIM, generator=gen).cuda()
     return x, m, packed
 
 
-def _k4_cost(b, n, depth, heads, io_size):
+def _k4_cost(b, n, depth, heads, io_size, mlp=DIM, tokens=TOKENS,
+             dim_head=64):
     """K4's bytes (x read and y written, m and the fp32 weights read once)
     and operations: K1's row work plus the memory side once per sample and
     layer (k and v, 2 * 2 * L * 32 * inner; A and Z, 2 * 2 * heads * L *
     dim_head * 32)."""
-    hl, inner = heads * TOKENS, heads * 64
-    nbytes = 2 * b * n * DIM * io_size + b * TOKENS * DIM * 4 \
-        + depth * (4 * DIM * inner + 2 * DIM * DIM + 7 * DIM) * 4
-    ops = _k1_ops(b, n, depth, hl) + b * depth * (
-        2 * 2 * TOKENS * DIM * inner + 2 * 2 * heads * TOKENS * 64 * DIM)
+    hl, inner = heads * tokens, heads * dim_head
+    nbytes = 2 * b * n * DIM * io_size + b * tokens * DIM * 4 \
+        + depth * (4 * DIM * inner + 2 * DIM * mlp + 6 * DIM + mlp) * 4
+    ops = _k1_ops(b, n, depth, hl, mlp) + b * depth * (
+        2 * 2 * tokens * DIM * inner + 2 * 2 * heads * tokens * dim_head * DIM)
     return nbytes, ops
 
 
-def check_k4(torch, dtype, gen):
-    """K4 against ``fused_decoder_plain`` at every main-path decoder shape in
-    the mode of the ``dtype`` model: fp32 I/O (the decoder input is fp32 in
-    both models, after the positional add), operands fp32 (``precise``) in
-    the fp32 model and bf16 in the bf16 one; a rerun for the same bits; the
-    prologue's A and Z (``fused_decoder_az``) against
+def check_k4(torch, dtype, gen, shapes=None, mlp=DIM):
+    """K4 (its mlp_dim ``mlp`` instance) against ``fused_decoder_plain`` at
+    every decoder shape of ``shapes`` (the DAHiTra main paths' by default)
+    in the mode of the ``dtype`` model: fp32 I/O (the decoder input is fp32
+    in both models, after the positional add), operands fp32 (``precise``)
+    in the fp32 model and bf16 in the bf16 one; a rerun for the same bits;
+    the prologue's A and Z (``fused_decoder_az``) against
     ``fused_decoder_az_plain``. Timed as K1 is, and behind queued work
     (``device_ms``), with the prologue (``prologue_ms``) and the row kernel
     on its A and Z (``rows_ms``) timed apart, behind queued work. No single
     PyTorch call computes the stack, so no library yardstick. Returns the
-    per-forward rows and, for the bf16 model, the bf16-I/O instance at
-    s4/diff."""
+    per-forward rows and, for the bf16 model on the default shapes, the
+    bf16-I/O instance at s4/diff."""
     from dahitra_tpu_torch.kernels import fused_decoder as kd
 
     dname = str(dtype).split(".")[-1]
     precise = dtype == torch.float32
-    cases = [(shape, torch.float32) for shape in K1_SHAPES + [K1_SHAPE_512]]
-    if not precise:
+    cases = [(shape, torch.float32)
+             for shape in shapes or K1_SHAPES + [K1_SHAPE_512]]
+    if not precise and shapes is None:
         cases.append((K1_SHAPES[1], torch.bfloat16))
     rows, io_rows = [], []
-    for (name, b, n, depth, heads), io in cases:
-        x, m, packed = _k4_operands(torch, gen, b, n, depth, heads, io)
+    for shape, io in cases:
+        name, b, n, depth, heads, tokens, dim_head = _shape(shape)
+        x, m, packed = _k4_operands(torch, gen, b, n, depth, heads, io, mlp,
+                                    tokens, dim_head)
 
         def k4():
             return kd.fused_transformer_decoder(x, m, packed, depth, heads,
@@ -636,22 +715,23 @@ def check_k4(torch, dtype, gen):
         if not torch.equal(got, k4()):
             fail(f"K4 {name} {dname} (I/O {io}): a second run gave other bits")
         vecs = kd._vecs(packed)
-        nbytes, ops = _k4_cost(b, n, depth, heads, torch.finfo(io).bits // 8)
+        nbytes, ops = _k4_cost(b, n, depth, heads, torch.finfo(io).bits // 8,
+                               mlp, tokens, dim_head)
         bms, by = bound(nbytes, ops, dname)
-        row = {"shape": name, "B": b, "N": n, "depth": depth,
-               "hl": heads * TOKENS, "io": str(io).split(".")[-1],
-               "max_abs_err": err, "scaled_err": serr,
-               "prologue_scaled_err": az_err,
-               "ms": time_ms(k4, torch, **_reps(n)),
-               "device_ms": time_ms(k4, torch, queued=True, **_reps(n)),
-               "prologue_ms": time_ms(lambda: kd.fused_decoder_az(
-                   m, packed, depth, heads, precise), torch, queued=True),
-               "rows_ms": time_ms(lambda: kd._rows(
-                   x, a, z, packed, vecs, depth, heads, precise), torch,
-                   queued=True, **_reps(n)),
-               "plain_ms": time_ms(lambda: kd.fused_decoder_plain(
-                   x, m, packed, depth, heads, precise), torch, **_reps(n)),
-               "bound_ms": bms, "bound_by": by, "library_ms": None}
+        row = _row(name, b, n, depth, heads * tokens,
+                   io=str(io).split(".")[-1], max_abs_err=err,
+                   scaled_err=serr, prologue_scaled_err=az_err,
+                   ms=time_ms(k4, torch, **_reps(n)),
+                   device_ms=time_ms(k4, torch, queued=True, **_reps(n)),
+                   prologue_ms=time_ms(lambda: kd.fused_decoder_az(
+                       m, packed, depth, heads, precise), torch, queued=True),
+                   rows_ms=time_ms(lambda: kd._rows(
+                       x, a, z, packed, vecs, depth, heads, precise), torch,
+                       queued=True, **_reps(n)),
+                   plain_ms=time_ms(lambda: kd.fused_decoder_plain(
+                       x, m, packed, depth, heads, precise), torch,
+                       **_reps(n)),
+                   bound_ms=bms, bound_by=by, library_ms=None)
         (rows if io == torch.float32 else io_rows).append(row)
     return rows, io_rows
 
@@ -698,33 +778,40 @@ def check_k4_grads(torch, gen) -> dict:
 
 
 def _sums(rows) -> dict:
+    """Times and bounds summed over the rows, each row ``calls`` times (its
+    calls per forward or step); errors the worst."""
+    def total(k):
+        return sum(r[k] * r.get("calls", 1) for r in rows)
+
     lib = [r["library_ms"] for r in rows]
-    bound_ms = sum(r["bound_ms"] for r in rows)
-    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
-    device = {k: sum(r[k] for r in rows)
+    bound_ms = total("bound_ms")
+    by_ops = sum(r["bound_ms"] * r.get("calls", 1) for r in rows
+                 if r["bound_by"] == "operations")
+    device = {k: total(k)
               for k in ("device_ms", "prologue_ms", "rows_ms") if k in rows[0]}
     return {
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "scaled_err": max(r["scaled_err"] for r in rows),
-        "ms": sum(r["ms"] for r in rows), **device,
-        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "ms": total("ms"), **device,
+        "plain_ms": total("plain_ms"),
         "bound_ms": bound_ms,
         "bound_by": "operations" if by_ops >= bound_ms / 2 else "bytes",
-        "library_ms": None if None in lib else sum(lib),
+        "library_ms": None if None in lib else total("library_ms"),
     }
 
 
 def summarize(name, source, replaces, dname, rows, launches, tol,
-              by_phase=None, **extra):
+              by_phase=None, main_size=str(IMG), **extra):
     """One kernel entry: times summed over the kernel's launches in one
-    batch-8 forward (K1, K3, K4) or training step (K1-save, K2) at 256 px,
-    errors the worst over those shapes; the shapes of the larger images
-    under ``other_sizes``, summed per image size; ``launches_by_phase`` the
-    kernel's count in every main-path run."""
+    batch-8 forward (K1, K3, K4) or training step (K1-save, K2) of the main
+    path (DAHiTra at 256 px; BIT's for the mlp_dim-64 instances,
+    ``main_size`` "bit"), errors the worst over those shapes; the other
+    shapes under ``other_sizes``, summed per image size or model;
+    ``launches_by_phase`` the kernel's count in every main-path run."""
     by_size = {}
     for r in rows:
         by_size.setdefault(_size_of(r["shape"]), []).append(r)
-    main = by_size.pop(str(IMG))
+    main = by_size.pop(main_size)
     return {
         "name": f"{name}[{dname}]", "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
@@ -804,25 +891,27 @@ def _batch(torch, n, seed, img: int = IMG):
                           dtype=torch.uint8).cuda())
 
 
-def profile_forward(torch, state_dict, dtype, pallas: bool = False) -> dict:
+def profile_forward(torch, state_dict, dtype, pallas: bool = False,
+                    net_g: str = "newUNetTrans", n_decoders: int = 3) -> dict:
     """torch.profiler over five batch-8 forwards of the port's model."""
     from dahitra_tpu_torch.core.checkpoint import load_weights
     from dahitra_tpu_torch.data.augment import normalize_images
     from dahitra_tpu_torch.models.registry import define_g
 
-    model = define_g("newUNetTrans", dtype=dtype, img_size=IMG)
+    model = define_g(net_g, dtype=dtype, img_size=IMG)
     load_weights(model, state_dict)
     model.cuda().eval()
-    _set_pallas(model, pallas)
+    _set_pallas(model, pallas, n_decoders)
     a_u8, b_u8, _ = _batch(torch, BATCH, 1)
     a, b = normalize_images(a_u8, dtype), normalize_images(b_u8, dtype)
     with torch.inference_mode():
         out = _profile(torch, lambda: model(a, b), reps=5)
-    return {"profile": "forward", "dtype": str(dtype).split(".")[-1],
-            "pallas": pallas, **out}
+    return {"profile": "forward", "net_G": net_g,
+            "dtype": str(dtype).split(".")[-1], "pallas": pallas, **out}
 
 
-def _trainer(torch, tmp, dtype, tag, img: int = IMG, batch: int = BATCH):
+def _trainer(torch, tmp, dtype, tag, img: int = IMG, batch: int = BATCH,
+             net_g: str = "newUNetTrans"):
     """A ``CDTrainer`` on the card with no data of its own, for
     ``train_step`` on a seeded batch."""
     import types
@@ -832,20 +921,21 @@ def _trainer(torch, tmp, dtype, tag, img: int = IMG, batch: int = BATCH):
     args = types.SimpleNamespace(
         n_class=2, checkpoint_dir=os.path.join(tmp, f"{tag}_{dtype}"),
         max_epochs=1, bf16=dtype == torch.bfloat16, seed=0,
-        net_G="newUNetTrans", img_size=img, lr=5e-4, batch_size=batch)
+        net_G=net_g, img_size=img, lr=5e-4, batch_size=batch)
     empty = {k: np.zeros((0, 1), np.uint8) for k in ("a", "b", "label")}
     return CDTrainer(args, empty, empty, device="cuda")
 
 
-def profile_train_step(torch, tmp, dtype, pallas: bool = False) -> dict:
+def profile_train_step(torch, tmp, dtype, pallas: bool = False,
+                       net_g: str = "newUNetTrans", n_decoders: int = 3) -> dict:
     """torch.profiler over three batch-8 training steps of ``CDTrainer``
     (augmentation, train forward, loss, backward, AdamW)."""
-    trainer = _trainer(torch, tmp, dtype, "profile")
-    _set_pallas(trainer.model, pallas)
+    trainer = _trainer(torch, tmp, dtype, f"profile_{net_g}", net_g=net_g)
+    _set_pallas(trainer.model, pallas, n_decoders)
     batch = _batch(torch, BATCH, 2)
     out = _profile(torch, lambda: trainer.train_step(*batch), reps=3)
-    return {"profile": "train_step", "dtype": str(dtype).split(".")[-1],
-            "pallas": pallas, **out}
+    return {"profile": "train_step", "net_G": net_g,
+            "dtype": str(dtype).split(".")[-1], "pallas": pallas, **out}
 
 
 def _patches(torch, tmp):
@@ -862,27 +952,30 @@ def _patches(torch, tmp):
             for t in (tiles.a, tiles.b)]
 
 
-def run_pallas_eval(torch, tmp, dtype) -> dict:
-    """Batch-8 forwards of ``newUNetTrans`` (phase 4's checkpoint) over the
-    64 synthetic patches with ``pallas = True`` on its decoders, launch
-    counters set to 0 just before and read just after: 6 K4 and 3 K3 per
-    forward, no K1, K1-save or K2. One default-path pass warms up first;
-    the rates are means over two passes of each path taken in turns
-    (pallas, default, default, pallas; the first is the counted one). In
-    fp32 the pallas logits must agree with the default (K1) path's on the
-    same weights to 1e-3 scale-normalized, with argmax agreement >= 99.9 %."""
+def run_pallas_eval(torch, tmp, dtype, net_g: str = "newUNetTrans",
+                    project: str = "smoke", per_forward=(6, 3),
+                    n_decoders: int = 3) -> dict:
+    """Batch-8 forwards of ``net_g`` (the checkpoint of phase 4, or of the
+    BIT phase) over the 64 synthetic patches with ``pallas = True`` on its
+    decoders, launch counters set to 0 just before and read just after:
+    ``per_forward`` (K4, K3) launches per forward (DAHiTra 6 and 3, BIT 2
+    and 2), no K1, K1-save or K2. One default-path pass warms up first; the
+    rates are means over two passes of each path taken in turns (pallas,
+    default, default, pallas; the first is the counted one). In fp32 the
+    pallas logits must agree with the default (K1) path's on the same
+    weights to 1e-3 scale-normalized, with argmax agreement >= 99.9 %."""
     from dahitra_tpu_torch.core.checkpoint import load_checkpoint, load_weights
     from dahitra_tpu_torch.data.augment import normalize_images
     from dahitra_tpu_torch.models.registry import define_g
 
     dname = str(dtype).split(".")[-1]
-    model = define_g("newUNetTrans", dtype=dtype, img_size=IMG)
-    load_weights(model, load_checkpoint(os.path.join(tmp, "ckpt", "smoke"))[0])
+    model = define_g(net_g, dtype=dtype, img_size=IMG)
+    load_weights(model, load_checkpoint(os.path.join(tmp, "ckpt", project))[0])
     model.cuda().eval()
     a, b = _patches(torch, tmp)
 
     def run(pallas):
-        _set_pallas(model, pallas)
+        _set_pallas(model, pallas, n_decoders)
         torch.cuda.synchronize()
         t0 = time.time()
         with torch.inference_mode():
@@ -898,14 +991,16 @@ def run_pallas_eval(torch, tmp, dtype) -> dict:
     logits, rate = run(True)
     got = _read_counts()
     n_fwd = len(a) // BATCH
-    want = {"k1": 0, "k1_save": 0, "k2": 0, "k3": 3 * n_fwd, "k4": 6 * n_fwd}
+    want = {"k1": 0, "k1_save": 0, "k2": 0, "k3": per_forward[1] * n_fwd,
+            "k4": per_forward[0] * n_fwd}
     if got != want or not torch.isfinite(logits.float()).all():
-        fail(f"pallas eval {dname}: launches {got} != {want} or logits not "
-             "finite")
+        fail(f"pallas eval {net_g} {dname}: launches {got} != {want} or "
+             "logits not finite")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ref, d1 = run(False)
     d2, p2 = run(False)[1], run(True)[1]
-    out = {"pallas_eval": dname, "pairs_per_s": (rate + p2) / 2,
+    out = {"pallas_eval": dname, "net_G": net_g,
+           "pairs_per_s": (rate + p2) / 2,
            "default_path_pairs_per_s": (d1 + d2) / 2,
            "peak_mem_gib": peak, "launches": got}
     if dtype == torch.float32:
@@ -913,7 +1008,7 @@ def run_pallas_eval(torch, tmp, dtype) -> dict:
         agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
         out["vs_k1_path"] = {"scaled_err": serr, "argmax_agreement": agree}
         if not (serr <= 1e-3 and agree >= 0.999):
-            fail(f"pallas eval fp32 disagrees with the K1 path: {out}")
+            fail(f"pallas eval {net_g} fp32 disagrees with the K1 path: {out}")
     return out
 
 
@@ -952,34 +1047,37 @@ def run_pallas_train(torch, tmp, dtype, steps: int = 4) -> dict:
 
 
 def run_eval(torch, data_root, ckpt_root, project, flag, dname, img, batch,
-             n_pairs, patches=None) -> dict:
-    """``eval_cd`` on the card over ``n_pairs`` pairs of ``img`` px, launch
-    counters set to 0 just before and read just after: 6 K1 and 3 K3 per
-    forward, no K1-save, K2 or K4; scores in range, and a score block per
-    patch where the 16-patch sweep applies."""
+             n_pairs, patches=None, net_g: str = "newUNetTrans",
+             per_forward=(6, 3)) -> dict:
+    """``eval_cd --net_G net_g`` on the card over ``n_pairs`` pairs of
+    ``img`` px, launch counters set to 0 just before and read just after:
+    ``per_forward`` (K1, K3) launches per forward (DAHiTra 6 and 3, BIT 2
+    and 2, ResNetCD none), no K1-save, K2 or K4; scores in range, and a
+    score block per patch where the patch sweep applies."""
     from dahitra_tpu_torch.cli import eval_cd
 
     os.environ["DAHITRA_DATA_ROOT"] = data_root
     argv = ["--checkpoint_root", ckpt_root, "--project_name", project,
             "--data_name", "LEVIR", "--split", "test", "--img_size", str(img),
             "--batch_size", str(batch), "--num_patches", str(patches or 16),
-            "--device", "cuda", *flag]
+            "--net_G", net_g, "--device", "cuda", *flag]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     scores = eval_cd.main(argv)
     torch.cuda.synchronize()
     got = _read_counts()
-    n_forward = n_pairs // batch
-    want = {"k1": 6 * n_forward, "k1_save": 0, "k2": 0, "k3": 3 * n_forward,
-            "k4": 0}
+    n_forward = -(-n_pairs // batch)
+    want = {"k1": per_forward[0] * n_forward, "k1_save": 0, "k2": 0,
+            "k3": per_forward[1] * n_forward, "k4": 0}
     if got != want:
-        fail(f"eval {img} px {dname}: launches {got} != {want}")
+        fail(f"eval {net_g} {img} px {dname}: launches {got} != {want}")
     in_range = all(0.0 <= scores[k] <= 1.0 for k in ("acc", "miou", "mf1"))
     if not in_range or len(scores.get("per_group", [])) != (patches or 0):
-        fail(f"eval {img} px {dname}: scores out of range or patch blocks "
-             f"missing: {scores}")
-    return {"eval": dname, "img_size": img, "batch": batch, "pairs": n_pairs,
+        fail(f"eval {net_g} {img} px {dname}: scores out of range or patch "
+             f"blocks missing: {scores}")
+    return {"eval": dname, "net_G": net_g, "img_size": img, "batch": batch,
+            "pairs": n_pairs,
             "pairs_per_s": scores["imps"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "launches": got,
@@ -1016,17 +1114,22 @@ def check_forward_vs_cpu(torch, model, data_root, img, n_pairs, patch=None
 
 def run_training(torch, root, flag, dname, img: int = IMG, batch: int = BATCH,
                  epochs: int = EPOCHS, train_pairs: int = TRAIN_PAIRS,
-                 val_pairs: int = VAL_PAIRS) -> dict:
-    """``main_cd`` for ``epochs`` epochs on the synthetic splits under
-    ``root``, launch counters set to 0 just before and read just after."""
+                 val_pairs: int = VAL_PAIRS, net_g: str = "newUNetTrans",
+                 per_call=(6, 3)) -> dict:
+    """``main_cd --net_G net_g`` for ``epochs`` epochs on the synthetic
+    splits under ``root``, launch counters set to 0 just before and read
+    just after: ``per_call`` (decoder, K3) launches per training step (K1-save
+    and K2) and per validation forward (K1); DAHiTra 6 and 3, BIT 2 and 2."""
     from dahitra_tpu_torch.cli import main_cd
 
+    project = f"train_{dname}" if net_g == "newUNetTrans" \
+        else f"train_{net_g}_{dname}"
     os.environ["DAHITRA_DATA_ROOT"] = os.path.join(root, "data")
     argv = ["--checkpoint_root", os.path.join(root, "ckpt"),
-            "--project_name", f"train_{dname}", "--data_name", "LEVIR",
+            "--project_name", project, "--data_name", "LEVIR",
             "--img_size", str(img), "--batch_size", str(batch),
             "--max_epochs", str(epochs), "--log_every", "2", "--skip_test",
-            "--device", "cuda", *flag]
+            "--net_G", net_g, "--device", "cuda", *flag]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1035,20 +1138,21 @@ def run_training(torch, root, flag, dname, img: int = IMG, batch: int = BATCH,
     got = _read_counts()
     steps = epochs * train_pairs // batch
     vals = epochs * val_pairs // batch
-    want = {"k1": 6 * vals, "k1_save": 6 * steps, "k2": 6 * steps,
-            "k3": 3 * (steps + vals), "k4": 0}
+    dec, k3 = per_call
+    want = {"k1": dec * vals, "k1_save": dec * steps, "k2": dec * steps,
+            "k3": k3 * (steps + vals), "k4": 0}
     if got != want:
-        fail(f"training {img} px {dname}: launches {got} != {want}")
-    ckpt = os.path.join(root, "ckpt", f"train_{dname}")
+        fail(f"training {net_g} {img} px {dname}: launches {got} != {want}")
+    ckpt = os.path.join(root, "ckpt", project)
     missing = [f for f in ("best_ckpt.pt", "log.txt", "train_acc.npy",
                            "val_acc.npy")
                if not os.path.exists(os.path.join(ckpt, f))]
     losses = [h["loss"] for h in history]
     if missing or len(history) != epochs \
             or not all(np.isfinite(losses)):
-        fail(f"training {img} px {dname}: artifacts missing {missing} or "
-             f"losses {losses}")
-    return {"train": dname, "img_size": img, "batch": batch,
+        fail(f"training {net_g} {img} px {dname}: artifacts missing "
+             f"{missing} or losses {losses}")
+    return {"train": dname, "net_G": net_g, "img_size": img, "batch": batch,
             "pairs_per_s_by_epoch": [h["imps"] for h in history],
             "loss_by_epoch": losses,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1087,7 +1191,8 @@ def run_step_1024(torch, tmp, dtype, pallas: bool) -> dict:
             "launches": got}
 
 
-def check_train_grads(torch, root, pallas: bool = False) -> dict:
+def check_train_grads(torch, root, pallas: bool = False,
+                      net_g: str = "newUNetTrans", n_decoders: int = 3) -> dict:
     """The card's fp32 training gradients against the port's plain path on
     the CPU: one batch of 2 at 256 px, no augmentation, train-mode forward,
     ``levir_train_loss`` and backward. Every parameter's gradient must agree
@@ -1116,9 +1221,9 @@ def check_train_grads(torch, root, pallas: bool = False) -> dict:
                              IMG)
     batch = [torch.from_numpy(t[:2]) for t in (pairs.a, pairs.b, pairs.label)]
     gen = torch.Generator().manual_seed(3)
-    model = init_weights(define_g("newUNetTrans", img_size=IMG,
-                                  generator=gen), "normal", 0.02, gen)
-    _set_pallas(model, pallas)
+    model = init_weights(define_g(net_g, img_size=IMG, generator=gen),
+                         "normal", 0.02, gen)
+    _set_pallas(model, pallas, n_decoders)
     models = {"cpu": model, "cuda": copy.deepcopy(model).cuda()}
     for dev, m in models.items():
         a, b, label = augment_pairs(*(t.to(dev) for t in batch), train=False)
@@ -1135,7 +1240,7 @@ def check_train_grads(torch, root, pallas: bool = False) -> dict:
     worst_stat = max((scaled_err(cuda_bufs[k].cpu(), v)[1], k)
                      for k, v in model.named_buffers())
     out = {"train_grads_vs_cpu_plain" + ("_pallas" if pallas else ""): {
-        "pallas": pallas,
+        "net_G": net_g, "pallas": pallas,
         "worst_grad_err_over_scale": worst[0], "at": worst[1],
         "grad_scale": scale, "worst_grad_err_own_scale": worst_own[0],
         "own_at": worst_own[1], "n_params": len(errs),
@@ -1144,6 +1249,62 @@ def check_train_grads(torch, root, pallas: bool = False) -> dict:
         fail(f"card training gradients disagree with the CPU plain path: "
              f"{out}")
     return out
+
+
+def run_bit_phase(torch, tmp, train_root, dtypes) -> dict:
+    """Phase 14: BIT's main path (``base_transformer_pos_s4_dd8``, its decoder
+    at mlp_dim 64) and ``base_resnet18``, through the entry points. Writes
+    seeded checkpoints of both (``nn/init.py`` ``init_random``); runs
+    ``eval_cd`` at batch 8 over phase 4's 64 patches in fp32 and bf16 (2 K1
+    and 2 K3 per forward: the decoder and the tokenizer once per date); holds
+    the card's fp32 forward of two patches against the CPU plain path; runs
+    ``main_cd`` for 2 epochs at batch 8 on phase 7's splits in both dtypes
+    (2 K1-save, 2 K2 and 2 K3 per step; 2 K1 and 2 K3 per validation
+    forward); holds the card's fp32 training gradients and BN statistics
+    against the CPU plain path; runs the pallas forwards (2 K4 and 2 K3 per
+    forward; fp32 logits within 1e-3 of the K1 path); and one ``eval_cd
+    --net_G base_resnet18`` forward (no decoder or tokenizer kernel).
+    Returns the launch counts by dtype and phase."""
+    from dahitra_tpu_torch.core.checkpoint import save_checkpoint
+    from dahitra_tpu_torch.models.registry import define_g
+    from dahitra_tpu_torch.nn.init import init_random
+
+    data = os.path.join(tmp, "data")
+    ckpt = os.path.join(tmp, "ckpt")
+    models = {}
+    for key, seed in ((BIT_KEY, 14), ("base_resnet18", 15)):
+        models[key] = init_random(define_g(key),
+                                  torch.Generator().manual_seed(seed))
+        save_checkpoint(os.path.join(ckpt, key), models[key].state_dict(),
+                        best_val_acc=0.0, best_epoch_id=0)
+    by_phase = {"float32": {}, "bfloat16": {}}
+    for flag, dname in dtypes:
+        out = run_eval(torch, data, ckpt, BIT_KEY, flag, dname, IMG, BATCH, 64,
+                       patches=16, net_g=BIT_KEY, per_forward=(2, 2))
+        by_phase[dname]["bit_eval_256"] = out["launches"]
+        print(json.dumps(out), flush=True)
+    print(json.dumps(check_forward_vs_cpu(torch, models[BIT_KEY], data, IMG, 2,
+                                          patch=5)), flush=True)
+    for flag, dname in dtypes:
+        out = run_training(torch, train_root, flag, dname, net_g=BIT_KEY,
+                           per_call=(2, 2))
+        by_phase[dname]["bit_train_256"] = out["launches"]
+        print(json.dumps(out), flush=True)
+    print(json.dumps(check_train_grads(torch, train_root, net_g=BIT_KEY,
+                                       n_decoders=1)), flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        out = run_pallas_eval(torch, tmp, dtype, net_g=BIT_KEY, project=BIT_KEY,
+                              per_forward=(2, 2), n_decoders=1)
+        by_phase[dname]["bit_pallas_eval_256"] = out["launches"]
+        print(json.dumps(out), flush=True)
+    for flag, dname in dtypes:
+        out = run_eval(torch, data, ckpt, "base_resnet18", flag, dname, IMG,
+                       BATCH, 4, patches=1, net_g="base_resnet18",
+                       per_forward=(0, 0))
+        by_phase[dname]["resnet_eval_256"] = out["launches"]
+        print(json.dumps(out), flush=True)
+    return by_phase
 
 
 def main() -> None:
@@ -1195,7 +1356,15 @@ def main() -> None:
         checks[("k3", dname)] = check_k3(torch, dtype, gen)
         checks[("k4", dname)], io_rows = check_k4(torch, dtype, gen)
         checks[("k4_io", dname)] = io_rows
-        for kid in ("k1", "k1_save", "k2", "k3", "k4", "k4_io"):
+        # the mlp_dim-64 instances at BIT's shapes
+        checks[("k1_mlp64", dname)] = check_k1(torch, dtype, gen, BIT_SHAPES,
+                                               BIT_MLP)
+        checks[("k1_save_mlp64", dname)], checks[("k2_mlp64", dname)] = \
+            check_k1_save_k2(torch, dtype, gen, BIT_SHAPES, BIT_MLP)
+        checks[("k4_mlp64", dname)] = check_k4(torch, dtype, gen, BIT_SHAPES,
+                                               BIT_MLP)[0]
+        for kid in ("k1", "k1_save", "k2", "k3", "k4", "k4_io", "k1_mlp64",
+                    "k1_save_mlp64", "k2_mlp64", "k4_mlp64"):
             for r in checks[(kid, dname)]:
                 print(json.dumps({"check": f"{kid}[{dname}]", **r}),
                       flush=True)
@@ -1298,14 +1467,21 @@ def main() -> None:
                             else "step_1024"] = out["launches"]
             print(json.dumps(out), flush=True)
 
+    # 14. BIT (base_transformer_pos_s4_dd8, mlp_dim 64) and base_resnet18
+    by_phase_bit = run_bit_phase(torch, tmp, train_root, dtypes)
+    for dname, phases in by_phase_bit.items():
+        by_phase[dname].update(phases)
+
     if "--profile" in sys.argv[1:]:
-        sd = load_checkpoint(os.path.join(tmp, "ckpt", "smoke"))[0]
-        for dtype in (torch.float32, torch.bfloat16):
-            for pallas in (False, True):
-                print(json.dumps(profile_forward(torch, sd, dtype, pallas)),
-                      flush=True)
-                print(json.dumps(profile_train_step(torch, tmp, dtype,
-                                                    pallas)), flush=True)
+        for net_g, project, n_dec in (("newUNetTrans", "smoke", 3),
+                                      (BIT_KEY, BIT_KEY, 1)):
+            sd = load_checkpoint(os.path.join(tmp, "ckpt", project))[0]
+            for dtype in (torch.float32, torch.bfloat16):
+                for pallas in (False, True):
+                    print(json.dumps(profile_forward(
+                        torch, sd, dtype, pallas, net_g, n_dec)), flush=True)
+                    print(json.dumps(profile_train_step(
+                        torch, tmp, dtype, pallas, net_g, n_dec)), flush=True)
 
     kernels = []
     src = "dahitra_tpu_torch/csrc/"
@@ -1314,6 +1490,15 @@ def main() -> None:
     k1_save_res = {d: fwd_res[d + "_save"] for d in ("float32", "bfloat16")}
     k4_res = {d: {i: resources["fused_decoder"][i] for i in K4_INSTANCES[d]}
               for d in ("float32", "bfloat16")}
+    sfx = f"_mlp{BIT_MLP}"
+    k1w_res = {d: fwd_res[d + sfx] for d in ("float32", "bfloat16")}
+    k1w_save_res = {d: fwd_res[d + "_save" + sfx]
+                    for d in ("float32", "bfloat16")}
+    k2w_res = {d: resources["decoder_bwd"][d + sfx]
+               for d in ("float32", "bfloat16")}
+    k4w_res = {d: {i + sfx: resources["fused_decoder"][i + sfx]
+                   for i in K4_INSTANCES[d][:1]}
+               for d in ("float32", "bfloat16")}
     # (name, source, TPU kernel, checks, the 256 px phase whose count is
     # ``launches``, counter, tolerances, extra keys)
     table = (
@@ -1332,13 +1517,36 @@ def main() -> None:
                                    "bfloat16": floor_ms}}),
         ("fused_decoder", "fused_decoder.cu",
          "dahitra_tpu/pallas/fused_decoder.py:102", "k4", "pallas_eval_256",
-         "k4", TOL, {"design": K4_DESIGN, "resources": k4_res}))
+         "k4", TOL, {"design": K4_DESIGN, "resources": k4_res}),
+        # the mlp_dim-64 instances, launched by the BIT phases
+        ("decoder_stack_fwd" + sfx, "decoder_fwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:180", "k1_mlp64",
+         "bit_eval_256", "k1", TOL,
+         {"design": K1_DESIGN, "resources": k1w_res}),
+        ("decoder_stack_fwd_save" + sfx, "decoder_fwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:180", "k1_save_mlp64",
+         "bit_train_256", "k1_save", TOL,
+         {"design": K1_DESIGN, "resources": k1w_save_res}),
+        ("decoder_stack_bwd" + sfx, "decoder_bwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:320", "k2_mlp64",
+         "bit_train_256", "k2", GTOL,
+         {"design": K2_DESIGN, "resources": k2w_res}),
+        ("fused_decoder" + sfx, "fused_decoder.cu",
+         "dahitra_tpu/pallas/fused_decoder.py:102", "k4_mlp64",
+         "bit_pallas_eval_256", "k4", TOL,
+         {"design": K4_DESIGN, "resources": k4w_res}))
     for dname in ("float32", "bfloat16"):
         for name, source, replaces, kid, phase, counter, tol, extra in table:
+            # The BIT phases launch the decoder kernels' mlp_dim-64 instances
+            # only, the others their mlp_dim-32 ones; K3 runs in both.
+            wide = kid.endswith("_mlp64")
+            phases = {ph: c[counter] for ph, c in by_phase[dname].items()
+                      if kid == "k3" or ph == "resnet_eval_256"
+                      or ph.startswith("bit_") == wide}
             kernels.append(summarize(
                 name, src + source, replaces, dname, checks[(kid, dname)],
-                by_phase[dname][phase][counter], tol,
-                {ph: c[counter] for ph, c in by_phase[dname].items()},
+                by_phase[dname][phase][counter], tol, phases,
+                main_size="bit" if wide else str(IMG),
                 **{k: v[dname] for k, v in extra.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

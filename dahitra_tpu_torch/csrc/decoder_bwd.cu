@@ -58,21 +58,41 @@
 // too: the warps take 16 x 16 output blocks in index order, 16 rows per
 // k-step, both operands read with ldmatrix.trans in bf16, read by hand and
 // split into three pieces in fp32.
+//
+// The hidden width MLP is a template parameter: 32 (DAHiTra) or 64 (BIT's
+// decoder), whose b1 (D, 64) comes as an fp32 argument of its own and whose
+// db1 (D, 64) is returned beside dvecs (row 5 of dvecs is then zero). The 64
+// instance runs the feed-forward backward in two 32-column halves c of the
+// hidden layer: it recomputes t_c = rnd(rnd(g . W1[:, c]) + b1[c]) and
+// hg_c, then dhg_c = rnd(dy . W2[c, :]^T), dt_c = rnd(dhg_c * gelu'(t_c)),
+// and accumulates dt_c . W1[:, c]^T into dg's one fp32 sum, rounded once. A
+// thread holds the 32 instance's vectors plus one half. The factor tiles of
+// hg and dt, the weight planes and the (CTA, layer) partials grow with MLP;
+// db1's halves take vector rows 5 and 7 of the per-warp sums (row 7 is free:
+// seven vectors, eight row groups), and the second pass sums them in the
+// same fixed order.
 #include "decoder_mma.cuh"
 
 namespace {
 
 using namespace decoder;
 
-constexpr int NW = DIM * DIM;  // one 32 x 32 weight
 constexpr int NV = 7 * DIM;    // the seven vectors
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int TILE = WARPS * 16;  // rows per CTA tile
 
-// Floats of one (CTA, layer) partial: [dW1 | dW2 | dA | dZ | dvec].
+// Vector rows of the per-warp sums: the seven, and db1's second half as row
+// 7 where MLP != DIM.
+template <int MLP>
+__host__ __device__ constexpr int n_vrows() {
+  return MLP == DIM ? 7 : 8;
+}
+
+// Floats of one (CTA, layer) partial: [dW1 | dW2 | dA | dZ | dvec | db1].
+template <int MLP>
 __host__ __device__ __forceinline__ int64_t part_size(int hl) {
-  return 2 * NW + 2 * DIM * hl + NV;
+  return 2 * DIM * MLP + 2 * DIM * hl + NV + b1_floats<MLP>();
 }
 
 // Padded row of a factor tile of width w (a multiple of 16), in T: w + 8
@@ -83,11 +103,12 @@ __host__ __device__ __forceinline__ int tile_ld(int w) {
   return std::is_same<T, float>::value ? w + 4 : w + 8;
 }
 
-template <typename T>
+template <typename T, int MLP>
 __host__ __device__ __forceinline__ size_t smem_bytes(int hl) {
-  return 2 * pieces<T>() * plane_size(hl)  // weight planes
-         + sizeof(T) * TILE * (6 * tile_ld<T>(DIM) + 2 * tile_ld<T>(pad16(hl)))  // factors
-         + 4 * (NV + WARPS * NV);  // vectors, per-warp vector sums
+  return 2 * pieces<T>() * plane_size(hl, MLP)  // weight planes
+         + sizeof(T) * TILE * (4 * tile_ld<T>(DIM) + 2 * tile_ld<T>(MLP)
+                               + 2 * tile_ld<T>(pad16(hl)))  // factors
+         + 4 * (NV + b1_floats<MLP>() + WARPS * n_vrows<MLP>() * DIM);  // vectors, sums
 }
 
 // LayerNorm backward, x side (decoder_vjp._ln_bwd): rs (dg s - mean(dg s)
@@ -199,37 +220,41 @@ __device__ __forceinline__ void mma_block(float* out, int ldo, int m_lim, int n_
 }
 
 // xsave: (D, B, N, 32), attnsave: (D, B, N, hl), dy, dx: (B, N, 32), all T;
-// a: (D, B, 32, hl), z: (D, B, hl, 32), w1, w2: (D, 32, 32) (in, out), T;
-// vecs: (D, 7, 32) fp32; part: (B * cps, D, part_size(hl)) fp32 scratch.
-// l, the tokens per head, is 1, 2, 4 or 8 and hl is even.
-template <typename T>
+// a: (D, B, 32, hl), z: (D, B, hl, 32), w1: (D, 32, MLP), w2: (D, MLP, 32)
+// (in, out), T; vecs: (D, 7, 32) fp32 and, where MLP != 32, b1: (D, MLP)
+// fp32; part: (B * cps, D, part_size<MLP>(hl)) fp32 scratch. l, the tokens
+// per head, is 1, 2, 4 or 8 and hl is even.
+template <typename T, int MLP>
 __global__ void __launch_bounds__(THREADS)
 decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ attnsave,
                            const T* __restrict__ dy_in, const T* __restrict__ a,
                            const T* __restrict__ z, const T* __restrict__ w1,
                            const T* __restrict__ w2, const float* __restrict__ vecs,
                            T* dx, float* __restrict__ part, int B, int N, int depth,
-                           int hl, int l, int rows_per_cta) {
+                           int hl, int l, int rows_per_cta,
+                           const float* __restrict__ b1) {
   constexpr int P = pieces<T>();
+  constexpr int NWM = DIM * MLP;  // one weight
+  constexpr int VR = n_vrows<MLP>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hlp = pad16(hl);
   const int ald = hlp + 8;
-  const int plane = plane_size(hl);
-  const int tld = tile_ld<T>(DIM), tlh = tile_ld<T>(hlp);
+  const int plane = plane_size(hl, MLP);
+  const int tld = tile_ld<T>(DIM), tlh = tile_ld<T>(hlp), tlm = tile_ld<T>(MLP);
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [c][j]
   __nv_bfloat16* sZ = sA + DIM * ald;                               // [j][c]
   __nv_bfloat16* sW1 = sZ + hlp * WLD;                              // [c][m]
-  __nv_bfloat16* sW2 = sW1 + DIM * WLD;                             // [m][c]
-  T* tHg = reinterpret_cast<T*>(sA + P * plane);  // TILE rows of tld each
-  T* tDy = tHg + TILE * tld;
+  __nv_bfloat16* sW2 = sW1 + DIM * (MLP + 8);                       // [m][c]
+  T* tHg = reinterpret_cast<T*>(sA + P * plane);  // TILE rows of tlm
+  T* tDy = tHg + TILE * tlm;                      // TILE rows of tld
   T* tG = tDy + TILE * tld;
-  T* tDt = tG + TILE * tld;
-  T* tHn = tDt + TILE * tld;
+  T* tDt = tG + TILE * tld;     // TILE rows of tlm
+  T* tHn = tDt + TILE * tlm;    // TILE rows of tld
   T* tDx1 = tHn + TILE * tld;
   T* tAttn = tDx1 + TILE * tld;  // TILE rows of tlh
   T* tDl = tAttn + TILE * tlh;   // TILE rows of tlh
-  float* sV = reinterpret_cast<float*>(tDl + TILE * tlh);
-  float* sRed = sV + NV;  // WARPS x 7 x 32
+  float* sV = reinterpret_cast<float*>(tDl + TILE * tlh);  // NV, then b1
+  float* sRed = sV + NV + b1_floats<MLP>();  // WARPS x VR x 32
 
   const int b = blockIdx.y;
   const int cta = blockIdx.y * gridDim.x + blockIdx.x;
@@ -239,7 +264,7 @@ decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ at
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_az = DIM * hl;
-  const int64_t ps = part_size(hl);
+  const int64_t ps = part_size<MLP>(hl);
 
   for (int d = depth - 1; d >= 0; --d) {
     __syncthreads();  // every thread is done with layer d+1's shared data
@@ -250,14 +275,18 @@ decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ at
       const int jz = i >> 5, cz = i & (DIM - 1);  // Z[j][c], zero rows past hl
       stage<P>(sZ + jz * WLD + cz, plane, jz < hl ? to_f(z[az_off + i]) : 0.0f);
     }
-    for (int i = tid; i < NW; i += THREADS) {
-      stage<P>(sW1 + (i >> 5) * WLD + (i & (DIM - 1)), plane, to_f(w1[d * NW + i]));
-      stage<P>(sW2 + (i >> 5) * WLD + (i & (DIM - 1)), plane, to_f(w2[d * NW + i]));
+    for (int i = tid; i < NWM; i += THREADS) {
+      stage<P>(sW1 + (i >> mlp_shift<MLP>()) * (MLP + 8) + (i & (MLP - 1)), plane,
+               to_f(w1[d * NWM + i]));
+      stage<P>(sW2 + (i >> 5) * WLD + (i & (DIM - 1)), plane, to_f(w2[d * NWM + i]));
     }
     for (int i = tid; i < NV; i += THREADS) {
       const int k = i / DIM;
       const float v = vecs[d * NV + i];
       sV[i] = (k == 2 || k == 5 || k == 6) ? rnd<T>(v) : v;
+    }
+    if constexpr (MLP != DIM) {
+      for (int i = tid; i < MLP; i += THREADS) sV[NV + i] = rnd<T>(b1[d * MLP + i]);
     }
     float keep[8];
 #pragma unroll
@@ -312,38 +341,79 @@ decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ at
           tt[i] = 0.0f;
         }
         tile_store(tG, tld, lrow, t, v);
-        frag32<P>(fr, v);
-        mma_row32<true, P>(tt, fr, sW1, plane, lane);  // g . W1
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
-          tt[i] = rnd<T>(rnd<T>(tt[i]) + sV[5 * DIM + ch]);
-          v[i] = rnd<T>(gelu(tt[i]));  // hg
-        }
-        tile_store(tHg, tld, lrow, t, v);
-
-        // ---- feed-forward backward ----
         float dyv[16];
-        row_load(d == depth - 1 ? dy_in : dx, xrow, ok0, ok1, t, dyv);
-        tile_store(tDy, tld, lrow, t, dyv);
-        vec_sum(dyv, keep, 6, g);
-        frag32<P>(fr, dyv);
+        if constexpr (MLP == DIM) {
+          frag32<P>(fr, v);
+          mma_row32<true, P>(tt, fr, sW1, plane, lane);  // g . W1
 #pragma unroll
-        for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
-        mma_row32<false, P>(acc, fr, sW2, plane, lane);  // dy . W2^T
+          for (int i = 0; i < 16; ++i) {
+            const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
+            tt[i] = rnd<T>(rnd<T>(tt[i]) + sV[5 * DIM + ch]);
+            v[i] = rnd<T>(gelu(tt[i]));  // hg
+          }
+          tile_store(tHg, tld, lrow, t, v);
+
+          // ---- feed-forward backward ----
+          row_load(d == depth - 1 ? dy_in : dx, xrow, ok0, ok1, t, dyv);
+          tile_store(tDy, tld, lrow, t, dyv);
+          vec_sum(dyv, keep, 6, g);
+          frag32<P>(fr, dyv);
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          acc[i] = rnd<T>(acc[i]) * gelu_grad(tt[i]);  // dt32
-          v[i] = rnd<T>(acc[i]);                       // dt
+          for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+          mma_row32<false, P>(acc, fr, sW2, plane, lane);  // dy . W2^T
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            acc[i] = rnd<T>(acc[i]) * gelu_grad(tt[i]);  // dt32
+            v[i] = rnd<T>(acc[i]);                       // dt
+          }
+          vec_sum(acc, keep, 5, g);
+          tile_store(tDt, tld, lrow, t, v);
+          frag32<P>(fr, v);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+          mma_row32<false, P>(acc, fr, sW1, plane, lane);  // dt . W1^T
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[i] = rnd<T>(acc[i]);  // dg
+        } else {
+          // ---- feed-forward, recomputed and reversed in 32-column halves ----
+          row_load(d == depth - 1 ? dy_in : dx, xrow, ok0, ok1, t, dyv);
+          tile_store(tDy, tld, lrow, t, dyv);
+          vec_sum(dyv, keep, 6, g);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[i] = 0.0f;  // dg
+          // The fragments of g, dy and dt_c are made where each product
+          // needs them, one at a time, from the 32-wide vectors.
+#pragma unroll
+          for (int c = 0; c < MLP / DIM; ++c) {
+            float tc[16], hc[16];
+#pragma unroll
+            for (int i = 0; i < 16; ++i) tc[i] = 0.0f;
+            frag32<P>(fr, v);  // g
+            mma_row32<true, P>(tc, fr, sW1 + DIM * c, plane, lane, MLP + 8);  // g . W1[:, c]
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+              const int ch = DIM * c + 8 * (i >> 2) + 2 * t + (i & 1);
+              tc[i] = rnd<T>(rnd<T>(tc[i]) + sV[NV + ch]);  // t_c
+              hc[i] = rnd<T>(gelu(tc[i]));                  // hg_c
+            }
+            tile_store(tHg + DIM * c, tlm, lrow, t, hc);
+#pragma unroll
+            for (int i = 0; i < 16; ++i) hc[i] = 0.0f;
+            frag32<P>(fr, dyv);
+            mma_row32<false, P>(hc, fr, sW2 + DIM * c * WLD, plane, lane);  // dy . W2[c, :]^T
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+              hc[i] = rnd<T>(hc[i]) * gelu_grad(tc[i]);  // dt32_c
+              tc[i] = rnd<T>(hc[i]);                      // dt_c
+            }
+            vec_sum(hc, keep, c ? 7 : 5, g);
+            tile_store(tDt + DIM * c, tlm, lrow, t, tc);
+            frag32<P>(fr, tc);
+            mma_row32<false, P>(acc, fr, sW1 + DIM * c, plane, lane, MLP + 8);  // dt_c . W1[:, c]^T
+          }
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[i] = rnd<T>(acc[i]);  // dg
         }
-        vec_sum(acc, keep, 5, g);
-        tile_store(tDt, tld, lrow, t, v);
-        frag32<P>(fr, v);
-#pragma unroll
-        for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
-        mma_row32<false, P>(acc, fr, sW1, plane, lane);  // dt . W1^T
-#pragma unroll
-        for (int i = 0; i < 16; ++i) acc[i] = rnd<T>(acc[i]);  // dg
         vec_sum(acc, keep, 4, g);
         ln_bwd_rows(acc, xhat1, rs1, sV + 3 * DIM, t, v);
 #pragma unroll
@@ -431,18 +501,28 @@ decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ at
         const bool first = t0 == r_begin;
         float* out = part + (static_cast<int64_t>(cta) * depth + d) * ps;
         const int nb = hlp >> 4;  // 16-column blocks of hl
-        for (int job = warp; job < 8 + 4 * nb; job += WARPS) {
-          if (job < 8) {  // dW1 [c][m], dW2 [m][c]
-            const int w = job >> 2, m0 = 16 * ((job >> 1) & 1), n0 = 16 * (job & 1);
-            mma_block(out + w * NW, DIM, DIM, DIM, w ? tHg : tG, tld, w ? tDy : tDt, tld,
-                      m0, n0, ksteps, first, lane);
-          } else if (job < 8 + 2 * nb) {  // dA [c][j]
-            const int k = job - 8;
-            mma_block(out + 2 * NW, hl, DIM, hl, tHn, tld, tDl, tlh, 16 * (k & 1),
+        constexpr int WJ = MLP / 4;  // 16 x 16 blocks of dW1 and dW2 together
+        for (int job = warp; job < WJ + 4 * nb; job += WARPS) {
+          if (job < WJ) {  // dW1 [c][m], dW2 [m][c]
+            if constexpr (MLP == DIM) {
+              const int w = job >> 2, m0 = 16 * ((job >> 1) & 1), n0 = 16 * (job & 1);
+              mma_block(out + w * NWM, DIM, DIM, DIM, w ? tHg : tG, tld, w ? tDy : tDt,
+                        tld, m0, n0, ksteps, first, lane);
+            } else if (job < WJ / 2) {  // dW1: 2 x MLP / 16 blocks
+              mma_block(out, MLP, DIM, MLP, tG, tld, tDt, tlm, 16 * (job / (MLP / 16)),
+                        16 * (job % (MLP / 16)), ksteps, first, lane);
+            } else {  // dW2: MLP / 16 x 2 blocks
+              const int k = job - WJ / 2;
+              mma_block(out + NWM, DIM, MLP, DIM, tHg, tlm, tDy, tld, 16 * (k >> 1),
+                        16 * (k & 1), ksteps, first, lane);
+            }
+          } else if (job < WJ + 2 * nb) {  // dA [c][j]
+            const int k = job - WJ;
+            mma_block(out + 2 * NWM, hl, DIM, hl, tHn, tld, tDl, tlh, 16 * (k & 1),
                       16 * (k >> 1), ksteps, first, lane);
           } else {  // dZ [j][c]
-            const int k = job - 8 - 2 * nb;
-            mma_block(out + 2 * NW + n_az, DIM, hl, DIM, tAttn, tlh, tDx1, tld,
+            const int k = job - WJ - 2 * nb;
+            mma_block(out + 2 * NWM + n_az, DIM, hl, DIM, tAttn, tlh, tDx1, tld,
                       16 * (k >> 1), 16 * (k & 1), ksteps, first, lane);
           }
         }
@@ -451,46 +531,58 @@ decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ at
     }
 
     float* out = part + (static_cast<int64_t>(cta) * depth + d) * ps;
-    if (g < 7) {
+    if (g < VR) {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        sRed[(warp * 7 + g) * DIM + 8 * (i >> 1) + 2 * t + (i & 1)] = keep[i];
+        sRed[(warp * VR + g) * DIM + 8 * (i >> 1) + 2 * t + (i & 1)] = keep[i];
     }
     __syncthreads();
-    for (int i = tid; i < NV; i += THREADS) {
+    for (int i = tid; i < VR * DIM; i += THREADS) {
       float s = 0.0f;
-      for (int w = 0; w < WARPS; ++w) s += sRed[w * NV + i];
-      out[2 * NW + 2 * n_az + i] = s;
+      for (int w = 0; w < WARPS; ++w) s += sRed[w * VR * DIM + i];
+      if constexpr (MLP == DIM) {
+        out[2 * NWM + 2 * n_az + i] = s;
+      } else {
+        // dvec's row 5 is zero (b1 lies outside vecs); db1's halves are the
+        // sums of rows 5 and 7.
+        const int k = i >> 5, ch = i & (DIM - 1);
+        if (k < 7) out[2 * NWM + 2 * n_az + i] = k == 5 ? 0.0f : s;
+        if (k == 5 || k == 7) out[2 * NWM + 2 * n_az + NV + (k == 7 ? DIM : 0) + ch] = s;
+      }
     }
   }
 }
 
-// Sums the partials in a fixed order: dW1, dW2 and dvecs over every CTA of
-// every sample (fp32 out); dA and dZ over the CTAs of each sample, rounded to
-// T per sample.
-template <typename T>
+// Sums the partials in a fixed order: dW1, dW2, dvecs and (where MLP !=
+// DIM) db1 over every CTA of every sample (fp32 out); dA and dZ over the
+// CTAs of each sample, rounded to T per sample.
+template <typename T, int MLP>
 __global__ void decoder_stack_bwd_reduce(const float* __restrict__ part,
                                          T* __restrict__ da, T* __restrict__ dz,
                                          float* __restrict__ dw1,
                                          float* __restrict__ dw2,
                                          float* __restrict__ dvecs, int B,
-                                         int cps, int depth, int hl) {
+                                         int cps, int depth, int hl,
+                                         float* __restrict__ db1) {
+  constexpr int NWM = DIM * MLP;
+  constexpr int NG = 2 * NWM + NV + b1_floats<MLP>();  // per layer, summed over samples
   const int n_az = DIM * hl;
-  const int64_t ps = part_size(hl);
-  const int64_t n_glob = static_cast<int64_t>(depth) * (2 * NW + NV);
+  const int64_t ps = part_size<MLP>(hl);
+  const int64_t n_glob = static_cast<int64_t>(depth) * NG;
   const int64_t n_all = n_glob + static_cast<int64_t>(depth) * B * 2 * n_az;
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        i < n_all; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     if (i < n_glob) {
-      const int d = static_cast<int>(i / (2 * NW + NV));
-      const int e = static_cast<int>(i - static_cast<int64_t>(d) * (2 * NW + NV));
-      const int64_t off = e < 2 * NW ? e : e + 2 * n_az;
+      const int d = static_cast<int>(i / NG);
+      const int e = static_cast<int>(i - static_cast<int64_t>(d) * NG);
+      const int64_t off = e < 2 * NWM ? e : e + 2 * n_az;
       float s = 0.0f;
       for (int c = 0; c < B * cps; ++c)
         s += part[(static_cast<int64_t>(c) * depth + d) * ps + off];
-      if (e < NW) dw1[d * NW + e] = s;
-      else if (e < 2 * NW) dw2[d * NW + e - NW] = s;
-      else dvecs[d * NV + e - 2 * NW] = s;
+      if (e < NWM) dw1[d * NWM + e] = s;
+      else if (e < 2 * NWM) dw2[d * NWM + e - NWM] = s;
+      else if (MLP == DIM || e < 2 * NWM + NV) dvecs[d * NV + e - 2 * NWM] = s;
+      else db1[d * MLP + e - 2 * NWM - NV] = s;
     } else {
       const int64_t k = i - n_glob;
       const int e = static_cast<int>(k % (2 * n_az));
@@ -498,73 +590,85 @@ __global__ void decoder_stack_bwd_reduce(const float* __restrict__ part,
       const int d = static_cast<int>(db / B), b = static_cast<int>(db % B);
       float s = 0.0f;
       for (int c = 0; c < cps; ++c)
-        s += part[(static_cast<int64_t>(b * cps + c) * depth + d) * ps + 2 * NW + e];
+        s += part[(static_cast<int64_t>(b * cps + c) * depth + d) * ps + 2 * NWM + e];
       if (e < n_az) da[db * n_az + e] = from_f<T>(s);
       else dz[db * n_az + e - n_az] = from_f<T>(s);
     }
   }
 }
 
-template <typename T>
+template <typename T, int MLP>
 cudaError_t set_smem(int hl) {
-  return cudaFuncSetAttribute(decoder_stack_bwd_rows_mma<T>,
+  return cudaFuncSetAttribute(decoder_stack_bwd_rows_mma<T, MLP>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_bytes<T>(hl)));
+                              static_cast<int>(smem_bytes<T, MLP>(hl)));
 }
 
-template <typename T>
+template <typename T, int MLP>
 int launch(const void* xsave, const void* attnsave, const void* dy,
            const void* a, const void* z, const void* w1, const void* w2,
-           const void* vecs, void* dx, void* da, void* dz, void* dw1, void* dw2,
-           void* dvecs, void* part, int B, int N, int depth, int hl, int l,
-           int rows_per_cta, void* stream) {
+           const void* vecs, const void* b1, void* dx, void* da, void* dz, void* dw1,
+           void* dw2, void* dvecs, void* db1, void* part, int B, int N, int depth,
+           int hl, int l, int rows_per_cta, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = set_smem<T>(hl);
+  cudaError_t err = set_smem<T, MLP>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int cps = (N + rows_per_cta - 1) / rows_per_cta;
-  decoder_stack_bwd_rows_mma<T><<<dim3(cps, B), THREADS, smem_bytes<T>(hl), s>>>(
+  decoder_stack_bwd_rows_mma<T, MLP><<<dim3(cps, B), THREADS, smem_bytes<T, MLP>(hl), s>>>(
       static_cast<const T*>(xsave), static_cast<const T*>(attnsave),
       static_cast<const T*>(dy), static_cast<const T*>(a), static_cast<const T*>(z),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
       static_cast<const float*>(vecs), static_cast<T*>(dx),
-      static_cast<float*>(part), B, N, depth, hl, l, rows_per_cta);
+      static_cast<float*>(part), B, N, depth, hl, l, rows_per_cta,
+      static_cast<const float*>(b1));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_all = static_cast<int64_t>(depth) * (2 * NW + NV)
+  const int64_t n_all = static_cast<int64_t>(depth) * (2 * DIM * MLP + NV + b1_floats<MLP>())
                         + static_cast<int64_t>(depth) * B * 2 * DIM * hl;
   const int64_t want = (n_all + 255) / 256;
   const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  decoder_stack_bwd_reduce<T><<<blocks, 256, 0, s>>>(
+  decoder_stack_bwd_reduce<T, MLP><<<blocks, 256, 0, s>>>(
       static_cast<const float*>(part), static_cast<T*>(da), static_cast<T*>(dz),
       static_cast<float*>(dw1), static_cast<float*>(dw2),
-      static_cast<float*>(dvecs), B, cps, depth, hl);
+      static_cast<float*>(dvecs), B, cps, depth, hl, static_cast<float*>(db1));
   return static_cast<int>(cudaGetLastError());
 }
 
 // CTAs of the row kernel that one SM holds at once for this hl (its
 // registers and shared memory decide), written to *out: the wrapper sizes
 // the grid to one full wave.
-template <typename T>
+template <typename T, int MLP>
 int ctas_per_sm(int hl, int* out) {
-  const cudaError_t err = set_smem<T>(hl);
+  const cudaError_t err = set_smem<T, MLP>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, decoder_stack_bwd_rows_mma<T>, THREADS, smem_bytes<T>(hl)));
+      out, decoder_stack_bwd_rows_mma<T, MLP>, THREADS, smem_bytes<T, MLP>(hl)));
 }
 
 }  // namespace
 
-#define DECODER_BWD_ENTRY(SUFFIX, T)                                                 \
-  extern "C" int decoder_stack_bwd_##SUFFIX(                                        \
-      const void* xsave, const void* attnsave, const void* dy, const void* a,       \
-      const void* z, const void* w1, const void* w2, const void* vecs, void* dx,    \
-      void* da, void* dz, void* dw1, void* dw2, void* dvecs, void* part, int B,     \
-      int N, int depth, int hl, int l, int rows_per_cta, void* stream) {            \
-    return launch<T>(xsave, attnsave, dy, a, z, w1, w2, vecs, dx, da, dz, dw1, dw2, \
-                     dvecs, part, B, N, depth, hl, l, rows_per_cta, stream);        \
-  }                                                                                 \
-  extern "C" int decoder_stack_bwd_ctas_per_sm_##SUFFIX(int hl, int* out) {         \
-    return ctas_per_sm<T>(hl, out);                                                 \
+// The C entries take the hidden width mlp (32 or 64) and dispatch to its
+// instance; b1 and db1 are read and written only where mlp != 32.
+#define DECODER_BWD_ENTRY(SUFFIX, T)                                                    \
+  extern "C" int decoder_stack_bwd_##SUFFIX(                                           \
+      const void* xsave, const void* attnsave, const void* dy, const void* a,          \
+      const void* z, const void* w1, const void* w2, const void* vecs, const void* b1, \
+      void* dx, void* da, void* dz, void* dw1, void* dw2, void* dvecs, void* db1,      \
+      void* part, int B, int N, int depth, int hl, int l, int rows_per_cta, int mlp,   \
+      void* stream) {                                                                  \
+    if (mlp == 64)                                                                     \
+      return launch<T, 64>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,    \
+                           dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,             \
+                           rows_per_cta, stream);                                      \
+    if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);                    \
+    return launch<T, DIM>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,     \
+                          dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,              \
+                          rows_per_cta, stream);                                       \
+  }                                                                                    \
+  extern "C" int decoder_stack_bwd_ctas_per_sm_##SUFFIX(int hl, int mlp, int* out) {   \
+    if (mlp == 64) return ctas_per_sm<T, 64>(hl, out);                                 \
+    if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);                    \
+    return ctas_per_sm<T, DIM>(hl, out);                                               \
   }
 
 DECODER_BWD_ENTRY(f32, float)

@@ -54,6 +54,16 @@
 // hl columns of attn are stored from the fragments beside the same
 // arithmetic, so y is K1's bit for bit.
 //
+// The hidden width MLP is a template parameter: 32 (DAHiTra), or 64 (BIT's
+// decoder, mlp_dim = 2 * dim), whose b1 (D, 64) comes as an fp32 argument of
+// its own. The 64 instance runs the hidden layer in two 32-column halves c:
+// h_c = rnd(gelu(rnd(rnd(g . W1[:, c]) + b1[c]))) on the same 16 x 32 tiles,
+// then h_c . W2[c, :] accumulates into the one fp32 sum of h . W2, rounded
+// once, as the JAX product with fp32 accumulation rounds it. So a thread
+// holds what the 32 instance holds plus one 32-wide half; W1 and W2 are
+// staged whole, their planes sized by MLP (58 KB in fp32 at hl = 64, past
+// the 48 KB default, which set_smem raises).
+//
 // Grid: (row tiles of TILE rows, B), a 16-row tile per warp, 8 warps. Each
 // CTA stages every layer's weights, so larger CTAs stage less. Against 4
 // warps (64 rows) on the H100, in two runs, 8 warps took 11-12 % less time
@@ -77,8 +87,9 @@ constexpr int TILE = WARPS * 16;  // rows per CTA
 // One layer for the warp's 16 rows, v (fragment layout) in and out; rows
 // whose ok flag is false compute on zeros and store nothing. With SAVE, x_in
 // is stored at xsave (row srow and srow + 8) and the attention row at
-// attnsave, its first hl columns.
-template <typename T, bool SAVE>
+// attnsave, its first hl columns. MLP is the hidden width: 32, with b1 in
+// sV's row 5, or 64, with b1 at sV + NV.
+template <typename T, bool SAVE, int MLP>
 __device__ __forceinline__ void layer_rows(float (&v)[16], const __nv_bfloat16* sA,
                                            const __nv_bfloat16* sZ,
                                            const __nv_bfloat16* sW1,
@@ -160,15 +171,36 @@ __device__ __forceinline__ void layer_rows(float (&v)[16], const __nv_bfloat16* 
     acc[i] = 0.0f;
   }
   frag32<P>(fr, u);
-  mma_row32<true, P>(acc, fr, sW1, plane, lane);  // g . W1
+  if constexpr (MLP == DIM) {
+    mma_row32<true, P>(acc, fr, sW1, plane, lane);  // g . W1
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
-    u[i] = rnd<T>(gelu(rnd<T>(rnd<T>(acc[i]) + sV[5 * DIM + ch])));  // h
-    acc[i] = 0.0f;
+    for (int i = 0; i < 16; ++i) {
+      const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
+      u[i] = rnd<T>(gelu(rnd<T>(rnd<T>(acc[i]) + sV[5 * DIM + ch])));  // h
+      acc[i] = 0.0f;
+    }
+    frag32<P>(fr, u);
+    mma_row32<true, P>(acc, fr, sW2, plane, lane);  // h . W2
+  } else {
+    // The hidden layer in 32-column halves c: h_c = rnd(gelu(rnd(rnd(g .
+    // W1[:, c]) + b1[c]))), and h_c . W2[c, :] into the one fp32 sum of
+    // h . W2, rounded once below.
+#pragma unroll
+    for (int c = 0; c < MLP / DIM; ++c) {
+      float hc[16];
+      uint32_t fh[2][P][4];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) hc[i] = 0.0f;
+      mma_row32<true, P>(hc, fr, sW1 + DIM * c, plane, lane, MLP + 8);  // g . W1[:, c]
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int ch = DIM * c + 8 * (i >> 2) + 2 * t + (i & 1);
+        hc[i] = rnd<T>(gelu(rnd<T>(rnd<T>(hc[i]) + sV[NV + ch])));  // h_c
+      }
+      frag32<P>(fh, hc);
+      mma_row32<true, P>(acc, fh, sW2 + DIM * c * WLD, plane, lane);  // h_c . W2[c, :]
+    }
   }
-  frag32<P>(fr, u);
-  mma_row32<true, P>(acc, fr, sW2, plane, lane);  // h . W2
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
@@ -176,33 +208,34 @@ __device__ __forceinline__ void layer_rows(float (&v)[16], const __nv_bfloat16* 
   }
 }
 
-template <typename T>
+template <typename T, int MLP>
 __host__ __device__ __forceinline__ size_t smem_bytes(int hl) {
-  return 2 * pieces<T>() * plane_size(hl) + 4 * NV;  // weight planes, vectors
+  return 2 * pieces<T>() * plane_size(hl, MLP) + 4 * (NV + b1_floats<MLP>());  // planes, vectors
 }
 
-// x, y: (B, N, 32); a: (D, B, 32, hl); z: (D, B, hl, 32); w1, w2: (D, 32, 32)
-// laid out (in, out); vecs: (D, 7, 32) fp32 rows
-// [ln1_scale, ln1_bias, bo, ln2_scale, ln2_bias, b1, b2]. With SAVE,
-// xsave: (D, B, N, 32) and attnsave: (D, B, N, hl) in T. l, the tokens per
-// head, is 1, 2, 4 or 8 and hl is even. Grid (row tiles of TILE, B).
-template <typename T, bool SAVE>
+// x, y: (B, N, 32); a: (D, B, 32, hl); z: (D, B, hl, 32); w1: (D, 32, MLP)
+// and w2: (D, MLP, 32) laid out (in, out); vecs: (D, 7, 32) fp32 rows
+// [ln1_scale, ln1_bias, bo, ln2_scale, ln2_bias, b1, b2]; where MLP != 32,
+// b1: (D, MLP) fp32 and vecs' row 5 unused. With SAVE, xsave: (D, B, N, 32)
+// and attnsave: (D, B, N, hl) in T. l, the tokens per head, is 1, 2, 4 or 8
+// and hl is even. Grid (row tiles of TILE, B).
+template <typename T, bool SAVE, int MLP>
 __global__ void __launch_bounds__(THREADS)
 decoder_stack_fwd_rows_mma(const T* __restrict__ x, const T* __restrict__ a,
                            const T* __restrict__ z, const T* __restrict__ w1,
                            const T* __restrict__ w2, const float* __restrict__ vecs,
                            T* __restrict__ y, T* __restrict__ xsave,
                            T* __restrict__ attnsave, int B, int N, int depth, int hl,
-                           int l) {
+                           int l, const float* __restrict__ b1) {
   constexpr int P = pieces<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hlp = pad16(hl);
   const int ald = hlp + 8;
-  const int plane = plane_size(hl);
+  const int plane = plane_size(hl, MLP);
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [c][j]
   __nv_bfloat16* sZ = sA + DIM * ald;                               // [j][c]
   __nv_bfloat16* sW1 = sZ + hlp * WLD;                              // [c][m]
-  __nv_bfloat16* sW2 = sW1 + DIM * WLD;                             // [m][c]
+  __nv_bfloat16* sW2 = sW1 + DIM * (MLP + 8);                       // [m][c]
   float* sV = reinterpret_cast<float*>(sA + P * plane);
 
   const int b = blockIdx.y;
@@ -226,9 +259,10 @@ decoder_stack_fwd_rows_mma(const T* __restrict__ x, const T* __restrict__ a,
       const int jz = i >> 5, cz = i & (DIM - 1);  // Z[j][c], zero rows past hl
       stage<P>(sZ + jz * WLD + cz, plane, jz < hl ? to_f(z[az_off + i]) : 0.0f);
     }
-    for (int i = tid; i < DIM * DIM; i += THREADS) {
-      stage<P>(sW1 + (i >> 5) * WLD + (i & (DIM - 1)), plane, to_f(w1[d * DIM * DIM + i]));
-      stage<P>(sW2 + (i >> 5) * WLD + (i & (DIM - 1)), plane, to_f(w2[d * DIM * DIM + i]));
+    for (int i = tid; i < DIM * MLP; i += THREADS) {
+      stage<P>(sW1 + (i >> mlp_shift<MLP>()) * (MLP + 8) + (i & (MLP - 1)), plane,
+               to_f(w1[d * DIM * MLP + i]));
+      stage<P>(sW2 + (i >> 5) * WLD + (i & (DIM - 1)), plane, to_f(w2[d * DIM * MLP + i]));
     }
     for (int i = tid; i < NV; i += THREADS) {
       const int k = i / DIM;
@@ -236,9 +270,12 @@ decoder_stack_fwd_rows_mma(const T* __restrict__ x, const T* __restrict__ a,
       // bo, b1, b2 enter the stack cast to T; the LN parameters stay fp32.
       sV[i] = (k == 2 || k == 5 || k == 6) ? rnd<T>(val) : val;
     }
+    if constexpr (MLP != DIM) {
+      for (int i = tid; i < MLP; i += THREADS) sV[NV + i] = rnd<T>(b1[d * MLP + i]);
+    }
     __syncthreads();
     if (active)
-      layer_rows<T, SAVE>(v, sA, sZ, sW1, sW2, sV, plane, hl, l, ok0, ok1,
+      layer_rows<T, SAVE, MLP>(v, sA, sZ, sW1, sW2, sV, plane, hl, l, ok0, ok1,
                           (static_cast<int64_t>(d) * B + b) * N + wrow + g, xsave,
                           attnsave, lane);
   }
@@ -250,58 +287,82 @@ decoder_stack_fwd_rows_mma(const T* __restrict__ x, const T* __restrict__ a,
   }
 }
 
-template <typename T, bool SAVE>
+template <typename T, bool SAVE, int MLP>
 cudaError_t set_smem(int hl) {
-  return cudaFuncSetAttribute(decoder_stack_fwd_rows_mma<T, SAVE>,
+  return cudaFuncSetAttribute(decoder_stack_fwd_rows_mma<T, SAVE, MLP>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_bytes<T>(hl)));
+                              static_cast<int>(smem_bytes<T, MLP>(hl)));
 }
 
-template <typename T, bool SAVE>
+template <typename T, bool SAVE, int MLP>
 int launch(const void* x, const void* a, const void* z, const void* w1,
-           const void* w2, const void* vecs, void* y, void* xsave,
-           void* attnsave, int B, int N, int depth, int hl, int l,
-           void* stream) {
-  const cudaError_t err = set_smem<T, SAVE>(hl);
+           const void* w2, const void* vecs, const void* b1, void* y, void* xsave,
+           void* attnsave, int B, int N, int depth, int hl, int l, void* stream) {
+  const cudaError_t err = set_smem<T, SAVE, MLP>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TILE - 1) / TILE, B);
-  decoder_stack_fwd_rows_mma<T, SAVE>
-      <<<grid, THREADS, smem_bytes<T>(hl), static_cast<cudaStream_t>(stream)>>>(
+  decoder_stack_fwd_rows_mma<T, SAVE, MLP>
+      <<<grid, THREADS, smem_bytes<T, MLP>(hl), static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const T*>(z),
           static_cast<const T*>(w1), static_cast<const T*>(w2),
           static_cast<const float*>(vecs), static_cast<T*>(y),
-          static_cast<T*>(xsave), static_cast<T*>(attnsave), B, N, depth, hl, l);
+          static_cast<T*>(xsave), static_cast<T*>(attnsave), B, N, depth, hl, l,
+          static_cast<const float*>(b1));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for the hidden width mlp (32 or 64).
+template <typename T, bool SAVE>
+int launch_mlp(const void* x, const void* a, const void* z, const void* w1,
+               const void* w2, const void* vecs, const void* b1, void* y, void* xsave,
+               void* attnsave, int B, int N, int depth, int hl, int l, int mlp,
+               void* stream) {
+  if (mlp == 64)
+    return launch<T, SAVE, 64>(x, a, z, w1, w2, vecs, b1, y, xsave, attnsave, B, N, depth,
+                               hl, l, stream);
+  if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<T, SAVE, DIM>(x, a, z, w1, w2, vecs, b1, y, xsave, attnsave, B, N, depth,
+                              hl, l, stream);
 }
 
 // CTAs of the kernel that one SM holds at once for this hl (its registers
 // and shared memory decide), written to *out.
-template <typename T, bool SAVE>
+template <typename T, bool SAVE, int MLP>
 int ctas_per_sm(int hl, int* out) {
-  const cudaError_t err = set_smem<T, SAVE>(hl);
+  const cudaError_t err = set_smem<T, SAVE, MLP>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, decoder_stack_fwd_rows_mma<T, SAVE>, THREADS, smem_bytes<T>(hl)));
+      out, decoder_stack_fwd_rows_mma<T, SAVE, MLP>, THREADS, smem_bytes<T, MLP>(hl)));
+}
+
+template <typename T, bool SAVE>
+int ctas_per_sm_mlp(int hl, int mlp, int* out) {
+  if (mlp == 64) return ctas_per_sm<T, SAVE, 64>(hl, out);
+  if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);
+  return ctas_per_sm<T, SAVE, DIM>(hl, out);
 }
 
 }  // namespace
 
-#define DECODER_FWD_ENTRY(SUFFIX, T)                                                    \
-  extern "C" int decoder_stack_fwd_##SUFFIX(                                           \
-      const void* x, const void* a, const void* z, const void* w1, const void* w2,     \
-      const void* vecs, void* y, int B, int N, int depth, int hl, int l, void* stream) { \
-    return launch<T, false>(x, a, z, w1, w2, vecs, y, nullptr, nullptr, B, N, depth,   \
-                            hl, l, stream);                                            \
-  }                                                                                    \
-  extern "C" int decoder_stack_fwd_save_##SUFFIX(                                      \
-      const void* x, const void* a, const void* z, const void* w1, const void* w2,     \
-      const void* vecs, void* y, void* xsave, void* attnsave, int B, int N, int depth, \
-      int hl, int l, void* stream) {                                                   \
-    return launch<T, true>(x, a, z, w1, w2, vecs, y, xsave, attnsave, B, N, depth, hl, \
-                           l, stream);                                                 \
-  }                                                                                    \
-  extern "C" int decoder_stack_fwd_ctas_per_sm_##SUFFIX(int hl, int save, int* out) {  \
-    return save ? ctas_per_sm<T, true>(hl, out) : ctas_per_sm<T, false>(hl, out);      \
+#define DECODER_FWD_ENTRY(SUFFIX, T)                                                     \
+  extern "C" int decoder_stack_fwd_##SUFFIX(                                            \
+      const void* x, const void* a, const void* z, const void* w1, const void* w2,      \
+      const void* vecs, const void* b1, void* y, int B, int N, int depth, int hl, int l, \
+      int mlp, void* stream) {                                                          \
+    return launch_mlp<T, false>(x, a, z, w1, w2, vecs, b1, y, nullptr, nullptr, B, N,   \
+                                depth, hl, l, mlp, stream);                             \
+  }                                                                                     \
+  extern "C" int decoder_stack_fwd_save_##SUFFIX(                                       \
+      const void* x, const void* a, const void* z, const void* w1, const void* w2,      \
+      const void* vecs, const void* b1, void* y, void* xsave, void* attnsave, int B,    \
+      int N, int depth, int hl, int l, int mlp, void* stream) {                         \
+    return launch_mlp<T, true>(x, a, z, w1, w2, vecs, b1, y, xsave, attnsave, B, N,     \
+                               depth, hl, l, mlp, stream);                              \
+  }                                                                                     \
+  extern "C" int decoder_stack_fwd_ctas_per_sm_##SUFFIX(int hl, int save, int mlp,      \
+                                                        int* out) {                     \
+    return save ? ctas_per_sm_mlp<T, true>(hl, mlp, out)                                \
+                : ctas_per_sm_mlp<T, false>(hl, mlp, out);                              \
   }
 
 DECODER_FWD_ENTRY(f32, float)

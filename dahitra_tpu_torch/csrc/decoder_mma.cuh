@@ -30,10 +30,24 @@ __host__ __device__ constexpr int pieces() {
 }
 
 // bf16 elements of one plane of staged weights: A [c][j], Z [j][c], W1
-// [c][m], W2 [m][c].
-__host__ __device__ __forceinline__ int plane_size(int hl) {
+// [c][m] (rows of mlp + 8) and W2 [m][c], m over the hidden width mlp.
+__host__ __device__ __forceinline__ int plane_size(int hl, int mlp = DIM) {
   const int hlp = pad16(hl);
-  return DIM * (hlp + 8) + hlp * WLD + 2 * DIM * WLD;
+  return DIM * (hlp + 8) + hlp * WLD + DIM * (mlp + 8) + mlp * WLD;
+}
+
+// log2 of the hidden widths the kernels are built for (32 and 64).
+template <int MLP>
+__host__ __device__ constexpr int mlp_shift() {
+  static_assert(MLP == 32 || MLP == 64, "the kernels take mlp_dim 32 or 64");
+  return MLP == 64 ? 6 : 5;
+}
+
+// Floats of b1 kept beside the seven vectors: none at MLP = DIM, where b1
+// is their row 5.
+template <int MLP>
+__host__ __device__ constexpr int b1_floats() {
+  return MLP == DIM ? 0 : MLP;
 }
 
 __device__ __forceinline__ float lo_f(uint32_t u) { return __uint_as_float(u << 16); }
@@ -141,14 +155,16 @@ __device__ __forceinline__ void mma_pair(float* c, const uint32_t (&a)[P][4],
   for (int h = 0; h < 2; ++h) mma_split<P>(c + 4 * h, a, b[h]);
 }
 
-// v (16 x 32, fragment layout) += A (16 x 32) . B (32 x 32).
+// v (16 x 32, fragment layout) += A (16 x 32) . B (32 x 32), B's rows ldb
+// apart (a 32 x 32 block of a wider staged weight, for ldb > WLD).
 template <bool KMAJOR, int P>
 __device__ __forceinline__ void mma_row32(float (&v)[16], const uint32_t (&a)[2][P][4],
-                                          const __nv_bfloat16* sb, int plane, int lane) {
+                                          const __nv_bfloat16* sb, int plane, int lane,
+                                          int ldb = WLD) {
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
-    mma_pair<KMAJOR, P>(v, a[kk], sb, plane, WLD, 16 * kk, 0, lane);
-    mma_pair<KMAJOR, P>(v + 8, a[kk], sb, plane, WLD, 16 * kk, 16, lane);
+    mma_pair<KMAJOR, P>(v, a[kk], sb, plane, ldb, 16 * kk, 0, lane);
+    mma_pair<KMAJOR, P>(v + 8, a[kk], sb, plane, ldb, 16 * kk, 16, lane);
   }
 }
 

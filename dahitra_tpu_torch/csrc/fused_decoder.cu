@@ -55,6 +55,13 @@
 // multiple of 16: whole zero heads (l divides 16), whose logits are 0, so
 // their attention is 1 / l inside their own group and meets zero rows of Z.
 // Grid (row tiles of TILE rows, B), 8 warps, as K1's.
+//
+// The hidden width MLP is a template parameter of the row kernel: 32, or 64
+// (BIT's decoder), whose b1 (D, 64) comes as an fp32 argument of its own.
+// The 64 instance runs the hidden layer in two 32-column halves c, h_c =
+// gelu_as(mm(LN2(x), W1[:, c]) + b1[c]), and accumulates mm(h_c, W2[c, :])
+// into the one fp32 sum of mm(h, W2), as K1's 64 instance does. The
+// prologue does not depend on MLP.
 #include "decoder_mma.cuh"
 
 namespace {
@@ -226,8 +233,9 @@ __device__ __forceinline__ void group_reduce(float (&s)[8], int l) {
   }
 }
 
-// One layer for the warp's 16 rows, v (fragment layout) in and out.
-template <int P>
+// One layer for the warp's 16 rows, v (fragment layout) in and out. b1
+// lies in sV's row 5 for MLP = 32 and at sV + NV otherwise.
+template <int P, int MLP>
 __device__ __forceinline__ void fused_layer_rows(float (&v)[16], const __nv_bfloat16* sA,
                                                  const __nv_bfloat16* sZ,
                                                  const __nv_bfloat16* sW1,
@@ -279,15 +287,33 @@ __device__ __forceinline__ void fused_layer_rows(float (&v)[16], const __nv_bflo
     acc[i] = 0.0f;
   }
   frag32<P>(fr, u);
-  mma_row32<true, P>(acc, fr, sW1, plane, lane);  // g . W1
+  if constexpr (MLP == DIM) {
+    mma_row32<true, P>(acc, fr, sW1, plane, lane);  // g . W1
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
-    u[i] = gelu_as(acc[i] + sV[5 * DIM + ch]);  // h
-    acc[i] = 0.0f;
+    for (int i = 0; i < 16; ++i) {
+      const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
+      u[i] = gelu_as(acc[i] + sV[5 * DIM + ch]);  // h
+      acc[i] = 0.0f;
+    }
+    frag32<P>(fr, u);
+    mma_row32<true, P>(acc, fr, sW2, plane, lane);  // h . W2
+  } else {
+#pragma unroll
+    for (int c = 0; c < MLP / DIM; ++c) {
+      float hc[16];
+      uint32_t fh[2][P][4];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) hc[i] = 0.0f;
+      mma_row32<true, P>(hc, fr, sW1 + DIM * c, plane, lane, MLP + 8);  // g . W1[:, c]
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int ch = DIM * c + 8 * (i >> 2) + 2 * t + (i & 1);
+        hc[i] = gelu_as(hc[i] + sV[NV + ch]);  // h_c
+      }
+      frag32<P>(fh, hc);
+      mma_row32<true, P>(acc, fh, sW2 + DIM * c * WLD, plane, lane);  // h_c . W2[c, :]
+    }
   }
-  frag32<P>(fr, u);
-  mma_row32<true, P>(acc, fr, sW2, plane, lane);  // h . W2
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
@@ -300,31 +326,33 @@ __host__ __device__ constexpr int op_pieces() {
   return PRECISE ? 3 : 1;
 }
 
-template <bool PRECISE>
+template <bool PRECISE, int MLP>
 __host__ __device__ __forceinline__ size_t rows_smem_bytes(int hl) {
-  return 2 * op_pieces<PRECISE>() * plane_size(hl) + 4 * NV;  // weight planes, vectors
+  return 2 * op_pieces<PRECISE>() * plane_size(hl, MLP) + 4 * (NV + b1_floats<MLP>());  // planes, vectors
 }
 
 // x, y: (B, N, 32) in T; a: (D, B, 32, hl) and z: (D, B, hl, 32), the
-// prologue's fp32 output; w1, w2: (D, 32, 32) fp32 laid out (in, out);
-// vecs: (D, 7, 32) fp32 rows [ln1_scale, ln1_bias, bo, ln2_scale, ln2_bias,
-// b1, b2]. l, the tokens per head, is 1, 2, 4, 8 or 16. Grid (row tiles of
-// TILE, B).
-template <typename T, bool PRECISE>
+// prologue's fp32 output; w1: (D, 32, MLP) and w2: (D, MLP, 32) fp32 laid
+// out (in, out); vecs: (D, 7, 32) fp32 rows [ln1_scale, ln1_bias, bo,
+// ln2_scale, ln2_bias, b1, b2]; where MLP != 32, b1: (D, MLP) fp32 and vecs'
+// row 5 unused. l, the tokens per head, is 1, 2, 4, 8 or 16. Grid (row
+// tiles of TILE, B).
+template <typename T, bool PRECISE, int MLP>
 __global__ void __launch_bounds__(THREADS)
 fused_decoder_rows_mma(const T* __restrict__ x, const float* __restrict__ a,
                        const float* __restrict__ z, const float* __restrict__ w1,
                        const float* __restrict__ w2, const float* __restrict__ vecs,
-                       T* __restrict__ y, int B, int N, int depth, int hl, int l) {
+                       T* __restrict__ y, int B, int N, int depth, int hl, int l,
+                       const float* __restrict__ b1) {
   constexpr int P = op_pieces<PRECISE>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hlp = pad16(hl);
   const int ald = hlp + 8;
-  const int plane = plane_size(hl);
+  const int plane = plane_size(hl, MLP);
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [c][j]
   __nv_bfloat16* sZ = sA + DIM * ald;                               // [j][c]
   __nv_bfloat16* sW1 = sZ + hlp * WLD;                              // [c][m]
-  __nv_bfloat16* sW2 = sW1 + DIM * WLD;                             // [m][c]
+  __nv_bfloat16* sW2 = sW1 + DIM * (MLP + 8);                       // [m][c]
   float* sV = reinterpret_cast<float*>(sA + P * plane);
 
   const int b = blockIdx.y;
@@ -348,13 +376,17 @@ fused_decoder_rows_mma(const T* __restrict__ x, const float* __restrict__ a,
       const int jz = i >> 5, cz = i & (DIM - 1);  // Z[j][c], zero rows past hl
       stage<P>(sZ + jz * WLD + cz, plane, jz < hl ? z[az_off + i] : 0.0f);
     }
-    for (int i = tid; i < DIM * DIM; i += THREADS) {
-      stage<P>(sW1 + (i >> 5) * WLD + (i & (DIM - 1)), plane, w1[d * DIM * DIM + i]);
-      stage<P>(sW2 + (i >> 5) * WLD + (i & (DIM - 1)), plane, w2[d * DIM * DIM + i]);
+    for (int i = tid; i < DIM * MLP; i += THREADS) {
+      stage<P>(sW1 + (i >> mlp_shift<MLP>()) * (MLP + 8) + (i & (MLP - 1)), plane,
+               w1[d * DIM * MLP + i]);
+      stage<P>(sW2 + (i >> 5) * WLD + (i & (DIM - 1)), plane, w2[d * DIM * MLP + i]);
     }
     for (int i = tid; i < NV; i += THREADS) sV[i] = vecs[d * NV + i];
+    if constexpr (MLP != DIM) {
+      for (int i = tid; i < MLP; i += THREADS) sV[NV + i] = b1[d * MLP + i];
+    }
     __syncthreads();
-    if (active) fused_layer_rows<P>(v, sA, sZ, sW1, sW2, sV, plane, hl, l, lane);
+    if (active) fused_layer_rows<P, MLP>(v, sA, sZ, sW1, sW2, sV, plane, hl, l, lane);
   }
 #pragma unroll
   for (int p = 0; p < 8; ++p) {
@@ -384,37 +416,39 @@ int launch_prologue(const void* m, const void* wq, const void* wk, const void* w
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool PRECISE>
+template <typename T, bool PRECISE, int MLP>
 cudaError_t set_rows_smem(int hl) {
-  return cudaFuncSetAttribute(fused_decoder_rows_mma<T, PRECISE>,
+  return cudaFuncSetAttribute(fused_decoder_rows_mma<T, PRECISE, MLP>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(rows_smem_bytes<PRECISE>(hl)));
+                              static_cast<int>(rows_smem_bytes<PRECISE, MLP>(hl)));
 }
 
-template <typename T, bool PRECISE>
+template <typename T, bool PRECISE, int MLP>
 int launch_rows(const void* x, const void* a, const void* z, const void* w1,
-                const void* w2, const void* vecs, void* y, int B, int N, int depth,
-                int hl, int l, void* stream) {
-  const cudaError_t err = set_rows_smem<T, PRECISE>(hl);
+                const void* w2, const void* vecs, const void* b1, void* y, int B, int N,
+                int depth, int hl, int l, void* stream) {
+  const cudaError_t err = set_rows_smem<T, PRECISE, MLP>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TILE - 1) / TILE, B);
-  fused_decoder_rows_mma<T, PRECISE>
-      <<<grid, THREADS, rows_smem_bytes<PRECISE>(hl), static_cast<cudaStream_t>(stream)>>>(
+  fused_decoder_rows_mma<T, PRECISE, MLP>
+      <<<grid, THREADS, rows_smem_bytes<PRECISE, MLP>(hl),
+         static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(x), static_cast<const float*>(a),
           static_cast<const float*>(z), static_cast<const float*>(w1),
           static_cast<const float*>(w2), static_cast<const float*>(vecs),
-          static_cast<T*>(y), B, N, depth, hl, l);
+          static_cast<T*>(y), B, N, depth, hl, l, static_cast<const float*>(b1));
   return static_cast<int>(cudaGetLastError());
 }
 
 // CTAs of the row kernel that one SM holds at once for this hl (its
 // registers and shared memory decide), written to *out.
-template <typename T, bool PRECISE>
+template <typename T, bool PRECISE, int MLP>
 int ctas_per_sm(int hl, int* out) {
-  const cudaError_t err = set_rows_smem<T, PRECISE>(hl);
+  const cudaError_t err = set_rows_smem<T, PRECISE, MLP>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, fused_decoder_rows_mma<T, PRECISE>, THREADS, rows_smem_bytes<PRECISE>(hl)));
+      out, fused_decoder_rows_mma<T, PRECISE, MLP>, THREADS,
+      rows_smem_bytes<PRECISE, MLP>(hl)));
 }
 
 }  // namespace
@@ -428,15 +462,24 @@ int ctas_per_sm(int hl, int* out) {
                                     inner, stream);                                     \
   }
 
-#define FUSED_DECODER_ROWS_ENTRY(SUFFIX, T, PRECISE)                                     \
-  extern "C" int fused_decoder_##SUFFIX(const void* x, const void* a, const void* z,     \
+// The row entries take the hidden width mlp (32 or 64) and dispatch to its
+// instance; b1 is read only where mlp != 32.
+#define FUSED_DECODER_ROWS_ENTRY(SUFFIX, T, PRECISE)                                      \
+  extern "C" int fused_decoder_##SUFFIX(const void* x, const void* a, const void* z,      \
                                         const void* w1, const void* w2, const void* vecs, \
-                                        void* y, int B, int N, int depth, int hl, int l,  \
-                                        void* stream) {                                  \
-    return launch_rows<T, PRECISE>(x, a, z, w1, w2, vecs, y, B, N, depth, hl, l, stream); \
-  }                                                                                      \
-  extern "C" int fused_decoder_ctas_per_sm_##SUFFIX(int hl, int* out) {                 \
-    return ctas_per_sm<T, PRECISE>(hl, out);                                             \
+                                        const void* b1, void* y, int B, int N, int depth, \
+                                        int hl, int l, int mlp, void* stream) {           \
+    if (mlp == 64)                                                                        \
+      return launch_rows<T, PRECISE, 64>(x, a, z, w1, w2, vecs, b1, y, B, N, depth, hl, l, \
+                                         stream);                                         \
+    if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);                       \
+    return launch_rows<T, PRECISE, DIM>(x, a, z, w1, w2, vecs, b1, y, B, N, depth, hl, l,  \
+                                        stream);                                          \
+  }                                                                                       \
+  extern "C" int fused_decoder_ctas_per_sm_##SUFFIX(int hl, int mlp, int* out) {          \
+    if (mlp == 64) return ctas_per_sm<T, PRECISE, 64>(hl, out);                           \
+    if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);                       \
+    return ctas_per_sm<T, PRECISE, DIM>(hl, out);                                         \
   }
 
 FUSED_DECODER_AZ_ENTRY(precise, true)

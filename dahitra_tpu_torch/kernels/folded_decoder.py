@@ -30,11 +30,13 @@ partials and sums them in a second, fixed-order pass. Both take 1, 2, 4 or
 8 tokens per head and an even hl (DAHiTra has 4 tokens, BIT 4 or 8); on a
 CUDA tensor anything else raises.
 
-The kernels are built for ``mlp_dim`` = ``dim`` = 32, with the feed-forward
-bias ``b1`` as row 5 of ``vecs``. The plain versions take any ``mlp_dim``:
-w1 (D, 32, mlp_dim), w2 (D, mlp_dim, 32) and ``b1`` (D, mlp_dim) fp32 as an
-argument of its own (row 5 of ``vecs`` is then unused). On a CUDA tensor such
-a call raises: the ``mlp_dim`` != 32 kernel instances are not built yet.
+The kernels are built for ``dim`` = 32 and ``mlp_dim`` 32 (DAHiTra), with
+the feed-forward bias ``b1`` as row 5 of ``vecs``, or 64 (BIT's decoder,
+``mlp_dim = 2 * dim``), with w1 (D, 32, 64), w2 (D, 64, 32) and ``b1``
+(D, 64) fp32 as an argument of its own (row 5 of ``vecs`` is then unused;
+K2 returns db1 (D, 64) as a seventh value). The 64 instances run the hidden
+layer in two 32-column halves on the 32 instances' tiles. The plain versions
+take any ``mlp_dim``; on a CUDA tensor any width but 32 and 64 raises.
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ launches_save = 0
 launches_bwd = 0
 
 _DIM = 32
+# Hidden widths (mlp_dim) with a kernel instance.
+_MLP = (32, 64)
 _MAX_HL = 128
 _CLAMP = 80.0  # dahitra_tpu/nn/decoder_vjp.py _NOSHIFT_CLAMP
 # Rows per K2 CTA tile, both instances (csrc/decoder_bwd.cu TILE: 4 warps
@@ -209,7 +213,7 @@ def _check(what, tensors, dtype, heads, hl, shapes_ok):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what}: operands must be contiguous")
     if not shapes_ok or hl > _MAX_HL or hl % heads:
-        raise ValueError(f"{what}: need dim = mlp_dim = {_DIM}, "
+        raise ValueError(f"{what}: need dim = {_DIM}, mlp_dim in {_MLP}, "
                          f"hl = heads * tokens <= {_MAX_HL} and the shapes "
                          "of the docstring, got "
                          f"{[tuple(t.shape) for t in tensors]}, heads {heads}")
@@ -222,34 +226,48 @@ def _refuse_group(what, hl, heads):
                          f"and an even hl, got hl {hl}, heads {heads}")
 
 
-def _refuse_mlp_dim(what, w1, b1):
-    """The kernels exist for mlp_dim = 32 only; off the CPU any other width
-    raises (the plain version never runs there)."""
-    if b1 is not None or w1.shape[-1] != _DIM:
-        raise ValueError(f"{what}: mlp_dim = {w1.shape[-1]}; the kernel "
-                         f"instance for mlp_dim != {_DIM} is not built yet "
-                         "(the plain version runs on CPU tensors only)")
+def _mlp_dim(what, w1, b1, depth) -> int:
+    """The hidden width of the call, one the kernels are built for: 32 with
+    b1 in vecs, or 64 with b1 (D, 64) fp32 beside it. Off the CPU any other
+    width raises (the plain version never runs there)."""
+    mlp = w1.shape[-1]
+    if mlp not in _MLP:
+        raise ValueError(f"{what}: mlp_dim = {mlp}; the kernels are built "
+                         f"for mlp_dim in {_MLP} (the plain version runs on "
+                         "CPU tensors only)")
+    wide = mlp != _DIM
+    if (b1 is not None) != wide or wide and (
+            b1.shape != (depth, mlp) or b1.dtype != torch.float32
+            or not b1.is_contiguous() or b1.device != w1.device):
+        got = None if b1 is None else (tuple(b1.shape), b1.dtype)
+        raise ValueError(f"{what}: at mlp_dim {mlp} b1 must be "
+                         + (f"a contiguous float32 ({depth}, {mlp}) tensor "
+                            "beside the operands" if wide else
+                            "row 5 of vecs (no b1 argument)") + f", got {got}")
+    return mlp
 
 
 def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
                       save: bool = False, b1=None):
     """Decoder-stack forward over ``depth`` layers.
 
-    x: (B, N, 32); a: (D, B, 32, hl); z: (D, B, hl, 32); w1, w2: (D, 32, 32)
-    laid out (in, out), all in ``dtype``; vecs: (D, 7, 32) fp32 rows in
-    ``VEC_KEYS`` order. Returns y (B, N, 32) in ``dtype``, or with ``save``
-    (y, xsave (D, B, N, 32), attnsave (D, B, N, hl)). CPU tensors take the
-    plain version, which also takes mlp_dim != 32 with ``b1`` (D, mlp_dim);
-    CUDA tensors launch the kernel or raise.
+    x: (B, N, 32); a: (D, B, 32, hl); z: (D, B, hl, 32); w1: (D, 32, mlp)
+    and w2: (D, mlp, 32) laid out (in, out), all in ``dtype``; vecs: (D, 7,
+    32) fp32 rows in ``VEC_KEYS`` order; b1: None at mlp_dim 32 (it is row 5
+    of vecs), else (D, mlp) fp32. Returns y (B, N, 32) in ``dtype``, or with
+    ``save`` (y, xsave (D, B, N, 32), attnsave (D, B, N, hl)). CPU tensors
+    take the plain version (any mlp_dim); CUDA tensors launch the kernel
+    (mlp_dim 32 or 64) or raise.
     """
     global launches, launches_save
     if x.device.type == "cpu":
         return decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth, heads,
                                        dtype, save, b1)
-    _refuse_mlp_dim("decoder_stack_fwd", w1, b1)
+    mlp = _mlp_dim("decoder_stack_fwd", w1, b1, depth)
     b, n, dim = x.shape
     hl = a.shape[-1]
-    shapes_ok = (dim == _DIM and w1.shape == w2.shape == (depth, _DIM, _DIM)
+    shapes_ok = (dim == _DIM and w1.shape == (depth, _DIM, mlp)
+                 and w2.shape == (depth, mlp, _DIM)
                  and a.shape == (depth, b, _DIM, hl)
                  and z.shape == (depth, b, hl, _DIM)
                  and vecs.shape == (depth, 7, _DIM))
@@ -258,18 +276,19 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
     _refuse_group("decoder_stack_fwd", hl, heads)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (x, a, z, w1, w2, vecs, y)]
+    ptrs = [t.data_ptr() for t in (x, a, z, w1, w2, vecs)] \
+        + [None if b1 is None else b1.data_ptr(), y.data_ptr()]
     if save:
         xsave = torch.empty((depth, b, n, _DIM), dtype=dtype, device=x.device)
         attnsave = torch.empty((depth, b, n, hl), dtype=dtype, device=x.device)
-        status = _fn("decoder_fwd", "decoder_stack_fwd_save", dtype, 9, 5)(
+        status = _fn("decoder_fwd", "decoder_stack_fwd_save", dtype, 10, 6)(
             *ptrs, xsave.data_ptr(), attnsave.data_ptr(), b, n, depth, hl,
-            hl // heads, stream)
+            hl // heads, mlp, stream)
         _build.check(status, "decoder_stack_fwd(save)")
         launches_save += 1
         return y, xsave, attnsave
-    status = _fn("decoder_fwd", "decoder_stack_fwd", dtype, 7, 5)(
-        *ptrs, b, n, depth, hl, hl // heads, stream)
+    status = _fn("decoder_fwd", "decoder_stack_fwd", dtype, 8, 6)(
+        *ptrs, b, n, depth, hl, hl // heads, mlp, stream)
     _build.check(status, "decoder_stack_fwd")
     launches += 1
     return y
@@ -291,8 +310,9 @@ _slots = {}
 def _ctas_per_sm(lib: str, dtype, hl: int, *flags) -> int:
     """CTAs of the row kernel of ``csrc/<lib>.cu`` in ``dtype`` that one SM
     holds at once at this hl, as the CUDA occupancy calculator counts them
-    (registers and shared memory decide): ``decoder_bwd``, K2;
-    ``decoder_fwd``, K1 (flag 0) or K1-save (flag 1)."""
+    (registers and shared memory decide): ``decoder_bwd``, K2, flags
+    (mlp_dim,); ``decoder_fwd``, flags (0 for K1 or 1 for K1-save,
+    mlp_dim)."""
     per_sm = ctypes.c_int(0)
     fn = getattr(_build.load(lib), f"decoder_stack_{lib[-3:]}_ctas_per_sm_"
                  f"{_DTYPES[dtype]}")
@@ -302,13 +322,14 @@ def _ctas_per_sm(lib: str, dtype, hl: int, *flags) -> int:
     return max(1, per_sm.value)
 
 
-def _bwd_slots(dev, dtype, hl: int) -> int:
-    """CTAs of K2's row kernel that the card runs at once: what one SM
-    holds at this hl times the SMs, asked once per device, dtype and hl."""
-    key = (dev.index, dtype, hl)
+def _bwd_slots(dev, dtype, hl: int, mlp: int) -> int:
+    """CTAs of K2's row kernel instance that the card runs at once: what one
+    SM holds at this hl times the SMs, asked once per device, dtype, hl and
+    mlp_dim."""
+    key = (dev.index, dtype, hl, mlp)
     if key not in _slots:
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        _slots[key] = _ctas_per_sm("decoder_bwd", dtype, hl) * n_sm
+        _slots[key] = _ctas_per_sm("decoder_bwd", dtype, hl, mlp) * n_sm
     return _slots[key]
 
 
@@ -317,23 +338,25 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
     """Decoder-stack backward (K2) from the forward's saves.
 
     xsave (D, B, N, 32), attnsave (D, B, N, hl), dy (B, N, 32), a, z, w1,
-    w2 as in ``decoder_stack_fwd``, all in ``dtype``; vecs (D, 7, 32) fp32.
-    Returns dx (B, N, 32) and da, dz (per sample) in ``dtype``, and dw1, dw2
-    (D, 32, 32) and dvecs (D, 7, 32) in fp32; the ln1 rows of dvecs are the
-    x side only. CPU tensors take the plain version (with ``b1``, for
-    mlp_dim != 32, it returns db1 as a seventh value); CUDA tensors launch
-    the kernel or raise.
+    w2 as in ``decoder_stack_fwd``, all in ``dtype``; vecs (D, 7, 32) fp32;
+    b1 as in ``decoder_stack_fwd``. Returns dx (B, N, 32) and da, dz (per
+    sample) in ``dtype``, and dw1 (D, 32, mlp), dw2 (D, mlp, 32) and dvecs
+    (D, 7, 32) in fp32; the ln1 rows of dvecs are the x side only. With
+    ``b1`` given (mlp_dim != 32) row 5 of dvecs is zero and db1 (D, mlp)
+    fp32 is a seventh value. CPU tensors take the plain version (any
+    mlp_dim); CUDA tensors launch the kernel (mlp_dim 32 or 64) or raise.
     """
     global launches_bwd
     if dy.device.type == "cpu":
         return decoder_stack_bwd_plain(xsave, attnsave, dy, a, z, w1, w2, vecs,
                                        depth, heads, dtype, b1)
-    _refuse_mlp_dim("decoder_stack_bwd", w1, b1)
+    mlp = _mlp_dim("decoder_stack_bwd", w1, b1, depth)
     b, n, dim = dy.shape
     hl = a.shape[-1]
     shapes_ok = (dim == _DIM and xsave.shape == (depth, b, n, _DIM)
                  and attnsave.shape == (depth, b, n, hl)
-                 and w1.shape == w2.shape == (depth, _DIM, _DIM)
+                 and w1.shape == (depth, _DIM, mlp)
+                 and w2.shape == (depth, mlp, _DIM)
                  and a.shape == (depth, b, _DIM, hl)
                  and z.shape == (depth, b, hl, _DIM)
                  and vecs.shape == (depth, 7, _DIM))
@@ -341,21 +364,28 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
            dtype, heads, hl, shapes_ok)
     _refuse_group("decoder_stack_bwd", hl, heads)
     dev = dy.device
-    rows = _bwd_rows_per_cta(b, n, _bwd_slots(dev, dtype, hl))
+    rows = _bwd_rows_per_cta(b, n, _bwd_slots(dev, dtype, hl, mlp))
     cps = -(-n // rows)
-    part = torch.empty(b * cps * depth * (2 * _DIM * _DIM + 2 * _DIM * hl
-                                          + 7 * _DIM),
+    # Per (CTA, layer): [dW1 | dW2 | dA | dZ | dvecs | db1 where mlp != 32]
+    # (csrc/decoder_bwd.cu part_size).
+    wide = mlp != _DIM
+    part = torch.empty(b * cps * depth * (2 * _DIM * mlp + 2 * _DIM * hl
+                                          + 7 * _DIM + wide * mlp),
                        dtype=torch.float32, device=dev)
     dx = torch.empty_like(dy)
     da, dz = torch.empty_like(a), torch.empty_like(z)
-    dw1 = torch.empty((depth, _DIM, _DIM), dtype=torch.float32, device=dev)
-    dw2 = torch.empty_like(dw1)
+    dw1 = torch.empty((depth, _DIM, mlp), dtype=torch.float32, device=dev)
+    dw2 = torch.empty((depth, mlp, _DIM), dtype=torch.float32, device=dev)
     dvecs = torch.empty((depth, 7, _DIM), dtype=torch.float32, device=dev)
+    db1 = torch.empty((depth, mlp), dtype=torch.float32, device=dev) \
+        if wide else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    status = _fn("decoder_bwd", "decoder_stack_bwd", dtype, 15, 6)(
-        *[t.data_ptr() for t in (xsave, attnsave, dy, a, z, w1, w2, vecs, dx,
-                                 da, dz, dw1, dw2, dvecs, part)],
-        b, n, depth, hl, hl // heads, rows, stream)
+    status = _fn("decoder_bwd", "decoder_stack_bwd", dtype, 17, 7)(
+        *[None if t is None else t.data_ptr()
+          for t in (xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,
+                    dw1, dw2, dvecs, db1, part)],
+        b, n, depth, hl, hl // heads, rows, mlp, stream)
     _build.check(status, "decoder_stack_bwd")
     launches_bwd += 1
-    return dx, da, dz, dw1, dw2, dvecs
+    out = (dx, da, dz, dw1, dw2, dvecs)
+    return out if db1 is None else (*out, db1)

@@ -43,7 +43,9 @@ on ``mma.sync`` tensor cores with fp32 accumulation, bf16 operands or, when
 ``precise``, each fp32 operand split exactly into three bf16 pieces; the
 group softmax shifted by its max inside the quad of lanes that holds a row.
 The kernels take 1, 2, 4, 8 or 16 tokens per head, heads * tokens <= 128 and
-mlp_dim = 32; on a CUDA tensor anything else raises.
+mlp_dim 32 or 64 (BIT's decoder: the row kernel's 64 instance runs the hidden
+layer in two 32-column halves, with b1 (D, 64) beside ``vecs``); on a CUDA
+tensor anything else raises.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from dahitra_tpu_torch.kernels import _build
-from dahitra_tpu_torch.kernels.folded_decoder import VEC_KEYS
+from dahitra_tpu_torch.kernels.folded_decoder import _MLP, VEC_KEYS
 
 # Launches in this process; the plain versions never count. ``launches``:
 # ``fused_transformer_decoder``, one per call (the prologue and the row
@@ -236,23 +238,26 @@ def _prologue_smem(hd: int) -> int:
     return 4 * (hd * (_DIM + 1) + 3 * _DIM * hd + _PRO_ROWS * (_DIM + 2 * hd))
 
 
-def _rows_smem(hl: int, precise: bool) -> int:
+def _rows_smem(hl: int, precise: bool, mlp: int) -> int:
     """Shared-memory bytes of the row kernel (``rows_smem_bytes``): A, Z, W1
     and W2 as one bf16 plane, or three when ``precise``, hl padded to 16 and
-    rows padded by 8; the seven fp32 vectors."""
+    rows padded by 8; the seven fp32 vectors, and b1 where mlp_dim != 32."""
     hlp = -(-hl // 16) * 16
-    plane = _DIM * (hlp + 8) + hlp * (_DIM + 8) + 2 * _DIM * (_DIM + 8)
-    return 2 * (3 if precise else 1) * plane + 4 * 7 * _DIM
+    plane = _DIM * (hlp + 8) + hlp * (_DIM + 8) + _DIM * (mlp + 8) \
+        + mlp * (_DIM + 8)
+    return 2 * (3 if precise else 1) * plane \
+        + 4 * (7 * _DIM + (mlp if mlp != _DIM else 0))
 
 
 def _check(what: str, ts, m: torch.Tensor, packed: Packed, depth: int,
            heads: int, precise: bool) -> None:
     """Raise unless the tensors ``ts`` lie on one CUDA device and the shapes
     are ones the kernels take."""
-    if packed["w1"].shape[-1] != _DIM:
-        raise ValueError(f"{what}: mlp_dim = {packed['w1'].shape[-1]}; the "
-                         f"kernel instance for mlp_dim != {_DIM} is not built "
-                         "yet (the plain version runs on CPU tensors only)")
+    mlp = packed["w1"].shape[-1]
+    if mlp not in _MLP:
+        raise ValueError(f"{what}: mlp_dim = {mlp}; the kernels are built for "
+                         f"mlp_dim in {_MLP} (the plain version runs on CPU "
+                         "tensors only)")
     if ts[0].device.type != "cuda" or any(t.device != ts[0].device for t in ts):
         raise ValueError(f"{what}: all operands must be on one CUDA device, "
                          f"got {[str(t.device) for t in ts]}")
@@ -266,20 +271,35 @@ def _check(what: str, ts, m: torch.Tensor, packed: Packed, depth: int,
                  and all(packed[k].shape == (depth, _DIM, inner)
                          for k in ("wq", "wk", "wv"))
                  and packed["wo"].shape == (depth, inner, _DIM)
-                 and packed["w1"].shape == packed["w2"].shape
-                 == (depth, _DIM, _DIM)
-                 and all(packed[k].shape == (depth, _DIM) for k in VEC_KEYS))
+                 and packed["w1"].shape == (depth, _DIM, mlp)
+                 and packed["w2"].shape == (depth, mlp, _DIM)
+                 and packed["b1"].shape == (depth, mlp)
+                 and all(packed[k].shape == (depth, _DIM)
+                         for k in VEC_KEYS if k != "b1"))
     smem = max(_prologue_smem(inner // heads),
-               _rows_smem(heads * l, precise))
+               _rows_smem(heads * l, precise, mlp))
     if not shapes_ok or smem > _SMEM_LIMIT:
-        raise ValueError(f"{what}: need dim = mlp_dim = {_DIM} and {smem} <= "
-                         f"{_SMEM_LIMIT} bytes of shared memory per CTA, got "
+        raise ValueError(f"{what}: need dim = {_DIM}, mlp_dim in {_MLP} and "
+                         f"{smem} <= {_SMEM_LIMIT} bytes of shared memory per "
+                         "CTA, got "
                          f"m {tuple(m.shape)}, heads {heads}, "
                          f"{ {k: tuple(v.shape) for k, v in packed.items()} }")
 
 
 def _vecs(packed: Packed) -> torch.Tensor:
-    return torch.stack([packed[k].float() for k in VEC_KEYS], 1).contiguous()
+    """The (D, 7, 32) fp32 vectors in ``VEC_KEYS`` order; b1's row is zero
+    where mlp_dim != 32 (``_b1`` carries it)."""
+    wide = packed["b1"].shape[-1] != _DIM
+    return torch.stack([torch.zeros_like(packed["b2"], dtype=torch.float32)
+                        if wide and k == "b1" else packed[k].float()
+                        for k in VEC_KEYS], 1).contiguous()
+
+
+def _b1(packed: Packed) -> Optional[torch.Tensor]:
+    """b1 (D, mlp_dim) fp32 where mlp_dim != 32, else None (it is in
+    ``_vecs``)."""
+    b1 = packed["b1"]
+    return None if b1.shape[-1] == _DIM else b1.float().contiguous()
 
 
 def _prologue(m, packed, vecs, depth: int, heads: int, precise: bool):
@@ -303,10 +323,13 @@ def _rows(x, a, z, packed, vecs, depth: int, heads: int, precise: bool):
     hl = a.shape[-1]
     xc = x.contiguous()
     w1, w2 = (packed[k].float().contiguous() for k in ("w1", "w2"))
+    b1 = _b1(packed)
     y = torch.empty_like(xc)
-    status = _fn(f"fused_decoder_{_IO[x.dtype]}_{_ops(precise)}", 7, 5)(
-        *[t.data_ptr() for t in (xc, a, z, w1, w2, vecs, y)], b, n, depth, hl,
-        hl // heads, torch.cuda.current_stream(x.device).cuda_stream)
+    status = _fn(f"fused_decoder_{_IO[x.dtype]}_{_ops(precise)}", 8, 6)(
+        *[None if t is None else t.data_ptr()
+          for t in (xc, a, z, w1, w2, vecs, b1, y)], b, n, depth, hl,
+        hl // heads, w1.shape[-1],
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "fused_decoder rows")
     return y
 
@@ -333,8 +356,8 @@ def fused_transformer_decoder(x: torch.Tensor, m: torch.Tensor, packed: Packed,
 
     x: (B, N, 32) in float32 or bfloat16; m: (B, L, 32) in any float type;
     ``packed``: the 13 stacked parameters of ``pack_decoder_params`` (any
-    float type, read as fp32), inner width heads * dim_head, mlp_dim 32,
-    L in 1, 2, 4, 8 or 16 and heads * L <= 128. Returns (B, N, 32) in x's
+    float type, read as fp32), inner width heads * dim_head, mlp_dim 32 or
+    64, L in 1, 2, 4, 8 or 16 and heads * L <= 128. Returns (B, N, 32) in x's
     dtype. CPU tensors take ``fused_decoder_plain`` (any shape); CUDA tensors
     launch the prologue and the row kernel or raise.
     """
@@ -357,16 +380,16 @@ def fused_transformer_decoder(x: torch.Tensor, m: torch.Tensor, packed: Packed,
     return y
 
 
-def ctas_per_sm(io_dtype, precise: bool, hl: int) -> int:
-    """CTAs of the row kernel instance (x's dtype, ``precise``) that one SM
-    holds at once at this hl, as the CUDA occupancy calculator counts them
-    (registers and shared memory decide)."""
+def ctas_per_sm(io_dtype, precise: bool, mlp: int, hl: int) -> int:
+    """CTAs of the row kernel instance (x's dtype, ``precise``, mlp_dim)
+    that one SM holds at once at this hl, as the CUDA occupancy calculator
+    counts them (registers and shared memory decide)."""
     per_sm = ctypes.c_int(0)
     fn = getattr(_build.load("fused_decoder"),
                  f"fused_decoder_ctas_per_sm_{_IO[io_dtype]}_{_ops(precise)}")
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.check(fn(hl, ctypes.byref(per_sm)), "fused_decoder occupancy")
+    _build.check(fn(hl, mlp, ctypes.byref(per_sm)), "fused_decoder occupancy")
     return per_sm.value
 
 

@@ -26,6 +26,7 @@ from dahitra_tpu_torch.nn.blocks import (SemanticTokenizer, TransformerDecoder,
                                          TransformerEncoder, TwoLayerConv,
                                          UpConv, conv2d_nhwc, max_pool_3x3_s2,
                                          upsample_nearest)
+from dahitra_tpu_torch.nn.init import init_random
 from dahitra_tpu_torch.nn.resnet import ResNetTrunk
 
 # scale -> (input channels, encoder heads, decoder depth, decoder heads,
@@ -92,26 +93,11 @@ class DAHiTraUNet(nn.Module):
         self.conv_layer4 = UpConv(dim, dim, dtype)
         self.classifier = nn.Conv2d(dim, output_nc, 3, padding=1)
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Random weights from ``generator``: lecun-normal conv and linear
-        kernels, zero biases, unit-normal positional embeddings, and BN
-        running statistics near identity."""
-        for name, p in self.named_parameters():
-            if name.startswith("pos_embedding"):
-                p.normal_(0.0, 1.0, generator=generator)
-            elif p.dim() > 1:
-                fan_in = p[0].numel()
-                p.normal_(0.0, fan_in ** -0.5, generator=generator)
-            elif name.endswith("weight"):
-                p.fill_(1.0)
-            else:
-                p.zero_()
-        for name, buf in self.named_buffers():
-            if name.endswith("running_mean"):
-                buf.normal_(0.0, 0.1, generator=generator)
-            elif name.endswith("running_var"):
-                buf.uniform_(0.5, 1.5, generator=generator)
+        """Random weights from ``generator`` (``nn/init.py`` ``init_random``):
+        lecun-normal conv and linear kernels, zero biases, unit-normal
+        positional embeddings, and BN running statistics near identity."""
+        init_random(self, generator)
 
     def _decode(self, r: str, x: torch.Tensor, tokens: torch.Tensor):
         """The decoder positional embedding is added on every decoder call

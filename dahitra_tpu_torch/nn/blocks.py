@@ -46,6 +46,16 @@ def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def upsample_bilinear(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
+    """Bilinear upsample of NHWC with half-pixel centres (torch
+    ``align_corners=False``, ``jax.image.resize`` "bilinear"). At the border
+    jax renormalises its triangle weights and torch clamps the source index;
+    both give the edge pixel there. Computed in x's dtype."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=factor,
+                      mode="bilinear", align_corners=False)
+    return y.permute(0, 2, 3, 1)
+
+
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """torch MaxPool2d(3, stride=2, padding=1) on NHWC."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
@@ -265,8 +275,9 @@ class TransformerDecoder(nn.Module):
     the card; "noshift" numerics, output in ``dtype``); otherwise layer by
     layer with the max-shifted softmax, residual in its input type.
     ``mlp_dim`` may differ from ``dim`` on every path, as in the JAX module;
-    the kernels are built for ``mlp_dim`` = 32, so on the card the first two
-    paths then raise a ``ValueError`` naming ``mlp_dim``.
+    the kernels are built for ``mlp_dim`` 32 and 64 (BIT's decoder), so on
+    the card the first two paths raise a ``ValueError`` naming ``mlp_dim``
+    for any other width.
     """
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,

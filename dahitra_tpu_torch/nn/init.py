@@ -74,3 +74,27 @@ def init_weights(model: nn.Module, init_type: str = "normal",
             if getattr(module, "bias", None) is not None:
                 module.bias.zero_()
     return model
+
+
+@torch.no_grad()
+def init_random(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights for a model without a checkpoint (runs on seeded
+    weights): lecun-normal conv and linear kernels, zero biases, unit BN and
+    LayerNorm scales, unit-normal positional embeddings, and BN running
+    statistics near identity. Returns the model."""
+    for name, p in model.named_parameters():
+        if name.startswith("pos_embedding"):
+            p.normal_(0.0, 1.0, generator=generator)
+        elif p.dim() > 1:
+            fan_in = p[0].numel()
+            p.normal_(0.0, fan_in ** -0.5, generator=generator)
+        elif name.endswith("weight"):
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    for name, buf in model.named_buffers():
+        if name.endswith("running_mean"):
+            buf.normal_(0.0, 0.1, generator=generator)
+        elif name.endswith("running_var"):
+            buf.uniform_(0.5, 1.5, generator=generator)
+    return model

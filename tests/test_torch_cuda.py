@@ -15,7 +15,8 @@ from dahitra_tpu_torch.kernels import folded_decoder as fd
 from dahitra_tpu_torch.kernels import fused_decoder as kd
 from dahitra_tpu_torch.kernels import fused_tokenizer as ft
 from dahitra_tpu_torch.nn.blocks import TransformerDecoder
-from dahitra_tpu_torch.nn.decoder_vjp import (_operands, decoder_stack,
+from dahitra_tpu_torch.nn.decoder_vjp import (_operands, _split_b1,
+                                              decoder_stack,
                                               pack_decoder_params)
 
 pytestmark = pytest.mark.cuda
@@ -56,16 +57,22 @@ def test_decoder_stack_kernel_matches_plain(card, dtype, b, n, depth, heads):
     assert _scaled_err(got, ref) <= TOL[dtype]
 
 
-def _stack_case(card, dtype, b, n, depth, heads, seed=0):
+def _stack_case(card, dtype, b, n, depth, heads, seed=0, mlp=32, l=4):
+    """A seeded decoder (mlp_dim ``mlp``), its inputs x and m (``l`` memory
+    tokens), the kernel operands and a cotangent; with ``mlp`` != 32 the
+    operands end with b1 (D, mlp)."""
     g = torch.Generator().manual_seed(seed)
-    dec = TransformerDecoder(32, depth, heads, 64, 32).to(card)
+    dec = TransformerDecoder(32, depth, heads, 64, mlp).to(card)
     with torch.no_grad():
         for p in dec.parameters():
             p.add_(0.1 * torch.randn(p.shape, generator=g).to(card))
     x = torch.randn(b, n, 32, generator=g).to(card, dtype)
-    m = torch.randn(b, 4, 32, generator=g).to(card, dtype)
+    m = torch.randn(b, l, 32, generator=g).to(card, dtype)
     with torch.no_grad():
-        ops = _operands(x, m, pack_decoder_params(dec), depth, heads, dtype)
+        packed = pack_decoder_params(dec)
+        ops = _operands(x, m, packed, depth, heads, dtype)
+        if mlp != 32:
+            ops = (*ops, _split_b1(packed).contiguous())
     return dec, x, m, ops, torch.randn(b, n, 32, generator=g).to(card, dtype)
 
 
@@ -114,22 +121,25 @@ def test_save_forward_and_backward_kernels_match_plain(card, dtype, b, n,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["16 tokens per head", "odd hl"])
+@pytest.mark.parametrize("case", ["16 tokens per head", "odd hl",
+                                  "3 tokens per head"])
 @pytest.mark.parametrize("which", ["forward", "forward with saves",
                                    "backward"])
 def test_kernels_refuse_what_they_do_not_take(card, dtype, case, which):
     """K1, K1-save and K2 take 1, 2, 4 or 8 tokens per head (a softmax
     group inside one 8-column mma tile) and an even hl; 16 tokens per head
-    (hl 16, one head) and hl 15 (15 heads of one token) raise by name,
+    (hl 16, one head), hl 15 (15 heads of one token) and 3 tokens per head
+    (hl 12, 4 heads: even, but not a count the tiles hold) raise by name,
     before any launch."""
     _, _, _, ops, dy = _stack_case(card, dtype, 1, 64, 1, 4)
     _, xs, ats = fd.decoder_stack_fwd(*ops, 1, 4, dtype, save=True)
     a, z = ops[1], ops[2]
     heads = 1
-    if case == "odd hl":
-        ats, a, z = (ats[..., :15].contiguous(), a[..., :15].contiguous(),
-                     z[:, :, :15].contiguous())
-        heads = 15
+    cut = {"odd hl": (15, 15), "3 tokens per head": (12, 4)}.get(case)
+    if cut is not None:
+        hl, heads = cut
+        ats, a, z = (ats[..., :hl].contiguous(), a[..., :hl].contiguous(),
+                     z[:, :, :hl].contiguous())
     before = (fd.launches, fd.launches_save, fd.launches_bwd)
     with pytest.raises(ValueError, match="tokens per head and an even hl"):
         if which == "backward":
@@ -224,9 +234,9 @@ K4_MODES = [(torch.float32, True), (torch.float32, False),
             (torch.bfloat16, False), (torch.bfloat16, True)]
 
 
-def _k4_case(card, io, b, n, depth, heads, seed=2, l=4):
+def _k4_case(card, io, b, n, depth, heads, seed=2, l=4, mlp=32):
     g = torch.Generator().manual_seed(seed)
-    dec = TransformerDecoder(32, depth, heads, 64, 32)
+    dec = TransformerDecoder(32, depth, heads, 64, mlp)
     with torch.no_grad():
         for p in dec.parameters():
             p.add_(0.1 * torch.randn(p.shape, generator=g))
@@ -339,3 +349,94 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         kd.fused_transformer_decoder(x, torch.randn(1, 40, 32, device=card),
                                      packed, 1, 4, True)
+
+
+# BIT's decoder width, mlp_dim 64, at hl 32 (8 heads of 4 tokens) and 64 (8
+# heads of 8 tokens), at N below one warp tile (5) and N = 16 k + 1 (4097).
+WIDE_SHAPES = [(dtype, b, n, depth, l) for b, n, depth, l in
+               [(2, 5, 2, 4), (2, 4097, 2, 4), (2, 5, 2, 8), (2, 4097, 2, 8)]
+               for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dtype,b,n,depth,l", WIDE_SHAPES)
+def test_wide_mlp_kernels_match_plain(card, dtype, b, n, depth, l):
+    """The mlp_dim-64 instances of K1, K1-save and K2 (b1 and db1 beside
+    vecs) against their plain versions; K1-save's y is K1's bit for bit and
+    reruns give the same bits."""
+    heads = 8
+    _, _, _, ops, dy = _stack_case(card, dtype, b, n, depth, heads, mlp=64,
+                                   l=l)
+    *ops, b1 = ops
+    before = (fd.launches, fd.launches_save, fd.launches_bwd)
+    y = fd.decoder_stack_fwd(*ops, depth, heads, dtype, b1=b1)
+    ys, xs, ats = fd.decoder_stack_fwd(*ops, depth, heads, dtype, save=True,
+                                       b1=b1)
+    got = fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], depth, heads, dtype,
+                               b1=b1)
+    torch.cuda.synchronize()
+    assert (fd.launches, fd.launches_save, fd.launches_bwd) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert torch.equal(y, ys)
+    assert torch.equal(y, fd.decoder_stack_fwd(*ops, depth, heads, dtype,
+                                               b1=b1))
+    ref_y, ref_xs, ref_ats = fd.decoder_stack_fwd_plain(
+        *ops, depth, heads, dtype, save=True, b1=b1)
+    for g, r in ((y, ref_y), (xs, ref_xs), (ats, ref_ats)):
+        assert _scaled_err(g, r) <= TOL[dtype]
+    ref = fd.decoder_stack_bwd_plain(xs, ats, dy, *ops[1:], depth, heads,
+                                     dtype, b1=b1)
+    assert len(got) == len(ref) == 7
+    for name, g, r in zip(("dx", "da", "dz", "dw1", "dw2", "dvecs", "db1"),
+                          got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert _scaled_err(g, r) <= GTOL[dtype], name
+    assert not got[5][:, 5].any()  # b1's row of dvecs
+    again = fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], depth, heads, dtype,
+                                 b1=b1)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.parametrize("io,precise", K4_MODES)
+@pytest.mark.parametrize("n,l", [(5, 4), (4097, 4), (5, 8), (4097, 8)])
+def test_wide_mlp_fused_decoder_matches_plain(card, io, precise, n, l):
+    """K4's mlp_dim-64 row kernel against fused_decoder_plain in its four
+    instances, at hl 32 and 64; a rerun gives the same bits."""
+    depth, heads = 2, 8
+    x, m, packed = _k4_case(card, io, 2, n, depth, heads, l=l, mlp=64)
+    before = kd.launches
+    got = kd.fused_transformer_decoder(x, m, packed, depth, heads, precise)
+    torch.cuda.synchronize()
+    assert kd.launches == before + 1 and got.dtype == io
+    ref = kd.fused_decoder_plain(x, m, packed, depth, heads, precise)
+    tol = TOL[torch.float32 if precise and io == torch.float32
+              else torch.bfloat16]
+    assert _scaled_err(got, ref) <= tol
+    assert torch.equal(got, kd.fused_transformer_decoder(x, m, packed, depth,
+                                                         heads, precise))
+
+
+@pytest.mark.parametrize("which", ["forward", "forward with saves",
+                                   "backward", "fused"])
+def test_kernels_refuse_mlp_dim_96(card, which):
+    """A hidden width with no kernel instance (96) raises a ValueError that
+    names mlp_dim, before any launch; the plain version never runs."""
+    depth, heads = 1, 4
+    _, x, m, ops, dy = _stack_case(card, torch.float32, 1, 64, depth, heads,
+                                   mlp=96)
+    *ops, b1 = ops
+    before = (fd.launches, fd.launches_save, fd.launches_bwd, kd.launches)
+    with pytest.raises(ValueError, match="mlp_dim"):
+        if which == "fused":
+            _, m4, packed = _k4_case(card, torch.float32, 1, 64, depth, heads,
+                                     mlp=96)
+            kd.fused_transformer_decoder(x, m4, packed, depth, heads, True)
+        elif which == "backward":
+            xs = torch.zeros(depth, 1, 64, 32, device=card)
+            ats = torch.zeros(depth, 1, 64, 4 * heads, device=card)
+            fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], depth, heads,
+                                 torch.float32, b1=b1)
+        else:
+            fd.decoder_stack_fwd(*ops, depth, heads, torch.float32,
+                                 save=which == "forward with saves", b1=b1)
+    assert (fd.launches, fd.launches_save, fd.launches_bwd,
+            kd.launches) == before

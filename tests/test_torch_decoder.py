@@ -302,11 +302,12 @@ def test_module_grads_match_flax(n):
         _close(torch.from_numpy(np.asarray(g)), r, GTOL["float32"])
 
 
-def _wide_decoder(seed, dtype=torch.float32):
-    """A port TransformerDecoder with mlp_dim = 64 != dim (BIT's decoder
-    width), seeded numpy weights, and the same weights as flax params."""
+def _wide_decoder(seed, dtype=torch.float32, mlp=64):
+    """A port TransformerDecoder with mlp_dim = ``mlp`` != dim (64 is BIT's
+    decoder width), seeded numpy weights, and the same weights as flax
+    params."""
     depth, heads = 2, 8
-    port = TransformerDecoder(DIM, depth, heads, 64, 64, dtype=dtype)
+    port = TransformerDecoder(DIM, depth, heads, 64, mlp, dtype=dtype)
     rng = np.random.RandomState(seed)
     with torch.no_grad():
         for p in port.parameters():
@@ -385,14 +386,14 @@ def test_wide_mlp_plain_backward_is_the_forward_gradient_in_float64():
 
 @pytest.mark.parametrize("which", ["fwd", "fwd_save", "bwd", "fused"])
 def test_wrappers_raise_by_name_for_wide_mlp_off_cpu(which):
-    """Off the CPU the kernels exist for mlp_dim = 32 only: every wrapper
-    raises a ValueError that names mlp_dim and never runs its plain
-    version."""
+    """Off the CPU the kernels exist for mlp_dim 32 and 64: at a width with
+    no instance (96) every wrapper raises a ValueError that names mlp_dim
+    and never runs its plain version."""
     from dahitra_tpu_torch.kernels import fused_decoder as kd
     from dahitra_tpu_torch.nn.decoder_vjp import (_split_b1,
                                                   pack_decoder_params)
 
-    port, _, depth, heads = _wide_decoder(29)
+    port, _, depth, heads = _wide_decoder(29, mlp=96)
     x, m = (torch.from_numpy(t) for t in _inputs(2, 64, seed=30))
     with torch.no_grad():
         packed = pack_decoder_params(port)

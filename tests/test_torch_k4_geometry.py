@@ -11,6 +11,8 @@ mode as tests/test_torch_fused_decoder.py runs it).
   output, odd hl included.
 * The kernels take 1, 2, 4, 8 and 16 tokens per head: the plain version
   against JAX at each.
+* The row kernel's mlp_dim-64 instance (BIT's decoder): the plain version
+  at mlp_dim 64 against JAX.
 * ``fused_decoder_az_plain`` (the prologue's function) against A and Z
   written out with jnp as the TPU kernel's body builds them.
 
@@ -41,17 +43,18 @@ def interpret(monkeypatch):
                         lambda *a, **k: orig(*a, **{**k, "interpret": True}))
 
 
-def _packed(depth, heads, dim_head, seed):
-    """Seeded numpy weights in the stacked layout of pack_decoder_params."""
+def _packed(depth, heads, dim_head, seed, mlp=DIM):
+    """Seeded numpy weights in the stacked layout of pack_decoder_params,
+    with a hidden width of ``mlp``."""
     rng = np.random.RandomState(seed)
     inner = heads * dim_head
     shapes = {"wq": (DIM, inner), "wk": (DIM, inner), "wv": (DIM, inner),
-              "wo": (inner, DIM), "w1": (DIM, DIM), "w2": (DIM, DIM)}
+              "wo": (inner, DIM), "w1": (DIM, mlp), "w2": (mlp, DIM)}
     p = {k: rng.normal(0, s[0] ** -0.5, (depth, *s)) for k, s in shapes.items()}
     for k in ("ln1_scale", "ln2_scale"):
         p[k] = 1.0 + 0.2 * rng.normal(size=(depth, DIM))
     for k in ("ln1_bias", "ln2_bias", "bo", "b1", "b2"):
-        p[k] = 0.2 * rng.normal(size=(depth, DIM))
+        p[k] = 0.2 * rng.normal(size=(depth, mlp if k == "b1" else DIM))
     return {k: v.astype(np.float32) for k, v in p.items()}
 
 
@@ -136,6 +139,21 @@ def test_token_counts_match_jax(l, mode):
     got = kd.fused_decoder_plain(torch.from_numpy(x), torch.from_numpy(m),
                                  _torch(packed), depth, heads, precise)
     _close(got, ref, TOL[precise])
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_wide_mlp_matches_jax(mode):
+    """mlp_dim 64 (BIT's decoder: W1 (32, 64), b1 (64,), W2 (64, 32)) at
+    depth 2, 8 heads of 4 tokens (hl 32), dim_head 64, N 128."""
+    precise = MODES[mode]
+    depth, heads = 2, 8
+    packed = _packed(depth, heads, 64, seed=60, mlp=64)
+    x, m = _inputs(2, 128, 4, seed=61)
+    ref = _jax_k4(x, m, packed, depth, heads, precise)
+    got = kd.fused_decoder_plain(torch.from_numpy(x), torch.from_numpy(m),
+                                 _torch(packed), depth, heads, precise)
+    _close(got, ref, TOL[precise])
+    assert kd.launches == 0  # CPU tensors never reach the kernel
 
 
 def _jnp_az(m, packed, depth, heads, precise):
