@@ -6,7 +6,10 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
 (``newUNetTrans``) at its published width, at 256 px and then at 512 and
 1024 px, and of BIT (``base_transformer_pos_s4_dd8``) and ``base_resnet18``
 at 256 px, through the user's entry points ``dahitra_tpu_torch.cli.eval_cd``
-and ``dahitra_tpu_torch.cli.main_cd``. Phases, each fatal on failure:
+and ``dahitra_tpu_torch.cli.main_cd``, and xBD damage training and
+prediction at 1024 px (``xbd_dahitra``, ``xbd_bit``) through
+``dahitra_tpu_torch.cli.xbd_train`` and ``xbd_predict``. Phases, each fatal
+on failure:
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``dahitra_tpu_torch/csrc`` (one nvcc per
@@ -42,7 +45,12 @@ and ``dahitra_tpu_torch.cli.main_cd``. Phases, each fatal on failure:
      the mlp_dim-64 instances of K1, K1-save, K2 and K4 (both model modes)
      at BIT's shapes (``BIT_SHAPES``: ``_dd8`` at 256 and 512 px, hl 32,
      and ``_t8_e2d4``, hl 64), against their plain versions, rerun for the
-     same bits and timed as above;
+     same bits and timed as above; then K1, K1-save, K2 and K4 at token
+     counts per head the mma tiles do not hold as they are (``PAD_SHAPES``,
+     the wrappers pad them: 3 tokens at 8 heads, 16 at 8 heads, 1 at 7
+     heads, and for K4 32 at 4 heads, on the 1/4-scale dates shape of 256
+     px), against their plain versions on the unpadded operands, rerun for
+     the same bits and timed as above;
   4. write a seeded synthetic LEVIR tree (4 tiles of 1024 px = 64 patches of
      256 px) and a seeded ``best_ckpt.pt``;
   5. run ``eval_cd`` on the card at batch 8, once in fp32 and once with
@@ -94,10 +102,24 @@ and ``dahitra_tpu_torch.cli.main_cd``. Phases, each fatal on failure:
      pallas forwards (2 K4, 2 K3; fp32 logits within 1e-3 of the K1 path);
      one ``eval_cd --net_G base_resnet18`` forward per dtype (no decoder or
      tokenizer kernel). BIT's decoder has mlp_dim 64, so these phases launch
-     the mlp_dim-64 instances and no other decoder instance.
+     the mlp_dim-64 instances and no other decoder instance;
+ 15. xBD (``run_xbd_phase``): 8 seeded synthetic 1024 px tiles (every
+     damage class in each) and 2 more to predict; per dtype ``xbd_train
+     --task damage --net_G xbd_dahitra --img_size 1024 --batch_size 1
+     --max_epochs 1 --eval_every 1`` (3 K1-save, 3 K2 and 3 K3 per step, 3
+     K1 and 3 K3 per validation forward: one difference decode and one
+     tokenizer call per scale), ``xbd_predict`` with its checkpoint (one
+     forward of the 4 TTA views per tile: 3 K1 and 3 K3; both PNGs of the
+     right shape and range), one warm ``XBDTrainer.train_step`` of
+     ``xbd_dahitra`` and of ``xbd_bit`` (2 K1-save, 2 K2, 2 K3: the
+     mlp_dim-64 instances) with step time and peak memory, and
+     ``xbd_predict`` of ``xbd_bit`` (2 K1, 2 K3 per tile); then the card's
+     fp32 damage-task gradients and BN statistics against the CPU plain
+     path at 256 px, batch 1.
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10, 12, 13, 14) and read just after. ``--profile`` adds a torch.profiler
+7, 9, 10, 12, 13, 14, 15) and read just after; the counters of the padded
+token counts (``NO_PAD``) must read 0 in every one of them. ``--profile`` adds a torch.profiler
 breakdown of the batch-8 forward and of one batch-8 training step by kernel
 class, with the device's idle share, on the default path and with
 ``pallas = True``.
@@ -162,6 +184,15 @@ BIT_SHAPES = [("bit/dd8", BATCH, 4096, 8, 8, 4, 64),
               ("bit_t8/s4", BATCH, 4096, 4, 8, 8, 8),
               ("bit512/dd8", BATCH, (512 // 4) ** 2, 8, 8, 4, 64)]
 BIT_KEY = "base_transformer_pos_s4_dd8"
+# Token counts per head that the mma tiles do not hold as they are (fault
+# 3.2), on DAHiTra's 1/4-scale dates shape at 256 px (B 16, N 4096, depth
+# 8): 3 tokens at 8 heads (padded to 4, masked), 16 at 8 heads (hl 128, the
+# PAD instances' 16-column groups) and 1 at 7 heads (odd hl, run as 2); K4
+# also 32 at 4 heads (a group of two 16-column slices). No model of the
+# registry sends them, so the main paths launch these instances 0 times.
+PAD_SHAPES = [(f"pad/l{tokens}h{heads}", 2 * BATCH, 4096, 8, heads, tokens, 64)
+              for heads, tokens in ((8, 3), (8, 16), (7, 1))]
+PAD_SHAPES_K4 = PAD_SHAPES + [("pad/l32h4", 2 * BATCH, 4096, 8, 4, 32, 64)]
 # Calls of a shape per forward or step, where more than one.
 CALLS = {"bit/dd8": 2}
 
@@ -229,7 +260,13 @@ def _reset_counts() -> None:
     from dahitra_tpu_torch.kernels import fused_tokenizer as ft
 
     fd.launches = fd.launches_save = fd.launches_bwd = ft.launches = 0
-    kd.launches = 0
+    fd.launches_pad = fd.launches_save_pad = fd.launches_bwd_pad = 0
+    kd.launches = kd.launches_pad = 0
+
+
+# The pad counters (the main-path runs send no token count that the kernels
+# pad): every main-path run must read them 0.
+NO_PAD = {"k1_pad": 0, "k1_save_pad": 0, "k2_pad": 0, "k4_pad": 0}
 
 
 def _read_counts() -> dict:
@@ -238,7 +275,9 @@ def _read_counts() -> dict:
     from dahitra_tpu_torch.kernels import fused_tokenizer as ft
 
     return {"k1": fd.launches, "k1_save": fd.launches_save,
-            "k2": fd.launches_bwd, "k3": ft.launches, "k4": kd.launches}
+            "k2": fd.launches_bwd, "k3": ft.launches, "k4": kd.launches,
+            "k1_pad": fd.launches_pad, "k1_save_pad": fd.launches_save_pad,
+            "k2_pad": fd.launches_bwd_pad, "k4_pad": kd.launches_pad}
 
 
 def _set_pallas(model, on: bool, n_decoders: int = 3) -> None:
@@ -310,25 +349,29 @@ K2_DESIGN = {
     "bfloat16": "tensor cores: mma.sync m16n8k16 bf16, the per-row products "
                 "and the weight-side sums"}
 # Row-kernel instances whose registers, spills, tensor-core instructions
-# and CTAs per SM phase 2 reports, per source: (instance, a fragment of its
-# mangled name, dtype, flags of the source's occupancy entry, mlp_dim). The
-# mlp_dim-64 instances (BIT's decoder) carry the suffix "_mlp64".
+# and CTAs per SM phase 2 reports, per source: (instance, its mangled
+# template arguments, dtype, flags of the source's occupancy entry, mlp_dim,
+# pad). The mlp_dim-64 instances (BIT's decoder) carry the suffix "_mlp64",
+# the PAD instances (token counts the tiles do not hold as they are) "_pad".
 _MANGLED = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
 _MLPS = ((DIM, ""), (BIT_MLP, f"_mlp{BIT_MLP}"))
+_PADS = ((0, ""), (1, "_pad"))
 ROW_KERNELS = {
-    "decoder_fwd": [(dname + "_save" * save + sfx,
-                     f"rows_mmaI{_MANGLED[dname]}Lb{save}ELi{mlp}E", dname,
-                     (save, mlp), mlp)
-                    for mlp, sfx in _MLPS for dname in ("float32", "bfloat16")
-                    for save in (0, 1)],
-    "decoder_bwd": [(dname + sfx, f"rows_mmaI{_MANGLED[dname]}Li{mlp}E", dname,
-                     (mlp,), mlp)
-                    for mlp, sfx in _MLPS for dname in ("float32", "bfloat16")],
+    "decoder_fwd": [(dname + "_save" * save + sfx + psfx,
+                     f"rows_mmaI{_MANGLED[dname]}Lb{save}ELi{mlp}ELb{pad}EE",
+                     dname, (save, mlp, pad), mlp, pad)
+                    for pad, psfx in _PADS for mlp, sfx in _MLPS
+                    for dname in ("float32", "bfloat16") for save in (0, 1)],
+    "decoder_bwd": [(dname + sfx + psfx,
+                     f"rows_mmaI{_MANGLED[dname]}Li{mlp}ELb{pad}EE", dname,
+                     (mlp, pad), mlp, pad)
+                    for pad, psfx in _PADS for mlp, sfx in _MLPS
+                    for dname in ("float32", "bfloat16")],
     # K4: (x's dtype, precise), named as its C entries.
-    "fused_decoder": [(f"{io}_{ops}{sfx}",
+    "fused_decoder": [(f"{io}_{ops}{sfx}{psfx}",
                        f"fused_decoder_rows_mmaI{_MANGLED[dname]}Lb{int(pr)}"
-                       f"ELi{mlp}E", dname, (pr, mlp), mlp)
-                      for mlp, sfx in _MLPS
+                       f"ELi{mlp}ELb{pad}EE", dname, (pr, mlp, pad), mlp, pad)
+                      for pad, psfx in _PADS for mlp, sfx in _MLPS
                       for io, dname in (("f32", "float32"), ("bf16", "bfloat16"))
                       for ops, pr in (("precise", True), ("bf16ops", False))]}
 # The K4 row-kernel instance of each model: fp32 I/O in both, operands fp32
@@ -358,15 +401,18 @@ def _ctas_per_sm(torch, source, dname, flags, hl) -> int:
     from dahitra_tpu_torch.kernels import fused_decoder as kd
 
     if source == "fused_decoder":
-        return kd.ctas_per_sm(getattr(torch, dname), *flags, hl)
+        precise, mlp, pad = flags
+        return kd.ctas_per_sm(getattr(torch, dname), precise, mlp, hl, pad)
     return fd._ctas_per_sm(source, getattr(torch, dname), hl, *flags)
 
 
 # hl of the main paths' decoder calls: DAHiTra's (16, 32) for the mlp_dim-32
-# instances, BIT's (32, 64) for the mlp_dim-64 ones.
+# instances, BIT's (32, 64) for the mlp_dim-64 ones; for the PAD instances
+# the padded hl of phase 3's new token counts (16, 32, 128).
 MAIN_HLS = {DIM: sorted({_shape(s)[4] * _shape(s)[5]
                          for s in K1_SHAPES + [K1_SHAPE_512]}),
             BIT_MLP: sorted({_shape(s)[4] * _shape(s)[5] for s in BIT_SHAPES})}
+PAD_HLS = (16, 32, 128)
 
 
 def row_kernel_resources(torch, tmp, source, proc) -> dict:
@@ -412,13 +458,13 @@ def row_kernel_resources(torch, tmp, source, proc) -> dict:
             inst = instance(func.group(1))
         elif inst is not None and "HMMA.16816.F32.BF16" in line:
             out.setdefault(inst, {})["hmma"] = out[inst].get("hmma", 0) + 1
-    for inst, _, dname, flags, mlp in instances:
+    for inst, _, dname, flags, mlp, pad in instances:
         if "registers" not in out.get(inst, {}) or not out[inst].get("hmma"):
             fail(f"no ptxas report or no HMMA.16816.F32.BF16 of {source}.cu's "
                  f"{inst} row kernel:\n{log}")
         out[inst]["ctas_per_sm"] = {
             hl: _ctas_per_sm(torch, source, dname, flags, hl)
-            for hl in MAIN_HLS[mlp]}
+            for hl in (PAD_HLS if pad else MAIN_HLS[mlp])}
     return out
 
 
@@ -715,6 +761,11 @@ def check_k4(torch, dtype, gen, shapes=None, mlp=DIM):
         if not torch.equal(got, k4()):
             fail(f"K4 {name} {dname} (I/O {io}): a second run gave other bits")
         vecs = kd._vecs(packed)
+        # The row kernel alone runs on the memory side of the padded tokens
+        # where the wrapper pads them (fault 3.2's counts).
+        lp = kd._group(tokens)
+        mp = torch.cat([m, m.new_zeros(b, lp - tokens, DIM)], 1)
+        ap, zp = kd.fused_decoder_az(mp, packed, depth, heads, precise)
         nbytes, ops = _k4_cost(b, n, depth, heads, torch.finfo(io).bits // 8,
                                mlp, tokens, dim_head)
         bms, by = bound(nbytes, ops, dname)
@@ -726,8 +777,8 @@ def check_k4(torch, dtype, gen, shapes=None, mlp=DIM):
                    prologue_ms=time_ms(lambda: kd.fused_decoder_az(
                        m, packed, depth, heads, precise), torch, queued=True),
                    rows_ms=time_ms(lambda: kd._rows(
-                       x, a, z, packed, vecs, depth, heads, precise), torch,
-                       queued=True, **_reps(n)),
+                       x, ap, zp, packed, vecs, depth, heads, precise,
+                       tokens), torch, queued=True, **_reps(n)),
                    plain_ms=time_ms(lambda: kd.fused_decoder_plain(
                        x, m, packed, depth, heads, precise), torch,
                        **_reps(n)),
@@ -827,8 +878,8 @@ def summarize(name, source, replaces, dname, rows, launches, tol,
 _CLASSES = (("K4 prologue", ("fused_decoder_prologue",)),
             ("K4 rows", ("fused_decoder_rows",)),
             ("K1-save decoder_stack_fwd (save)",
-             ("decoder_stack_fwd_rows_mma<float, true>",
-              "decoder_stack_fwd_rows_mma<__nv_bfloat16, true>")),
+             ("decoder_stack_fwd_rows_mma<float, true,",
+              "decoder_stack_fwd_rows_mma<__nv_bfloat16, true,")),
             ("K1 decoder_stack_fwd", ("decoder_stack_fwd",)),
             ("K2 decoder_stack_bwd", ("decoder_stack_bwd",)),
             ("K3 semantic_tokenizer", ("stats_kernel", "pool_kernel")),
@@ -993,7 +1044,7 @@ def run_pallas_eval(torch, tmp, dtype, net_g: str = "newUNetTrans",
     n_fwd = len(a) // BATCH
     want = {"k1": 0, "k1_save": 0, "k2": 0, "k3": per_forward[1] * n_fwd,
             "k4": per_forward[0] * n_fwd}
-    if got != want or not torch.isfinite(logits.float()).all():
+    if got != {**NO_PAD, **want} or not torch.isfinite(logits.float()).all():
         fail(f"pallas eval {net_g} {dname}: launches {got} != {want} or "
              "logits not finite")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1037,7 +1088,7 @@ def run_pallas_train(torch, tmp, dtype, steps: int = 4) -> dict:
     losses, step_ms = run(True)
     got = _read_counts()
     want = {"k1": 0, "k1_save": 0, "k2": 0, "k3": 3 * steps, "k4": 6 * steps}
-    if got != want or not all(np.isfinite(losses)):
+    if got != {**NO_PAD, **want} or not all(np.isfinite(losses)):
         fail(f"pallas train {dname}: launches {got} != {want} or losses "
              f"{losses}")
     d1, d2, p2 = run(False)[1], run(False)[1], run(True)[1]
@@ -1070,7 +1121,7 @@ def run_eval(torch, data_root, ckpt_root, project, flag, dname, img, batch,
     n_forward = -(-n_pairs // batch)
     want = {"k1": per_forward[0] * n_forward, "k1_save": 0, "k2": 0,
             "k3": per_forward[1] * n_forward, "k4": 0}
-    if got != want:
+    if got != {**NO_PAD, **want}:
         fail(f"eval {net_g} {img} px {dname}: launches {got} != {want}")
     in_range = all(0.0 <= scores[k] <= 1.0 for k in ("acc", "miou", "mf1"))
     if not in_range or len(scores.get("per_group", [])) != (patches or 0):
@@ -1141,7 +1192,7 @@ def run_training(torch, root, flag, dname, img: int = IMG, batch: int = BATCH,
     dec, k3 = per_call
     want = {"k1": dec * vals, "k1_save": dec * steps, "k2": dec * steps,
             "k3": k3 * (steps + vals), "k4": 0}
-    if got != want:
+    if got != {**NO_PAD, **want}:
         fail(f"training {net_g} {img} px {dname}: launches {got} != {want}")
     ckpt = os.path.join(root, "ckpt", project)
     missing = [f for f in ("best_ckpt.pt", "log.txt", "train_acc.npy",
@@ -1182,7 +1233,7 @@ def run_step_1024(torch, tmp, dtype, pallas: bool) -> dict:
     got = _read_counts()
     want = {"k1": 0, "k1_save": 0, "k2": 0, "k3": 3, "k4": 6} if pallas else \
         {"k1": 0, "k1_save": 6, "k2": 6, "k3": 3, "k4": 0}
-    if got != want or not np.isfinite(loss):
+    if got != {**NO_PAD, **want} or not np.isfinite(loss):
         fail(f"1024 px step {dname} pallas={pallas}: launches {got} != {want} "
              f"or loss {loss}")
     return {"train_step_1024": dname, "pallas": pallas, "batch": batch,
@@ -1307,6 +1358,240 @@ def run_bit_phase(torch, tmp, train_root, dtypes) -> dict:
     return by_phase
 
 
+# xBD (phase 15): 8 synthetic 1024 px tiles for training (about a tenth for
+# validation), 2 more for prediction; decoder and K3 launches per forward:
+# xbd_dahitra one difference decode and one tokenizer call per scale,
+# xbd_bit one of each per date (its mlp_dim-64 instances).
+XBD_IMG = 1024
+XBD_TILES, XBD_PREDICT_TILES = 8, 2
+XBD_CALLS = {"xbd_dahitra": 3, "xbd_bit": 2}
+XBD_GRAD_IMG = 256
+
+
+def _xbd_trainer(torch, tmp, net_g, dtype, arrays, tag):
+    """An ``XBDTrainer`` (task damage) on the card over ``arrays`` (train
+    and val alike), for ``train_step``."""
+    import types
+
+    from dahitra_tpu_torch.train.xbd_engine import XBDTrainer
+
+    args = types.SimpleNamespace(
+        checkpoint_dir=os.path.join(tmp, "xbd_ckpt", tag), max_epochs=1,
+        bf16=dtype == torch.bfloat16, seed=0, net_G=net_g, img_size=XBD_IMG,
+        lr=0.0, batch_size=1, val_batch_size=1)
+    return XBDTrainer(args, arrays, arrays, device="cuda")
+
+
+def run_xbd_train(torch, data_root, ckpt_root, flag, dname, n_val) -> dict:
+    """``xbd_train --task damage --net_G xbd_dahitra`` at 1024 px, batch 1,
+    one epoch with a validation, launch counters set to 0 just before and
+    read just after: 3 K1-save, 3 K2 and 3 K3 per step, 3 K1 and 3 K3 per
+    validation forward; finite loss and score, ``best_ckpt.pt`` written."""
+    from dahitra_tpu_torch.cli import xbd_train
+
+    project = f"xbd_dahitra_{dname}"
+    argv = ["--data_root", data_root, "--task", "damage", "--net_G",
+            "xbd_dahitra", "--img_size", str(XBD_IMG), "--batch_size", "1",
+            "--max_epochs", "1", "--eval_every", "1", "--checkpoint_root",
+            ckpt_root, "--project_name", project, "--device", "cuda", *flag]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.time()
+    history = xbd_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = _read_counts()
+    steps, dec = history[0]["pairs"], XBD_CALLS["xbd_dahitra"]
+    want = {"k1": dec * n_val, "k1_save": dec * steps, "k2": dec * steps,
+            "k3": dec * (steps + n_val), "k4": 0}
+    if got != {**NO_PAD, **want}:
+        fail(f"xbd_train {dname}: launches {got} != {want}")
+    val = history[0].get("val", {})
+    if not (np.isfinite(history[0]["loss"]) and np.isfinite(val.get("score",
+                                                                    np.nan))
+            and os.path.exists(os.path.join(ckpt_root, project,
+                                            "best_ckpt.pt"))):
+        fail(f"xbd_train {dname}: loss {history[0]['loss']}, scores {val} or "
+             "no best_ckpt.pt")
+    return {"xbd_train": dname, "net_G": "xbd_dahitra", "img_size": XBD_IMG,
+            "batch": 1, "steps": steps, "val_pairs": n_val,
+            "pairs_per_s_epoch0": history[0]["imps"],
+            "loss": history[0]["loss"], "val": val, "wall_s": wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": got}
+
+
+def run_xbd_step(torch, tmp, net_g, dtype, arrays) -> tuple:
+    """One warm ``XBDTrainer.train_step`` of ``net_g`` at 1024 px, batch 1
+    (a first step warms up), launch counters set to 0 just before and read
+    just after: ``XBD_CALLS[net_g]`` K1-save, K2 and K3; finite loss, step
+    time and peak memory. Returns (the line, the trainer)."""
+    dname = str(dtype).split(".")[-1]
+    trainer = _xbd_trainer(torch, tmp, net_g, dtype, arrays, f"{net_g}_{dname}")
+    batch = [torch.from_numpy(arrays[k][:1]).cuda()
+             for k in ("img_pre", "img_post", "msk", "lbl_msk")]
+    trainer.train_step(*batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.time()
+    loss = trainer.train_step(*batch).item()
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3
+    got = _read_counts()
+    dec = XBD_CALLS[net_g]
+    want = {"k1": 0, "k1_save": dec, "k2": dec, "k3": dec, "k4": 0}
+    if got != {**NO_PAD, **want} or not np.isfinite(loss):
+        fail(f"xBD step {net_g} {dname}: launches {got} != {want} or loss "
+             f"{loss}")
+    return ({"xbd_step": dname, "net_G": net_g, "img_size": XBD_IMG,
+             "batch": 1, "step_ms": step_ms, "loss": loss,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches": got}, trainer)
+
+
+def run_xbd_predict(torch, test_root, out_dir, net_g, ckpt, flag, dname):
+    """``xbd_predict`` over the ``XBD_PREDICT_TILES`` test tiles with one
+    checkpoint, launch counters set to 0 just before and read just after:
+    one forward of the 4 TTA views per tile (``XBD_CALLS[net_g]`` K1 and K3
+    each); both PNGs of every tile, 1024 x 1024 uint8, damage in 0..3."""
+    from PIL import Image
+
+    from dahitra_tpu_torch.cli import xbd_predict
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.time()
+    written = xbd_predict.main(["--test_root", test_root, "--net_G", net_g,
+                                "--img_size", str(XBD_IMG), "--checkpoints",
+                                ckpt, "--out_dir", out_dir, "--device",
+                                "cuda", *flag])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = _read_counts()
+    dec = XBD_CALLS[net_g] * XBD_PREDICT_TILES
+    want = {"k1": dec, "k1_save": 0, "k2": 0, "k3": dec, "k4": 0}
+    pngs = [np.array(Image.open(os.path.join(out_dir, w))) for w in written]
+    ok = len(pngs) == 2 * XBD_PREDICT_TILES and all(
+        p.shape == (XBD_IMG, XBD_IMG) and p.dtype == np.uint8
+        and (p.max() <= 3 or name.endswith("_part1.png"))
+        for p, name in zip(pngs, written))
+    if got != {**NO_PAD, **want} or not ok:
+        fail(f"xbd_predict {net_g} {dname}: launches {got} != {want} or PNGs "
+             f"{[(n, p.shape, p.dtype, p.max()) for n, p in zip(written, pngs)]}")
+    return {"xbd_predict": dname, "net_G": net_g, "img_size": XBD_IMG,
+            "pairs": XBD_PREDICT_TILES, "views_per_forward": 4,
+            "pairs_per_s": XBD_PREDICT_TILES / wall,
+            "loc_mean": float(np.mean([p.mean() for p, n in zip(pngs, written)
+                                       if n.endswith("_part1.png")])),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": got}
+
+
+def check_xbd_grads(torch, data_root) -> dict:
+    """Phase 8 for the damage task: ``xbd_dahitra`` at 256 px (a crop of a
+    synthetic tile), batch 1, no augmentation, the train-mode forward,
+    ``xbd_damage_loss`` and backward in fp32, on the card and on the CPU
+    plain path: every gradient to 1e-3 of the whole gradient's scale, the
+    updated BN statistics to 1e-4. Where the card's gradients are further
+    off, they may be no further than the CPU path's own with the input moved
+    by 1e-6 (ReLU flips; tests/test_torch_xbd.py measures the JAX package
+    against itself the same way)."""
+    import copy
+
+    from dahitra_tpu_torch.data.xbd import (load_xbd_pairs, scan_xbd_files)
+    from dahitra_tpu_torch.data.xbd_augment import augment_xbd
+    from dahitra_tpu_torch.losses.combo import xbd_damage_loss
+    from dahitra_tpu_torch.models.registry import define_g
+    from dahitra_tpu_torch.nn.init import init_random
+
+    pairs = load_xbd_pairs(scan_xbd_files([data_root])[:1], train=False,
+                           crop_size=XBD_GRAD_IMG, seed=0)
+    batch = [torch.from_numpy(v) for v in pairs.arrays().values()]
+    gen = torch.Generator().manual_seed(5)
+    model = init_random(define_g("xbd_dahitra", img_size=XBD_GRAD_IMG,
+                                 generator=gen), gen, running_stats=False)
+    cpu_moved = copy.deepcopy(model)
+    models = {"cpu": model, "cuda": copy.deepcopy(model).cuda()}
+    for dev, m in models.items():
+        img6, masks, _ = augment_xbd(*(t.to(dev) for t in batch), train=False)
+        xbd_damage_loss(m(img6, train=True).float(), masks).backward()
+    img6, masks, _ = augment_xbd(*batch, train=False)
+    moved = img6 + 1e-6 * torch.randn(img6.shape, generator=gen)
+    xbd_damage_loss(cpu_moved(moved, train=True).float(), masks).backward()
+    torch.cuda.synchronize()
+    cuda_params = dict(models["cuda"].named_parameters())
+    moved_params = dict(cpu_moved.named_parameters())
+    scale = max(p.grad.abs().max().item() for p in model.parameters())
+    err = max((cuda_params[k].grad.cpu() - p.grad).abs().max().item()
+              for k, p in model.named_parameters()) / scale
+    own = max((moved_params[k].grad - p.grad).abs().max().item()
+              for k, p in model.named_parameters()) / scale
+    cuda_bufs = dict(models["cuda"].named_buffers())
+    bn_err = max(scaled_err(cuda_bufs[k].cpu(), v)[1]
+                 for k, v in model.named_buffers())
+    out = {"xbd_grads_vs_cpu_plain": {
+        "img_size": XBD_GRAD_IMG, "batch": 1, "worst_over_scale": err,
+        "cpu_self_input_moved_1e-6": own, "tolerance": max(1e-3, own),
+        "bn_stats_worst_scaled_err": bn_err}}
+    if not (err <= max(1e-3, own) and bn_err <= 1e-4):
+        fail(f"xBD gradients on the card disagree with the CPU: {out}")
+    return out
+
+
+def run_xbd_phase(torch, tmp, dtypes) -> dict:
+    """Phase 15: the xBD damage path at 1024 px on seeded synthetic tiles.
+    ``xbd_train`` (xbd_dahitra) and ``xbd_predict`` with its checkpoint per
+    dtype, one warm step of each model, xbd_bit's prediction from its
+    trainer's weights, and the card's gradients against the CPU. Returns
+    the launch counts by dtype and phase."""
+    from dahitra_tpu_torch.core.checkpoint import save_checkpoint
+    from dahitra_tpu_torch.data.synthetic import write_synthetic_xbd
+    from dahitra_tpu_torch.data.xbd import (load_xbd_pairs, scan_xbd_files,
+                                            split_and_upsample)
+
+    t0 = time.time()
+    root = os.path.join(tmp, "xbd")
+    data_root = write_synthetic_xbd(os.path.join(root, "train"), XBD_TILES,
+                                    XBD_IMG, seed=0)
+    test_root = write_synthetic_xbd(os.path.join(root, "test"),
+                                    XBD_PREDICT_TILES, XBD_IMG, seed=1)
+    files = scan_xbd_files([data_root])
+    n_val = len(split_and_upsample(files, seed=0)[1])
+    one = load_xbd_pairs(files[:1], train=True).arrays()
+    print(f"xBD setup: {XBD_TILES} + {XBD_PREDICT_TILES} synthetic tiles in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    by_phase = {"float32": {}, "bfloat16": {}}
+    ckpt_root = os.path.join(root, "ckpt")
+    for flag, dname in dtypes:
+        dtype = getattr(torch, dname)
+        out = run_xbd_train(torch, data_root, ckpt_root, flag, dname, n_val)
+        by_phase[dname]["xbd_train_1024"] = out["launches"]
+        print(json.dumps(out), flush=True)
+        out = run_xbd_predict(torch, test_root, os.path.join(
+            root, f"pred_{dname}"), "xbd_dahitra",
+            os.path.join(ckpt_root, f"xbd_dahitra_{dname}"), flag, dname)
+        by_phase[dname]["xbd_predict_1024"] = out["launches"]
+        print(json.dumps(out), flush=True)
+        for net_g, ph in (("xbd_dahitra", "xbd_step_1024"),
+                          ("xbd_bit", "bit_xbd_step_1024")):
+            out, trainer = run_xbd_step(torch, tmp, net_g, dtype, one)
+            by_phase[dname][ph] = out["launches"]
+            print(json.dumps(out), flush=True)
+        ckpt = save_checkpoint(trainer.checkpoint_dir,
+                               trainer.model.state_dict())
+        del trainer
+        out = run_xbd_predict(torch, test_root, os.path.join(
+            root, f"pred_bit_{dname}"), "xbd_bit", ckpt, flag, dname)
+        by_phase[dname]["bit_xbd_predict_1024"] = out["launches"]
+        print(json.dumps(out), flush=True)
+    print(json.dumps(check_xbd_grads(torch, data_root)), flush=True)
+    print(f"xBD phase: {time.time() - t0:.1f} s", flush=True)
+    return by_phase
+
+
 def main() -> None:
     try:
         import torch
@@ -1363,8 +1648,15 @@ def main() -> None:
             check_k1_save_k2(torch, dtype, gen, BIT_SHAPES, BIT_MLP)
         checks[("k4_mlp64", dname)] = check_k4(torch, dtype, gen, BIT_SHAPES,
                                                BIT_MLP)[0]
+        # token counts the tiles do not hold as they are (fault 3.2)
+        checks[("k1_pad", dname)] = check_k1(torch, dtype, gen, PAD_SHAPES)
+        checks[("k1_save_pad", dname)], checks[("k2_pad", dname)] = \
+            check_k1_save_k2(torch, dtype, gen, PAD_SHAPES)
+        checks[("k4_pad", dname)] = check_k4(torch, dtype, gen,
+                                             PAD_SHAPES_K4)[0]
         for kid in ("k1", "k1_save", "k2", "k3", "k4", "k4_io", "k1_mlp64",
-                    "k1_save_mlp64", "k2_mlp64", "k4_mlp64"):
+                    "k1_save_mlp64", "k2_mlp64", "k4_mlp64", "k1_pad",
+                    "k1_save_pad", "k2_pad", "k4_pad"):
             for r in checks[(kid, dname)]:
                 print(json.dumps({"check": f"{kid}[{dname}]", **r}),
                       flush=True)
@@ -1472,6 +1764,11 @@ def main() -> None:
     for dname, phases in by_phase_bit.items():
         by_phase[dname].update(phases)
 
+    # 15. xBD: xbd_train and xbd_predict (xbd_dahitra), one step and a
+    # prediction of xbd_bit, at 1024 px; the card's gradients at 256 px
+    for dname, phases in run_xbd_phase(torch, tmp, dtypes).items():
+        by_phase[dname].update(phases)
+
     if "--profile" in sys.argv[1:]:
         for net_g, project, n_dec in (("newUNetTrans", "smoke", 3),
                                       (BIT_KEY, BIT_KEY, 1)):
@@ -1499,6 +1796,13 @@ def main() -> None:
     k4w_res = {d: {i + sfx: resources["fused_decoder"][i + sfx]
                    for i in K4_INSTANCES[d][:1]}
                for d in ("float32", "bfloat16")}
+    pad_res = {kid: {d: res[d + "_pad"] for d in ("float32", "bfloat16")}
+               for kid, res in (("k1", fwd_res), ("k2", resources["decoder_bwd"]))}
+    pad_res["k1_save"] = {d: fwd_res[d + "_save_pad"]
+                          for d in ("float32", "bfloat16")}
+    pad_res["k4"] = {d: {i + "_pad": resources["fused_decoder"][i + "_pad"]
+                         for i in K4_INSTANCES[d][:1]}
+                     for d in ("float32", "bfloat16")}
     # (name, source, TPU kernel, checks, the 256 px phase whose count is
     # ``launches``, counter, tolerances, extra keys)
     table = (
@@ -1534,19 +1838,35 @@ def main() -> None:
         ("fused_decoder" + sfx, "fused_decoder.cu",
          "dahitra_tpu/pallas/fused_decoder.py:102", "k4_mlp64",
          "bit_pallas_eval_256", "k4", TOL,
-         {"design": K4_DESIGN, "resources": k4w_res}))
+         {"design": K4_DESIGN, "resources": k4w_res}),
+        # the token counts of fault 3.2 (PAD_SHAPES, one call each): no main
+        # path sends them, so their counters read 0 in every phase
+        ("decoder_stack_fwd_pad", "decoder_fwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:180", "k1_pad", "eval_256",
+         "k1_pad", TOL, {"design": K1_DESIGN, "resources": pad_res["k1"]}),
+        ("decoder_stack_fwd_save_pad", "decoder_fwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:180", "k1_save_pad",
+         "train_256", "k1_save_pad", TOL,
+         {"design": K1_DESIGN, "resources": pad_res["k1_save"]}),
+        ("decoder_stack_bwd_pad", "decoder_bwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:320", "k2_pad", "train_256",
+         "k2_pad", GTOL, {"design": K2_DESIGN, "resources": pad_res["k2"]}),
+        ("fused_decoder_pad", "fused_decoder.cu",
+         "dahitra_tpu/pallas/fused_decoder.py:102", "k4_pad",
+         "pallas_eval_256", "k4_pad", TOL,
+         {"design": K4_DESIGN, "resources": pad_res["k4"]}))
     for dname in ("float32", "bfloat16"):
         for name, source, replaces, kid, phase, counter, tol, extra in table:
             # The BIT phases launch the decoder kernels' mlp_dim-64 instances
             # only, the others their mlp_dim-32 ones; K3 runs in both.
-            wide = kid.endswith("_mlp64")
+            wide, pad = kid.endswith("_mlp64"), kid.endswith("_pad")
             phases = {ph: c[counter] for ph, c in by_phase[dname].items()
-                      if kid == "k3" or ph == "resnet_eval_256"
+                      if kid == "k3" or pad or ph == "resnet_eval_256"
                       or ph.startswith("bit_") == wide}
             kernels.append(summarize(
                 name, src + source, replaces, dname, checks[(kid, dname)],
                 by_phase[dname][phase][counter], tol, phases,
-                main_size="bit" if wide else str(IMG),
+                main_size="bit" if wide else "pad" if pad else str(IMG),
                 **{k: v[dname] for k, v in extra.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,14 @@
 // k-step, both operands read with ldmatrix.trans in bf16, read by hand and
 // split into three pieces in fp32.
 //
+// 16 tokens per head run in the PAD instances, whose group sum also adds the
+// thread's two 8-column halves (decoder_mma.cuh group_reduce); the others'
+// code stops at 8. Counts the tiles do not hold come padded by the wrapper
+// (kernels/folded_decoder.py) to the next one they do, with zero columns of A,
+// zero rows of Z and zero attention: dl = attn * (...) is then 0 at the
+// padded columns, so they change no gradient and their dA and dZ are 0. No
+// mask is needed.
+//
 // The hidden width MLP is a template parameter: 32 (DAHiTra) or 64 (BIT's
 // decoder), whose b1 (D, 64) comes as an fp32 argument of its own and whose
 // db1 (D, 64) is returned beside dvecs (row 5 of dvecs is then zero). The 64
@@ -223,8 +231,8 @@ __device__ __forceinline__ void mma_block(float* out, int ldo, int m_lim, int n_
 // a: (D, B, 32, hl), z: (D, B, hl, 32), w1: (D, 32, MLP), w2: (D, MLP, 32)
 // (in, out), T; vecs: (D, 7, 32) fp32 and, where MLP != 32, b1: (D, MLP)
 // fp32; part: (B * cps, D, part_size<MLP>(hl)) fp32 scratch. l, the tokens
-// per head, is 1, 2, 4 or 8 and hl is even.
-template <typename T, int MLP>
+// per head, is 1, 2, 4 or 8 (PAD: or 16) and hl is even.
+template <typename T, int MLP, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ attnsave,
                            const T* __restrict__ dy_in, const T* __restrict__ a,
@@ -448,20 +456,7 @@ decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ at
             dat[i] = rnd<T>(dat[i]);
             s[i] = at[i] * dat[i];
           }
-          // segsum_l over groups of l consecutive columns: the pair a thread
-          // holds, then lanes 1 and 2 apart.
-          if (l >= 2) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) s[2 * q] = s[2 * q + 1] = s[2 * q] + s[2 * q + 1];
-          }
-          if (l >= 4) {
-#pragma unroll
-            for (int i = 0; i < 8; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
-          }
-          if (l >= 8) {
-#pragma unroll
-            for (int i = 0; i < 8; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
-          }
+          group_reduce<false, PAD ? 16 : 8>(s, l);  // segsum_l over groups of l columns
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const float d0 = rnd<T>(at[2 * q] * (dat[2 * q] - s[2 * q]) * SCALE);
@@ -597,24 +592,24 @@ __global__ void decoder_stack_bwd_reduce(const float* __restrict__ part,
   }
 }
 
-template <typename T, int MLP>
+template <typename T, int MLP, bool PAD>
 cudaError_t set_smem(int hl) {
-  return cudaFuncSetAttribute(decoder_stack_bwd_rows_mma<T, MLP>,
+  return cudaFuncSetAttribute(decoder_stack_bwd_rows_mma<T, MLP, PAD>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_bytes<T, MLP>(hl)));
 }
 
-template <typename T, int MLP>
+template <typename T, int MLP, bool PAD>
 int launch(const void* xsave, const void* attnsave, const void* dy,
            const void* a, const void* z, const void* w1, const void* w2,
            const void* vecs, const void* b1, void* dx, void* da, void* dz, void* dw1,
            void* dw2, void* dvecs, void* db1, void* part, int B, int N, int depth,
            int hl, int l, int rows_per_cta, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = set_smem<T, MLP>(hl);
+  cudaError_t err = set_smem<T, MLP, PAD>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int cps = (N + rows_per_cta - 1) / rows_per_cta;
-  decoder_stack_bwd_rows_mma<T, MLP><<<dim3(cps, B), THREADS, smem_bytes<T, MLP>(hl), s>>>(
+  decoder_stack_bwd_rows_mma<T, MLP, PAD><<<dim3(cps, B), THREADS, smem_bytes<T, MLP>(hl), s>>>(
       static_cast<const T*>(xsave), static_cast<const T*>(attnsave),
       static_cast<const T*>(dy), static_cast<const T*>(a), static_cast<const T*>(z),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
@@ -637,12 +632,33 @@ int launch(const void* xsave, const void* attnsave, const void* dy,
 // CTAs of the row kernel that one SM holds at once for this hl (its
 // registers and shared memory decide), written to *out: the wrapper sizes
 // the grid to one full wave.
-template <typename T, int MLP>
+template <typename T, int MLP, bool PAD>
 int ctas_per_sm(int hl, int* out) {
-  const cudaError_t err = set_smem<T, MLP>(hl);
+  const cudaError_t err = set_smem<T, MLP, PAD>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, decoder_stack_bwd_rows_mma<T, MLP>, THREADS, smem_bytes<T, MLP>(hl)));
+      out, decoder_stack_bwd_rows_mma<T, MLP, PAD>, THREADS, smem_bytes<T, MLP>(hl)));
+}
+
+// The instance for the group: PAD where l = 16.
+template <typename T, int MLP>
+int launch_group(const void* xsave, const void* attnsave, const void* dy,
+                 const void* a, const void* z, const void* w1, const void* w2,
+                 const void* vecs, const void* b1, void* dx, void* da, void* dz, void* dw1,
+                 void* dw2, void* dvecs, void* db1, void* part, int B, int N, int depth,
+                 int hl, int l, int rows_per_cta, void* stream) {
+  if (l > 8)
+    return launch<T, MLP, true>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,
+                                dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,
+                                rows_per_cta, stream);
+  return launch<T, MLP, false>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,
+                               dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,
+                               rows_per_cta, stream);
+}
+
+template <typename T, int MLP>
+int ctas_per_sm_group(int hl, int pad, int* out) {
+  return pad ? ctas_per_sm<T, MLP, true>(hl, out) : ctas_per_sm<T, MLP, false>(hl, out);
 }
 
 }  // namespace
@@ -657,18 +673,19 @@ int ctas_per_sm(int hl, int* out) {
       void* part, int B, int N, int depth, int hl, int l, int rows_per_cta, int mlp,   \
       void* stream) {                                                                  \
     if (mlp == 64)                                                                     \
-      return launch<T, 64>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,    \
-                           dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,             \
-                           rows_per_cta, stream);                                      \
+      return launch_group<T, 64>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da,  \
+                                 dz, dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,   \
+                                 rows_per_cta, stream);                                \
     if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);                    \
-    return launch<T, DIM>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,     \
-                          dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,              \
-                          rows_per_cta, stream);                                       \
+    return launch_group<T, DIM>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da,   \
+                                dz, dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,    \
+                                rows_per_cta, stream);                                 \
   }                                                                                    \
-  extern "C" int decoder_stack_bwd_ctas_per_sm_##SUFFIX(int hl, int mlp, int* out) {   \
-    if (mlp == 64) return ctas_per_sm<T, 64>(hl, out);                                 \
+  extern "C" int decoder_stack_bwd_ctas_per_sm_##SUFFIX(int hl, int mlp, int pad,      \
+                                                        int* out) {                    \
+    if (mlp == 64) return ctas_per_sm_group<T, 64>(hl, pad, out);                      \
     if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);                    \
-    return ctas_per_sm<T, DIM>(hl, out);                                               \
+    return ctas_per_sm_group<T, DIM>(hl, pad, out);                                    \
   }
 
 DECODER_BWD_ENTRY(f32, float)

@@ -45,7 +45,8 @@
 // are at once one k-step of attn.Z; then x1 -> g -> t -> h -> x2.
 // LayerNorm statistics and the softmax group sums (l = 1, 2, 4 or 8
 // consecutive columns: the pair a thread holds, then shuffles 1 and 2
-// lanes apart) stay inside the quad of lanes that holds a row. Each
+// lanes apart; decoder_mma.cuh group_reduce) stay inside the quad of lanes
+// that holds a row. Each
 // layer's A, Z, W1 and W2 are staged once per CTA as one bf16 plane or
 // three, rows padded for ldmatrix, hl zero-padded to a multiple of 16:
 // whole zero heads (l divides 16), whose attention stays in its own group
@@ -53,6 +54,17 @@
 // K2's recomputed x1 and g are these bits. With SAVE, x_in and the first
 // hl columns of attn are stored from the fragments beside the same
 // arithmetic, so y is K1's bit for bit.
+//
+// Token counts beside 1, 2, 4 and 8 run in the PAD instances. The wrapper
+// (kernels/folded_decoder.py) pads each head's group of lr tokens to the next
+// count l in {1, 2, 4, 8, 16} with zero columns of A and zero rows of Z (an
+// odd hl, lr = 1 at odd heads, to l = 2), and passes both counts. Since the
+// softmax clamps rather than shifts, a padded logit of 0 would add exp(0) = 1
+// to its group: the PAD instance zeroes the exp terms of the columns j with
+// j % l >= lr before the group sum, which for l = 16 also adds the thread's
+// two 8-column halves. The padded columns' attention is then 0, so they
+// meet Z's zero rows and their saves are 0. The other instances' code does
+// not test lr or sum 16 columns.
 //
 // The hidden width MLP is a template parameter: 32 (DAHiTra), or 64 (BIT's
 // decoder, mlp_dim = 2 * dim), whose b1 (D, 64) comes as an fp32 argument of
@@ -88,14 +100,16 @@ constexpr int TILE = WARPS * 16;  // rows per CTA
 // whose ok flag is false compute on zeros and store nothing. With SAVE, x_in
 // is stored at xsave (row srow and srow + 8) and the attention row at
 // attnsave, its first hl columns. MLP is the hidden width: 32, with b1 in
-// sV's row 5, or 64, with b1 at sV + NV.
-template <typename T, bool SAVE, int MLP>
+// sV's row 5, or 64, with b1 at sV + NV. PAD: groups of l up to 16 columns,
+// of which the first lr are tokens.
+template <typename T, bool SAVE, int MLP, bool PAD>
 __device__ __forceinline__ void layer_rows(float (&v)[16], const __nv_bfloat16* sA,
                                            const __nv_bfloat16* sZ,
                                            const __nv_bfloat16* sW1,
                                            const __nv_bfloat16* sW2, const float* sV,
-                                           int plane, int hl, int l, bool ok0, bool ok1,
-                                           int64_t srow, T* xsave, T* attnsave, int lane) {
+                                           int plane, int hl, int l, int lr, bool ok0,
+                                           bool ok1, int64_t srow, T* xsave, T* attnsave,
+                                           int lane) {
   constexpr int P = pieces<T>();
   const int t = lane & 3;
   const int hlp = pad16(hl);
@@ -127,22 +141,10 @@ __device__ __forceinline__ void layer_rows(float (&v)[16], const __nv_bfloat16* 
     for (int i = 0; i < 8; ++i) {
       const float dots = rnd<T>(e[i]) * SCALE;
       e[i] = expf(fminf(fmaxf(dots, -CLAMP), CLAMP));
+      if (PAD && (slice_col(jj, i, t) & (l - 1)) >= lr) e[i] = 0.0f;  // a padded token
       s[i] = e[i];
     }
-    // The group sum over l consecutive columns: the pair a thread holds,
-    // then lanes 1 and 2 apart.
-    if (l >= 2) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[2 * q] = s[2 * q + 1] = s[2 * q] + s[2 * q + 1];
-    }
-    if (l >= 4) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
-    }
-    if (l >= 8) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
-    }
+    group_reduce<false, PAD ? 16 : 8>(s, l);  // the group sum over l columns
     uint32_t at[P][4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -218,15 +220,16 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int hl) {
 // [ln1_scale, ln1_bias, bo, ln2_scale, ln2_bias, b1, b2]; where MLP != 32,
 // b1: (D, MLP) fp32 and vecs' row 5 unused. With SAVE, xsave: (D, B, N, 32)
 // and attnsave: (D, B, N, hl) in T. l, the tokens per head, is 1, 2, 4 or 8
-// and hl is even. Grid (row tiles of TILE, B).
-template <typename T, bool SAVE, int MLP>
+// (PAD: or 16, lr <= l of them tokens) and hl is even. Grid (row tiles of
+// TILE, B).
+template <typename T, bool SAVE, int MLP, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 decoder_stack_fwd_rows_mma(const T* __restrict__ x, const T* __restrict__ a,
                            const T* __restrict__ z, const T* __restrict__ w1,
                            const T* __restrict__ w2, const float* __restrict__ vecs,
                            T* __restrict__ y, T* __restrict__ xsave,
                            T* __restrict__ attnsave, int B, int N, int depth, int hl,
-                           int l, const float* __restrict__ b1) {
+                           int l, const float* __restrict__ b1, int lr) {
   constexpr int P = pieces<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hlp = pad16(hl);
@@ -275,7 +278,7 @@ decoder_stack_fwd_rows_mma(const T* __restrict__ x, const T* __restrict__ a,
     }
     __syncthreads();
     if (active)
-      layer_rows<T, SAVE, MLP>(v, sA, sZ, sW1, sW2, sV, plane, hl, l, ok0, ok1,
+      layer_rows<T, SAVE, MLP, PAD>(v, sA, sZ, sW1, sW2, sV, plane, hl, l, lr, ok0, ok1,
                           (static_cast<int64_t>(d) * B + b) * N + wrow + g, xsave,
                           attnsave, lane);
   }
@@ -287,59 +290,75 @@ decoder_stack_fwd_rows_mma(const T* __restrict__ x, const T* __restrict__ a,
   }
 }
 
-template <typename T, bool SAVE, int MLP>
+template <typename T, bool SAVE, int MLP, bool PAD>
 cudaError_t set_smem(int hl) {
-  return cudaFuncSetAttribute(decoder_stack_fwd_rows_mma<T, SAVE, MLP>,
+  return cudaFuncSetAttribute(decoder_stack_fwd_rows_mma<T, SAVE, MLP, PAD>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_bytes<T, MLP>(hl)));
 }
 
-template <typename T, bool SAVE, int MLP>
+template <typename T, bool SAVE, int MLP, bool PAD>
 int launch(const void* x, const void* a, const void* z, const void* w1,
            const void* w2, const void* vecs, const void* b1, void* y, void* xsave,
-           void* attnsave, int B, int N, int depth, int hl, int l, void* stream) {
-  const cudaError_t err = set_smem<T, SAVE, MLP>(hl);
+           void* attnsave, int B, int N, int depth, int hl, int l, int lr, void* stream) {
+  const cudaError_t err = set_smem<T, SAVE, MLP, PAD>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TILE - 1) / TILE, B);
-  decoder_stack_fwd_rows_mma<T, SAVE, MLP>
+  decoder_stack_fwd_rows_mma<T, SAVE, MLP, PAD>
       <<<grid, THREADS, smem_bytes<T, MLP>(hl), static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const T*>(z),
           static_cast<const T*>(w1), static_cast<const T*>(w2),
           static_cast<const float*>(vecs), static_cast<T*>(y),
           static_cast<T*>(xsave), static_cast<T*>(attnsave), B, N, depth, hl, l,
-          static_cast<const float*>(b1));
+          static_cast<const float*>(b1), lr);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance for the hidden width mlp (32 or 64).
+// The instance for the hidden width mlp (32 or 64) and the group: the PAD
+// instance where lr < l tokens are real or l = 16.
+template <typename T, bool SAVE, int MLP>
+int launch_group(const void* x, const void* a, const void* z, const void* w1,
+                 const void* w2, const void* vecs, const void* b1, void* y, void* xsave,
+                 void* attnsave, int B, int N, int depth, int hl, int l, int lr,
+                 void* stream) {
+  if (lr < l || l > 8)
+    return launch<T, SAVE, MLP, true>(x, a, z, w1, w2, vecs, b1, y, xsave, attnsave, B, N,
+                                      depth, hl, l, lr, stream);
+  return launch<T, SAVE, MLP, false>(x, a, z, w1, w2, vecs, b1, y, xsave, attnsave, B, N,
+                                     depth, hl, l, lr, stream);
+}
+
 template <typename T, bool SAVE>
 int launch_mlp(const void* x, const void* a, const void* z, const void* w1,
                const void* w2, const void* vecs, const void* b1, void* y, void* xsave,
-               void* attnsave, int B, int N, int depth, int hl, int l, int mlp,
+               void* attnsave, int B, int N, int depth, int hl, int l, int lr, int mlp,
                void* stream) {
   if (mlp == 64)
-    return launch<T, SAVE, 64>(x, a, z, w1, w2, vecs, b1, y, xsave, attnsave, B, N, depth,
-                               hl, l, stream);
+    return launch_group<T, SAVE, 64>(x, a, z, w1, w2, vecs, b1, y, xsave, attnsave, B, N,
+                                     depth, hl, l, lr, stream);
   if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<T, SAVE, DIM>(x, a, z, w1, w2, vecs, b1, y, xsave, attnsave, B, N, depth,
-                              hl, l, stream);
+  return launch_group<T, SAVE, DIM>(x, a, z, w1, w2, vecs, b1, y, xsave, attnsave, B, N,
+                                    depth, hl, l, lr, stream);
 }
 
 // CTAs of the kernel that one SM holds at once for this hl (its registers
 // and shared memory decide), written to *out.
-template <typename T, bool SAVE, int MLP>
+template <typename T, bool SAVE, int MLP, bool PAD>
 int ctas_per_sm(int hl, int* out) {
-  const cudaError_t err = set_smem<T, SAVE, MLP>(hl);
+  const cudaError_t err = set_smem<T, SAVE, MLP, PAD>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, decoder_stack_fwd_rows_mma<T, SAVE, MLP>, THREADS, smem_bytes<T, MLP>(hl)));
+      out, decoder_stack_fwd_rows_mma<T, SAVE, MLP, PAD>, THREADS, smem_bytes<T, MLP>(hl)));
 }
 
 template <typename T, bool SAVE>
-int ctas_per_sm_mlp(int hl, int mlp, int* out) {
-  if (mlp == 64) return ctas_per_sm<T, SAVE, 64>(hl, out);
+int ctas_per_sm_mlp(int hl, int mlp, int pad, int* out) {
+  if (mlp == 64)
+    return pad ? ctas_per_sm<T, SAVE, 64, true>(hl, out)
+               : ctas_per_sm<T, SAVE, 64, false>(hl, out);
   if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);
-  return ctas_per_sm<T, SAVE, DIM>(hl, out);
+  return pad ? ctas_per_sm<T, SAVE, DIM, true>(hl, out)
+             : ctas_per_sm<T, SAVE, DIM, false>(hl, out);
 }
 
 }  // namespace
@@ -348,21 +367,21 @@ int ctas_per_sm_mlp(int hl, int mlp, int* out) {
   extern "C" int decoder_stack_fwd_##SUFFIX(                                            \
       const void* x, const void* a, const void* z, const void* w1, const void* w2,      \
       const void* vecs, const void* b1, void* y, int B, int N, int depth, int hl, int l, \
-      int mlp, void* stream) {                                                          \
+      int lr, int mlp, void* stream) {                                                  \
     return launch_mlp<T, false>(x, a, z, w1, w2, vecs, b1, y, nullptr, nullptr, B, N,   \
-                                depth, hl, l, mlp, stream);                             \
+                                depth, hl, l, lr, mlp, stream);                         \
   }                                                                                     \
   extern "C" int decoder_stack_fwd_save_##SUFFIX(                                       \
       const void* x, const void* a, const void* z, const void* w1, const void* w2,      \
       const void* vecs, const void* b1, void* y, void* xsave, void* attnsave, int B,    \
-      int N, int depth, int hl, int l, int mlp, void* stream) {                         \
+      int N, int depth, int hl, int l, int lr, int mlp, void* stream) {                 \
     return launch_mlp<T, true>(x, a, z, w1, w2, vecs, b1, y, xsave, attnsave, B, N,     \
-                               depth, hl, l, mlp, stream);                              \
+                               depth, hl, l, lr, mlp, stream);                          \
   }                                                                                     \
   extern "C" int decoder_stack_fwd_ctas_per_sm_##SUFFIX(int hl, int save, int mlp,      \
-                                                        int* out) {                     \
-    return save ? ctas_per_sm_mlp<T, true>(hl, mlp, out)                                \
-                : ctas_per_sm_mlp<T, false>(hl, mlp, out);                              \
+                                                        int pad, int* out) {            \
+    return save ? ctas_per_sm_mlp<T, true>(hl, mlp, pad, out)                           \
+                : ctas_per_sm_mlp<T, false>(hl, mlp, pad, out);                         \
   }
 
 DECODER_FWD_ENTRY(f32, float)

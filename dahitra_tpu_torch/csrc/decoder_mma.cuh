@@ -181,6 +181,41 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// max (MAX) or sum of every group of l consecutive columns of a 16-column
+// slice (fragment layout, c[4h + 2r + q]), left in each of its columns: the
+// pair a thread holds, then lanes 1 and 2 apart, then for l = 16 the
+// thread's two 8-column halves. LMAX is the widest group an instance takes:
+// 8 leaves the last step out of its code.
+template <bool MAX>
+__device__ __forceinline__ float comb(float a, float b) {
+  return MAX ? fmaxf(a, b) : a + b;
+}
+
+template <bool MAX, int LMAX = 16>
+__device__ __forceinline__ void group_reduce(float (&s)[8], int l) {
+  if (l >= 2) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) s[2 * p] = s[2 * p + 1] = comb<MAX>(s[2 * p], s[2 * p + 1]);
+  }
+  if (l >= 4) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = comb<MAX>(s[i], __shfl_xor_sync(0xffffffffu, s[i], 1));
+  }
+  if (l >= 8) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = comb<MAX>(s[i], __shfl_xor_sync(0xffffffffu, s[i], 2));
+  }
+  if (LMAX >= 16 && l >= 16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i] = s[i + 4] = comb<MAX>(s[i], s[i + 4]);
+  }
+}
+
+// Column of element i of a thread's 16-column slice jj (fragment layout).
+__device__ __forceinline__ int slice_col(int jj, int i, int t) {
+  return 16 * jj + 8 * (i >> 2) + 2 * t + (i & 1);
+}
+
 // Per-row mean over 32 columns of v (fragment layout), for rows g and g + 8.
 __device__ __forceinline__ void row_means(const float (&v)[16], float (&m)[2]) {
 #pragma unroll

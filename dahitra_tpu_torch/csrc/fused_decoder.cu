@@ -56,6 +56,19 @@
 // their attention is 1 / l inside their own group and meets zero rows of Z.
 // Grid (row tiles of TILE rows, B), 8 warps, as K1's.
 //
+// Other token counts run in the row kernel's PAD instances. The wrapper
+// (kernels/fused_decoder.py) pads the lr memory tokens with zero tokens to
+// l: the next of 1, 2, 4, 8 and 16, or above 16 the next multiple of 16, so
+// a group is part of one 16-column slice or whole slices. The prologue runs
+// on the l tokens as on any others, and the PAD instance sets the logits of
+// the columns j with j % l >= lr to -inf, so they drop out of the group's
+// max and sum and their attention is 0. A group of more than 16 columns
+// spans l / 16 slices: its max and then its sum come from passes of their
+// own over its slices (the products hn . A recomputed each time), then the
+// normalised slices go into attn . Z. For l <= 16 this gives the one-pass
+// instance's bits. Padded this way hl can reach 2 * 128 - 2; the shared
+// memory grows with it (the wrapper checks it).
+//
 // The hidden width MLP is a template parameter of the row kernel: 32, or 64
 // (BIT's decoder), whose b1 (D, 64) comes as an fp32 argument of its own.
 // The 64 instance runs the hidden layer in two 32-column halves c, h_c =
@@ -204,43 +217,31 @@ fused_decoder_prologue(const float* __restrict__ m, const float* __restrict__ wq
 
 // -------------------------------------------------------------- row kernel
 
-// max (MAX) or sum of every group of l consecutive columns of a 16-column
-// slice (fragment layout, c[4h + 2r + q]), left in each of its columns: the
-// pair a thread holds, then lanes 1 and 2 apart, then for l = 16 the
-// thread's two 8-column halves.
-template <bool MAX>
-__device__ __forceinline__ float comb(float a, float b) {
-  return MAX ? fmaxf(a, b) : a + b;
-}
-
-template <bool MAX>
-__device__ __forceinline__ void group_reduce(float (&s)[8], int l) {
-  if (l >= 2) {
+// The logits of 16-column slice jj, dots = hn . A * dim**-0.5, with -inf
+// at the columns j of a padded token (j % l >= lr).
+template <int P>
+__device__ __forceinline__ void padded_dots(float (&e)[8], const uint32_t (&fr)[2][P][4],
+                                            const __nv_bfloat16* sA, int plane, int hlp,
+                                            int jj, int l, int lr, int t, int lane) {
 #pragma unroll
-    for (int p = 0; p < 4; ++p) s[2 * p] = s[2 * p + 1] = comb<MAX>(s[2 * p], s[2 * p + 1]);
-  }
-  if (l >= 4) {
+  for (int i = 0; i < 8; ++i) e[i] = 0.0f;
+  mma_pair<true, P>(e, fr[0], sA, plane, hlp + 8, 0, 16 * jj, lane);
+  mma_pair<true, P>(e, fr[1], sA, plane, hlp + 8, 16, 16 * jj, lane);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = comb<MAX>(s[i], __shfl_xor_sync(0xffffffffu, s[i], 1));
-  }
-  if (l >= 8) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = comb<MAX>(s[i], __shfl_xor_sync(0xffffffffu, s[i], 2));
-  }
-  if (l >= 16) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i] = s[i + 4] = comb<MAX>(s[i], s[i + 4]);
-  }
+  for (int i = 0; i < 8; ++i)
+    e[i] = slice_col(jj, i, t) % l < lr ? e[i] * SCALE : __int_as_float(0xff800000);
 }
 
 // One layer for the warp's 16 rows, v (fragment layout) in and out. b1
-// lies in sV's row 5 for MLP = 32 and at sV + NV otherwise.
-template <int P, int MLP>
+// lies in sV's row 5 for MLP = 32 and at sV + NV otherwise. PAD: groups of
+// l columns (up to 16, or a multiple of 16), of which the first lr are
+// tokens.
+template <int P, int MLP, bool PAD>
 __device__ __forceinline__ void fused_layer_rows(float (&v)[16], const __nv_bfloat16* sA,
                                                  const __nv_bfloat16* sZ,
                                                  const __nv_bfloat16* sW1,
                                                  const __nv_bfloat16* sW2, const float* sV,
-                                                 int plane, int hl, int l, int lane) {
+                                                 int plane, int hl, int l, int lr, int lane) {
   const int t = lane & 3;
   const int hlp = pad16(hl);
   float xhat[16], rs[2], u[16], acc[16];
@@ -255,22 +256,59 @@ __device__ __forceinline__ void fused_layer_rows(float (&v)[16], const __nv_bflo
     acc[i] = 0.0f;
   }
   frag32<P>(fr, u);
-  for (int jj = 0; jj < hlp / 16; ++jj) {
-    float e[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, mx[8], s[8];
-    mma_pair<true, P>(e, fr[0], sA, plane, hlp + 8, 0, 16 * jj, lane);
-    mma_pair<true, P>(e, fr[1], sA, plane, hlp + 8, 16, 16 * jj, lane);
+  if constexpr (PAD) {
+    const int spg = l > 16 ? l / 16 : 1;  // slices per group
+    const int lg = l > 16 ? 16 : l;       // a group's columns in one slice
+    for (int j0 = 0; j0 < hlp / 16; j0 += spg) {
+      float e[8], mx[8], s[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) mx[i] = e[i] = e[i] * SCALE;  // dots
-    group_reduce<true>(mx, l);
+      for (int i = 0; i < 8; ++i) {
+        mx[i] = __int_as_float(0xff800000);
+        s[i] = 0.0f;
+      }
+      for (int k = 0; k < spg; ++k) {  // the group max
+        padded_dots<P>(e, fr, sA, plane, hlp, j0 + k, l, lr, t, lane);
+        group_reduce<true>(e, lg);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = e[i] = expf(e[i] - mx[i]);
-    group_reduce<false>(s, l);
-    uint32_t at[P][4];
+        for (int i = 0; i < 8; ++i) mx[i] = fmaxf(mx[i], e[i]);
+      }
+      for (int k = 0; k < spg; ++k) {  // the group sum
+        padded_dots<P>(e, fr, sA, plane, hlp, j0 + k, l, lr, t, lane);
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      split_pair<P>(e[2 * q] / s[2 * q], e[2 * q + 1] / s[2 * q + 1], at, q);
-    mma_pair<true, P>(acc, at, sZ, plane, WLD, 16 * jj, 0, lane);  // ao = attn . Z
-    mma_pair<true, P>(acc + 8, at, sZ, plane, WLD, 16 * jj, 16, lane);
+        for (int i = 0; i < 8; ++i) e[i] = expf(e[i] - mx[i]);
+        group_reduce<false>(e, lg);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[i] += e[i];
+      }
+      for (int k = 0; k < spg; ++k) {  // attn . Z
+        padded_dots<P>(e, fr, sA, plane, hlp, j0 + k, l, lr, t, lane);
+        uint32_t at[P][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split_pair<P>(expf(e[2 * q] - mx[2 * q]) / s[2 * q],
+                        expf(e[2 * q + 1] - mx[2 * q + 1]) / s[2 * q + 1], at, q);
+        mma_pair<true, P>(acc, at, sZ, plane, WLD, 16 * (j0 + k), 0, lane);
+        mma_pair<true, P>(acc + 8, at, sZ, plane, WLD, 16 * (j0 + k), 16, lane);
+      }
+    }
+  } else {
+    for (int jj = 0; jj < hlp / 16; ++jj) {
+      float e[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, mx[8], s[8];
+      mma_pair<true, P>(e, fr[0], sA, plane, hlp + 8, 0, 16 * jj, lane);
+      mma_pair<true, P>(e, fr[1], sA, plane, hlp + 8, 16, 16 * jj, lane);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mx[i] = e[i] = e[i] * SCALE;  // dots
+      group_reduce<true>(mx, l);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[i] = e[i] = expf(e[i] - mx[i]);
+      group_reduce<false>(s, l);
+      uint32_t at[P][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split_pair<P>(e[2 * q] / s[2 * q], e[2 * q + 1] / s[2 * q + 1], at, q);
+      mma_pair<true, P>(acc, at, sZ, plane, WLD, 16 * jj, 0, lane);  // ao = attn . Z
+      mma_pair<true, P>(acc + 8, at, sZ, plane, WLD, 16 * jj, 16, lane);
+    }
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -335,15 +373,15 @@ __host__ __device__ __forceinline__ size_t rows_smem_bytes(int hl) {
 // prologue's fp32 output; w1: (D, 32, MLP) and w2: (D, MLP, 32) fp32 laid
 // out (in, out); vecs: (D, 7, 32) fp32 rows [ln1_scale, ln1_bias, bo,
 // ln2_scale, ln2_bias, b1, b2]; where MLP != 32, b1: (D, MLP) fp32 and vecs'
-// row 5 unused. l, the tokens per head, is 1, 2, 4, 8 or 16. Grid (row
-// tiles of TILE, B).
-template <typename T, bool PRECISE, int MLP>
+// row 5 unused. l, the tokens per head, is 1, 2, 4, 8 or 16 (PAD: or a
+// multiple of 16, lr <= l of them tokens). Grid (row tiles of TILE, B).
+template <typename T, bool PRECISE, int MLP, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 fused_decoder_rows_mma(const T* __restrict__ x, const float* __restrict__ a,
                        const float* __restrict__ z, const float* __restrict__ w1,
                        const float* __restrict__ w2, const float* __restrict__ vecs,
                        T* __restrict__ y, int B, int N, int depth, int hl, int l,
-                       const float* __restrict__ b1) {
+                       const float* __restrict__ b1, int lr) {
   constexpr int P = op_pieces<PRECISE>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hlp = pad16(hl);
@@ -386,7 +424,7 @@ fused_decoder_rows_mma(const T* __restrict__ x, const float* __restrict__ a,
       for (int i = tid; i < MLP; i += THREADS) sV[NV + i] = b1[d * MLP + i];
     }
     __syncthreads();
-    if (active) fused_layer_rows<P, MLP>(v, sA, sZ, sW1, sW2, sV, plane, hl, l, lane);
+    if (active) fused_layer_rows<P, MLP, PAD>(v, sA, sZ, sW1, sW2, sV, plane, hl, l, lr, lane);
   }
 #pragma unroll
   for (int p = 0; p < 8; ++p) {
@@ -416,39 +454,57 @@ int launch_prologue(const void* m, const void* wq, const void* wk, const void* w
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool PRECISE, int MLP>
+template <typename T, bool PRECISE, int MLP, bool PAD>
 cudaError_t set_rows_smem(int hl) {
-  return cudaFuncSetAttribute(fused_decoder_rows_mma<T, PRECISE, MLP>,
+  return cudaFuncSetAttribute(fused_decoder_rows_mma<T, PRECISE, MLP, PAD>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(rows_smem_bytes<PRECISE, MLP>(hl)));
 }
 
-template <typename T, bool PRECISE, int MLP>
+template <typename T, bool PRECISE, int MLP, bool PAD>
 int launch_rows(const void* x, const void* a, const void* z, const void* w1,
                 const void* w2, const void* vecs, const void* b1, void* y, int B, int N,
-                int depth, int hl, int l, void* stream) {
-  const cudaError_t err = set_rows_smem<T, PRECISE, MLP>(hl);
+                int depth, int hl, int l, int lr, void* stream) {
+  const cudaError_t err = set_rows_smem<T, PRECISE, MLP, PAD>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TILE - 1) / TILE, B);
-  fused_decoder_rows_mma<T, PRECISE, MLP>
+  fused_decoder_rows_mma<T, PRECISE, MLP, PAD>
       <<<grid, THREADS, rows_smem_bytes<PRECISE, MLP>(hl),
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(x), static_cast<const float*>(a),
           static_cast<const float*>(z), static_cast<const float*>(w1),
           static_cast<const float*>(w2), static_cast<const float*>(vecs),
-          static_cast<T*>(y), B, N, depth, hl, l, static_cast<const float*>(b1));
+          static_cast<T*>(y), B, N, depth, hl, l, static_cast<const float*>(b1), lr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The PAD instance where lr < l tokens are real or l > 16.
+template <typename T, bool PRECISE, int MLP>
+int launch_group(const void* x, const void* a, const void* z, const void* w1,
+                 const void* w2, const void* vecs, const void* b1, void* y, int B, int N,
+                 int depth, int hl, int l, int lr, void* stream) {
+  if (lr < l || l > 16)
+    return launch_rows<T, PRECISE, MLP, true>(x, a, z, w1, w2, vecs, b1, y, B, N, depth, hl,
+                                              l, lr, stream);
+  return launch_rows<T, PRECISE, MLP, false>(x, a, z, w1, w2, vecs, b1, y, B, N, depth, hl,
+                                             l, lr, stream);
 }
 
 // CTAs of the row kernel that one SM holds at once for this hl (its
 // registers and shared memory decide), written to *out.
-template <typename T, bool PRECISE, int MLP>
+template <typename T, bool PRECISE, int MLP, bool PAD>
 int ctas_per_sm(int hl, int* out) {
-  const cudaError_t err = set_rows_smem<T, PRECISE, MLP>(hl);
+  const cudaError_t err = set_rows_smem<T, PRECISE, MLP, PAD>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, fused_decoder_rows_mma<T, PRECISE, MLP>, THREADS,
+      out, fused_decoder_rows_mma<T, PRECISE, MLP, PAD>, THREADS,
       rows_smem_bytes<PRECISE, MLP>(hl)));
+}
+
+template <typename T, bool PRECISE, int MLP>
+int ctas_per_sm_group(int hl, int pad, int* out) {
+  return pad ? ctas_per_sm<T, PRECISE, MLP, true>(hl, out)
+             : ctas_per_sm<T, PRECISE, MLP, false>(hl, out);
 }
 
 }  // namespace
@@ -468,18 +524,18 @@ int ctas_per_sm(int hl, int* out) {
   extern "C" int fused_decoder_##SUFFIX(const void* x, const void* a, const void* z,      \
                                         const void* w1, const void* w2, const void* vecs, \
                                         const void* b1, void* y, int B, int N, int depth, \
-                                        int hl, int l, int mlp, void* stream) {           \
+                                        int hl, int l, int lr, int mlp, void* stream) {   \
     if (mlp == 64)                                                                        \
-      return launch_rows<T, PRECISE, 64>(x, a, z, w1, w2, vecs, b1, y, B, N, depth, hl, l, \
-                                         stream);                                         \
+      return launch_group<T, PRECISE, 64>(x, a, z, w1, w2, vecs, b1, y, B, N, depth, hl,  \
+                                          l, lr, stream);                                 \
     if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);                       \
-    return launch_rows<T, PRECISE, DIM>(x, a, z, w1, w2, vecs, b1, y, B, N, depth, hl, l,  \
-                                        stream);                                          \
+    return launch_group<T, PRECISE, DIM>(x, a, z, w1, w2, vecs, b1, y, B, N, depth, hl,   \
+                                         l, lr, stream);                                  \
   }                                                                                       \
-  extern "C" int fused_decoder_ctas_per_sm_##SUFFIX(int hl, int mlp, int* out) {          \
-    if (mlp == 64) return ctas_per_sm<T, PRECISE, 64>(hl, out);                           \
+  extern "C" int fused_decoder_ctas_per_sm_##SUFFIX(int hl, int mlp, int pad, int* out) { \
+    if (mlp == 64) return ctas_per_sm_group<T, PRECISE, 64>(hl, pad, out);                \
     if (mlp != DIM) return static_cast<int>(cudaErrorInvalidValue);                       \
-    return ctas_per_sm<T, PRECISE, DIM>(hl, out);                                         \
+    return ctas_per_sm_group<T, PRECISE, DIM>(hl, pad, out);                              \
   }
 
 FUSED_DECODER_AZ_ENTRY(precise, true)

@@ -26,9 +26,18 @@ in fp32 each operand is split exactly into three bf16 pieces and a product
 is six piece products. K1 keeps the rows in registers across all layers
 and stages each layer's weights once per 128-row CTA; K2 runs its four
 weight-side sums on tensor cores too, writes per-CTA weight-gradient
-partials and sums them in a second, fixed-order pass. Both take 1, 2, 4 or
-8 tokens per head and an even hl (DAHiTra has 4 tokens, BIT 4 or 8); on a
-CUDA tensor anything else raises.
+partials and sums them in a second, fixed-order pass. A softmax group lies
+in one 16-column slice of hl: the kernels take 1, 2, 4, 8 or 16 tokens per
+head (DAHiTra has 4, BIT 4 or 8) and an even hl. Every other count the JAX
+gate sends (up to 16 tokens per head) is padded here: each head's group of
+l tokens widened to the next count they take (``_group``), A's columns and
+Z's rows with zeros, the attention save with zeros for K2. K1 gets the real
+count and zeroes the padded columns' exp terms (its softmax clamps, so a
+zero logit would add exp(0) = 1); K2 needs no mask, since its dl is attn
+times a factor and the padded attention is 0. The padded columns of the
+attention save, dA and dZ are sliced off again. The plain versions run the
+same padding on the CPU. On a CUDA tensor a padded hl above 128 (9 heads or
+more) raises.
 
 The kernels are built for ``dim`` = 32 and ``mlp_dim`` 32 (DAHiTra), with
 the feed-forward bias ``b1`` as row 5 of ``vecs``, or 64 (BIT's decoder,
@@ -50,10 +59,15 @@ from dahitra_tpu_torch.kernels import _build
 
 # Launches of the CUDA kernels in this process; the plain versions never
 # count. ``launches``: K1 without saves; ``launches_save``: K1 with saves;
-# ``launches_bwd``: K2.
+# ``launches_bwd``: K2. The ``_pad`` counts are those of the three among
+# them at a token count the tiles do not hold as it is (padded here, or 16
+# tokens per head: the PAD instances).
 launches = 0
 launches_save = 0
 launches_bwd = 0
+launches_pad = 0
+launches_save_pad = 0
+launches_bwd_pad = 0
 
 _DIM = 32
 # Hidden widths (mlp_dim) with a kernel instance.
@@ -64,8 +78,8 @@ _CLAMP = 80.0  # dahitra_tpu/nn/decoder_vjp.py _NOSHIFT_CLAMP
 # of 16 rows).
 _BWD_TILE = 64
 # Tokens per head that K1 and K2 take: a softmax group lies inside one
-# 8-column mma tile.
-_MMA_L = (1, 2, 4, 8)
+# 16-column slice of hl (16 in the kernels' PAD instances).
+_MMA_L = (1, 2, 4, 8, 16)
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Rows of vecs: per-layer vectors in this order.
 VEC_KEYS = ("ln1_scale", "ln1_bias", "bo", "ln2_scale", "ln2_bias", "b1", "b2")
@@ -103,11 +117,13 @@ def _group_sum(v, heads):
 
 
 def decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth: int, heads: int,
-                            dtype, save: bool = False, b1=None):
+                            dtype, save: bool = False, b1=None, tokens=None):
     """The kernel's function in plain PyTorch, rounding to ``dtype`` where
     decoder_vjp._layer_fwd rounds. Shapes as in ``decoder_stack_fwd``; with
     ``save``, returns (y, xsave, attnsave) as the kernel does. ``b1``
-    (D, mlp_dim) replaces row 5 of ``vecs`` where mlp_dim != 32."""
+    (D, mlp_dim) replaces row 5 of ``vecs`` where mlp_dim != 32. ``tokens``:
+    the groups are padded and their first ``tokens`` columns are tokens; the
+    others' exp terms are zeroed, as K1's PAD instance zeroes them."""
     acc = _acc(dtype)
     b, n, dim = x.shape
     scale = dim ** -0.5
@@ -120,6 +136,8 @@ def decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth: int, heads: int,
         hn = ((x.to(acc) - mu) * rs * ln1s + ln1b).to(dtype)
         dots = torch.matmul(hn, a[d]).to(acc) * scale
         e = torch.exp(dots.clamp(-_CLAMP, _CLAMP))
+        if tokens is not None:
+            e = e * _token_mask(e.shape[-1], heads, tokens, e.device)
         attn = (e / _group_sum(e, heads)).to(dtype)
         if save:
             xs.append(x)
@@ -190,6 +208,56 @@ def decoder_stack_bwd_plain(xsave, attnsave, dy, a, z, w1, w2, vecs,
     return out if b1 is None else (*out, rev(db1))
 
 
+def _token_mask(hl, heads, tokens, device):
+    """1 at the first ``tokens`` columns of each head's group of hl // heads,
+    0 at the padded ones."""
+    return (torch.arange(hl, device=device) % (hl // heads) < tokens).float()
+
+
+def _group(l: int, heads: int) -> int:
+    """Tokens per head that the kernels run for ``l``: ``l`` itself where
+    the tiles hold it, else the next power of two; an odd hl (l = 1 at odd
+    heads) runs as l = 2."""
+    return max(1 << (l - 1).bit_length(), 2 if heads % 2 else 1)
+
+
+def _widen(t, heads: int, l: int, lp: int, axis: int):
+    """Each head's group of ``l`` entries along ``axis`` (-1: columns, -2:
+    rows) widened to ``lp`` with zeros."""
+    shape = list(t.shape)
+    grouped = t.reshape(*shape[:len(shape) + axis], heads, l,
+                        *shape[len(shape) + axis + 1:])
+    pad = [0, 0] * (-axis - 1) + [0, lp - l]
+    shape[axis] = heads * lp
+    return F.pad(grouped, pad).reshape(shape).contiguous()
+
+
+def _narrow(t, heads: int, l: int, lp: int, axis: int):
+    """``_widen`` undone: the first ``l`` of each head's ``lp`` entries."""
+    shape = list(t.shape)
+    grouped = t.reshape(*shape[:len(shape) + axis], heads, lp,
+                        *shape[len(shape) + axis + 1:])
+    shape[axis] = heads * l
+    return grouped.narrow(axis, 0, l).reshape(shape).contiguous()
+
+
+def _padding(what, hl: int, heads: int, cuda: bool):
+    """(l, lp): the tokens per head and the count the kernels run them as.
+    On a CUDA tensor a count the kernels cannot take even padded (more than
+    16 tokens per head, or a padded hl above 128) raises; the plain version
+    takes it unpadded (lp = l)."""
+    l = hl // heads
+    lp = _group(l, heads)
+    ok = hl % heads == 0 and lp in _MMA_L and heads * lp <= _MAX_HL
+    if cuda and not ok:
+        raise ValueError(f"{what}: the kernels take {_MMA_L} tokens per head "
+                         f"(other counts padded to the next of them, an odd "
+                         f"hl to 2 tokens) and a padded hl = heads * tokens "
+                         f"<= {_MAX_HL}, got hl {hl}, heads {heads}: padded "
+                         f"hl {heads * lp}")
+    return l, lp if ok else l
+
+
 def _fn(lib, name, dtype, n_ptr, n_int):
     fn = getattr(_build.load(lib), f"{name}_{_DTYPES[dtype]}")
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
@@ -217,13 +285,6 @@ def _check(what, tensors, dtype, heads, hl, shapes_ok):
                          f"hl = heads * tokens <= {_MAX_HL} and the shapes "
                          "of the docstring, got "
                          f"{[tuple(t.shape) for t in tensors]}, heads {heads}")
-
-
-def _refuse_group(what, hl, heads):
-    """The kernels take 1, 2, 4 or 8 tokens per head and an even hl."""
-    if hl % 2 or hl // heads not in _MMA_L:
-        raise ValueError(f"{what}: the kernel takes {_MMA_L} tokens per head "
-                         f"and an even hl, got hl {hl}, heads {heads}")
 
 
 def _mlp_dim(what, w1, b1, depth) -> int:
@@ -257,12 +318,29 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
     of vecs), else (D, mlp) fp32. Returns y (B, N, 32) in ``dtype``, or with
     ``save`` (y, xsave (D, B, N, 32), attnsave (D, B, N, hl)). CPU tensors
     take the plain version (any mlp_dim); CUDA tensors launch the kernel
-    (mlp_dim 32 or 64) or raise.
+    (mlp_dim 32 or 64) or raise. Token counts the kernel does not take run
+    padded (module docstring), on both.
     """
-    global launches, launches_save
+    hl = a.shape[-1]
+    l, lp = _padding("decoder_stack_fwd", hl, heads, x.device.type != "cpu")
+    if lp == l:
+        return _fwd(x, a, z, w1, w2, vecs, depth, heads, dtype, save, b1, l)
+    out = _fwd(x, _widen(a, heads, l, lp, -1), _widen(z, heads, l, lp, -2),
+               w1, w2, vecs, depth, heads, dtype, save, b1, l)
+    if save:
+        return out[0], out[1], _narrow(out[2], heads, l, lp, -1)
+    return out
+
+
+def _fwd(x, a, z, w1, w2, vecs, depth, heads, dtype, save, b1, tokens):
+    """``decoder_stack_fwd`` on operands whose groups hold ``tokens`` tokens
+    each, padded or not."""
+    global launches, launches_save, launches_pad, launches_save_pad
+    padded = tokens != a.shape[-1] // heads
     if x.device.type == "cpu":
         return decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth, heads,
-                                       dtype, save, b1)
+                                       dtype, save, b1,
+                                       tokens if padded else None)
     mlp = _mlp_dim("decoder_stack_fwd", w1, b1, depth)
     b, n, dim = x.shape
     hl = a.shape[-1]
@@ -273,7 +351,6 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
                  and vecs.shape == (depth, 7, _DIM))
     _check("decoder_stack_fwd", (x, a, z, w1, w2, vecs), dtype, heads, hl,
            shapes_ok)
-    _refuse_group("decoder_stack_fwd", hl, heads)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [t.data_ptr() for t in (x, a, z, w1, w2, vecs)] \
@@ -281,16 +358,18 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
     if save:
         xsave = torch.empty((depth, b, n, _DIM), dtype=dtype, device=x.device)
         attnsave = torch.empty((depth, b, n, hl), dtype=dtype, device=x.device)
-        status = _fn("decoder_fwd", "decoder_stack_fwd_save", dtype, 10, 6)(
+        status = _fn("decoder_fwd", "decoder_stack_fwd_save", dtype, 10, 7)(
             *ptrs, xsave.data_ptr(), attnsave.data_ptr(), b, n, depth, hl,
-            hl // heads, mlp, stream)
+            hl // heads, tokens, mlp, stream)
         _build.check(status, "decoder_stack_fwd(save)")
         launches_save += 1
+        launches_save_pad += padded or tokens > 8
         return y, xsave, attnsave
-    status = _fn("decoder_fwd", "decoder_stack_fwd", dtype, 8, 6)(
-        *ptrs, b, n, depth, hl, hl // heads, mlp, stream)
+    status = _fn("decoder_fwd", "decoder_stack_fwd", dtype, 8, 7)(
+        *ptrs, b, n, depth, hl, hl // heads, tokens, mlp, stream)
     _build.check(status, "decoder_stack_fwd")
     launches += 1
+    launches_pad += padded or tokens > 8
     return y
 
 
@@ -311,8 +390,8 @@ def _ctas_per_sm(lib: str, dtype, hl: int, *flags) -> int:
     """CTAs of the row kernel of ``csrc/<lib>.cu`` in ``dtype`` that one SM
     holds at once at this hl, as the CUDA occupancy calculator counts them
     (registers and shared memory decide): ``decoder_bwd``, K2, flags
-    (mlp_dim,); ``decoder_fwd``, flags (0 for K1 or 1 for K1-save,
-    mlp_dim)."""
+    (mlp_dim, pad); ``decoder_fwd``, flags (0 for K1 or 1 for K1-save,
+    mlp_dim, pad); pad 1 for the PAD instance."""
     per_sm = ctypes.c_int(0)
     fn = getattr(_build.load(lib), f"decoder_stack_{lib[-3:]}_ctas_per_sm_"
                  f"{_DTYPES[dtype]}")
@@ -322,14 +401,14 @@ def _ctas_per_sm(lib: str, dtype, hl: int, *flags) -> int:
     return max(1, per_sm.value)
 
 
-def _bwd_slots(dev, dtype, hl: int, mlp: int) -> int:
+def _bwd_slots(dev, dtype, hl: int, mlp: int, pad: int) -> int:
     """CTAs of K2's row kernel instance that the card runs at once: what one
-    SM holds at this hl times the SMs, asked once per device, dtype, hl and
-    mlp_dim."""
-    key = (dev.index, dtype, hl, mlp)
+    SM holds at this hl times the SMs, asked once per device, dtype, hl,
+    mlp_dim and instance (``pad`` 1 for the PAD one, 16 tokens per head)."""
+    key = (dev.index, dtype, hl, mlp, pad)
     if key not in _slots:
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        _slots[key] = _ctas_per_sm("decoder_bwd", dtype, hl, mlp) * n_sm
+        _slots[key] = _ctas_per_sm("decoder_bwd", dtype, hl, mlp, pad) * n_sm
     return _slots[key]
 
 
@@ -345,8 +424,28 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
     ``b1`` given (mlp_dim != 32) row 5 of dvecs is zero and db1 (D, mlp)
     fp32 is a seventh value. CPU tensors take the plain version (any
     mlp_dim); CUDA tensors launch the kernel (mlp_dim 32 or 64) or raise.
+    Token counts the kernel does not take run padded (module docstring), on
+    both; ``attnsave`` may come padded already.
     """
-    global launches_bwd
+    hl = a.shape[-1]
+    l, lp = _padding("decoder_stack_bwd", hl, heads, dy.device.type != "cpu")
+    if lp == l:
+        return _bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth, heads,
+                    dtype, b1, l > 8)
+    if attnsave.shape[-1] == hl:
+        attnsave = _widen(attnsave, heads, l, lp, -1)
+    dx, da, dz, *rest = _bwd(xsave, attnsave, dy, _widen(a, heads, l, lp, -1),
+                             _widen(z, heads, l, lp, -2), w1, w2, vecs, depth,
+                             heads, dtype, b1, True)
+    return (dx, _narrow(da, heads, l, lp, -1), _narrow(dz, heads, l, lp, -2),
+            *rest)
+
+
+def _bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth, heads, dtype, b1,
+         padded):
+    """``decoder_stack_bwd`` on operands the kernel takes as they are;
+    ``padded``: a count the tiles do not hold as it is."""
+    global launches_bwd, launches_bwd_pad
     if dy.device.type == "cpu":
         return decoder_stack_bwd_plain(xsave, attnsave, dy, a, z, w1, w2, vecs,
                                        depth, heads, dtype, b1)
@@ -362,9 +461,9 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
                  and vecs.shape == (depth, 7, _DIM))
     _check("decoder_stack_bwd", (xsave, attnsave, dy, a, z, w1, w2, vecs),
            dtype, heads, hl, shapes_ok)
-    _refuse_group("decoder_stack_bwd", hl, heads)
     dev = dy.device
-    rows = _bwd_rows_per_cta(b, n, _bwd_slots(dev, dtype, hl, mlp))
+    rows = _bwd_rows_per_cta(b, n, _bwd_slots(dev, dtype, hl, mlp,
+                                              int(hl // heads > 8)))
     cps = -(-n // rows)
     # Per (CTA, layer): [dW1 | dW2 | dA | dZ | dvecs | db1 where mlp != 32]
     # (csrc/decoder_bwd.cu part_size).
@@ -387,5 +486,6 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
         b, n, depth, hl, hl // heads, rows, mlp, stream)
     _build.check(status, "decoder_stack_bwd")
     launches_bwd += 1
+    launches_bwd_pad += padded
     out = (dx, da, dz, dw1, dw2, dvecs)
     return out if db1 is None else (*out, db1)

@@ -42,10 +42,15 @@ per 16 rows held in registers through all layers, the four per-row products
 on ``mma.sync`` tensor cores with fp32 accumulation, bf16 operands or, when
 ``precise``, each fp32 operand split exactly into three bf16 pieces; the
 group softmax shifted by its max inside the quad of lanes that holds a row.
-The kernels take 1, 2, 4, 8 or 16 tokens per head, heads * tokens <= 128 and
-mlp_dim 32 or 64 (BIT's decoder: the row kernel's 64 instance runs the hidden
-layer in two 32-column halves, with b1 (D, 64) beside ``vecs``); on a CUDA
-tensor anything else raises.
+The kernels take every count of memory tokens the JAX gate sends (heads *
+tokens <= 128) and mlp_dim 32 or 64 (BIT's decoder: the row kernel's 64
+instance runs the hidden layer in two 32-column halves, with b1 (D, 64)
+beside ``vecs``); on a CUDA tensor anything else raises. A group of 1, 2,
+4, 8 or 16 tokens lies in one 16-column slice of hl; other counts are
+padded here with zero memory tokens to the next of those, or above 16 to a
+multiple of 16 (``_group``), and the row kernel gets the real count and sets
+the padded columns' logits to -inf. The plain version runs the same padding
+on the CPU.
 """
 from __future__ import annotations
 
@@ -61,18 +66,18 @@ from dahitra_tpu_torch.kernels.folded_decoder import _MLP, VEC_KEYS
 
 # Launches in this process; the plain versions never count. ``launches``:
 # ``fused_transformer_decoder``, one per call (the prologue and the row
-# kernel); ``launches_az``: ``fused_decoder_az``, the prologue alone.
+# kernel); ``launches_az``: ``fused_decoder_az``, the prologue alone;
+# ``launches_pad``: those of ``launches`` at a token count the row kernel
+# does not take as it is (padded here, or above 16: its PAD instances).
 launches = 0
 launches_az = 0
+launches_pad = 0
 
 # The 13 packed tensors in the order of fused_decoder.py:270-271.
 ORDER = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo", "bo", "ln2_scale",
          "ln2_bias", "w1", "b1", "w2", "b2")
 _DIM = 32
 _MAX_HL = 128
-# Tokens per head that the row kernel takes: a softmax group lies inside
-# one 16-column slice of hl.
-_TOKENS = (1, 2, 4, 8, 16)
 _SMEM_LIMIT = 227 * 1024
 # csrc/fused_decoder.cu: memory tokens per prologue pass (PRO_ROWS).
 _PRO_ROWS = 16
@@ -157,11 +162,14 @@ def fused_decoder_az_plain(m: torch.Tensor, packed: Packed, depth: int,
 
 
 def fused_decoder_plain(x: torch.Tensor, m: torch.Tensor, packed: Packed,
-                        depth: int, heads: int, precise: bool) -> torch.Tensor:
+                        depth: int, heads: int, precise: bool,
+                        tokens: Optional[int] = None) -> torch.Tensor:
     """K4's function in plain PyTorch (fused_decoder.py:126-178): x (B, N,
     dim), m (B, L, dim), ``packed`` as ``pack_decoder_params`` gives it ->
     (B, N, dim) in x's dtype. Each product is round(a) . round(b) with fp32
-    accumulation, round being bf16 unless ``precise``."""
+    accumulation, round being bf16 unless ``precise``. ``tokens``: m is
+    padded and its first ``tokens`` rows are tokens; the others' logits are
+    -inf, as in the row kernel's PAD instance."""
     _, mm = _rounding(precise)
     out_dtype = x.dtype
     x = x.float()
@@ -172,6 +180,9 @@ def fused_decoder_plain(x: torch.Tensor, m: torch.Tensor, packed: Packed,
     for d in range(depth):
         xn = _layer_norm(x, p["ln1_scale"][d], p["ln1_bias"][d])
         dots = (mm(xn, a[d]) * scale).unflatten(-1, (heads, l))
+        if tokens is not None:
+            dots = dots.masked_fill(torch.arange(l, device=dots.device) >= tokens,
+                                      -math.inf)
         e = torch.exp(dots - dots.amax(-1, keepdim=True))
         attn = (e / e.sum(-1, keepdim=True)).flatten(-2)
         x = x + mm(attn, z[d]) + p["bo"][d]
@@ -249,10 +260,17 @@ def _rows_smem(hl: int, precise: bool, mlp: int) -> int:
         + 4 * (7 * _DIM + (mlp if mlp != _DIM else 0))
 
 
+def _group(l: int) -> int:
+    """Memory tokens that the row kernel runs for ``l``: the next of 1, 2,
+    4, 8 and 16, or above 16 the next multiple of 16."""
+    return 1 << (l - 1).bit_length() if l <= 16 else -(-l // 16) * 16
+
+
 def _check(what: str, ts, m: torch.Tensor, packed: Packed, depth: int,
-           heads: int, precise: bool) -> None:
+           heads: int, precise: bool, tokens: Optional[int] = None) -> None:
     """Raise unless the tensors ``ts`` lie on one CUDA device and the shapes
-    are ones the kernels take."""
+    are ones the kernels take; ``tokens``: the real count of m's (padded)
+    tokens."""
     mlp = packed["w1"].shape[-1]
     if mlp not in _MLP:
         raise ValueError(f"{what}: mlp_dim = {mlp}; the kernels are built for "
@@ -262,10 +280,11 @@ def _check(what: str, ts, m: torch.Tensor, packed: Packed, depth: int,
         raise ValueError(f"{what}: all operands must be on one CUDA device, "
                          f"got {[str(t.device) for t in ts]}")
     b, l = m.shape[:2]
-    if l not in _TOKENS or heads * l > _MAX_HL:
-        raise ValueError(f"{what}: the kernels take {_TOKENS} tokens per head "
-                         f"and heads * tokens <= {_MAX_HL}, got {l} tokens "
-                         f"per head at {heads} heads")
+    real = l if tokens is None else tokens
+    if heads * real > _MAX_HL:
+        raise ValueError(f"{what}: the kernels take heads * tokens <= "
+                         f"{_MAX_HL}, got {real} tokens per head at {heads} "
+                         "heads")
     inner = packed["wq"].shape[-1]
     shapes_ok = (m.shape == (b, l, _DIM) and inner % heads == 0
                  and all(packed[k].shape == (depth, _DIM, inner)
@@ -317,18 +336,20 @@ def _prologue(m, packed, vecs, depth: int, heads: int, precise: bool):
     return a, z
 
 
-def _rows(x, a, z, packed, vecs, depth: int, heads: int, precise: bool):
-    """Launches the row kernel on the prologue's A and Z: y like x."""
+def _rows(x, a, z, packed, vecs, depth: int, heads: int, precise: bool,
+          tokens: int):
+    """Launches the row kernel on the prologue's A and Z, whose groups hold
+    ``tokens`` tokens each, padded or not: y like x."""
     b, n, _ = x.shape
     hl = a.shape[-1]
     xc = x.contiguous()
     w1, w2 = (packed[k].float().contiguous() for k in ("w1", "w2"))
     b1 = _b1(packed)
     y = torch.empty_like(xc)
-    status = _fn(f"fused_decoder_{_IO[x.dtype]}_{_ops(precise)}", 8, 6)(
+    status = _fn(f"fused_decoder_{_IO[x.dtype]}_{_ops(precise)}", 8, 7)(
         *[None if t is None else t.data_ptr()
           for t in (xc, a, z, w1, w2, vecs, b1, y)], b, n, depth, hl,
-        hl // heads, w1.shape[-1],
+        hl // heads, tokens, w1.shape[-1],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "fused_decoder rows")
     return y
@@ -357,15 +378,21 @@ def fused_transformer_decoder(x: torch.Tensor, m: torch.Tensor, packed: Packed,
     x: (B, N, 32) in float32 or bfloat16; m: (B, L, 32) in any float type;
     ``packed``: the 13 stacked parameters of ``pack_decoder_params`` (any
     float type, read as fp32), inner width heads * dim_head, mlp_dim 32 or
-    64, L in 1, 2, 4, 8 or 16 and heads * L <= 128. Returns (B, N, 32) in x's
-    dtype. CPU tensors take ``fused_decoder_plain`` (any shape); CUDA tensors
-    launch the prologue and the row kernel or raise.
+    64 and heads * L <= 128; L other than 1, 2, 4, 8 and 16 runs padded
+    (module docstring). Returns (B, N, 32) in x's dtype. CPU tensors take
+    ``fused_decoder_plain`` (any shape); CUDA tensors launch the prologue
+    and the row kernel or raise.
     """
-    global launches
+    global launches, launches_pad
+    tokens = m.shape[1]
+    lp = _group(tokens)
+    if lp != tokens and heads * tokens <= _MAX_HL:
+        m = torch.cat([m, m.new_zeros(m.shape[0], lp - tokens, m.shape[2])], 1)
     if x.device.type == "cpu":
-        return fused_decoder_plain(x, m, packed, depth, heads, precise)
+        return fused_decoder_plain(x, m, packed, depth, heads, precise,
+                                   tokens if m.shape[1] != tokens else None)
     _check("fused_transformer_decoder", (x, m, *(packed[k] for k in ORDER)), m,
-           packed, depth, heads, precise)
+           packed, depth, heads, precise, tokens)
     if x.dtype not in _IO:
         raise TypeError(f"fused_transformer_decoder: x is {x.dtype}; need "
                         "float32 or bfloat16")
@@ -375,21 +402,25 @@ def fused_transformer_decoder(x: torch.Tensor, m: torch.Tensor, packed: Packed,
                          f"{tuple(x.shape)}")
     vecs = _vecs(packed)
     a, z = _prologue(m, packed, vecs, depth, heads, precise)
-    y = _rows(x, a, z, packed, vecs, depth, heads, precise)
+    y = _rows(x, a, z, packed, vecs, depth, heads, precise, tokens)
     launches += 1
+    launches_pad += m.shape[1] != tokens or tokens > 16
     return y
 
 
-def ctas_per_sm(io_dtype, precise: bool, mlp: int, hl: int) -> int:
-    """CTAs of the row kernel instance (x's dtype, ``precise``, mlp_dim)
-    that one SM holds at once at this hl, as the CUDA occupancy calculator
-    counts them (registers and shared memory decide)."""
+def ctas_per_sm(io_dtype, precise: bool, mlp: int, hl: int,
+                pad: bool = False) -> int:
+    """CTAs of the row kernel instance (x's dtype, ``precise``, mlp_dim,
+    ``pad`` for the PAD one) that one SM holds at once at this hl, as the
+    CUDA occupancy calculator counts them (registers and shared memory
+    decide)."""
     per_sm = ctypes.c_int(0)
     fn = getattr(_build.load("fused_decoder"),
                  f"fused_decoder_ctas_per_sm_{_IO[io_dtype]}_{_ops(precise)}")
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.check(fn(hl, mlp, ctypes.byref(per_sm)), "fused_decoder occupancy")
+    _build.check(fn(hl, mlp, int(pad), ctypes.byref(per_sm)),
+                 "fused_decoder occupancy")
     return per_sm.value
 
 

@@ -2,8 +2,12 @@
 
 Counterpart of dahitra_tpu/models/registry.py. Ported: ``newUNetTrans``, the
 BIT keys ``base_transformer_pos_s4*`` and ``base_resnet18``, with the JAX
-registry's arguments (registry.py:33-65); every other key of the JAX
-registry raises ``NotImplementedError`` naming its ROADMAP item.
+registry's arguments (registry.py:33-65), and the xBD damage models
+``xbd_dahitra`` (DAHiTra, 5 classes, the 6-channel pre|post input,
+positional embeddings at the coarsest scale only, so no per-date decode)
+and ``xbd_bit`` (BIT, 5 classes; registry.py:106-112,220-224); every other
+key of the JAX registry raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -40,11 +44,10 @@ _PENDING = {
         "xbd_senet154_loc", "xbd_senet154_double", "xbd_dpn92_loc",
         "xbd_dpn92_double", "xbd_unet_change_transformer",
         "xbd_unet_change_transformer_bit", "dual_hrnet", "dual_hrnet_fpn")},
-    **{k: "xBD stack" for k in ("xbd_dahitra", "xbd_adapt_dahitra",
-                                "xbd_bit")},
+    "xbd_adapt_dahitra": "xBD stack",
 }
 
-PORTED = ("newUNetTrans", "base_resnet18", *_BIT)
+PORTED = ("newUNetTrans", "base_resnet18", "xbd_dahitra", "xbd_bit", *_BIT)
 
 
 def define_g(net_g: str, dtype=torch.float32, img_size: int = 256,
@@ -53,11 +56,18 @@ def define_g(net_g: str, dtype=torch.float32, img_size: int = 256,
              ) -> torch.nn.Module:
     """Build a model by its reference ``--net_G`` key (random weights; the
     draws the port makes itself come from ``generator``). ``img_size`` and
-    ``output_nc`` are read by ``newUNetTrans`` only, as in the JAX
-    registry."""
+    ``output_nc`` are read by ``newUNetTrans`` only (``img_size`` also by
+    ``xbd_dahitra``), as in the JAX registry."""
     if net_g == "newUNetTrans":
         return DAHiTraUNet(output_nc=output_nc, img_size=img_size, dtype=dtype,
                            generator=generator)
+    if net_g == "xbd_dahitra":
+        return DAHiTraUNet(output_nc=5, img_size=img_size,
+                           pos_coarsest_only=True, dtype=dtype,
+                           generator=generator)
+    if net_g == "xbd_bit":
+        return BIT(output_nc=5, token_len=4, resnet_stages_num=4, enc_depth=1,
+                   dec_depth=8, dtype=dtype, generator=generator)
     if net_g == "base_resnet18":
         return ResNetCD(output_nc=2, dtype=dtype)
     if net_g in _BIT:

@@ -77,11 +77,14 @@ def init_weights(model: nn.Module, init_type: str = "normal",
 
 
 @torch.no_grad()
-def init_random(model: nn.Module, generator: torch.Generator) -> nn.Module:
+def init_random(model: nn.Module, generator: torch.Generator,
+                running_stats: bool = True) -> nn.Module:
     """Random weights for a model without a checkpoint (runs on seeded
     weights): lecun-normal conv and linear kernels, zero biases, unit BN and
     LayerNorm scales, unit-normal positional embeddings, and BN running
-    statistics near identity. Returns the model."""
+    statistics near identity, or with ``running_stats`` False the identity
+    (mean 0, variance 1: the flax initializer's, a model about to train).
+    Returns the model."""
     for name, p in model.named_parameters():
         if name.startswith("pos_embedding"):
             p.normal_(0.0, 1.0, generator=generator)
@@ -94,7 +97,13 @@ def init_random(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.zero_()
     for name, buf in model.named_buffers():
         if name.endswith("running_mean"):
-            buf.normal_(0.0, 0.1, generator=generator)
+            if running_stats:
+                buf.normal_(0.0, 0.1, generator=generator)
+            else:
+                buf.zero_()
         elif name.endswith("running_var"):
-            buf.uniform_(0.5, 1.5, generator=generator)
+            if running_stats:
+                buf.uniform_(0.5, 1.5, generator=generator)
+            else:
+                buf.fill_(1.0)
     return model

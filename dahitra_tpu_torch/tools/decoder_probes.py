@@ -14,10 +14,12 @@ lines in which its ``cuobjdump -sass`` differs from the same instance here
 (a line diff of the instructions and their encodings, control bits
 included, the addresses aside; ``--out`` writes each instance's diff to a
 file).
-Instances are matched by name, the anonymous-namespace hash aside and with
-an ``mlp_dim`` template argument of 32 read as its absence, so a checkout
-that predates the ``mlp_dim`` parameter compares with the 32 instances;
-instances that exist only here are listed as new. One JSON line each.
+Instances are matched by name, the anonymous-namespace hash aside, with a
+last template argument ``false`` (the ``PAD`` flag of the row kernels) and
+then an ``mlp_dim`` template argument of 32 read as their absence, so a
+checkout that predates either parameter compares with the instances that
+have neither; instances that exist only here are listed as new. One JSON
+line each.
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ def cta_rows(warps: int) -> None:
     gen = torch.Generator().manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         fn = getattr(lib, f"decoder_stack_fwd_{fd._DTYPES[dtype]}")
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         for name, b, n, depth, heads in cs.K1_SHAPES + [cs.K1_SHAPE_512]:
             ops, _, _ = cs._decoder_operands(torch, dtype, gen, b, n, depth, heads)
             hl = ops[1].shape[-1]
@@ -67,7 +69,7 @@ def cta_rows(warps: int) -> None:
 
             def variant():
                 _build.check(fn(*[t.data_ptr() for t in ops], None, y.data_ptr(), b, n,
-                                depth, hl, hl // heads, 32,
+                                depth, hl, hl // heads, hl // heads, 32,
                                 torch.cuda.current_stream().cuda_stream), "variant")
 
             def source():
@@ -88,15 +90,17 @@ def _functions(dump: str, source: str) -> dict:
     """The SASS lines of each kernel in a ``cuobjdump -sass`` dump (the
     instructions with their encodings, control bits included; addresses cut
     off), keyed by its mangled name with the
-    anonymous-namespace hash replaced, an ``mlp_dim`` template argument of
-    32 (``Li32E`` before the template's close) dropped, and the parameter
-    list cut off."""
+    anonymous-namespace hash replaced, a last template argument ``false``
+    (``Lb0E`` before the template's close) and then an ``mlp_dim`` template
+    argument of 32 (``Li32E`` there) dropped, and the parameter list cut
+    off."""
     dump = re.sub(rf"_GLOBAL__N__[0-9a-f]+_[0-9]+_{source}_cu_[0-9a-f]+", "ANON", dump)
     out, key = {}, None
     for line in dump.splitlines():
         func = re.search(r"Function : (\S+)", line)
         if func:
-            key = re.sub(r"Li32E(?=E)", "", func.group(1)).split("Ev", 1)[0]
+            key = re.sub(r"Lb0E(?=EEv)", "", func.group(1))
+            key = re.sub(r"Li32E(?=EEv)", "", key).split("Ev", 1)[0]
             out[key] = []
         elif key is not None:
             ins = " ".join(re.sub(r"^\s*/\*[0-9a-f]+\*/", "", line).split())

@@ -287,19 +287,23 @@ def test_state_dict_round_trip(key):
 
 def test_every_ported_key_builds_with_the_jax_output_shape():
     """Each ported key's forward at 32 px, batch 1, has the JAX model's
-    output shape (jax.eval_shape, nothing compiled); the xBD BIT still
-    raises by name."""
+    output shape (jax.eval_shape, nothing compiled), the xBD keys on the
+    6-channel pre|post input; the xBD adaptation model still raises by
+    name."""
     x = np.zeros((1, 32, 32, 3), np.float32)
+    x6 = np.zeros((1, 32, 32, 6), np.float32)
     for key in PORTED:
+        ins = (x6, None) if key.startswith("xbd_") else (x, x)
         want = jax.eval_shape(
-            lambda a, b: jax_define_g(key, img_size=32).init_with_output(
-                jax.random.PRNGKey(0), a, b)[0], x, x).shape
+            lambda a: jax_define_g(key, img_size=32).init_with_output(
+                jax.random.PRNGKey(0), a, ins[1])[0], ins[0]).shape
         with torch.no_grad():
-            got = define_g(key, img_size=32).eval()(torch.from_numpy(x),
-                                                   torch.from_numpy(x))
+            got = define_g(key, img_size=32).eval()(
+                *(None if t is None else torch.from_numpy(t) for t in ins))
         assert tuple(got.shape) == tuple(want), key
-    with pytest.raises(NotImplementedError, match="xbd_bit.*xBD stack"):
-        define_g("xbd_bit")
+    with pytest.raises(NotImplementedError,
+                       match="xbd_adapt_dahitra.*xBD stack"):
+        define_g("xbd_adapt_dahitra")
 
 
 def test_bit_fields_and_six_channel_input():

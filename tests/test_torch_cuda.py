@@ -120,32 +120,65 @@ def test_save_forward_and_backward_kernels_match_plain(card, dtype, b, n,
     assert all(torch.equal(g, h) for g, h in zip(got, again))  # fixed order
 
 
+# Token counts per head outside 1, 2, 4 and 8 (fault 3.2): (heads, tokens)
+# -> 16 tokens (the PAD instances' two 8-column halves), an odd hl (15 heads
+# of one token, run as 2), 3 tokens (padded to 4, masked) at 4 and 8 heads,
+# 5 tokens at 3 heads (hl 15, padded to 24) and 13 at 8 (padded hl 128).
+PADDED_CASES = {"16 tokens per head": (1, 16), "odd hl": (15, 1),
+                "3 tokens per head": (4, 3), "3 tokens at 8 heads": (8, 3),
+                "5 tokens at 3 heads": (3, 5), "13 tokens at 8 heads": (8, 13)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["16 tokens per head", "odd hl",
-                                  "3 tokens per head"])
+@pytest.mark.parametrize("case", list(PADDED_CASES))
+def test_kernels_take_every_token_count_the_gate_sends(card, dtype, case):
+    """K1, K1-save and K2 at token counts the tiles do not hold, padded by
+    the wrappers: against their plain versions on the unpadded operands
+    (forward, saves and every gradient), one launch each, reruns bit for
+    bit; the attention save, dA and dZ come back unpadded."""
+    heads, l = PADDED_CASES[case]
+    _, _, _, ops, dy = _stack_case(card, dtype, 2, 113, 2, heads, l=l)
+    assert ops[1].shape[-1] == heads * l
+    before = (fd.launches, fd.launches_save, fd.launches_bwd)
+    y = fd.decoder_stack_fwd(*ops, 2, heads, dtype)
+    ys, xs, ats = fd.decoder_stack_fwd(*ops, 2, heads, dtype, save=True)
+    got = fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], 2, heads, dtype)
+    torch.cuda.synchronize()
+    assert (fd.launches, fd.launches_save, fd.launches_bwd) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert torch.equal(y, ys)
+    ref = fd.decoder_stack_fwd_plain(*ops, 2, heads, dtype, save=True)
+    for g, r in zip((ys, xs, ats), ref):
+        assert g.shape == r.shape and _scaled_err(g, r) <= TOL[dtype]
+    gref = fd.decoder_stack_bwd_plain(*ref[1:], dy, *ops[1:], 2, heads, dtype)
+    for name, g, r in zip(("dx", "da", "dz", "dw1", "dw2", "dvecs"), got, gref):
+        assert g.shape == r.shape, name
+        assert _scaled_err(g, r) <= GTOL[dtype], name
+    assert torch.equal(y, fd.decoder_stack_fwd(*ops, 2, heads, dtype))
+    again = fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], 2, heads, dtype)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+# What the card still refuses (ROADMAP fault 3.2): a padded hl above 128,
+# only at 9 heads or more: 9 heads of 9 tokens (padded to 16: hl 144) and 17
+# heads of 5 (padded to 8: hl 136).
+@pytest.mark.parametrize("heads,l", [(9, 9), (17, 5)])
 @pytest.mark.parametrize("which", ["forward", "forward with saves",
                                    "backward"])
-def test_kernels_refuse_what_they_do_not_take(card, dtype, case, which):
-    """K1, K1-save and K2 take 1, 2, 4 or 8 tokens per head (a softmax
-    group inside one 8-column mma tile) and an even hl; 16 tokens per head
-    (hl 16, one head), hl 15 (15 heads of one token) and 3 tokens per head
-    (hl 12, 4 heads: even, but not a count the tiles hold) raise by name,
-    before any launch."""
-    _, _, _, ops, dy = _stack_case(card, dtype, 1, 64, 1, 4)
-    _, xs, ats = fd.decoder_stack_fwd(*ops, 1, 4, dtype, save=True)
-    a, z = ops[1], ops[2]
-    heads = 1
-    cut = {"odd hl": (15, 15), "3 tokens per head": (12, 4)}.get(case)
-    if cut is not None:
-        hl, heads = cut
-        ats, a, z = (ats[..., :hl].contiguous(), a[..., :hl].contiguous(),
-                     z[:, :, :hl].contiguous())
+def test_kernels_refuse_padded_hl_above_128(card, heads, l, which):
+    """A ValueError naming the padded hl, before any launch; no plain
+    fallback."""
+    dtype = torch.float32
+    _, _, _, ops, dy = _stack_case(card, dtype, 1, 64, 1, heads, l=l)
+    hl = heads * l
+    xs = torch.zeros(1, 1, 64, 32, device=card)
+    ats = torch.zeros(1, 1, 64, hl, device=card)
     before = (fd.launches, fd.launches_save, fd.launches_bwd)
-    with pytest.raises(ValueError, match="tokens per head and an even hl"):
+    with pytest.raises(ValueError, match="padded hl"):
         if which == "backward":
-            fd.decoder_stack_bwd(xs, ats, dy, a, z, *ops[3:], 1, heads, dtype)
+            fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], 1, heads, dtype)
         else:
-            fd.decoder_stack_fwd(ops[0], a, z, *ops[3:], 1, heads, dtype,
+            fd.decoder_stack_fwd(*ops, 1, heads, dtype,
                                  save=which == "forward with saves")
     assert (fd.launches, fd.launches_save, fd.launches_bwd) == before
 
@@ -248,10 +281,15 @@ def _k4_case(card, io, b, n, depth, heads, seed=2, l=4, mlp=32):
 
 # (b, n, depth, heads, tokens per head): a 1/4-scale and a 1/16-scale shape;
 # a ragged n (100) at the widest hl = 128; l = 1, 2, 8 and 16, with an odd
-# hl (3), ragged n and hl = 128 at l = 16.
+# hl (3), ragged n and hl = 128 at l = 16; and counts the wrapper pads
+# (fault 3.2): 3 and 5 tokens (to 4 and 8), 32 at 4 heads (two 16-column
+# slices per group), 20 at 4 heads (to 32), 40 at 3 heads (to 48: hl 144)
+# and 18 at 7 heads (to 32: hl 224).
 K4_SHAPES = [(2, 4096, 8, 8, 4), (16, 256, 4, 4, 4), (3, 100, 2, 32, 4),
              (2, 300, 2, 8, 1), (5, 257, 3, 3, 1), (2, 256, 2, 4, 2),
-             (2, 129, 2, 4, 8), (3, 200, 2, 8, 16), (1, 64, 1, 1, 16)]
+             (2, 129, 2, 4, 8), (3, 200, 2, 8, 16), (1, 64, 1, 1, 16),
+             (2, 128, 2, 4, 3), (2, 150, 2, 8, 5), (2, 128, 2, 4, 32),
+             (2, 100, 2, 4, 20), (2, 64, 2, 3, 40), (2, 64, 2, 7, 18)]
 
 
 @pytest.mark.parametrize("io,precise", K4_MODES)
@@ -294,10 +332,10 @@ def test_fused_decoder_prologue_matches_plain(card, precise, b, depth, heads,
     assert _scaled_err(a, ref_a) <= tol and _scaled_err(z, ref_z) <= tol
 
 
-@pytest.mark.parametrize("l,heads", [(3, 4), (32, 4)])
+@pytest.mark.parametrize("l,heads", [(15, 9), (33, 4)])
 def test_fused_decoder_refuses_other_token_counts(card, l, heads):
-    """3 tokens per head, and 32 (hl = 128 but a group wider than a
-    16-column slice): a ValueError naming the tokens per head, from both
+    """heads * tokens above 128, which the JAX gate never sends (9 heads of
+    15 tokens, 4 of 33): a ValueError naming the tokens per head, from both
     wrappers; no plain fallback."""
     x, m, packed = _k4_case(card, torch.float32, 2, 128, 1, heads, l=l)
     before = kd.launches, kd.launches_az
@@ -440,3 +478,109 @@ def test_kernels_refuse_mlp_dim_96(card, which):
                                  save=which == "forward with saves", b1=b1)
     assert (fd.launches, fd.launches_save, fd.launches_bwd,
             kd.launches) == before
+
+
+# The xBD damage models: decoder and K3 launches per forward (xbd_dahitra one
+# difference decode and one tokenizer call per scale, xbd_bit one of each
+# per date, its mlp_dim-64 instances).
+XBD_CALLS = {"xbd_dahitra": 3, "xbd_bit": 2}
+XBD_IMG = 128
+
+
+def _xbd_pair(seed=0):
+    """One seeded uint8 xBD pair at XBD_IMG px: pre, post, a 5-channel mask
+    and its label map (val variant)."""
+    g = torch.Generator().manual_seed(seed)
+    pre, post = (torch.randint(0, 256, (1, XBD_IMG, XBD_IMG, 3), generator=g,
+                               dtype=torch.uint8) for _ in "ab")
+    lbl = torch.randint(0, 4, (1, XBD_IMG, XBD_IMG), generator=g,
+                        dtype=torch.uint8)
+    loc = torch.rand(1, XBD_IMG, XBD_IMG, generator=g) < 0.4
+    msk = torch.cat([loc[..., None], torch.nn.functional.one_hot(
+        lbl.long(), 4).bool() & loc[..., None]], -1).to(torch.uint8)
+    return {"img_pre": pre.numpy(), "img_post": post.numpy(),
+            "msk": msk.numpy(), "lbl_msk": lbl.numpy()}
+
+
+def _xbd_counts():
+    return (fd.launches, fd.launches_save, fd.launches_bwd, ft.launches,
+            kd.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("net", list(XBD_CALLS))
+def test_xbd_damage_step_and_eval_on_the_card(card, tmp_path, net, dtype):
+    """One ``XBDTrainer.train_step`` (K1-save, K2 and K3, ``XBD_CALLS``
+    each) and one ``eval_step`` (K1 and K3) on the card; finite loss,
+    counters within their range."""
+    import types
+
+    from dahitra_tpu_torch.train.xbd_engine import XBDTrainer
+
+    arrays = _xbd_pair()
+    args = types.SimpleNamespace(
+        checkpoint_dir=str(tmp_path), max_epochs=1, net_G=net, seed=0,
+        bf16=dtype == torch.bfloat16, img_size=XBD_IMG, lr=0.0, batch_size=1)
+    trainer = XBDTrainer(args, arrays, arrays, device="cuda")
+    batch = [torch.from_numpy(arrays[k]).to(card)
+             for k in ("img_pre", "img_post", "msk", "lbl_msk")]
+    before = _xbd_counts()
+    loss = trainer.train_step(*batch)
+    dices, tp, fp, fn = trainer.eval_step(*batch)
+    torch.cuda.synchronize()
+    c = XBD_CALLS[net]
+    assert tuple(a - b for a, b in zip(_xbd_counts(), before)) == (
+        c, c, c, 2 * c, 0)
+    assert torch.isfinite(loss) and 0 <= dices.item() <= 1
+    assert int((tp + fn).sum()) == int(batch[2][..., 0].bool().sum())
+
+
+@pytest.mark.parametrize("net", list(XBD_CALLS))
+def test_xbd_forward_matches_cpu(card, net):
+    """The fp32 eval forward on the 6-channel input, card (kernels) against
+    the CPU plain path: 1e-3 of the logits' scale, argmax agreement at least
+    99.9 %."""
+    from dahitra_tpu_torch.data.xbd_augment import augment_xbd
+    from dahitra_tpu_torch.models.registry import define_g
+    from dahitra_tpu_torch.nn.init import init_random
+
+    gen = torch.Generator().manual_seed(1)
+    model = init_random(define_g(net, img_size=XBD_IMG, generator=gen), gen)
+    img6 = augment_xbd(*(torch.from_numpy(v) for v in _xbd_pair(2).values()),
+                       train=False)[0]
+    with torch.inference_mode():
+        ref = model(img6)
+        got = model.to(card)(img6.to(card)).cpu()
+    assert _scaled_err(got, ref) <= 1e-3
+    assert (got.argmax(-1) == ref.argmax(-1)).float().mean() >= 0.999
+
+
+def test_xbd_predict_on_the_card(card, tmp_path):
+    """``xbd_predict`` over one tile with a seeded ``xbd_dahitra``
+    checkpoint: one forward of the 4 TTA views (3 K1 and 3 K3), both PNGs
+    at the tile's size, damage classes in 0..3."""
+    import numpy as np
+    from PIL import Image
+
+    from dahitra_tpu_torch.cli import xbd_predict
+    from dahitra_tpu_torch.core.checkpoint import save_checkpoint
+    from dahitra_tpu_torch.data.synthetic import write_synthetic_xbd
+    from dahitra_tpu_torch.models.registry import define_g
+    from dahitra_tpu_torch.nn.init import init_random
+
+    root = write_synthetic_xbd(str(tmp_path / "test"), 1, XBD_IMG, block=16)
+    gen = torch.Generator().manual_seed(3)
+    model = init_random(define_g("xbd_dahitra", img_size=XBD_IMG,
+                                 generator=gen), gen)
+    ckpt = save_checkpoint(str(tmp_path / "ckpt"), model.state_dict())
+    before = _xbd_counts()
+    written = xbd_predict.main(["--test_root", root, "--img_size",
+                                str(XBD_IMG), "--checkpoints", ckpt,
+                                "--out_dir", str(tmp_path / "out")])
+    assert tuple(a - b for a, b in zip(_xbd_counts(), before)) == (
+        3, 0, 0, 3, 0)
+    pngs = {w: np.array(Image.open(tmp_path / "out" / w)) for w in written}
+    assert len(pngs) == 2
+    for w, p in pngs.items():
+        assert p.shape == (XBD_IMG, XBD_IMG) and p.dtype == np.uint8
+        assert w.endswith("_part1.png") or p.max() <= 3

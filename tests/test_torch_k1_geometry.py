@@ -9,6 +9,13 @@ the forward with those heads appended, through ``decoder_stack_fwd_plain``,
 gives the y of the JAX ``decoder_vjp.decoder_stack`` over the unpadded
 operands (tolerances of tests/test_decoder_vjp.py:27-30, scale-normalized:
 fp32 1e-5, bf16 2e-2), and leaves the real heads' attention as it was.
+
+Token counts the tiles do not hold (3, 5, an odd hl) are padded by the
+wrapper ``decoder_stack_fwd`` to the next count they do, with the padded
+columns' exp terms zeroed (K1's PAD instance; on the CPU the plain version
+with the same mask); 16 tokens run unpadded. Through the port's
+``decoder_stack`` they give the JAX ``decoder_stack``'s y at the same
+tolerances.
 """
 import numpy as np
 import pytest
@@ -18,7 +25,7 @@ import jax.numpy as jnp
 
 from dahitra_tpu.nn.decoder_vjp import decoder_stack as jax_decoder_stack
 from dahitra_tpu_torch.kernels import folded_decoder as fd
-from dahitra_tpu_torch.nn.decoder_vjp import _operands
+from dahitra_tpu_torch.nn.decoder_vjp import _operands, decoder_stack
 
 DIM = 32
 TOKENS = 4
@@ -84,3 +91,44 @@ def test_zero_heads_padding_keeps_the_forward(dtype, heads):
     torch.testing.assert_close(attn[..., :hl].float(), attn_ref.float(),
                                rtol=0, atol=0)
     assert (attn[..., hl:].float() == 1.0 / TOKENS).all()
+
+
+# (heads, tokens per head) that the wrapper pads or that need the PAD
+# instances: 3 tokens (to 4), 5 (to 8), 16, and odd hl: 3 heads of 1 token
+# (to 2) and of 3 tokens (hl 9, to 12).
+PADDED = {"l3": (4, 3), "l5": (2, 5), "l16": (2, 16), "hl3_l1": (3, 1),
+          "hl9_l3": (3, 3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(PADDED))
+def test_padded_token_counts_match_jax(dtype, case):
+    """Depth 2, N 37: the port's decoder_stack (the wrapper's pad-and-mask
+    path through the plain version) against the JAX decoder_stack; the
+    attention save comes back unpadded, and equal to the plain version's
+    on the unpadded operands."""
+    heads, l = PADDED[case]
+    depth, b, n = 2, 2, 37
+    packed = _packed(depth, heads, seed=40 + heads * l, dim_head=16)
+    rng = np.random.RandomState(heads * l)
+    x = rng.normal(size=(b, n, DIM)).astype(np.float32)
+    m = rng.normal(size=(b, l, DIM)).astype(np.float32)
+    jdt = JAX_DTYPES[dtype]
+    ref = np.asarray(jax_decoder_stack(
+        jnp.asarray(x, jdt), jnp.asarray(m, jdt),
+        {k: jnp.asarray(v) for k, v in packed.items()}, depth, heads, jdt),
+        np.float32)
+    tp = {k: torch.from_numpy(v) for k, v in packed.items()}
+    got = decoder_stack(torch.from_numpy(x), torch.from_numpy(m), tp, depth,
+                        heads, dtype).float().numpy()
+    scale = max(np.abs(ref).max(), 1e-3)
+    np.testing.assert_allclose(got / scale, ref / scale, rtol=0,
+                               atol=TOL[dtype])
+    ops = _operands(torch.from_numpy(x), torch.from_numpy(m), tp, depth,
+                    heads, dtype)
+    _, _, attn = fd.decoder_stack_fwd(*ops, depth, heads, dtype, save=True)
+    _, _, attn_ref = fd.decoder_stack_fwd_plain(*ops, depth, heads, dtype,
+                                                save=True)
+    assert attn.shape == attn_ref.shape == (depth, b, n, heads * l)
+    torch.testing.assert_close(attn.float(), attn_ref.float(),
+                               rtol=0, atol=TOL[dtype])

@@ -14,12 +14,21 @@ held on the CPU.
   hi.lo, mid.mid, mid.hi, hi.mid, hi.hi, each 16-long k-step of
   ``mma.sync`` emulated as an exact sum rounded once to fp32 and added to
   an fp32 accumulator, stays within 1e-6 of the float64 product.
+* Token counts the tiles do not hold (3, 5, an odd hl) and 16: the
+  gradients of the port's ``decoder_stack`` (K1-save and K2 through the
+  wrappers' padding, run by the plain versions on the CPU) against jax.vjp
+  of the JAX ``decoder_stack`` (tests/test_decoder_vjp.py:27-30: fp32 1e-4,
+  bf16 6e-2, scale-normalized).
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dahitra_tpu.nn.decoder_vjp import decoder_stack as jax_decoder_stack
 from dahitra_tpu_torch.kernels import folded_decoder as fd
+from dahitra_tpu_torch.nn.decoder_vjp import decoder_stack
 
 DIM = 32
 TOKENS = 4
@@ -171,3 +180,50 @@ def test_six_piece_products_match_float64(k, scale):
     # One bf16 piece per operand (TF32-like) misses the fp32 tolerance.
     one = (a.to(torch.bfloat16).double() @ b.to(torch.bfloat16).double())
     assert ((one - ref).abs().max() / ref.abs().max()).item() > 1e-4
+
+
+# (heads, tokens per head): 3 (padded to 4), 5 (to 8), 16 (the PAD
+# instance's 16-column group sum), odd hl 3 (1 token, to 2) and 9 (3
+# tokens, to 4).
+PADDED = {"l3": (4, 3), "l5": (2, 5), "l16": (2, 16), "hl3_l1": (3, 1),
+          "hl9_l3": (3, 3)}
+GTOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(PADDED))
+def test_padded_token_counts_grads_match_jax(dtype, case):
+    """Depth 2, N 33: dx, dm and all 13 packed gradients."""
+    heads, l = PADDED[case]
+    depth, b, n, dim_head = 2, 2, 33, 16
+    rng = np.random.RandomState(50 + heads * l)
+    inner = heads * dim_head
+    shapes = {"wq": (DIM, inner), "wk": (DIM, inner), "wv": (DIM, inner),
+              "wo": (inner, DIM), "w1": (DIM, DIM), "w2": (DIM, DIM)}
+    p = {k: rng.normal(0, s[0] ** -0.5, (depth, *s)) for k, s in shapes.items()}
+    for k in ("ln1_scale", "ln2_scale"):
+        p[k] = 1.0 + 0.2 * rng.normal(size=(depth, DIM))
+    for k in ("ln1_bias", "ln2_bias", "bo", "b1", "b2"):
+        p[k] = 0.2 * rng.normal(size=(depth, DIM))
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x, m, dy = (rng.normal(size=s).astype(np.float32)
+                for s in ((b, n, DIM), (b, l, DIM), (b, n, DIM)))
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    _, vjp = jax.vjp(
+        lambda x_, m_, p_: jax_decoder_stack(x_, m_, p_, depth, heads, jdt),
+        jnp.asarray(x, jdt), jnp.asarray(m, jdt),
+        {k: jnp.asarray(v) for k, v in p.items()})
+    rdx, rdm, rdp = vjp(jnp.asarray(dy, jdt))
+    xt = torch.from_numpy(x).to(dtype).requires_grad_()
+    mt = torch.from_numpy(m).to(dtype).requires_grad_()
+    pt = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    y = decoder_stack(xt, mt, pt, depth, heads, dtype)
+    got = torch.autograd.grad(y, [xt, mt, *pt.values()],
+                              torch.from_numpy(dy).to(dtype))
+    refs = [rdx, rdm, *(rdp[k] for k in pt)]
+    for name, g, r in zip(("dx", "dm", *pt), got, refs):
+        r = np.asarray(r, np.float32)
+        assert g.shape == r.shape, name
+        scale = max(np.abs(r).max(), 1e-3)
+        np.testing.assert_allclose(g.float().numpy() / scale, r / scale,
+                                   rtol=0, atol=GTOL[dtype], err_msg=name)

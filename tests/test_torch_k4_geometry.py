@@ -9,8 +9,11 @@ mode as tests/test_torch_fused_decoder.py runs it).
   zero rows of Z. So ``fused_decoder_plain`` with zero heads appended (zero
   columns of wq, wk, wv and zero rows of wo) gives the unpadded JAX kernel's
   output, odd hl included.
-* The kernels take 1, 2, 4, 8 and 16 tokens per head: the plain version
-  against JAX at each.
+* The kernels take 1, 2, 4, 8 and 16 tokens per head; other counts the
+  wrapper pads with zero memory tokens, to the next of those or above 16 to
+  a multiple of 16, with the padded logits at -inf: the wrapper
+  ``fused_transformer_decoder`` (on the CPU the plain version, padded where
+  the card pads) against JAX at each, 3, 5 and 32 included.
 * The row kernel's mlp_dim-64 instance (BIT's decoder): the plain version
   at mlp_dim 64 against JAX.
 * ``fused_decoder_az_plain`` (the prologue's function) against A and Z
@@ -128,16 +131,17 @@ def test_zero_heads_padding_keeps_the_output(case, mode):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("l", [1, 2, 8, 16])
+@pytest.mark.parametrize("l", [1, 2, 8, 16, 3, 5, 32])
 def test_token_counts_match_jax(l, mode):
-    """Tokens per head beside DAHiTra's 4: depth 2, 4 heads, N 128."""
+    """Tokens per head beside DAHiTra's 4: depth 2, 4 heads, N 128; 3 and 5
+    padded to 4 and 8, 32 a group of two 16-column slices."""
     precise = MODES[mode]
     depth, heads = 2, 4
     packed = _packed(depth, heads, 32, seed=20 + l)
     x, m = _inputs(2, 128, l, seed=30 + l)
     ref = _jax_k4(x, m, packed, depth, heads, precise)
-    got = kd.fused_decoder_plain(torch.from_numpy(x), torch.from_numpy(m),
-                                 _torch(packed), depth, heads, precise)
+    got = kd.fused_transformer_decoder(torch.from_numpy(x), torch.from_numpy(m),
+                                       _torch(packed), depth, heads, precise)
     _close(got, ref, TOL[precise])
 
 
