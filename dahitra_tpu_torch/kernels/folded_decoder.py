@@ -34,8 +34,9 @@ l tokens widened to the next count they take (``_group``), A's columns and
 Z's rows with zeros, the attention save with zeros for K2. K1 gets the real
 count and zeroes the padded columns' exp terms (its softmax clamps, so a
 zero logit would add exp(0) = 1); K2 needs no mask, since its dl is attn
-times a factor and the padded attention is 0. The padded columns of the
-attention save, dA and dZ are sliced off again. The plain versions run the
+times a factor and the padded attention is 0. The padded columns of dA
+and dZ are sliced off again, and of the attention save where the caller
+reads it (``DecoderStack`` hands it to K2 padded). The plain versions run the
 same padding on the CPU. On a CUDA tensor a padded hl above 128 (9 heads or
 more) raises.
 
@@ -309,7 +310,7 @@ def _mlp_dim(what, w1, b1, depth) -> int:
 
 
 def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
-                      save: bool = False, b1=None):
+                      save: bool = False, b1=None, narrow_save: bool = True):
     """Decoder-stack forward over ``depth`` layers.
 
     x: (B, N, 32); a: (D, B, 32, hl); z: (D, B, hl, 32); w1: (D, 32, mlp)
@@ -319,7 +320,8 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
     ``save`` (y, xsave (D, B, N, 32), attnsave (D, B, N, hl)). CPU tensors
     take the plain version (any mlp_dim); CUDA tensors launch the kernel
     (mlp_dim 32 or 64) or raise. Token counts the kernel does not take run
-    padded (module docstring), on both.
+    padded (module docstring), on both; ``narrow_save`` False leaves a
+    padded attnsave at the padded hl, as ``decoder_stack_bwd`` takes it.
     """
     hl = a.shape[-1]
     l, lp = _padding("decoder_stack_fwd", hl, heads, x.device.type != "cpu")
@@ -327,7 +329,7 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
         return _fwd(x, a, z, w1, w2, vecs, depth, heads, dtype, save, b1, l)
     out = _fwd(x, _widen(a, heads, l, lp, -1), _widen(z, heads, l, lp, -2),
                w1, w2, vecs, depth, heads, dtype, save, b1, l)
-    if save:
+    if save and narrow_save:
         return out[0], out[1], _narrow(out[2], heads, l, lp, -1)
     return out
 

@@ -121,7 +121,8 @@ class DecoderStack(torch.autograd.Function):
     def forward(ctx, x, a, z, w1, w2, vecs, b1, depth, heads, dtype):
         w1c, w2c = w1.to(dtype).contiguous(), w2.to(dtype).contiguous()
         y, xsave, attnsave = decoder_stack_fwd(x, a, z, w1c, w2c, vecs, depth,
-                                               heads, dtype, save=True, b1=b1)
+                                               heads, dtype, save=True, b1=b1,
+                                               narrow_save=False)
         ctx.save_for_backward(xsave, attnsave, a, z, w1c, w2c, vecs, b1)
         ctx.meta = (depth, heads, dtype)
         return y

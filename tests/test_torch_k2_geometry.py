@@ -227,3 +227,36 @@ def test_padded_token_counts_grads_match_jax(dtype, case):
         scale = max(np.abs(r).max(), 1e-3)
         np.testing.assert_allclose(g.float().numpy() / scale, r / scale,
                                    rtol=0, atol=GTOL[dtype], err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["l3", "hl3_l1"])
+def test_padded_save_goes_to_k2_as_it_is(case):
+    """``narrow_save=False`` (``DecoderStack``'s forward) keeps the
+    attention save at the padded hl, and K2's wrapper takes it without
+    widening it again: the same gradients, bit for bit, as from the
+    narrowed save."""
+    heads, l = PADDED[case]
+    lp = fd._group(l, heads)
+    depth, b, n = 2, 2, 33
+    rng = np.random.RandomState(60 + heads * l)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape))
+                                .astype(np.float32))
+
+    hl = heads * l
+    x, dy = t(b, n, DIM), t(b, n, DIM)
+    a, z = t(depth, b, DIM, hl, scale=0.2), t(depth, b, hl, DIM, scale=0.2)
+    w1, w2 = (t(depth, DIM, DIM, scale=DIM ** -0.5) for _ in "12")
+    vecs = t(depth, 7, DIM, scale=0.2) + torch.tensor(
+        [1, 0, 0, 1, 0, 0, 0], dtype=torch.float32)[:, None]
+    ops = (x, a, z, w1, w2, vecs)
+    _, xs, narrow = fd.decoder_stack_fwd(*ops, depth, heads, torch.float32,
+                                         save=True)
+    _, _, wide = fd.decoder_stack_fwd(*ops, depth, heads, torch.float32,
+                                      save=True, narrow_save=False)
+    assert narrow.shape[-1] == hl and wide.shape[-1] == heads * lp
+    for g, h in zip(*(fd.decoder_stack_bwd(xs, s, dy, *ops[1:], depth, heads,
+                                           torch.float32)
+                      for s in (narrow, wide))):
+        assert torch.equal(g, h)

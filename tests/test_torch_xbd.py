@@ -11,20 +11,31 @@ the JAX ``_eval_step_impl``, the TTA views, and ``xbd_train`` /
 ``xbd_predict`` end to end with ``--device cpu``. Inputs are seeded numpy
 handed to both packages. Tolerances: masks, split, loader and counters
 exact; augmentation 1e-6; losses and their gradients 1e-5 (fp32),
-scale-normalized. Where the JAX package moves further against itself, the
-port is held to that (each test says how), as tests/test_torch_bit.py does:
+scale-normalized; the fp32 forwards 1e-5. The model tests read a changed
+scene: the post half of the input at half the contrast of the pre half.
+On two halves drawn alike both dates give nearly the same tokens, so the
+decoder's memory, their difference (about 0.04 against tokens of 6.6), is
+a cancellation: JAX's own fp32 logits then move by 3.0e-5 of their scale
+under a 1e-6 input move, and its bf16 logits lie 0.26 from its fp32 ones. On the changed scene the fp32 move is 2e-6. Two
+bounds are set by the JAX package against itself, as tests/test_torch_bit.py
+does, and each test says how:
 
-* fp32 forwards 1e-4, the bound of tests/test_torch_dahitra.py: JAX's own
-  xbd_dahitra logits move by 3.0e-5 of their scale when the input moves by
-  1e-6 (the port: 3.7e-5), so 1e-5 would fail JAX against itself;
-* bf16 forwards: JAX's bf16 logits lie 0.26 (xbd_dahitra) and 0.040
-  (xbd_bit) of the scale from its fp32 ones at 64 px on these weights, so
-  2e-2 is out of reach; the port's bf16 logits must lie within 1.25 times
-  that distance of JAX's bf16 logits (measured 0.29 and 0.045);
-* the train step's gradients: 1e-3 of the whole gradient's scale (ROADMAP
-  fault 5), or JAX's own deviation with the input moved by 1e-5 where that
-  is larger: ReLU and clamp flips make the gradient jump (xbd_dahitra: 1.3e-5
-  at a 1e-6 move, 2.9e-2 at 1e-5; the port 7.4e-3).
+* bf16 forwards: two bf16 implementations that round at different points
+  lie about as far apart as each lies from fp32, and JAX's bf16 logits lie
+  2.5e-2 (xbd_dahitra) and 2.7e-2 (xbd_bit) of the scale from its fp32 ones
+  here, above 2e-2. The port's bf16 logits must lie within 1.25 times that
+  distance of JAX's bf16 and of its fp32 logits, and at least half that
+  distance from the port's own fp32 logits, which a port that computes in
+  fp32 fails;
+* the train step's gradients, 1e-3 of the whole gradient's scale (ROADMAP
+  fault 5), or the median of JAX's own deviations under four input moves
+  of 1e-6 where that is larger. Such a move shifts JAX's train-mode logits
+  1.5 to 2.5 times as far as the port's lie from them (the test checks
+  that the two are of a size), so it is the rounding the port brings. The
+  gradient jumps where a ReLU input within that rounding of zero flips:
+  xbd_dahitra's port reads 8.6e-5, xbd_bit's 1.6e-3 (one ReLU of
+  layer1.1, whose input is -3.0e-6 in JAX and 2.6e-7 in the port), and
+  JAX's own deviations read 1.6e-4 to 2.4e-2 and 9.5e-5 to 1.1e-2.
 """
 import functools
 import os
@@ -61,7 +72,7 @@ from dahitra_tpu_torch.train.xbd_engine import damage_counts
 IMG = 64
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FWD_TOL = 1e-4
+FWD_TOL = 1e-5
 
 
 def _close(got, ref, tol):
@@ -336,9 +347,10 @@ def _perturb(tree, rng):
 @functools.lru_cache(maxsize=None)
 def _flax_case(key):
     """(x6 (2, 64, 64, 6), params, batch_stats) of the flax model ``key``,
-    seeded."""
+    seeded; the post half at half the contrast of the pre half."""
     rng = np.random.RandomState(0)
     x6 = rng.uniform(-1, 1, (2, IMG, IMG, 6)).astype(np.float32)
+    x6[..., 3:] *= 0.5
     variables = jax.jit(lambda k, x: jax_define_g(key, img_size=IMG).init(
         k, x, None))(jax.random.PRNGKey(0), jnp.asarray(x6))
     return (x6, _perturb(variables["params"], rng),
@@ -364,25 +376,37 @@ def _jax_logits(key, dname, params, stats, x6):
             False))(params, stats, x6), np.float32)
 
 
-@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
-@pytest.mark.parametrize("key", ["xbd_dahitra", "xbd_bit"])
-def test_forward_matches_flax(key, dname):
-    """The eval forward on the 6-channel input, 5 logits per pixel: fp32
-    to 1e-4; bf16 within 1.25 times JAX's own bf16-to-fp32 distance of
-    JAX's bf16 logits (module docstring)."""
-    x6, params, stats = _flax_case(key)
-    ref = _jax_logits(key, dname, params, stats, x6)
+def _scaled(got, ref):
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+def _port_logits(key, dname, params, stats, x6):
     with torch.no_grad():
         got = _port(key, params, stats, TDT[dname]).eval()(
             torch.from_numpy(x6).to(TDT[dname]))
     assert got.shape == (2, IMG, IMG, 5) and got.dtype == TDT[dname]
+    return got.float().numpy()
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("key", ["xbd_dahitra", "xbd_bit"])
+def test_forward_matches_flax(key, dname):
+    """The eval forward on the 6-channel input, 5 logits per pixel: fp32
+    to 1e-5; bf16 within 1.25 times JAX's own bf16-to-fp32 distance of
+    JAX's bf16 and fp32 logits, and at least half that distance from the
+    port's fp32 logits (module docstring)."""
+    x6, params, stats = _flax_case(key)
+    ref = _jax_logits(key, dname, params, stats, x6)
+    got = _port_logits(key, dname, params, stats, x6)
     if dname == "float32":
         _close(got, ref, FWD_TOL)
         return
     ref32 = _jax_logits(key, "float32", params, stats, x6)
-    own = np.abs(ref - ref32).max() / np.abs(ref32).max()
-    err = np.abs(got.float().numpy() - ref).max() / np.abs(ref).max()
-    assert err <= 1.25 * own, (err, own)
+    own = _scaled(ref, ref32)
+    for err in (_scaled(got, ref), _scaled(got, ref32)):
+        assert err <= 1.25 * own, (err, own)
+    rounding = _scaled(got, _port_logits(key, "float32", params, stats, x6))
+    assert rounding >= 0.5 * own, (rounding, own)
 
 
 def test_xbd_dahitra_has_no_date_decode():
@@ -406,13 +430,14 @@ def test_zoo_ctor_init_is_a_no_op(key):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_damage_train_step_grads_match_flax():
-    """``xbd_dahitra``'s train-mode forward, ``xbd_damage_loss`` and its
-    gradients (fp32, no augmentation): the loss to 1e-5, the updated BN
-    statistics to 1e-4, every parameter's gradient to 1e-3 of the whole
-    gradient's scale or, where larger, JAX's own deviation with the input
-    moved by 1e-5 (module docstring)."""
-    key = "xbd_dahitra"
+@pytest.mark.parametrize("key", ["xbd_dahitra", "xbd_bit"])
+def test_damage_train_step_grads_match_flax(key):
+    """The train-mode forward, ``xbd_damage_loss`` and its gradients (fp32,
+    no augmentation): the loss to 1e-5, the updated BN statistics to 1e-4,
+    the gradients to 1e-3 of the whole gradient's scale or, where larger,
+    the median of JAX's own deviations under four input moves of 1e-6,
+    each of which moves JAX's logits about as far as the port's lie from
+    them (module docstring)."""
     x6, params, stats = _flax_case(key)
     masks = (np.random.RandomState(9).rand(2, IMG, IMG, 5) < 0.3).astype(
         np.float32)
@@ -422,33 +447,39 @@ def test_damage_train_step_grads_match_flax():
         logits, mut = model_j.apply({"params": p, "batch_stats": stats},
                                     x, None, True, mutable=["batch_stats"])
         return jcombo.xbd_damage_loss(logits.astype(jnp.float32),
-                                      jnp.asarray(masks)), mut["batch_stats"]
+                                      jnp.asarray(masks)), (
+                                          mut["batch_stats"], logits)
 
     step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    (ref_loss, ref_stats), ref_grads = step(params, jnp.asarray(x6))
-    moved = x6 + 1e-5 * np.random.RandomState(10).normal(
-        size=x6.shape).astype(np.float32)
-    moved_grads = step(params, jnp.asarray(moved))[1]
+    (ref_loss, (ref_stats, ref_logits)), ref_grads = step(params,
+                                                          jnp.asarray(x6))
     model = _port(key, params, stats)
-    loss = combo.xbd_damage_loss(model(torch.from_numpy(x6), train=True)
-                                 .float(), torch.from_numpy(masks))
+    logits = model(torch.from_numpy(x6), train=True)
+    loss = combo.xbd_damage_loss(logits.float(), torch.from_numpy(masks))
     loss.backward()
     assert loss.item() == pytest.approx(float(ref_loss), rel=1e-5)
-    want, jax_moved = (
-        flax_to_state_dict(jax.tree.map(np.asarray, g), stats, xbd=True)
-        for g in (ref_grads, moved_grads))
     named = dict(model.named_parameters())
+    want = _state_dict(key, jax.tree.map(np.asarray, ref_grads), stats)
     scale = max(np.abs(want[k].numpy()).max() for k in named)
 
-    def worst(got):
-        return max(np.abs(got[k] - want[k].numpy()).max() for k in named) \
-            / scale
+    def dist(grads):
+        return max(np.abs(grads[k] - want[k].numpy()).max()
+                   for k in named) / scale
 
-    port = worst({k: p.grad.numpy() for k, p in named.items()})
-    own = worst({k: v.numpy() for k, v in jax_moved.items()})
-    assert port <= max(1e-3, own), (port, own)
-    new = flax_to_state_dict(params, jax.tree.map(np.asarray, ref_stats),
-                             xbd=True)
+    ref_logits = np.asarray(ref_logits)
+    port_move = _scaled(logits.detach().numpy(), ref_logits)
+    own = []
+    for i in range(4):
+        moved = x6 + 1e-6 * np.random.RandomState(100 + i).normal(
+            size=x6.shape).astype(np.float32)
+        (_, (_, m_logits)), m_grads = step(params, jnp.asarray(moved))
+        ratio = _scaled(np.asarray(m_logits), ref_logits) / port_move
+        assert 0.5 <= ratio <= 4.0, ratio
+        own.append(dist({k: v.numpy() for k, v in _state_dict(
+            key, jax.tree.map(np.asarray, m_grads), stats).items()}))
+    port = dist({k: p.grad.numpy() for k, p in named.items()})
+    assert port <= max(1e-3, float(np.median(own))), (port, own)
+    new = _state_dict(key, params, jax.tree.map(np.asarray, ref_stats))
     for k, v in model.named_buffers():
         _close(v, new[k].numpy(), 1e-4)
 
