@@ -8,8 +8,9 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
 at 256 px, through the user's entry points ``dahitra_tpu_torch.cli.eval_cd``
 and ``dahitra_tpu_torch.cli.main_cd``, and xBD damage training and
 prediction at 1024 px (``xbd_dahitra``, ``xbd_bit``) through
-``dahitra_tpu_torch.cli.xbd_train`` and ``xbd_predict``. Phases, each fatal
-on failure:
+``dahitra_tpu_torch.cli.xbd_train`` and ``xbd_predict``, and the rest of
+the xBD stack (``xbd_train --task loc | adapt | gan``, ``--elastic``,
+``visualize_results``). Phases, each fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``dahitra_tpu_torch/csrc`` (one nvcc per
@@ -18,8 +19,11 @@ on failure:
      registers, spills and ``HMMA.16816.F32.BF16`` instructions
      (``cuobjdump -sass``) of the row kernels' instances (K1 and K1-save,
      K2; fp32 and bf16; K4's four; each at mlp_dim 32 and 64, the suffix
-     ``_mlp64`` naming BIT's) and the CTAs per SM of each at every main-path
-     hl (16 and 32 for DAHiTra's, 32 and 64 for BIT's; CUDA's occupancy
+     ``_mlp64`` naming BIT's; the PAD instances ``_pad``; K2's fp32 WIDE
+     instances, 2-warp CTAs for a padded hl whose 64-row tiles do not fit,
+     ``_wide``) and the CTAs per SM of each at every main-path hl (16 and
+     32 for DAHiTra's, 32 and 64 for BIT's; the PAD instances also at the
+     padded hl of ``WIDE_SHAPES``, the WIDE ones at 224; CUDA's occupancy
      calculator, which sizes K2's grid);
   3. hold each kernel against its plain PyTorch version on the card at every
      shape the main paths give it, in fp32 and bf16, and time the kernel,
@@ -50,7 +54,10 @@ on failure:
      the wrappers pad them: 3 tokens at 8 heads, 16 at 8 heads, 1 at 7
      heads, and for K4 32 at 4 heads, on the 1/4-scale dates shape of 256
      px), against their plain versions on the unpadded operands, rerun for
-     the same bits and timed as above; then K1, K1-save, K2 and K3 at the
+     the same bits and timed as above; then K1, K1-save and K2 at padded hl
+     above 128 (``WIDE_SHAPES``: 9 heads of 9 tokens, hl 144; 14 of 9, 224;
+     33 of 3, 132; 127 of 1, 128 with one zero head; 25 of 5, 200), the
+     same way; then K1, K1-save, K2 and K3 at the
      xBD path's shapes (``XBD_K1_SHAPES``, ``XBD_BIT_SHAPES`` and the xBD
      rows of ``K3_SHAPES``: the decoder at 1024 px, batch 1 for training and
      validation and 4 for the prediction's views; ``xbd_bit``'s mlp_dim-64
@@ -122,10 +129,28 @@ on failure:
      memory, and ``xbd_predict`` of ``xbd_bit`` (2 K1, 2 K3 per tile);
      then the card's fp32 damage-task gradients and BN statistics against
      the CPU plain path at 256 px, batch 1 (1e-3 of the gradient's scale,
-     1e-4).
+     1e-4);
+ 16. the rest of the xBD stack (``run_xbd_tasks_phase``) on phase 15's
+     tiles at 1024 px, batch 1, fp32 then bf16: one epoch of ``xbd_train
+     --task loc`` (``xbd_res34_loc``: no decoder or tokenizer launch),
+     ``--task adapt`` (``xbd_adapt_res34``, none; ``--net_G
+     xbd_adapt_dahitra``: 3 K1-save, 3 K2, 3 K3 a step, 3 K1, 3 K3 a
+     validation forward), ``--task gan`` (``xbd_dahitra`` against the mask
+     discriminator, 11 steps: a discriminator update at steps 0 and 8 adds
+     the generator's forward, 3 K1 and 3 K3, to the step's 3 K1-save, 3 K2,
+     3 K3; ``best_ckpt_D.pt``) and ``--task damage --elastic``;
+     ``visualize_results`` with the loc checkpoint and phase 15's damage
+     one over 2 tiles (3 K1, 3 K3 a tile; grids of (1024, 4096, 3)); 5 warm
+     steps of each task (the GAN's also with a discriminator update) with
+     their median time and peak memory, and one ``--effective_gan`` step
+     whose adversarial gradient is nonzero; then the card's fp32 gradients
+     and BN statistics of the ``loc`` step and of a GAN step that updates
+     the discriminator (both networks) against the CPU plain path at 256 px,
+     batch 1 (1e-3 of the gradient's scale, or twice the CPU path's own
+     largest move under four 1e-6 input moves where larger; 1e-4).
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10, 12, 13, 14, 15) and read just after; the counters of the padded
+7, 9, 10, 12, 13, 14, 15, 16) and read just after; the counters of the padded
 token counts (``NO_PAD``) must read 0 in every one of them. ``--profile`` adds a torch.profiler
 breakdown of the batch-8 forward and of one batch-8 training step by kernel
 class, with the device's idle share, on the default path and with
@@ -216,6 +241,14 @@ BIT_KEY = "base_transformer_pos_s4_dd8"
 PAD_SHAPES = [(f"pad/l{tokens}h{heads}", 2 * BATCH, 4096, 8, heads, tokens, 64)
               for heads, tokens in ((8, 3), (8, 16), (7, 1))]
 PAD_SHAPES_K4 = PAD_SHAPES + [("pad/l32h4", 2 * BATCH, 4096, 8, 4, 32, 64)]
+# Token counts whose padded hl passes 128 (fault 3.2, closed), on the same
+# shape, for K1, K1-save and K2: 9 heads of 9 tokens (padded to 16: hl 144),
+# 14 of 9 (hl 224, the most the JAX gate sends), 33 of 3 (to 4: hl 132), 127
+# of 1 (odd hl: one zero head more, hl 128) and 25 of 5 (to 8: hl 200, K2's
+# WIDE instance without PAD in fp32). No model sends them.
+WIDE_SHAPES = [(f"wide/l{tokens}h{heads}", 2 * BATCH, 4096, 8, heads, tokens,
+                64) for heads, tokens in ((9, 9), (14, 9), (33, 3), (127, 1),
+                                          (25, 5))]
 # Calls of a shape per forward or step, where more than one.
 CALLS = {"bit/dd8": 2, "xbd_bit/s4": 2, "xbd_bit_tta/s4": 2}
 
@@ -375,7 +408,9 @@ K2_DESIGN = {
 # and CTAs per SM phase 2 reports, per source: (instance, its mangled
 # template arguments, dtype, flags of the source's occupancy entry, mlp_dim,
 # pad). The mlp_dim-64 instances (BIT's decoder) carry the suffix "_mlp64",
-# the PAD instances (token counts the tiles do not hold as they are) "_pad".
+# the PAD instances (token counts the tiles do not hold as they are) "_pad",
+# K2's WIDE instances (fp32 at a padded hl whose 64-row tiles pass the shared
+# memory a block may have: 2-warp CTAs) "_wide".
 _MANGLED = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
 _MLPS = ((DIM, ""), (BIT_MLP, f"_mlp{BIT_MLP}"))
 _PADS = ((0, ""), (1, "_pad"))
@@ -385,11 +420,12 @@ ROW_KERNELS = {
                      dname, (save, mlp, pad), mlp, pad)
                     for pad, psfx in _PADS for mlp, sfx in _MLPS
                     for dname in ("float32", "bfloat16") for save in (0, 1)],
-    "decoder_bwd": [(dname + sfx + psfx,
-                     f"rows_mmaI{_MANGLED[dname]}Li{mlp}ELb{pad}EE", dname,
-                     (mlp, pad), mlp, pad)
-                    for pad, psfx in _PADS for mlp, sfx in _MLPS
-                    for dname in ("float32", "bfloat16")],
+    "decoder_bwd": [(dname + sfx + psfx + "_wide" * wide,
+                     f"rows_mmaI{_MANGLED[dname]}Li{mlp}ELb{pad}ELb{wide}EE",
+                     dname, (mlp, pad), mlp, pad)
+                    for wide in (0, 1) for pad, psfx in _PADS
+                    for mlp, sfx in _MLPS
+                    for dname in ("float32", "bfloat16")[:2 - wide]],
     # K4: (x's dtype, precise), named as its C entries.
     "fused_decoder": [(f"{io}_{ops}{sfx}{psfx}",
                        f"fused_decoder_rows_mmaI{_MANGLED[dname]}Lb{int(pr)}"
@@ -431,11 +467,26 @@ def _ctas_per_sm(torch, source, dname, flags, hl) -> int:
 
 # hl of the main paths' decoder calls: DAHiTra's (16, 32) for the mlp_dim-32
 # instances, BIT's (32, 64) for the mlp_dim-64 ones; for the PAD instances
-# the padded hl of phase 3's new token counts (16, 32, 128).
+# the padded hl of phase 3's new token counts (16, 32, 128) and, for K1's,
+# also the WIDE_SHAPES' (132, 144, 200, 224, run by the same instances); for
+# K2's, whose entry takes its WIDE instances there in fp32, the most the gate
+# sends (224) for the WIDE instances and 144 for the bf16 PAD one.
 MAIN_HLS = {DIM: sorted({_shape(s)[4] * _shape(s)[5]
                          for s in K1_SHAPES + [K1_SHAPE_512]}),
             BIT_MLP: sorted({_shape(s)[4] * _shape(s)[5] for s in BIT_SHAPES})}
 PAD_HLS = (16, 32, 128)
+WIDE_HLS = (132, 144, 200, 224)
+
+
+def _resource_hls(source, inst, mlp, pad):
+    """The hl at which phase 2 reports an instance's CTAs per SM."""
+    if inst.endswith("_wide"):
+        return (224,)
+    if not pad:
+        return MAIN_HLS[mlp]
+    if source == "decoder_fwd":
+        return PAD_HLS + WIDE_HLS
+    return PAD_HLS + ((144,) if inst.startswith("bfloat16") else ())
 
 
 def row_kernel_resources(torch, tmp, source, proc) -> dict:
@@ -487,7 +538,7 @@ def row_kernel_resources(torch, tmp, source, proc) -> dict:
                  f"{inst} row kernel:\n{log}")
         out[inst]["ctas_per_sm"] = {
             hl: _ctas_per_sm(torch, source, dname, flags, hl)
-            for hl in (PAD_HLS if pad else MAIN_HLS[mlp])}
+            for hl in _resource_hls(source, inst, mlp, pad)}
     return out
 
 
@@ -1389,7 +1440,7 @@ def run_bit_phase(torch, tmp, train_root, dtypes) -> dict:
 # xbd_bit one of each per date (its mlp_dim-64 instances).
 XBD_IMG = 1024
 XBD_TILES, XBD_PREDICT_TILES = 8, 2
-XBD_CALLS = {"xbd_dahitra": 3, "xbd_bit": 2}
+XBD_CALLS = {"xbd_dahitra": 3, "xbd_bit": 2, "xbd_adapt_dahitra": 3}
 XBD_GRAD_IMG = 256
 # Warm timings: train steps, and prediction forwards of one tile's 4 views,
 # after one warm-up each (the median and the range are printed).
@@ -1640,6 +1691,330 @@ def run_xbd_phase(torch, tmp, dtypes) -> dict:
     return by_phase
 
 
+# xBD tasks (phase 16) at 1024 px, batch 1, on phase 15's tiles: (task,
+# --net_G or None for the task's default, extra flags). The ResNet34 UNets
+# (loc, adapt's default) launch no decoder or tokenizer kernel; the DAHiTra
+# networks (adapt with xbd_adapt_dahitra, gan's generator, damage) launch
+# XBD_CALLS of each per forward.
+XBD_TASKS = (("loc", None, []), ("adapt", None, []),
+             ("adapt", "xbd_adapt_dahitra", []), ("gan", None, []),
+             ("damage", None, ["--elastic"]))
+
+
+def _task_launches(net_g, steps, forwards):
+    """Launch counts of ``steps`` train steps and ``forwards`` forwards
+    without saves (validation; a GAN discriminator update's generator
+    forward) of ``net_g``: 3 K1-save, 3 K2 and 3 K3 a DAHiTra step, 3 K1
+    and 3 K3 a forward; none for the ResNet34 UNets."""
+    dec = XBD_CALLS.get(net_g, 0)
+    return {"k1": dec * forwards, "k1_save": dec * steps, "k2": dec * steps,
+            "k3": dec * (steps + forwards), "k4": 0}
+
+
+def run_xbd_task(torch, data_root, ckpt_root, task, net_g, extra, flag,
+                 dname, n_val) -> dict:
+    """``xbd_train --task <task>`` at 1024 px, batch 1, one epoch with a
+    validation, launch counters set to 0 just before and read just after;
+    finite loss and score, ``best_ckpt.pt`` (and for gan ``best_ckpt_D.pt``,
+    with a discriminator update at batches 0 and 8 of the 11) written."""
+    from dahitra_tpu_torch.cli import xbd_train
+
+    net = net_g or xbd_train.DEFAULT_NET.get(task, "xbd_dahitra")
+    project = f"{task}_{net}{'_elastic' if extra else ''}_{dname}"
+    argv = ["--data_root", data_root, "--task", task, "--img_size",
+            str(XBD_IMG), "--batch_size", "1", "--max_epochs", "1",
+            "--eval_every", "1", "--checkpoint_root", ckpt_root,
+            "--project_name", project, "--device", "cuda", *extra, *flag,
+            *(["--net_G", net_g] if net_g else [])]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.time()
+    history = xbd_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = _read_counts()
+    h = history[0]
+    updates = h.get("disc_updates", 0)
+    want = _task_launches(net, h["pairs"], n_val + updates)
+    ckpts = ["best_ckpt.pt"] + (["best_ckpt_D.pt"] if task == "gan" else [])
+    if got != {**NO_PAD, **want}:
+        fail(f"xbd_train --task {task} {net} {dname}: launches {got} != "
+             f"{want}")
+    if not (np.isfinite(h["loss"]) and np.isfinite(h.get("val", {}).get(
+            "score", np.nan)) and all(os.path.exists(os.path.join(
+                ckpt_root, project, c)) for c in ckpts)
+            and (task != "gan" or updates == -(-h["pairs"] // 8))):
+        fail(f"xbd_train --task {task} {net} {dname}: {h} or no {ckpts}")
+    return {"xbd_task": task, "net_G": net, "flags": extra, "dtype": dname,
+            "img_size": XBD_IMG, "batch": 1, "steps": h["pairs"],
+            "disc_updates": updates, "val_pairs": n_val,
+            "pairs_per_s_epoch0": h["imps"], "loss": h["loss"],
+            "val": h["val"], "wall_s": wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": got, "checkpoint": os.path.join(ckpt_root, project)}
+
+
+def _task_trainer(torch, tmp, task, net_g, dtype, arrays, img=None,
+                  device="cuda"):
+    """An ``XBDTrainer`` of ``task`` (``GANTrainer`` for gan) over
+    ``arrays`` (train and val alike)."""
+    import types
+
+    from dahitra_tpu_torch.train.xbd_engine import GANTrainer, XBDTrainer
+
+    dname = str(dtype).split(".")[-1]
+    args = types.SimpleNamespace(
+        checkpoint_dir=os.path.join(tmp, "xbd_task_ckpt",
+                                    f"{task}_{net_g}_{dname}_{device}"),
+        max_epochs=1, bf16=dtype == torch.bfloat16, seed=0, net_G=net_g,
+        img_size=img or XBD_IMG, lr=0.0, batch_size=1, val_batch_size=1)
+    if task == "gan":
+        return GANTrainer(args, arrays, arrays, device=device)
+    return XBDTrainer(args, arrays, arrays, device=device, task=task)
+
+
+def run_xbd_task_steps(torch, tmp, task, net_g, dtype, arrays) -> dict:
+    """``XBD_TIMED`` warm train steps of ``task`` at 1024 px, batch 1 (the
+    GAN's without a discriminator update, then ``XBD_TIMED`` with one), each
+    timed alone on the host clock after a warm-up, launch counters set to 0
+    just before and read just after; for gan also one ``--effective_gan``
+    step, whose adversarial gradient (its generator gradient less that of
+    the same step without it) must be nonzero."""
+    dname = str(dtype).split(".")[-1]
+    trainer = _task_trainer(torch, tmp, task, net_g, dtype, arrays)
+    batch = [torch.from_numpy(arrays[k][:1]).cuda()
+             for k in ("img_pre", "img_post", "msk", "lbl_msk")]
+    kinds = {"step": lambda: trainer.train_step(*batch)}
+    if task == "gan":
+        kinds["step_with_disc_update"] = lambda: trainer.gan_step(
+            *batch, update_disc=True)[0]
+    out = {"xbd_task_steps": task, "net_G": net_g, "dtype": dname,
+           "img_size": XBD_IMG, "batch": 1}
+    for kind, fn in kinds.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        losses, times = [], []
+        for _ in range(XBD_TIMED):
+            t0 = time.time()
+            losses.append(fn().item())
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+        got = _read_counts()
+        want = _task_launches(net_g, XBD_TIMED, XBD_TIMED * (kind != "step"))
+        if got != {**NO_PAD, **want} or not np.isfinite(losses).all():
+            fail(f"xBD {task} {kind} {net_g} {dname}: launches {got} != "
+                 f"{want} or losses {losses}")
+        out[kind] = {"step_ms": _spread(times), "losses": losses,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated()
+                     / 2 ** 30, "launches": got}
+    if task == "gan":
+        out["effective_gan"] = check_effective_gan(torch, trainer, batch)
+    return out
+
+
+def check_effective_gan(torch, trainer, batch) -> dict:
+    """One generator step with ``--effective_gan`` and the same step
+    without, from the same weights and augmentation draws: the adversarial
+    gradient, their difference, must be finite and nonzero."""
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    grads = {}
+    for eff in (False, True):
+        trainer.model.load_state_dict(state)
+        trainer.effective_gan = eff
+        trainer.aug_generator.manual_seed(7)
+        trainer.gan_step(*batch, update_disc=False)
+        grads[eff] = torch.cat([p.grad.flatten().float()
+                                for p in trainer.model.parameters()])
+    trainer.effective_gan = False
+    adv = (grads[True] - grads[False]).abs().max().item()
+    scale = grads[False].abs().max().item()
+    if not (np.isfinite(adv) and adv > 0):
+        fail(f"--effective_gan: adversarial gradient {adv}")
+    return {"adversarial_grad_max": adv, "grad_scale": scale}
+
+
+def run_visualize(torch, test_root, out_dir, loc_ckpt, dmg_ckpt, flag,
+                  dname) -> dict:
+    """``visualize_results`` over the ``XBD_PREDICT_TILES`` test tiles with
+    a loc (xbd_res34_loc) and a damage (xbd_dahitra) checkpoint, launch
+    counters set to 0 just before and read just after: the damage model's
+    4 views a tile (3 K1, 3 K3), nothing from the loc model; one (1024,
+    4096, 3) grid a tile."""
+    from PIL import Image
+
+    from dahitra_tpu_torch.cli import visualize_results
+
+    _reset_counts()
+    t0 = time.time()
+    written = visualize_results.main([
+        "--test_root", test_root, "--loc_ckpt", loc_ckpt, "--dmg_ckpt",
+        dmg_ckpt, "--img_size", str(XBD_IMG), "--out_dir", out_dir,
+        "--device", "cuda", *flag])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = _read_counts()
+    want = _task_launches("xbd_dahitra", 0, XBD_PREDICT_TILES)
+    shapes = [np.array(Image.open(os.path.join(out_dir, w))).shape
+              for w in written]
+    if got != {**NO_PAD, **want} or len(shapes) != XBD_PREDICT_TILES \
+            or any(sh != (XBD_IMG, 4 * XBD_IMG, 3) for sh in shapes):
+        fail(f"visualize_results {dname}: launches {got} != {want} or grids "
+             f"{shapes}")
+    return {"visualize_results": dname, "grids": shapes, "wall_s": wall,
+            "launches": got}
+
+
+# Input moves of 1e-6 under which the CPU plain path's own gradients are
+# taken (ROADMAP fault 5), for phase 16's gradient check.
+GRAD_MOVES = 4
+
+
+def _grad_blocks(ref, grads, scale) -> dict:
+    """Each (tensor, output channel) of the gradients ``ref``: the largest
+    distance of ``grads`` from it, over ``scale``."""
+    out = {}
+    for k, r in ref.items():
+        d = (grads[k].cpu() - r).abs().reshape(len(r), -1).amax(1) / scale
+        out.update({(k, c): v for c, v in enumerate(d.tolist())})
+    return out
+
+
+def check_task_grads(torch, tmp, data_root) -> dict:
+    """Phase 15's gradient check for the ``loc`` step (xbd_res34_loc) and a
+    GAN step that updates the discriminator (xbd_dahitra against the
+    discriminator), at 256 px (a crop of a synthetic tile), batch 1, no
+    augmentation, fp32, on the card and on the CPU plain path, each from
+    the same seeded trainer; the updated BN statistics to 1e-4. The
+    gradients of each network to 1e-3 of its whole gradient's scale, or,
+    where larger, to twice the largest distance the CPU path's own gradient
+    moves under ``GRAD_MOVES`` input moves of 1e-6 (ROADMAP fault 5): the
+    ResNet34 UNet's ReLUs flip within fp32 rounding of zero, and the
+    discriminator reads binary masks, whose flat regions put equal values
+    into its max-pool windows and ReLUs, so tiny moves of its input move
+    its gradient by a few 1e-2 of the scale (the CPU path's own moves are
+    printed); the card and the CPU break those ties their own ways. Each
+    network's worst (tensor, output channel) is printed beside the rest."""
+    import copy
+
+    from dahitra_tpu_torch.data.xbd import load_xbd_pairs, scan_xbd_files
+    from dahitra_tpu_torch.data.xbd_augment import augment_xbd
+
+    arrays = load_xbd_pairs(scan_xbd_files([data_root])[:1], train=False,
+                            crop_size=XBD_GRAD_IMG, seed=0).arrays()
+
+    def augment(move):
+        """The eval branch, the input moved by 1e-6 N(0, 1) for move > 0."""
+        def fn(*batch):
+            img6, masks, lbl = augment_xbd(*batch, train=False)
+            if move:
+                img6 = img6 + 1e-6 * torch.randn(
+                    img6.shape, generator=torch.Generator().manual_seed(move)
+                ).to(img6.device)
+            return img6, masks, lbl
+        return fn
+
+    out = {}
+    for task, net_g in (("loc", "xbd_res34_loc"), ("gan", "xbd_dahitra")):
+        nets = {"generator": "model", "discriminator": "disc"} \
+            if task == "gan" else {"model": "model"}
+        runs = {}  # (device, move) -> {label: (grads, buffers)}
+        for dev in ("cpu", "cuda"):
+            tr = _task_trainer(torch, tmp, task, net_g, torch.float32, arrays,
+                               XBD_GRAD_IMG, dev)
+            init = {a: copy.deepcopy(getattr(tr, a).state_dict())
+                    for a in nets.values()}
+            batch = [torch.from_numpy(v).to(dev) for v in arrays.values()]
+            for move in range(GRAD_MOVES + 1 if dev == "cpu" else 1):
+                for a, sd in init.items():
+                    getattr(tr, a).load_state_dict(sd)
+                tr._augment = augment(move)
+                if task == "gan":
+                    tr.gan_step(*batch, update_disc=True)
+                else:
+                    tr.train_step(*batch)
+                runs[dev, move] = {
+                    label: ({k: p.grad.detach().cpu().clone() for k, p in
+                             getattr(tr, a).named_parameters()},
+                            {k: b.cpu().clone() for k, b in
+                             getattr(tr, a).named_buffers()})
+                    for label, a in nets.items()}
+        for label in nets:
+            ref, ref_bufs = runs["cpu", 0][label]
+            scale = max(g.abs().max().item() for g in ref.values())
+            port = _grad_blocks(ref, runs["cuda", 0][label][0], scale)
+            own = [max(_grad_blocks(ref, runs["cpu", m][label][0],
+                                    scale).values())
+                   for m in range(1, GRAD_MOVES + 1)]
+            bound = max(1e-3, 2 * max(own))
+            worst = max(port, key=port.get)
+            rest = max((v for b, v in port.items() if b != worst), default=0.0)
+            card_bufs = runs["cuda", 0][label][1]
+            bn_err = max(scaled_err(card_bufs[k], v)[1]
+                         for k, v in ref_bufs.items())
+            out[f"{task}_{label}"] = {
+                "worst_over_scale": port[worst], "worst_block": list(worst),
+                "rest_worst_over_scale": rest, "cpu_own_moves": own,
+                "bound": bound, "bn_stats_worst_scaled_err": bn_err}
+            if not (port[worst] <= bound and bn_err <= 1e-4):
+                fail(f"xBD {task} {label} gradients on the card disagree "
+                     f"with the CPU: {out}")
+    return {"xbd_task_grads_vs_cpu_plain": {
+        "img_size": XBD_GRAD_IMG, "batch": 1, "tolerance": 1e-3, **out}}
+
+
+def run_xbd_tasks_phase(torch, tmp, dtypes) -> dict:
+    """Phase 16: the rest of the xBD stack at 1024 px on phase 15's tiles,
+    fp32 then bf16: ``xbd_train`` for every run of ``XBD_TASKS``,
+    ``visualize_results`` with the loc and phase 15's damage checkpoints,
+    warm steps of each task; then the card's loc and GAN gradients against
+    the CPU. Returns the launch counts by dtype and phase."""
+    from dahitra_tpu_torch.data.xbd import (load_xbd_pairs, scan_xbd_files,
+                                            split_and_upsample)
+
+    t0 = time.time()
+    root = os.path.join(tmp, "xbd")
+    data_root, test_root = (os.path.join(root, s) for s in ("train", "test"))
+    ckpt_root = os.path.join(root, "ckpt")
+    files = scan_xbd_files([data_root])
+    n_val = len(split_and_upsample(files, seed=0)[1])
+    one = {merge: load_xbd_pairs(files[:1], train=True, merge_34=merge,
+                                 color_normalize=merge).arrays()
+           for merge in (False, True)}
+    by_phase = {"float32": {}, "bfloat16": {}}
+    for flag, dname in dtypes:
+        dtype = getattr(torch, dname)
+        ckpts = {}
+        for task, net_g, extra in XBD_TASKS:
+            out = run_xbd_task(torch, data_root, ckpt_root, task, net_g, extra,
+                               flag, dname, n_val)
+            ckpts.setdefault(task, out["checkpoint"])
+            by_phase[dname][f"xbd_{task}_{out['net_G']}_1024"] = \
+                out["launches"]
+            print(json.dumps(out), flush=True)
+        out = run_visualize(torch, test_root, os.path.join(
+            root, f"vis_{dname}"), ckpts["loc"], os.path.join(
+                ckpt_root, f"xbd_dahitra_{dname}"), flag, dname)
+        by_phase[dname]["xbd_visualize_1024"] = out["launches"]
+        print(json.dumps(out), flush=True)
+        for task, net_g in (("loc", "xbd_res34_loc"),
+                            ("adapt", "xbd_adapt_res34"),
+                            ("adapt", "xbd_adapt_dahitra"),
+                            ("gan", "xbd_dahitra")):
+            out = run_xbd_task_steps(torch, tmp, task, net_g, dtype,
+                                     one[task == "adapt"])
+            for kind in ("step", "step_with_disc_update"):
+                if kind in out:
+                    by_phase[dname][f"xbd_{task}_{net_g}_{kind}s_1024"] = \
+                        out[kind]["launches"]
+            print(json.dumps(out), flush=True)
+    print(json.dumps(check_task_grads(torch, tmp, data_root)), flush=True)
+    print(f"xBD tasks phase: {time.time() - t0:.1f} s", flush=True)
+    return by_phase
+
+
 def main() -> None:
     try:
         import torch
@@ -1706,9 +2081,14 @@ def main() -> None:
             check_k1_save_k2(torch, dtype, gen, PAD_SHAPES)
         checks[("k4_pad", dname)] = check_k4(torch, dtype, gen,
                                              PAD_SHAPES_K4)[0]
+        # padded hl above 128 (fault 3.2, closed)
+        checks[("k1_wide", dname)] = check_k1(torch, dtype, gen, WIDE_SHAPES)
+        checks[("k1_save_wide", dname)], checks[("k2_wide", dname)] = \
+            check_k1_save_k2(torch, dtype, gen, WIDE_SHAPES)
         for kid in ("k1", "k1_save", "k2", "k3", "k4", "k4_io", "k1_mlp64",
                     "k1_save_mlp64", "k2_mlp64", "k4_mlp64", "k1_pad",
-                    "k1_save_pad", "k2_pad", "k4_pad"):
+                    "k1_save_pad", "k2_pad", "k4_pad", "k1_wide",
+                    "k1_save_wide", "k2_wide"):
             for r in checks[(kid, dname)]:
                 print(json.dumps({"check": f"{kid}[{dname}]", **r}),
                       flush=True)
@@ -1821,6 +2201,12 @@ def main() -> None:
     for dname, phases in run_xbd_phase(torch, tmp, dtypes).items():
         by_phase[dname].update(phases)
 
+    # 16. the rest of the xBD stack: xbd_train --task loc, adapt (both
+    # networks), gan and damage --elastic, visualize_results, warm steps, the
+    # card's loc and GAN gradients at 256 px
+    for dname, phases in run_xbd_tasks_phase(torch, tmp, dtypes).items():
+        by_phase[dname].update(phases)
+
     if "--profile" in sys.argv[1:]:
         for net_g, project, n_dec in (("newUNetTrans", "smoke", 3),
                                       (BIT_KEY, BIT_KEY, 1)):
@@ -1855,6 +2241,15 @@ def main() -> None:
     pad_res["k4"] = {d: {i + "_pad": resources["fused_decoder"][i + "_pad"]
                          for i in K4_INSTANCES[d][:1]}
                      for d in ("float32", "bfloat16")}
+    # The WIDE_SHAPES run K1's PAD instances and K2's instances by their
+    # group (PAD at 16 tokens), in fp32 its WIDE ones where the 64-row tiles
+    # do not fit (hl 200 and 224).
+    bwd_res = resources["decoder_bwd"]
+    k2_wide_res = {"float32": {i: bwd_res[i] for i in
+                               ("float32", "float32_pad", "float32_wide",
+                                "float32_pad_wide")},
+                   "bfloat16": {i: bwd_res[i] for i in
+                                ("bfloat16", "bfloat16_pad")}}
     # (name, source, TPU kernel, checks, the 256 px phase whose count is
     # ``launches``, counter, tolerances, extra keys)
     table = (
@@ -1906,20 +2301,33 @@ def main() -> None:
         ("fused_decoder_pad", "fused_decoder.cu",
          "dahitra_tpu/pallas/fused_decoder.py:102", "k4_pad",
          "pallas_eval_256", "k4_pad", TOL,
-         {"design": K4_DESIGN, "resources": pad_res["k4"]}))
+         {"design": K4_DESIGN, "resources": pad_res["k4"]}),
+        # padded hl above 128 (WIDE_SHAPES, one call each): counted, as the
+        # padded counts are, by the pad counters, which read 0 everywhere
+        ("decoder_stack_fwd_wide", "decoder_fwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:180", "k1_wide", "eval_256",
+         "k1_pad", TOL, {"design": K1_DESIGN, "resources": pad_res["k1"]}),
+        ("decoder_stack_fwd_save_wide", "decoder_fwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:180", "k1_save_wide",
+         "train_256", "k1_save_pad", TOL,
+         {"design": K1_DESIGN, "resources": pad_res["k1_save"]}),
+        ("decoder_stack_bwd_wide", "decoder_bwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:320", "k2_wide", "train_256",
+         "k2_pad", GTOL, {"design": K2_DESIGN, "resources": k2_wide_res}))
     for dname in ("float32", "bfloat16"):
         for name, source, replaces, kid, phase, counter, tol, extra in table:
             # The BIT phases launch the decoder kernels' mlp_dim-64 instances
             # only, the others their mlp_dim-32 ones; K3 runs in both.
-            wide, pad = kid.endswith("_mlp64"), kid.endswith("_pad")
+            mlp64 = kid.endswith("_mlp64")
+            pad = kid.endswith(("_pad", "_wide"))
             phases = {ph: c[counter] for ph, c in by_phase[dname].items()
                       if kid == "k3" or pad or ph == "resnet_eval_256"
-                      or ph.startswith("bit_") == wide}
+                      or ph.startswith("bit_") == mlp64}
             kernels.append(summarize(
                 name, src + source, replaces, dname, checks[(kid, dname)],
                 by_phase[dname][phase][counter], tol, phases,
-                main_size="bit" if wide else "pad" if pad else str(IMG),
-                **{k: v[dname] for k, v in extra.items()}))
+                main_size="bit" if mlp64 else kid.rsplit("_", 1)[1] if pad
+                else str(IMG), **{k: v[dname] for k, v in extra.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,11 @@ of ``dahitra_tpu``'s ``DAHiTraUNet`` and returns the port's ``state_dict``,
 whose keys are the reference ``BASE_Transformer_UNet`` keys.
 ``bit_flax_to_state_dict`` and ``resnet_cd_flax_to_state_dict`` are the
 inverses of ``convert_bit`` and ``convert_resnet_cd``, for ``BIT`` and
-``ResNetCD`` (the reference's ``BASE_Transformer`` and ``ResNet`` keys).
+``ResNetCD`` (the reference's ``BASE_Transformer`` and ``ResNet`` keys);
+``res34_unet_flax_to_state_dict`` of ``convert_res34_unet`` and
+``convert_res34_double_modified``, for every ResNet34 UNet (the xBD zoo's
+wrapped-trunk keys); ``discriminator_flax_to_state_dict`` carries the GAN
+trainer's ``Discriminator`` (its own flax names).
 Conventions:
 
   * conv kernels HWIO -> OIHW, Dense kernels (in, out) -> Linear (out, in);
@@ -75,13 +79,17 @@ class _Writer:
         self.dense(f"{base}.fn.fn.net.0", p["fc1"])
         self.dense(f"{base}.fn.fn.net.3", p["fc2"])
 
-    def trunk(self, rp, rs):
-        """``ResNetTrunk`` -> ``resnet.*`` (torchvision names)."""
-        self.put("resnet.conv1.weight", _conv(rp["conv1"]["kernel"]))
-        self.bn("resnet.bn1", rp["bn1"], rs["bn1"])
+    def trunk(self, rp, rs, names=None):
+        """``ResNetTrunk`` -> ``resnet.*`` (torchvision names), or to the
+        names ``names`` makes of the stem's conv and BN and each layer."""
+        names = names or {"conv1": "resnet.conv1", "bn1": "resnet.bn1",
+                          **{f"layer{i}": f"resnet.layer{i}"
+                             for i in range(1, 5)}}
+        self.put(f"{names['conv1']}.weight", _conv(rp["conv1"]["kernel"]))
+        self.bn(names["bn1"], rp["bn1"], rs["bn1"])
         for layer in sorted(k for k in rp if k.startswith("layer")):
             for block in rp[layer]:
-                key = f"resnet.{layer}.{block[len('block'):]}"
+                key = f"{names[layer]}.{block[len('block'):]}"
                 p, s = rp[layer][block], rs[layer][block]
                 for i in (1, 2):
                     self.put(f"{key}.conv{i}.weight",
@@ -188,6 +196,41 @@ def bit_flax_to_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
     w.decoder("transformer_decoder", params["transformer_decoder"])
     w.two_layer_conv("classifier", params["classifier"],
                      batch_stats["classifier"])
+    return w.sd
+
+
+# The zoo's wrapped resnet34 (zoo/models.py:586-597): conv1 = (conv, bn,
+# relu), conv2 = (maxpool, layer1), conv3..conv5 = layer2..layer4.
+_ZOO_TRUNK = {"conv1": "conv1.0", "bn1": "conv1.1", "layer1": "conv2.1",
+              "layer2": "conv3", "layer3": "conv4", "layer4": "conv5"}
+
+
+def res34_unet_flax_to_state_dict(params: Mapping,
+                                  batch_stats: Mapping) -> StateDict:
+    """Any ResNet34 UNet's variables (``Res34UnetLoc``, ``_Double``,
+    ``_Single``, ``_DoubleModified``) -> the port's fp32 ``state_dict``:
+    the inverse of ``convert_res34_unet`` (and, with the ``conv1d_N``
+    fusion convs, of ``convert_res34_double_modified``)."""
+    w = _Writer()
+    core = params["core"]
+    w.trunk(core["resnet"], batch_stats["core"]["resnet"], _ZOO_TRUNK)
+    for name in sorted(k for k in core if k != "resnet"):
+        w.conv(f"{name}.layer.0", core[name]["conv"])
+    for name in sorted(k for k in params if k.startswith("conv1d_")):
+        w.conv(name, params[name])
+    w.conv("res", params["res"])
+    return w.sd
+
+
+def discriminator_flax_to_state_dict(params: Mapping,
+                                     batch_stats: Mapping) -> StateDict:
+    """``Discriminator`` variables -> the port's fp32 ``state_dict``."""
+    w = _Writer()
+    w.conv("pre_process", params["pre_process"])
+    w.trunk(params["backbone"], batch_stats["backbone"],
+            {"conv1": "backbone.conv1", "bn1": "backbone.bn1",
+             **{f"layer{i}": f"backbone.layer{i}" for i in range(1, 5)}})
+    w.dense("fc", params["fc"])
     return w.sd
 
 

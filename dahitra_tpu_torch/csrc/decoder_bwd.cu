@@ -65,7 +65,18 @@
 // (kernels/folded_decoder.py) to the next one they do, with zero columns of A,
 // zero rows of Z and zero attention: dl = attn * (...) is then 0 at the
 // padded columns, so they change no gradient and their dA and dZ are 0. No
-// mask is needed.
+// mask is needed. Padded, the JAX gate's counts (heads * tokens <= 128, up to
+// 16 tokens per head) reach hl 224 (14 heads of 9 tokens, each group padded
+// to 16).
+//
+// Shared memory grows with hl: the weight planes (three in fp32) and the two
+// hl-wide factor tiles (attn, dl). In fp32 the 64-row tiles pass the 227 KB
+// a block may have above hl 160 (mlp_dim 32) or 128 (64): 309 KB at hl 256.
+// There the WIDE instances run, CTAs of 2 warps whose factor tiles hold 32
+// rows (at most 225 KB at hl 224), one CTA per SM. The factor tiles kept as
+// bf16 pieces would not help: three pieces take 6 bytes where the fp32 value
+// takes 4. bf16 fits at 64 rows up to hl 256 (159 KB), and every instance
+// below those hl keeps its code (WIDE is a last template flag).
 //
 // The hidden width MLP is a template parameter: 32 (DAHiTra) or 64 (BIT's
 // decoder), whose b1 (D, 64) comes as an fp32 argument of its own and whose
@@ -86,9 +97,15 @@ namespace {
 using namespace decoder;
 
 constexpr int NV = 7 * DIM;    // the seven vectors
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int TILE = WARPS * 16;  // rows per CTA tile
+// Shared memory one block may opt in to on sm_90 (227 KB).
+constexpr size_t SMEM_OPTIN = 232448;
+
+// Warps of a CTA, 16 rows each: 4 (a 64-row tile), or 2 (a 32-row tile) in
+// the WIDE instances, whose factor tiles are half as tall.
+template <bool WIDE>
+__host__ __device__ constexpr int warps() {
+  return WIDE ? 2 : 4;
+}
 
 // Vector rows of the per-warp sums: the seven, and db1's second half as row
 // 7 where MLP != DIM.
@@ -111,12 +128,20 @@ __host__ __device__ __forceinline__ int tile_ld(int w) {
   return std::is_same<T, float>::value ? w + 4 : w + 8;
 }
 
-template <typename T, int MLP>
+template <typename T, int MLP, bool WIDE>
 __host__ __device__ __forceinline__ size_t smem_bytes(int hl) {
   return 2 * pieces<T>() * plane_size(hl, MLP)  // weight planes
-         + sizeof(T) * TILE * (4 * tile_ld<T>(DIM) + 2 * tile_ld<T>(MLP)
-                               + 2 * tile_ld<T>(pad16(hl)))  // factors
-         + 4 * (NV + b1_floats<MLP>() + WARPS * n_vrows<MLP>() * DIM);  // vectors, sums
+         + sizeof(T) * 16 * warps<WIDE>() * (4 * tile_ld<T>(DIM) + 2 * tile_ld<T>(MLP)
+                                             + 2 * tile_ld<T>(pad16(hl)))  // factors
+         + 4 * (NV + b1_floats<MLP>() + warps<WIDE>() * n_vrows<MLP>() * DIM);  // vectors, sums
+}
+
+// Whether this hl needs the WIDE instance: the 64-row tiles' shared memory
+// is past what a block may have (fp32 above hl 160 at mlp_dim 32, above
+// 128 at 64; bf16 fits up to hl 256).
+template <typename T, int MLP>
+bool needs_wide(int hl) {
+  return smem_bytes<T, MLP, false>(hl) > SMEM_OPTIN;
 }
 
 // LayerNorm backward, x side (decoder_vjp._ln_bwd): rs (dg s - mean(dg s)
@@ -231,9 +256,10 @@ __device__ __forceinline__ void mma_block(float* out, int ldo, int m_lim, int n_
 // a: (D, B, 32, hl), z: (D, B, hl, 32), w1: (D, 32, MLP), w2: (D, MLP, 32)
 // (in, out), T; vecs: (D, 7, 32) fp32 and, where MLP != 32, b1: (D, MLP)
 // fp32; part: (B * cps, D, part_size<MLP>(hl)) fp32 scratch. l, the tokens
-// per head, is 1, 2, 4 or 8 (PAD: or 16) and hl is even.
-template <typename T, int MLP, bool PAD>
-__global__ void __launch_bounds__(THREADS)
+// per head, is 1, 2, 4 or 8 (PAD: or 16) and hl is even. WIDE: CTAs of
+// 2 warps (warps<WIDE>()).
+template <typename T, int MLP, bool PAD, bool WIDE = false>
+__global__ void __launch_bounds__(WIDE ? 64 : 128)
 decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ attnsave,
                            const T* __restrict__ dy_in, const T* __restrict__ a,
                            const T* __restrict__ z, const T* __restrict__ w1,
@@ -244,6 +270,9 @@ decoder_stack_bwd_rows_mma(const T* __restrict__ xsave, const T* __restrict__ at
   constexpr int P = pieces<T>();
   constexpr int NWM = DIM * MLP;  // one weight
   constexpr int VR = n_vrows<MLP>();
+  constexpr int WARPS = warps<WIDE>();
+  constexpr int THREADS = WARPS * 32;
+  constexpr int TILE = WARPS * 16;  // rows per CTA tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hlp = pad16(hl);
   const int ald = hlp + 8;
@@ -592,30 +621,31 @@ __global__ void decoder_stack_bwd_reduce(const float* __restrict__ part,
   }
 }
 
-template <typename T, int MLP, bool PAD>
+template <typename T, int MLP, bool PAD, bool WIDE>
 cudaError_t set_smem(int hl) {
-  return cudaFuncSetAttribute(decoder_stack_bwd_rows_mma<T, MLP, PAD>,
+  return cudaFuncSetAttribute(decoder_stack_bwd_rows_mma<T, MLP, PAD, WIDE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_bytes<T, MLP>(hl)));
+                              static_cast<int>(smem_bytes<T, MLP, WIDE>(hl)));
 }
 
-template <typename T, int MLP, bool PAD>
+template <typename T, int MLP, bool PAD, bool WIDE>
 int launch(const void* xsave, const void* attnsave, const void* dy,
            const void* a, const void* z, const void* w1, const void* w2,
            const void* vecs, const void* b1, void* dx, void* da, void* dz, void* dw1,
            void* dw2, void* dvecs, void* db1, void* part, int B, int N, int depth,
            int hl, int l, int rows_per_cta, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = set_smem<T, MLP, PAD>(hl);
+  cudaError_t err = set_smem<T, MLP, PAD, WIDE>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int cps = (N + rows_per_cta - 1) / rows_per_cta;
-  decoder_stack_bwd_rows_mma<T, MLP, PAD><<<dim3(cps, B), THREADS, smem_bytes<T, MLP>(hl), s>>>(
-      static_cast<const T*>(xsave), static_cast<const T*>(attnsave),
-      static_cast<const T*>(dy), static_cast<const T*>(a), static_cast<const T*>(z),
-      static_cast<const T*>(w1), static_cast<const T*>(w2),
-      static_cast<const float*>(vecs), static_cast<T*>(dx),
-      static_cast<float*>(part), B, N, depth, hl, l, rows_per_cta,
-      static_cast<const float*>(b1));
+  decoder_stack_bwd_rows_mma<T, MLP, PAD, WIDE>
+      <<<dim3(cps, B), 32 * warps<WIDE>(), smem_bytes<T, MLP, WIDE>(hl), s>>>(
+          static_cast<const T*>(xsave), static_cast<const T*>(attnsave),
+          static_cast<const T*>(dy), static_cast<const T*>(a), static_cast<const T*>(z),
+          static_cast<const T*>(w1), static_cast<const T*>(w2),
+          static_cast<const float*>(vecs), static_cast<T*>(dx),
+          static_cast<float*>(part), B, N, depth, hl, l, rows_per_cta,
+          static_cast<const float*>(b1));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n_all = static_cast<int64_t>(depth) * (2 * DIM * MLP + NV + b1_floats<MLP>())
@@ -632,15 +662,34 @@ int launch(const void* xsave, const void* attnsave, const void* dy,
 // CTAs of the row kernel that one SM holds at once for this hl (its
 // registers and shared memory decide), written to *out: the wrapper sizes
 // the grid to one full wave.
-template <typename T, int MLP, bool PAD>
+template <typename T, int MLP, bool PAD, bool WIDE>
 int ctas_per_sm(int hl, int* out) {
-  const cudaError_t err = set_smem<T, MLP, PAD>(hl);
+  const cudaError_t err = set_smem<T, MLP, PAD, WIDE>(hl);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, decoder_stack_bwd_rows_mma<T, MLP, PAD>, THREADS, smem_bytes<T, MLP>(hl)));
+      out, decoder_stack_bwd_rows_mma<T, MLP, PAD, WIDE>, 32 * warps<WIDE>(),
+      smem_bytes<T, MLP, WIDE>(hl)));
 }
 
-// The instance for the group: PAD where l = 16.
+// The instance for the group and hl: PAD where l = 16; WIDE (fp32 only)
+// where the 64-row tiles do not fit in shared memory.
+template <typename T, int MLP, bool PAD>
+int launch_fit(const void* xsave, const void* attnsave, const void* dy,
+               const void* a, const void* z, const void* w1, const void* w2,
+               const void* vecs, const void* b1, void* dx, void* da, void* dz, void* dw1,
+               void* dw2, void* dvecs, void* db1, void* part, int B, int N, int depth,
+               int hl, int l, int rows_per_cta, void* stream) {
+  if constexpr (pieces<T>() == 3) {
+    if (needs_wide<T, MLP>(hl))
+      return launch<T, MLP, PAD, true>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da,
+                                       dz, dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,
+                                       rows_per_cta, stream);
+  }
+  return launch<T, MLP, PAD, false>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da,
+                                    dz, dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,
+                                    rows_per_cta, stream);
+}
+
 template <typename T, int MLP>
 int launch_group(const void* xsave, const void* attnsave, const void* dy,
                  const void* a, const void* z, const void* w1, const void* w2,
@@ -648,17 +697,25 @@ int launch_group(const void* xsave, const void* attnsave, const void* dy,
                  void* dw2, void* dvecs, void* db1, void* part, int B, int N, int depth,
                  int hl, int l, int rows_per_cta, void* stream) {
   if (l > 8)
-    return launch<T, MLP, true>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,
-                                dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,
-                                rows_per_cta, stream);
-  return launch<T, MLP, false>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,
-                               dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,
-                               rows_per_cta, stream);
+    return launch_fit<T, MLP, true>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,
+                                    dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,
+                                    rows_per_cta, stream);
+  return launch_fit<T, MLP, false>(xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,
+                                   dw1, dw2, dvecs, db1, part, B, N, depth, hl, l,
+                                   rows_per_cta, stream);
+}
+
+template <typename T, int MLP, bool PAD>
+int ctas_per_sm_fit(int hl, int* out) {
+  if constexpr (pieces<T>() == 3) {
+    if (needs_wide<T, MLP>(hl)) return ctas_per_sm<T, MLP, PAD, true>(hl, out);
+  }
+  return ctas_per_sm<T, MLP, PAD, false>(hl, out);
 }
 
 template <typename T, int MLP>
 int ctas_per_sm_group(int hl, int pad, int* out) {
-  return pad ? ctas_per_sm<T, MLP, true>(hl, out) : ctas_per_sm<T, MLP, false>(hl, out);
+  return pad ? ctas_per_sm_fit<T, MLP, true>(hl, out) : ctas_per_sm_fit<T, MLP, false>(hl, out);
 }
 
 }  // namespace

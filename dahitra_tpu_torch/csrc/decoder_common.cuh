@@ -11,7 +11,6 @@
 namespace decoder {
 
 constexpr int DIM = 32;
-constexpr int MAX_HL = 128;
 constexpr float CLAMP = 80.0f;               // decoder_vjp._NOSHIFT_CLAMP
 constexpr float SCALE = 0.17677669529663687f;  // dim ** -0.5 at dim = 32
 constexpr float RSQRT2 = 0.70710678118654752f;

@@ -58,7 +58,10 @@
 // Token counts beside 1, 2, 4 and 8 run in the PAD instances. The wrapper
 // (kernels/folded_decoder.py) pads each head's group of lr tokens to the next
 // count l in {1, 2, 4, 8, 16} with zero columns of A and zero rows of Z (an
-// odd hl, lr = 1 at odd heads, to l = 2), and passes both counts. Since the
+// odd hl, one token at odd heads, gains a zero head instead), and passes both
+// counts. Padded, the JAX gate's counts reach hl 224; hl is a run-time
+// argument and only the staged planes grow with it (124.5 KB in fp32 at hl
+// 256, 3 planes of plane_size), so the same instances take it. Since the
 // softmax clamps rather than shifts, a padded logit of 0 would add exp(0) = 1
 // to its group: the PAD instance zeroes the exp terms of the columns j with
 // j % l >= lr before the group sum, which for l = 16 also adds the thread's

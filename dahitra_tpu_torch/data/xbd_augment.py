@@ -14,9 +14,12 @@ The draws (``draw_xbd``) come from the ``torch.Generator`` the caller
 passes, on the batch's device; they differ from the JAX package's keys,
 their distributions are the same. ``apply_xbd`` runs the ops on given draws,
 batched; the samplers, the crop grid and the jitter are the JAX internals'
-arithmetic, op for op. The UNet-transformer recipe's elastic jitter
-(``--elastic``, dahitra_tpu/data/xbd_cd_augment.py ``elastic_gated``) is not
-ported.
+arithmetic, op for op. With ``elastic`` (``--elastic``, the
+UNet-transformer recipe's jitter, train_unettransformer.py:247-253) each
+date of each sample then goes through ``data/xbd_cd_augment.py``
+``elastic_gated`` on draws of its own (p about 0.017; images only, after the
+colour jitter and outside the p 0.3 block), as the JAX ``_augment_one``
+does.
 """
 from __future__ import annotations
 
@@ -143,19 +146,22 @@ def augment_xbd(pre_u8: torch.Tensor, post_u8: torch.Tensor,
     """(B, H, W, 3) uint8 pre and post, (B, H, W, C) uint8 masks and
     (B, H, W) uint8 labels -> the normalized 6-channel input in ``dtype``,
     fp32 masks and int64 labels, on the inputs' device. ``train`` draws
-    from ``generator`` (on that device) and augments."""
+    from ``generator`` (on that device) and augments; ``elastic`` adds the
+    gated elastic jitter there."""
     pre = pre_u8.float() / 255.0
     post = post_u8.float() / 255.0
     msk = msk_u8.float()
     lbl = lbl_u8.long()
-    if elastic:
-        raise NotImplementedError(
-            "--elastic (xbd_cd_augment.elastic_gated) is not ported yet: "
-            "ROADMAP.md section 1, item 5 (xBD stack)")
     if train:
         if generator is None:
             raise ValueError("augment_xbd(train=True) needs a generator")
-        draws = draw_xbd(pre.shape[0], pre.shape[1], generator, pre.device)
+        n, h, w = pre.shape[:3]
+        draws = draw_xbd(n, h, generator, pre.device)
         pre, post, msk, lbl = apply_xbd(pre, post, msk, lbl, draws)
+        if elastic:
+            from dahitra_tpu_torch.data.xbd_cd_augment import (
+                draw_elastic_gated, elastic_gated)
+            pre, post = (elastic_gated(t, draw_elastic_gated(
+                n, h, w, generator, pre.device)) for t in (pre, post))
     img6 = torch.cat([pre, post], -1) * (255.0 / 127.0) - 1.0
     return img6.to(dtype), msk, lbl

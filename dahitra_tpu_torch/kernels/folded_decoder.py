@@ -29,16 +29,21 @@ weight-side sums on tensor cores too, writes per-CTA weight-gradient
 partials and sums them in a second, fixed-order pass. A softmax group lies
 in one 16-column slice of hl: the kernels take 1, 2, 4, 8 or 16 tokens per
 head (DAHiTra has 4, BIT 4 or 8) and an even hl. Every other count the JAX
-gate sends (up to 16 tokens per head) is padded here: each head's group of
-l tokens widened to the next count they take (``_group``), A's columns and
-Z's rows with zeros, the attention save with zeros for K2. K1 gets the real
+gate sends (up to 16 tokens per head, heads * tokens <= 128) is padded here
+(``_padding``): each head's group of l tokens widened to the next count they
+take, A's columns and Z's rows with zeros, the attention save with zeros for
+K2; an odd hl (one token at an odd number of heads) gains one zero head
+instead, whose softmax is its own and whose Z rows are zero (hl + 1, where
+doubling every group would run 2 * hl). K1 gets the real
 count and zeroes the padded columns' exp terms (its softmax clamps, so a
 zero logit would add exp(0) = 1); K2 needs no mask, since its dl is attn
 times a factor and the padded attention is 0. The padded columns of dA
 and dZ are sliced off again, and of the attention save where the caller
 reads it (``DecoderStack`` hands it to K2 padded). The plain versions run the
-same padding on the CPU. On a CUDA tensor a padded hl above 128 (9 heads or
-more) raises.
+same padding on the CPU. Padded, the gate's counts reach hl 224 (14 heads
+of 9 tokens); K1's instances take any hl up to 256 as they are, K2 runs its
+WIDE instances where fp32 64-row tiles would not fit (csrc/decoder_bwd.cu).
+On a CUDA tensor a padded hl above 256 raises.
 
 The kernels are built for ``dim`` = 32 and ``mlp_dim`` 32 (DAHiTra), with
 the feed-forward bias ``b1`` as row 5 of ``vecs``, or 64 (BIT's decoder,
@@ -73,10 +78,10 @@ launches_bwd_pad = 0
 _DIM = 32
 # Hidden widths (mlp_dim) with a kernel instance.
 _MLP = (32, 64)
-_MAX_HL = 128
+_MAX_HL = 256
 _CLAMP = 80.0  # dahitra_tpu/nn/decoder_vjp.py _NOSHIFT_CLAMP
-# Rows per K2 CTA tile, both instances (csrc/decoder_bwd.cu TILE: 4 warps
-# of 16 rows).
+# Rows per K2 CTA tile, both dtypes (csrc/decoder_bwd.cu: 4 warps of 16
+# rows; the WIDE instances' 2-warp tiles of 32 rows divide it).
 _BWD_TILE = 64
 # Tokens per head that K1 and K2 take: a softmax group lies inside one
 # 16-column slice of hl (16 in the kernels' PAD instances).
@@ -215,27 +220,24 @@ def _token_mask(hl, heads, tokens, device):
     return (torch.arange(hl, device=device) % (hl // heads) < tokens).float()
 
 
-def _group(l: int, heads: int) -> int:
-    """Tokens per head that the kernels run for ``l``: ``l`` itself where
-    the tiles hold it, else the next power of two; an odd hl (l = 1 at odd
-    heads) runs as l = 2."""
-    return max(1 << (l - 1).bit_length(), 2 if heads % 2 else 1)
-
-
-def _widen(t, heads: int, l: int, lp: int, axis: int):
+def _widen(t, heads: int, l: int, lp: int, axis: int, hk: int):
     """Each head's group of ``l`` entries along ``axis`` (-1: columns, -2:
-    rows) widened to ``lp`` with zeros."""
+    rows) widened to ``lp`` with zeros, then ``hk - heads`` zero heads of
+    ``lp`` appended."""
     shape = list(t.shape)
     grouped = t.reshape(*shape[:len(shape) + axis], heads, l,
                         *shape[len(shape) + axis + 1:])
-    pad = [0, 0] * (-axis - 1) + [0, lp - l]
-    shape[axis] = heads * lp
-    return F.pad(grouped, pad).reshape(shape).contiguous()
+    after = [0, 0] * (-axis - 1)
+    grouped = F.pad(grouped, after + [0, lp - l, 0, hk - heads])
+    shape[axis] = hk * lp
+    return grouped.reshape(shape).contiguous()
 
 
 def _narrow(t, heads: int, l: int, lp: int, axis: int):
-    """``_widen`` undone: the first ``l`` of each head's ``lp`` entries."""
+    """``_widen`` undone: the first ``l`` of each of the first ``heads``
+    groups of ``lp`` entries."""
     shape = list(t.shape)
+    t = t.narrow(axis, 0, heads * lp)
     grouped = t.reshape(*shape[:len(shape) + axis], heads, lp,
                         *shape[len(shape) + axis + 1:])
     shape[axis] = heads * l
@@ -243,20 +245,23 @@ def _narrow(t, heads: int, l: int, lp: int, axis: int):
 
 
 def _padding(what, hl: int, heads: int, cuda: bool):
-    """(l, lp): the tokens per head and the count the kernels run them as.
-    On a CUDA tensor a count the kernels cannot take even padded (more than
-    16 tokens per head, or a padded hl above 128) raises; the plain version
-    takes it unpadded (lp = l)."""
+    """(hk, l, lp): the heads the kernels run, the tokens per head and the
+    group width they run them as: ``l`` itself where the tiles hold it, else
+    the next power of two; an odd hl (one token at odd heads) runs one zero
+    head more. On a CUDA tensor a count the kernels cannot take even padded
+    (more than 16 tokens per head, or a padded hl above ``_MAX_HL``) raises;
+    the plain version takes it unpadded (hk, l, l)."""
     l = hl // heads
-    lp = _group(l, heads)
-    ok = hl % heads == 0 and lp in _MMA_L and heads * lp <= _MAX_HL
+    lp = 1 << (l - 1).bit_length()
+    hk = heads + (heads * lp) % 2
+    ok = hl % heads == 0 and lp in _MMA_L and hk * lp <= _MAX_HL
     if cuda and not ok:
         raise ValueError(f"{what}: the kernels take {_MMA_L} tokens per head "
                          f"(other counts padded to the next of them, an odd "
-                         f"hl to 2 tokens) and a padded hl = heads * tokens "
-                         f"<= {_MAX_HL}, got hl {hl}, heads {heads}: padded "
-                         f"hl {heads * lp}")
-    return l, lp if ok else l
+                         f"hl with one zero head more) and a padded hl = "
+                         f"heads * tokens <= {_MAX_HL}, got hl {hl}, heads "
+                         f"{heads}: padded hl {hk * lp}")
+    return (hk, l, lp) if ok else (heads, l, l)
 
 
 def _fn(lib, name, dtype, n_ptr, n_int):
@@ -324,25 +329,28 @@ def decoder_stack_fwd(x, a, z, w1, w2, vecs, depth: int, heads: int, dtype,
     padded attnsave at the padded hl, as ``decoder_stack_bwd`` takes it.
     """
     hl = a.shape[-1]
-    l, lp = _padding("decoder_stack_fwd", hl, heads, x.device.type != "cpu")
-    if lp == l:
-        return _fwd(x, a, z, w1, w2, vecs, depth, heads, dtype, save, b1, l)
-    out = _fwd(x, _widen(a, heads, l, lp, -1), _widen(z, heads, l, lp, -2),
-               w1, w2, vecs, depth, heads, dtype, save, b1, l)
+    hk, l, lp = _padding("decoder_stack_fwd", hl, heads,
+                         x.device.type != "cpu")
+    if (hk, lp) == (heads, l):
+        return _fwd(x, a, z, w1, w2, vecs, depth, heads, dtype, save, b1, l,
+                    False)
+    out = _fwd(x, _widen(a, heads, l, lp, -1, hk),
+               _widen(z, heads, l, lp, -2, hk), w1, w2, vecs, depth, hk,
+               dtype, save, b1, l, True)
     if save and narrow_save:
         return out[0], out[1], _narrow(out[2], heads, l, lp, -1)
     return out
 
 
-def _fwd(x, a, z, w1, w2, vecs, depth, heads, dtype, save, b1, tokens):
+def _fwd(x, a, z, w1, w2, vecs, depth, heads, dtype, save, b1, tokens,
+         padded):
     """``decoder_stack_fwd`` on operands whose groups hold ``tokens`` tokens
-    each, padded or not."""
+    each, padded (``padded``: by the wrapper) or not."""
     global launches, launches_save, launches_pad, launches_save_pad
-    padded = tokens != a.shape[-1] // heads
     if x.device.type == "cpu":
-        return decoder_stack_fwd_plain(x, a, z, w1, w2, vecs, depth, heads,
-                                       dtype, save, b1,
-                                       tokens if padded else None)
+        return decoder_stack_fwd_plain(
+            x, a, z, w1, w2, vecs, depth, heads, dtype, save, b1,
+            tokens if tokens != a.shape[-1] // heads else None)
     mlp = _mlp_dim("decoder_stack_fwd", w1, b1, depth)
     b, n, dim = x.shape
     hl = a.shape[-1]
@@ -430,15 +438,17 @@ def decoder_stack_bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth: int,
     both; ``attnsave`` may come padded already.
     """
     hl = a.shape[-1]
-    l, lp = _padding("decoder_stack_bwd", hl, heads, dy.device.type != "cpu")
-    if lp == l:
+    hk, l, lp = _padding("decoder_stack_bwd", hl, heads,
+                         dy.device.type != "cpu")
+    if (hk, lp) == (heads, l):
         return _bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth, heads,
                     dtype, b1, l > 8)
     if attnsave.shape[-1] == hl:
-        attnsave = _widen(attnsave, heads, l, lp, -1)
-    dx, da, dz, *rest = _bwd(xsave, attnsave, dy, _widen(a, heads, l, lp, -1),
-                             _widen(z, heads, l, lp, -2), w1, w2, vecs, depth,
-                             heads, dtype, b1, True)
+        attnsave = _widen(attnsave, heads, l, lp, -1, hk)
+    dx, da, dz, *rest = _bwd(xsave, attnsave, dy,
+                             _widen(a, heads, l, lp, -1, hk),
+                             _widen(z, heads, l, lp, -2, hk), w1, w2, vecs,
+                             depth, hk, dtype, b1, True)
     return (dx, _narrow(da, heads, l, lp, -1), _narrow(dz, heads, l, lp, -2),
             *rest)
 

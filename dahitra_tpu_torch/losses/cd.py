@@ -3,7 +3,7 @@
 Counterpart of dahitra_tpu/losses/cd.py:52-193 (the reference's
 models/losses.py and models/trainer.py:254-261). ``logits`` are (B, H, W, C),
 ``target`` (B, H, W) integer class ids (a trailing singleton channel is
-squeezed). The xBD losses wait for the xBD slice.
+squeezed).
 
   * ``cross_entropy``: softmax CE with class weights (default ones) and the
     255 ignore label; the weighted mean divides by the summed weights of the
@@ -14,7 +14,14 @@ squeezed). The xBD losses wait for the xBD slice.
   * ``dice_argmax``: smp's binary dice on ``sigmoid(argmax(logits))``; the
     argmax carries no gradient, and the loss is 0 when the target is empty.
   * ``levir_train_loss``: dice + focal when the batch has more than one
-    sample, else weighted CE (the trainer's actual choice).
+    sample, else weighted CE (the trainer's actual choice);
+  * the xBD members of the reference's losses.py (cd.py:155-190):
+    ``focal_loss_xbd`` (per-class sigmoid focal over the 5 damage channels,
+    ``focal_loss_2d_sigmoid`` clamping probabilities and targets to
+    [1e-8, 1 - 1e-8], weights ``XBD_FOCAL_WEIGHTS``), ``multi_cross_entropy``
+    (class weights 1, 5, 100, 90, 100) and ``ce_dice`` (0.5 CE + 0.5
+    ``dice_argmax``; the reference builds a weight tensor and passes the
+    unset one, so the CE is unweighted).
 
 The logits must have the target's spatial size: the JAX package resizes
 only for multi-scale heads, which this model does not have.
@@ -102,3 +109,37 @@ def levir_train_loss(logits: torch.Tensor, target: torch.Tensor,
         return (dice_argmax(logits, target, ignore_index=255)
                 + focal_loss(logits, target, ignore_index=255))
     return cross_entropy(logits, target)
+
+
+def focal_loss_2d_sigmoid(logits: torch.Tensor, target: torch.Tensor,
+                          gamma: float = 2.0) -> torch.Tensor:
+    """Single-channel sigmoid focal loss; probabilities and targets both
+    clamped to [1e-8, 1 - 1e-8]."""
+    p = torch.sigmoid(logits.float()).clamp(1e-8, 1.0 - 1e-8)
+    t = target.float().clamp(1e-8, 1.0 - 1e-8)
+    pt = (1.0 - t) * (1.0 - p) + t * p
+    return (-torch.pow(1.0 - pt, gamma) * torch.log(pt)).mean()
+
+
+XBD_FOCAL_WEIGHTS = (0.01, 0.1, 2.0, 1.5, 2.0)
+
+
+def focal_loss_xbd(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """sum_c w_c * focal(logits[..., c], target == c) over the 5 damage
+    channels of (B, H, W, 5) logits, ``target`` (B, H, W) class ids."""
+    target = _squeeze_target(target)
+    total = torch.zeros((), dtype=torch.float32, device=logits.device)
+    for c, w in enumerate(XBD_FOCAL_WEIGHTS):
+        total = total + w * focal_loss_2d_sigmoid(logits[..., c],
+                                                  (target == c).float())
+    return total
+
+
+def multi_cross_entropy(logits: torch.Tensor,
+                        target: torch.Tensor) -> torch.Tensor:
+    return cross_entropy(logits, target, weight=(1.0, 5.0, 100.0, 90.0, 100.0))
+
+
+def ce_dice(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return 0.5 * cross_entropy(logits, target) + 0.5 * dice_argmax(logits,
+                                                                   target)

@@ -15,15 +15,23 @@ xBD_code/losses.py):
     and the localization recipe ``xbd_localization_loss`` (train_loc.py:310:
     {dice: 1, focal: 10}).
 
+  * the adaptation recipe ``xbd_adapt_loss`` (train_adapt.py:320-340) and
+    the GAN recipes ``xbd_gan_generator_loss`` (train_GAN.py:364-377, with
+    the reference's detached adversarial term unless ``effective_gan``) and
+    ``xbd_gan_discriminator_loss`` (:350-361), on ``bce_with_logits``
+    (combo.py:196-286).
+
 Inputs are channel-last; a per-class call takes (B, H, W) logits and
-targets. Everything reduces in fp32. The adaptation, GAN and dual-HRNet
-losses are not ported.
+targets. Everything reduces in fp32. ``dual_hrnet_loss`` waits for the
+dual HRNet (ROADMAP.md section 1, item 6).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+
+from dahitra_tpu_torch.losses.cd import cross_entropy
 
 EPS = 1e-6
 
@@ -189,3 +197,56 @@ def xbd_localization_loss(logits: torch.Tensor,
     (B, H, W, C) logits read channel 0."""
     seg = ComboLoss({"dice": 1.0, "focal": 10.0})
     return seg(logits[..., 0] if logits.dim() == 4 else logits, mask)
+
+
+def _masks_to_class_target(masks: torch.Tensor) -> torch.Tensor:
+    """Channel 0 inverted, then the argmax over the channels (the first
+    maximum): the CE target of the adaptation and GAN recipes
+    (train_adapt.py:332-334, train_GAN.py:366-368)."""
+    masks = masks.float()
+    inv = torch.cat([1.0 - masks[..., :1], masks[..., 1:]], -1)
+    return inv.argmax(-1)
+
+
+def xbd_adapt_loss(logits: torch.Tensor, masks4: torch.Tensor) -> torch.Tensor:
+    """sum_i w_i * ComboLoss{dice: 1, focal: 8} over the 4 merged channels,
+    weights (0.1, 0.8, 2, 8), plus 5 times the CE against the class target
+    with class weights (0.1, 0.5, 1.5, 1.5)."""
+    seg = ComboLoss({"dice": 1.0, "focal": 8.0})
+    total = torch.zeros((), dtype=torch.float32, device=logits.device)
+    for i, w in enumerate((0.1, 0.8, 2.0, 8.0)):
+        total = total + w * seg(logits[..., i], masks4[..., i])
+    return total + 5.0 * cross_entropy(logits, _masks_to_class_target(masks4),
+                                       weight=(0.1, 0.5, 1.5, 1.5))
+
+
+def bce_with_logits(logits: torch.Tensor,
+                    target: torch.Tensor) -> torch.Tensor:
+    return stable_bce(logits, target)
+
+
+def xbd_gan_generator_loss(logits: torch.Tensor, masks5: torch.Tensor,
+                           disc_fake_logits: torch.Tensor,
+                           effective_gan: bool = False) -> torch.Tensor:
+    """ComboLoss{dice: 1, focal: 8} on the loc channel, 5 times the CE with
+    class weights (0.1, 0.5, 1.5, 1.5, 1.5), and 0.01 * BCE(D(pred), 1).
+    The reference computes the adversarial term on detached logits
+    (train_GAN.py:374), so no gradient reaches the generator from it: it is
+    detached here too unless ``effective_gan`` (the caller decides where
+    ``disc_fake_logits`` came from)."""
+    seg = ComboLoss({"dice": 1.0, "focal": 8.0})
+    loss = seg(logits[..., 0], masks5[..., 0])
+    loss = loss + 5.0 * cross_entropy(logits, _masks_to_class_target(masks5),
+                                      weight=(0.1, 0.5, 1.5, 1.5, 1.5))
+    adv = bce_with_logits(disc_fake_logits, torch.ones_like(disc_fake_logits))
+    if not effective_gan:
+        adv = adv.detach()
+    return loss + 0.01 * adv
+
+
+def xbd_gan_discriminator_loss(real_logits: torch.Tensor,
+                               fake_logits: torch.Tensor) -> torch.Tensor:
+    """0.1 * (BCE(D(real), 1) + BCE(D(fake), 0)) / 2."""
+    real = bce_with_logits(real_logits, torch.ones_like(real_logits))
+    fake = bce_with_logits(fake_logits, torch.zeros_like(fake_logits))
+    return 0.1 * (real + fake) / 2.0

@@ -5,9 +5,13 @@ BIT keys ``base_transformer_pos_s4*`` and ``base_resnet18``, with the JAX
 registry's arguments (registry.py:33-65), and the xBD damage models
 ``xbd_dahitra`` (DAHiTra, 5 classes, the 6-channel pre|post input,
 positional embeddings at the coarsest scale only, so no per-date decode)
-and ``xbd_bit`` (BIT, 5 classes; registry.py:106-112,220-224); every other
-key of the JAX registry raises ``NotImplementedError`` naming its ROADMAP
-item.
+and ``xbd_bit`` (BIT, 5 classes; registry.py:106-112,220-224), the
+adaptation model ``xbd_adapt_dahitra`` (the same DAHiTra at 4 classes), and
+the ResNet34 UNets of the xBD zoo (registry.py:98-152): ``xbd_res34_loc``,
+``xbd_res34_double``, ``xbd_res34_single``, ``xbd_res34_double_modified``,
+``xbd_adapt_res34`` (the double model at 4 classes) and the LEVIR key
+``siamUnet`` (the double model at 5); every other key of the JAX registry
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -17,6 +21,9 @@ import torch
 
 from dahitra_tpu_torch.models.bit import BIT
 from dahitra_tpu_torch.models.dahitra import DAHiTraUNet
+from dahitra_tpu_torch.models.res34_unet import (Res34UnetDouble,
+                                                 Res34UnetDoubleModified,
+                                                 Res34UnetLoc, Res34UnetSingle)
 from dahitra_tpu_torch.models.resnet_cd import ResNetCD
 
 # BIT keys -> their arguments beside resnet_stages_num = 4.
@@ -34,20 +41,26 @@ _BIT = {
                                                 decoder_dim_head=8),
 }
 
-# Keys of the JAX registry not ported yet -> ROADMAP.md section 1 item.
-_PENDING = {
-    **{k: "Rest of the zoo" for k in (
-        "unet_coupled_trans_256", "unet_coupled_two_trans_256", "changeFormer",
-        "changeFormerV6", "siamUnet_conc", "siamUnet", "xbd_res34_loc",
-        "xbd_res34_double", "xbd_res34_single", "xbd_res34_double_modified",
-        "xbd_adapt_res34", "xbd_seresnext50_loc", "xbd_seresnext50_double",
-        "xbd_senet154_loc", "xbd_senet154_double", "xbd_dpn92_loc",
-        "xbd_dpn92_double", "xbd_unet_change_transformer",
-        "xbd_unet_change_transformer_bit", "dual_hrnet", "dual_hrnet_fpn")},
-    "xbd_adapt_dahitra": "xBD stack",
-}
+# The ResNet34 UNets -> (class, output_nc).
+_RES34 = {"xbd_res34_loc": (Res34UnetLoc, None),
+          "xbd_res34_double": (Res34UnetDouble, 5),
+          "xbd_res34_single": (Res34UnetSingle, 5),
+          "xbd_res34_double_modified": (Res34UnetDoubleModified, 5),
+          "xbd_adapt_res34": (Res34UnetDouble, 4),
+          "siamUnet": (Res34UnetDouble, 5)}
+# DAHiTra on the xBD tiles -> classes.
+_XBD_DAHITRA = {"xbd_dahitra": 5, "xbd_adapt_dahitra": 4}
 
-PORTED = ("newUNetTrans", "base_resnet18", "xbd_dahitra", "xbd_bit", *_BIT)
+# Keys of the JAX registry not ported yet -> ROADMAP.md section 1 item.
+_PENDING = {k: "Rest of the zoo" for k in (
+    "unet_coupled_trans_256", "unet_coupled_two_trans_256", "changeFormer",
+    "changeFormerV6", "siamUnet_conc", "xbd_seresnext50_loc",
+    "xbd_seresnext50_double", "xbd_senet154_loc", "xbd_senet154_double",
+    "xbd_dpn92_loc", "xbd_dpn92_double", "xbd_unet_change_transformer",
+    "xbd_unet_change_transformer_bit", "dual_hrnet", "dual_hrnet_fpn")}
+
+PORTED = ("newUNetTrans", "base_resnet18", "xbd_bit", *_XBD_DAHITRA, *_BIT,
+          *_RES34)
 
 
 def define_g(net_g: str, dtype=torch.float32, img_size: int = 256,
@@ -57,14 +70,17 @@ def define_g(net_g: str, dtype=torch.float32, img_size: int = 256,
     """Build a model by its reference ``--net_G`` key (random weights; the
     draws the port makes itself come from ``generator``). ``img_size`` and
     ``output_nc`` are read by ``newUNetTrans`` only (``img_size`` also by
-    ``xbd_dahitra``), as in the JAX registry."""
+    the xBD DAHiTra keys), as in the JAX registry."""
     if net_g == "newUNetTrans":
         return DAHiTraUNet(output_nc=output_nc, img_size=img_size, dtype=dtype,
                            generator=generator)
-    if net_g == "xbd_dahitra":
-        return DAHiTraUNet(output_nc=5, img_size=img_size,
+    if net_g in _XBD_DAHITRA:
+        return DAHiTraUNet(output_nc=_XBD_DAHITRA[net_g], img_size=img_size,
                            pos_coarsest_only=True, dtype=dtype,
                            generator=generator)
+    if net_g in _RES34:
+        cls, nc = _RES34[net_g]
+        return cls(dtype=dtype) if nc is None else cls(nc, dtype=dtype)
     if net_g == "xbd_bit":
         return BIT(output_nc=5, token_len=4, resnet_stages_num=4, enc_depth=1,
                    dec_depth=8, dtype=dtype, generator=generator)

@@ -141,6 +141,26 @@ class UpConv(nn.Sequential):
                                       dtype=self.dtype))
 
 
+class ConvRelu(nn.Module):
+    """conv3x3 (padding 1) then ReLU (networks.py:408-416; the JAX
+    ``ConvRelu``), with the reference's ``layer = Sequential(conv, relu)``
+    keys (``layer.0.weight``, ``layer.0.bias``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.layer = nn.Sequential(
+            nn.Conv2d(in_channels, out_channels, kernel_size,
+                      padding=kernel_size // 2), nn.ReLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.layer[0]
+        return torch.relu(conv2d_nhwc(x, conv.weight, conv.bias,
+                                      padding=conv.padding[0],
+                                      dtype=self.dtype))
+
+
 def _dense(x: torch.Tensor, linear: nn.Linear, dtype) -> torch.Tensor:
     """flax nn.Dense(dtype=dtype): inputs and weights cast to ``dtype``."""
     bias = None if linear.bias is None else linear.bias.to(dtype)

@@ -14,10 +14,16 @@ gain 0.02):
 
 Every draw comes from ``generator``. The draws differ from the JAX
 package's (another generator); their distributions are the same.
+
+``zoo_ctor_init`` is the xBD zoo constructors' Kaiming init
+(``zoo_ctor_init_variables``, dahitra_tpu/nn/init.py:127): kernels of the
+decoder convs ``conv6``-``conv10`` (and their ``_2``) and of the ``res``
+head ~ N(0, 2 / fan_in), their biases 0; nothing else is touched.
 """
 from __future__ import annotations
 
 import math
+import re
 
 import torch
 import torch.nn as nn
@@ -106,4 +112,25 @@ def init_random(model: nn.Module, generator: torch.Generator,
                 buf.uniform_(0.5, 1.5, generator=generator)
             else:
                 buf.fill_(1.0)
+    return model
+
+
+# Module names of the zoo decoder convs and head (init.py:124).
+_ZOO_DECODER_RE = re.compile(r"^(conv(6|7|8|9|10)(_2)?|res)$")
+
+
+@torch.no_grad()
+def zoo_ctor_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Kaiming-normal (fan-in, gain sqrt 2) kernels and zero biases for the
+    parameters that lie under a module named ``conv6``-``conv10`` (or their
+    ``_2``) or ``res``; a no-op for models without such modules (DAHiTra,
+    BIT). Returns the model."""
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        if not any(_ZOO_DECODER_RE.match(n) for n in path):
+            continue
+        if leaf == "weight" and p.dim() in (2, 4):
+            p.copy_(_draw(p, "kaiming", 0.0, generator))
+        elif leaf == "bias" and p.dim() == 1:
+            p.zero_()
     return model

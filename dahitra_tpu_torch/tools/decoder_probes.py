@@ -15,10 +15,10 @@ lines in which its ``cuobjdump -sass`` differs from the same instance here
 included, the addresses aside; ``--out`` writes each instance's diff to a
 file).
 Instances are matched by name, the anonymous-namespace hash aside, with a
-last template argument ``false`` (the ``PAD`` flag of the row kernels) and
-then an ``mlp_dim`` template argument of 32 read as their absence, so a
-checkout that predates either parameter compares with the instances that
-have neither; instances that exist only here are listed as new. One JSON
+last template arguments ``false`` (the ``PAD`` and ``WIDE`` flags of the
+row kernels) and then an ``mlp_dim`` template argument of 32 read as their
+absence, so a checkout that predates any of these parameters compares with
+the instances that have none; instances that exist only here are listed as new. One JSON
 line each.
 """
 from __future__ import annotations
@@ -90,7 +90,7 @@ def _functions(dump: str, source: str) -> dict:
     """The SASS lines of each kernel in a ``cuobjdump -sass`` dump (the
     instructions with their encodings, control bits included; addresses cut
     off), keyed by its mangled name with the
-    anonymous-namespace hash replaced, a last template argument ``false``
+    anonymous-namespace hash replaced, the last template arguments ``false``
     (``Lb0E`` before the template's close) and then an ``mlp_dim`` template
     argument of 32 (``Li32E`` there) dropped, and the parameter list cut
     off."""
@@ -99,7 +99,7 @@ def _functions(dump: str, source: str) -> dict:
     for line in dump.splitlines():
         func = re.search(r"Function : (\S+)", line)
         if func:
-            key = re.sub(r"Lb0E(?=EEv)", "", func.group(1))
+            key = re.sub(r"(?:Lb0E)+(?=EEv)", "", func.group(1))
             key = re.sub(r"Li32E(?=EEv)", "", key).split("Ev", 1)[0]
             out[key] = []
         elif key is not None:

@@ -288,12 +288,13 @@ def test_state_dict_round_trip(key):
 def test_every_ported_key_builds_with_the_jax_output_shape():
     """Each ported key's forward at 32 px, batch 1, has the JAX model's
     output shape (jax.eval_shape, nothing compiled), the xBD keys on the
-    6-channel pre|post input; the xBD adaptation model still raises by
-    name."""
+    6-channel pre|post input (the single-image ResNet34 UNets on one
+    3-channel image); a key not ported yet raises by name."""
     x = np.zeros((1, 32, 32, 3), np.float32)
     x6 = np.zeros((1, 32, 32, 6), np.float32)
     for key in PORTED:
-        ins = (x6, None) if key.startswith("xbd_") else (x, x)
+        ins = ((x, None) if key in ("xbd_res34_loc", "xbd_res34_single")
+               else (x6, None) if key.startswith("xbd_") else (x, x))
         want = jax.eval_shape(
             lambda a: jax_define_g(key, img_size=32).init_with_output(
                 jax.random.PRNGKey(0), a, ins[1])[0], ins[0]).shape
@@ -302,8 +303,8 @@ def test_every_ported_key_builds_with_the_jax_output_shape():
                 *(None if t is None else torch.from_numpy(t) for t in ins))
         assert tuple(got.shape) == tuple(want), key
     with pytest.raises(NotImplementedError,
-                       match="xbd_adapt_dahitra.*xBD stack"):
-        define_g("xbd_adapt_dahitra")
+                       match="dual_hrnet.*Rest of the zoo"):
+        define_g("dual_hrnet")
 
 
 def test_bit_fields_and_six_channel_input():

@@ -159,28 +159,83 @@ def test_kernels_take_every_token_count_the_gate_sends(card, dtype, case):
     assert all(torch.equal(g, h) for g, h in zip(got, again))
 
 
-# What the card still refuses (ROADMAP fault 3.2): a padded hl above 128,
-# only at 9 heads or more: 9 heads of 9 tokens (padded to 16: hl 144) and 17
-# heads of 5 (padded to 8: hl 136).
-@pytest.mark.parametrize("heads,l", [(9, 9), (17, 5)])
-@pytest.mark.parametrize("which", ["forward", "forward with saves",
-                                   "backward"])
-def test_kernels_refuse_padded_hl_above_128(card, heads, l, which):
-    """A ValueError naming the padded hl, before any launch; no plain
-    fallback."""
-    dtype = torch.float32
-    _, _, _, ops, dy = _stack_case(card, dtype, 1, 64, 1, heads, l=l)
-    hl = heads * l
-    xs = torch.zeros(1, 1, 64, 32, device=card)
-    ats = torch.zeros(1, 1, 64, hl, device=card)
-    before = (fd.launches, fd.launches_save, fd.launches_bwd)
-    with pytest.raises(ValueError, match="padded hl"):
-        if which == "backward":
-            fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], 1, heads, dtype)
-        else:
-            fd.decoder_stack_fwd(*ops, 1, heads, dtype,
-                                 save=which == "forward with saves")
-    assert (fd.launches, fd.launches_save, fd.launches_bwd) == before
+# Padded hl above 128 (ROADMAP fault 3.2, closed): 9 heads of 9 tokens
+# (padded to 16: hl 144) and 17 of 5 (to 8: hl 136), which the card refused
+# before, 14 of 9 (hl 224, the most the JAX gate sends; K2's fp32 WIDE
+# instance, PAD), 25 of 5 (hl 200; the WIDE instance without PAD) and 127 of
+# 1 (odd hl: one zero head more, hl 128).
+PADDED_HL_CASES = [(9, 9), (17, 5), (14, 9), (25, 5), (127, 1)]
+
+
+@pytest.mark.parametrize("heads,l", PADDED_HL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_padded_hl_above_128(card, dtype, heads, l):
+    """K1, K1-save and K2 at padded hl above 128, through the wrappers:
+    against their plain versions on the unpadded operands (forward, saves
+    and every gradient), one launch each, counted as padded; reruns bit for
+    bit; nothing refused."""
+    _, _, _, ops, dy = _stack_case(card, dtype, 2, 200, 2, heads, l=l)
+    before = (fd.launches, fd.launches_save, fd.launches_bwd,
+              fd.launches_pad, fd.launches_save_pad, fd.launches_bwd_pad)
+    y = fd.decoder_stack_fwd(*ops, 2, heads, dtype)
+    ys, xs, ats = fd.decoder_stack_fwd(*ops, 2, heads, dtype, save=True)
+    got = fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], 2, heads, dtype)
+    torch.cuda.synchronize()
+    assert (fd.launches, fd.launches_save, fd.launches_bwd, fd.launches_pad,
+            fd.launches_save_pad, fd.launches_bwd_pad) == tuple(
+                c + 1 for c in before)
+    assert torch.equal(y, ys) and ats.shape[-1] == heads * l
+    ref = fd.decoder_stack_fwd_plain(*ops, 2, heads, dtype, save=True)
+    for g, r in zip((ys, xs, ats), ref):
+        assert g.shape == r.shape and _scaled_err(g, r) <= TOL[dtype]
+    gref = fd.decoder_stack_bwd_plain(*ref[1:], dy, *ops[1:], 2, heads, dtype)
+    for name, g, r in zip(("dx", "da", "dz", "dw1", "dw2", "dvecs"), got, gref):
+        assert g.shape == r.shape, name
+        assert _scaled_err(g, r) <= GTOL[dtype], name
+    assert torch.equal(y, fd.decoder_stack_fwd(*ops, 2, heads, dtype))
+    again = fd.decoder_stack_bwd(xs, ats, dy, *ops[1:], 2, heads, dtype)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+def test_k2_wide_instances_build_and_hold_a_cta(card, tmp_path):
+    """The row kernels' WIDE instances of K2 (fp32, mlp_dim 32 and 64, with
+    and without PAD) are in the build with a ptxas report and no spills;
+    at hl 224, where the wrapper takes them, one SM holds a CTA of each,
+    and of K1's and K1-save's PAD instances in both dtypes."""
+    import re
+    import subprocess
+
+    from dahitra_tpu_torch.kernels import _build
+
+    log = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(tmp_path / "bwd.so"), str(_build._CSRC / "decoder_bwd.cu")],
+        capture_output=True, text=True, check=True)
+    report = log.stdout + log.stderr
+    found, inst = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            inst = entry.group(1) if "Lb1EEEv" in entry.group(1) \
+                and "rows_mmaIf" in entry.group(1) else None
+        elif inst is not None:
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                found.setdefault(inst, {})["spill"] = int(spill.group(1))
+            if regs:
+                found.setdefault(inst, {})["regs"] = int(regs.group(1))
+    assert len(found) == 4, report
+    assert all(v.get("spill") == 0 and 0 < v.get("regs", 0) <= 255
+               for v in found.values()), found
+    for mlp in (32, 64):
+        for pad in (0, 1):
+            assert fd._ctas_per_sm("decoder_bwd", torch.float32, 224, mlp,
+                                   pad) >= 1
+        for dtype in (torch.float32, torch.bfloat16):
+            for save in (0, 1):
+                assert fd._ctas_per_sm("decoder_fwd", dtype, 224, save, mlp,
+                                       1) >= 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -584,3 +639,33 @@ def test_xbd_predict_on_the_card(card, tmp_path):
     for w, p in pngs.items():
         assert p.shape == (XBD_IMG, XBD_IMG) and p.dtype == np.uint8
         assert w.endswith("_part1.png") or p.max() <= 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xbd_gan_step_launch_counts(card, tmp_path, dtype):
+    """``GANTrainer.gan_step`` of ``xbd_dahitra`` on the card: a generator
+    step launches 3 K1-save, 3 K2 and 3 K3; with a discriminator update it
+    adds the generator's forward without saves, 3 K1 and 3 K3; finite
+    losses; the discriminator's BN statistics move only in its update."""
+    import types
+
+    from dahitra_tpu_torch.train.xbd_engine import GANTrainer
+
+    arrays = _xbd_pair()
+    args = types.SimpleNamespace(
+        checkpoint_dir=str(tmp_path), max_epochs=1, net_G="xbd_dahitra",
+        seed=0, bf16=dtype == torch.bfloat16, img_size=XBD_IMG, lr=0.0,
+        batch_size=1)
+    trainer = GANTrainer(args, arrays, arrays, device="cuda")
+    batch = [torch.from_numpy(arrays[k]).to(card)
+             for k in ("img_pre", "img_post", "msk", "lbl_msk")]
+    for update, want in ((False, (0, 3, 3, 3, 0)), (True, (3, 3, 3, 6, 0))):
+        stats = [b.clone() for b in trainer.disc.buffers()]
+        before = _xbd_counts()
+        g, d = trainer.gan_step(*batch, update_disc=update)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_xbd_counts(), before)) == want
+        assert torch.isfinite(g) and torch.isfinite(d)
+        moved = any(not torch.equal(a, b)
+                    for a, b in zip(stats, trainer.disc.buffers()))
+        assert moved == update

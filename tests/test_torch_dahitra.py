@@ -143,7 +143,7 @@ def test_xbd_variant_keys_match_flax_tree():
 
 def test_train_mode_and_unported_keys_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_g("xbd_adapt_dahitra")
+        define_g("dual_hrnet")
     with pytest.raises(NotImplementedError, match="not recognized"):
         define_g("no_such_model")
 

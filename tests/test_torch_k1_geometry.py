@@ -94,10 +94,11 @@ def test_zero_heads_padding_keeps_the_forward(dtype, heads):
 
 
 # (heads, tokens per head) that the wrapper pads or that need the PAD
-# instances: 3 tokens (to 4), 5 (to 8), 16, and odd hl: 3 heads of 1 token
-# (to 2) and of 3 tokens (hl 9, to 12).
+# instances: 3 tokens (to 4), 5 (to 8), 16, odd hl: 3 heads of 1 token (one
+# zero head more) and of 3 tokens (hl 9, to 12), and padded hl above 128: 9
+# heads of 9 tokens (to 16: hl 144) and 127 of 1 (one zero head: hl 128).
 PADDED = {"l3": (4, 3), "l5": (2, 5), "l16": (2, 16), "hl3_l1": (3, 1),
-          "hl9_l3": (3, 3)}
+          "hl9_l3": (3, 3), "h9_l9": (9, 9), "h127_l1": (127, 1)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -183,10 +183,11 @@ def test_six_piece_products_match_float64(k, scale):
 
 
 # (heads, tokens per head): 3 (padded to 4), 5 (to 8), 16 (the PAD
-# instance's 16-column group sum), odd hl 3 (1 token, to 2) and 9 (3
-# tokens, to 4).
+# instance's 16-column group sum), odd hl 3 (1 token, one zero head more)
+# and 9 (3 tokens, to 4), and padded hl above 128: 9 heads of 9 tokens (hl
+# 144) and 127 of 1 (hl 128 with the zero head).
 PADDED = {"l3": (4, 3), "l5": (2, 5), "l16": (2, 16), "hl3_l1": (3, 1),
-          "hl9_l3": (3, 3)}
+          "hl9_l3": (3, 3), "h9_l9": (9, 9), "h127_l1": (127, 1)}
 GTOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
 
 
@@ -236,7 +237,7 @@ def test_padded_save_goes_to_k2_as_it_is(case):
     widening it again: the same gradients, bit for bit, as from the
     narrowed save."""
     heads, l = PADDED[case]
-    lp = fd._group(l, heads)
+    hk, _, lp = fd._padding("test", heads * l, heads, True)
     depth, b, n = 2, 2, 33
     rng = np.random.RandomState(60 + heads * l)
 
@@ -255,7 +256,7 @@ def test_padded_save_goes_to_k2_as_it_is(case):
                                          save=True)
     _, _, wide = fd.decoder_stack_fwd(*ops, depth, heads, torch.float32,
                                       save=True, narrow_save=False)
-    assert narrow.shape[-1] == hl and wide.shape[-1] == heads * lp
+    assert narrow.shape[-1] == hl and wide.shape[-1] == hk * lp
     for g, h in zip(*(fd.decoder_stack_bwd(xs, s, dy, *ops[1:], depth, heads,
                                            torch.float32)
                       for s in (narrow, wide))):
