@@ -8,9 +8,10 @@ Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
 at 256 px, through the user's entry points ``dahitra_tpu_torch.cli.eval_cd``
 and ``dahitra_tpu_torch.cli.main_cd``, and xBD damage training and
 prediction at 1024 px (``xbd_dahitra``, ``xbd_bit``) through
-``dahitra_tpu_torch.cli.xbd_train`` and ``xbd_predict``, and the rest of
+``dahitra_tpu_torch.cli.xbd_train`` and ``xbd_predict``, the rest of
 the xBD stack (``xbd_train --task loc | adapt | gan``, ``--elastic``,
-``visualize_results``). Phases, each fatal on failure:
+``visualize_results``), and the rest of the LEVIR-CD zoo with ``demo``,
+``import_checkpoint`` and ``count_params``. Phases, each fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``dahitra_tpu_torch/csrc`` (one nvcc per
@@ -147,10 +148,29 @@ the xBD stack (``xbd_train --task loc | adapt | gan``, ``--elastic``,
      and BN statistics of the ``loc`` step and of a GAN step that updates
      the discriminator (both networks) against the CPU plain path at 256 px,
      batch 1 (1e-3 of the gradient's scale, or twice the CPU path's own
-     largest move under four 1e-6 input moves where larger; 1e-4).
+     largest move under four 1e-6 input moves where larger; 1e-4);
+ 17. the rest of the LEVIR-CD zoo and the last LEVIR CLIs
+     (``run_zoo_phase``) at 256 px: for each of ``unet_coupled_trans_256``,
+     ``unet_coupled_two_trans_256``, ``siamUnet_conc``, ``changeFormer`` and
+     ``changeFormerV6`` a seeded model's fp32 forward of two patches against
+     the CPU plain path, then per dtype one epoch of ``main_cd`` at batch 8
+     on phase 7's splits (``--multi_scale_loss`` for ``changeFormerV6``),
+     ``eval_cd`` on its checkpoint and 5 warm ``CDTrainer.train_step`` calls
+     (median, range, peak memory), none launching K1, K1-save, K2, K3 or K4;
+     the card's fp32 gradients and BN statistics at batch 2 with every
+     dropout rate 0 against the CPU (as phase 16 holds them); one train step
+     with dropout on, twice from the same seed (cuDNN deterministic): a
+     finite loss, the same bits. Then ``demo --net_G newUNetTrans`` with phase 4's checkpoint (6
+     K1 and 3 K3 a forward, PNGs of the right shape), phase 4's checkpoint
+     written as a reference ``.pt`` (``module.`` prefix, under
+     ``model_G_state_dict``), ``import_checkpoint`` and ``eval_cd`` on the
+     result (phase 5's fp32 confusion matrix exactly), phase 8's forward
+     with ``fast_vjp = False`` (0 K1, logits within 1e-3 of the K1 path's)
+     and ``count_params`` for every ported key (the card's allocated memory
+     unchanged).
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10, 12, 13, 14, 15, 16) and read just after; the counters of the padded
+7, 9, 10, 12, 13, 14, 15, 16, 17) and read just after; the counters of the padded
 token counts (``NO_PAD``) must read 0 in every one of them. ``--profile`` adds a torch.profiler
 breakdown of the batch-8 forward and of one batch-8 training step by kernel
 class, with the device's idle share, on the default path and with
@@ -2015,6 +2035,352 @@ def run_xbd_tasks_phase(torch, tmp, dtypes) -> dict:
     return by_phase
 
 
+# The rest of the LEVIR-CD zoo (phase 17), at 256 px: none of these models
+# has a decoder stack or a tokenizer, so every run launches no kernel.
+ZOO_KEYS = ("unet_coupled_trans_256", "unet_coupled_two_trans_256",
+            "siamUnet_conc", "changeFormer", "changeFormerV6")
+MULTI_SCALE_KEY = "changeFormerV6"
+ZOO_TIMED = 5
+NO_KERNELS = {"k1": 0, "k1_save": 0, "k2": 0, "k3": 0, "k4": 0}
+# Confusion matrices of the eval_cd runs, in order: phase 17 holds the
+# imported checkpoint's against phase 5's fp32 one.
+EVAL_CMS = []
+
+
+def _record_confusion_matrices() -> None:
+    """Keep each ``CDEvaluator.eval_models`` run's summed matrix in
+    ``EVAL_CMS``."""
+    from dahitra_tpu_torch.evalx import evaluator
+
+    run = evaluator.CDEvaluator.eval_models
+
+    def recorded(self, *args, **kwargs):
+        out = run(self, *args, **kwargs)
+        EVAL_CMS.append(np.array(self.confusion_matrix))
+        return out
+
+    evaluator.CDEvaluator.eval_models = recorded
+
+
+def check_zoo_forward_vs_cpu(torch, key, data_root) -> dict:
+    """A seeded model's fp32 eval forward of two test patches of phase 4's
+    tiles on the card against the CPU: <= 1e-3 of the logits' scale (the
+    full-resolution logits of changeFormerV6's list), argmax agreement >=
+    99.9 %, no kernel launched."""
+    from dahitra_tpu_torch.data.augment import normalize_images
+    from dahitra_tpu_torch.data.levir import load_levir_split
+    from dahitra_tpu_torch.models.registry import define_g, final_logits
+    from dahitra_tpu_torch.nn.init import init_random
+
+    pairs = load_levir_split(os.path.join(data_root, "LEVIR_CD"), "test", IMG,
+                             patch=5)
+    a, b = (normalize_images(torch.from_numpy(t[:2])) for t in (pairs.a,
+                                                                  pairs.b))
+    model = init_random(define_g(key, img_size=IMG),
+                        torch.Generator().manual_seed(17))
+    _reset_counts()
+    with torch.inference_mode():
+        ref = final_logits(model.eval()(a, b))
+        got = final_logits(model.cuda()(a.cuda(), b.cuda())).cpu()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    _, serr = scaled_err(got, ref)
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    out = {"zoo_forward_vs_cpu_plain": key, "img_size": IMG, "pairs": 2,
+           "scaled_err": serr, "argmax_agreement": agree, "launches": counts}
+    if not (torch.isfinite(got).all() and serr <= 1e-3 and agree >= 0.999
+            and counts == {**NO_PAD, **NO_KERNELS}):
+        fail(f"{key}: card forward disagrees with the CPU plain path or "
+             f"launched a kernel: {out}")
+    return out
+
+
+def run_zoo_steps(torch, tmp, key, dtype) -> dict:
+    """``ZOO_TIMED`` warm ``CDTrainer.train_step`` calls of ``key`` at 256
+    px, batch 8 (changeFormerV6 with the multi-scale loss), each timed on the
+    host clock after a warm-up, launch counters set to 0 just before and
+    read just after: no kernel, finite losses."""
+    dname = str(dtype).split(".")[-1]
+    trainer = _trainer(torch, tmp, dtype, f"zoo_{key}", img=IMG,
+                       batch=BATCH, net_g=key)
+    trainer.multi_scale = key == MULTI_SCALE_KEY
+    data = _batch(torch, BATCH, 17, IMG)
+    trainer.train_step(*data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, times = [], []
+    for _ in range(ZOO_TIMED):
+        t0 = time.time()
+        losses.append(trainer.train_step(*data)[0].item())
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    got = _read_counts()
+    if got != {**NO_PAD, **NO_KERNELS} or not np.isfinite(losses).all():
+        fail(f"{key} {dname} warm steps: launches {got} or losses {losses}")
+    return {"zoo_steps": key, "dtype": dname, "img_size": IMG,
+            "batch": BATCH, "multi_scale_loss": trainer.multi_scale,
+            "step_ms": _spread(times), "losses": losses,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": got}
+
+
+def check_zoo_grads(torch, train_root, key) -> dict:
+    """The card's fp32 training gradients and updated BN statistics of
+    ``key`` against the CPU plain path: a batch of 2 of phase 7's train
+    split at 256 px, no augmentation, every dropout rate 0, the multi-scale
+    loss for changeFormerV6. The gradients to 1e-3 of the whole gradient's
+    scale or, where larger, twice the CPU path's own largest move under
+    ``GRAD_MOVES`` input moves of 1e-6 (taken only then), as phase 16; the
+    BN statistics to 1e-4."""
+    import copy
+
+    from dahitra_tpu_torch.data.augment import augment_pairs
+    from dahitra_tpu_torch.data.levir import load_levir_split
+    from dahitra_tpu_torch.losses.cd import levir_train_loss, multi_scale_loss
+    from dahitra_tpu_torch.models.registry import define_g, final_logits
+    from dahitra_tpu_torch.nn.blocks import Dropout
+    from dahitra_tpu_torch.nn.init import init_weights
+
+    pairs = load_levir_split(os.path.join(train_root, "data", "LEVIR_CD"),
+                             "train", IMG)
+    batch = [torch.from_numpy(t[:2]) for t in (pairs.a, pairs.b, pairs.label)]
+    gen = torch.Generator().manual_seed(3)
+    init = init_weights(define_g(key, img_size=IMG, generator=gen), "normal",
+                        0.02, gen)
+    for m in init.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+
+    def run(dev, move=0):
+        model = copy.deepcopy(init).to(dev)
+        a, b, label = augment_pairs(*(t.to(dev) for t in batch), train=False)
+        if move:
+            a = a + 1e-6 * torch.randn(
+                a.shape, generator=torch.Generator().manual_seed(move)).to(dev)
+        out = model(a, b, train=True)
+        loss = multi_scale_loss(out, label, 2) if key == MULTI_SCALE_KEY \
+            else levir_train_loss(final_logits(out).float(), label, 2)
+        loss.backward()
+        return ({k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()},
+                {k: v.cpu() for k, v in model.named_buffers()})
+
+    ref, ref_bufs = run("cpu")
+    grads, bufs = run("cuda")
+    torch.cuda.synchronize()
+    scale = max(g.abs().max().item() for g in ref.values())
+    port = _grad_blocks(ref, grads, scale)
+    worst = max(port, key=port.get)
+    own = []
+    if port[worst] > 1e-3:
+        own = [max(_grad_blocks(ref, run("cpu", m)[0], scale).values())
+               for m in range(1, GRAD_MOVES + 1)]
+    bound = max([1e-3] + [2 * o for o in own])
+    bn_err = max([0.0] + [scaled_err(bufs[k], v)[1]
+                          for k, v in ref_bufs.items()])
+    out = {"zoo_train_grads_vs_cpu_plain": key, "img_size": IMG, "batch": 2,
+           "worst_over_scale": port[worst], "worst_block": list(worst),
+           "cpu_own_moves": own, "bound": bound,
+           "bn_stats_worst_scaled_err": bn_err}
+    if not (port[worst] <= bound and bn_err <= 1e-4):
+        fail(f"{key} gradients on the card disagree with the CPU: {out}")
+    return out
+
+
+def check_zoo_dropout_step(torch, tmp, key) -> dict:
+    """One train step with dropout on (the models' own rates), from two
+    trainers of the same seed, each built on a freed card, with cuDNN held
+    to deterministic algorithms (without that the two may pick different
+    convolution algorithms: ``changeFormerV6``'s loss differed in its 20th
+    bit, call 2, PR 14): the loss is finite and the same bits, and the
+    dropout generators drew masks and end in the same state."""
+    losses, states, drew = [], [], []
+    torch.backends.cudnn.deterministic = True
+    for run in range(2):
+        torch.cuda.empty_cache()
+        trainer = _trainer(torch, tmp, torch.float32,
+                           f"zoo_dropout_{key}_{run}", img=IMG, net_g=key)
+        fresh = trainer.dropout_generator.get_state()
+        losses.append(trainer.train_step(*_batch(torch, 2, 18, IMG))[0]
+                      .item())
+        states.append(trainer.dropout_generator.get_state())
+        drew.append(not torch.equal(fresh, states[-1]))
+        del trainer
+    torch.backends.cudnn.deterministic = False
+    out = {"zoo_dropout_step": key, "losses": [float.hex(v) for v in losses],
+           "masks_drawn": drew,
+           "generator_states_equal": torch.equal(*states)}
+    if not (np.isfinite(losses[0]) and losses[0] == losses[1] and all(drew)
+            and out["generator_states_equal"]):
+        fail(f"{key}: dropout step not reproducible: {out}")
+    return out
+
+
+def run_demo(torch, tmp, flag, dname) -> dict:
+    """``demo --net_G newUNetTrans`` with phase 4's checkpoint over phase
+    4's test tiles (one 256 px crop each), launch counters set to 0 just
+    before and read just after: 6 K1 and 3 K3 a forward; PNGs (256, 256)
+    in {0, 255}."""
+    from PIL import Image
+
+    from dahitra_tpu_torch.cli import demo
+
+    os.environ["DAHITRA_DATA_ROOT"] = os.path.join(tmp, "data")
+    out_dir = os.path.join(tmp, f"demo_{dname}")
+    _reset_counts()
+    t0 = time.time()
+    names = demo.main(["--project_name", "smoke", "--checkpoint_root",
+                       os.path.join(tmp, "ckpt"), "--data_name", "LEVIR",
+                       "--split", "test", "--img_size", str(IMG),
+                       "--output_folder", out_dir, "--device", "cuda", *flag])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = _read_counts()
+    want = {**NO_KERNELS, "k1": 6 * len(names), "k3": 3 * len(names)}
+    pngs = [np.array(Image.open(os.path.join(out_dir, n))) for n in names]
+    if got != {**NO_PAD, **want} or not names or any(
+            p.shape != (IMG, IMG) or not set(np.unique(p)) <= {0, 255}
+            for p in pngs):
+        fail(f"demo {dname}: launches {got} != {want} or PNGs "
+             f"{[p.shape for p in pngs]}")
+    return {"demo": dname, "pairs": len(names), "wall_s": wall,
+            "launches": got}
+
+
+def check_import(torch, tmp, cm5) -> dict:
+    """Phase 4's checkpoint written as a reference ``.pt`` (``module.``
+    prefix under ``model_G_state_dict``), imported with ``import_checkpoint
+    --net_G newUNetTrans``, then ``eval_cd`` as phase 5 ran it in fp32: the
+    same launches and the same confusion matrix, element for element."""
+    from dahitra_tpu_torch.cli import import_checkpoint
+    from dahitra_tpu_torch.core.checkpoint import load_checkpoint
+
+    sd = load_checkpoint(os.path.join(tmp, "ckpt", "smoke"))[0]
+    pt = os.path.join(tmp, "reference_smoke.pt")
+    torch.save({"model_G_state_dict": {f"module.{k}": v
+                                       for k, v in sd.items()},
+                "best_val_acc": 0.0}, pt)
+    import_checkpoint.main([pt, "--net_G", "newUNetTrans", "--img_size",
+                            str(IMG), "--out",
+                            os.path.join(tmp, "ckpt", "imported")])
+    out = run_eval(torch, os.path.join(tmp, "data"), os.path.join(tmp, "ckpt"),
+                   "imported", [], "float32", IMG, BATCH, 64, patches=16)
+    cm = EVAL_CMS[-1]
+    out["confusion_matrix"] = cm.tolist()
+    out["equals_phase5"] = bool(np.array_equal(cm, cm5))
+    if not out["equals_phase5"]:
+        fail(f"imported checkpoint: confusion matrix {cm.tolist()} != phase "
+             f"5's {cm5.tolist()}")
+    return out
+
+
+def check_fast_vjp_off(torch, train_root) -> dict:
+    """Phase 8's model and batch, eval forward on the card: with the
+    defaults 6 K1 and 3 K3; with ``fast_vjp = False`` on its decoders 0 K1
+    (the layer loop) and 3 K3, logits within 1e-3 of the K1 path's."""
+    from dahitra_tpu_torch.data.augment import augment_pairs
+    from dahitra_tpu_torch.data.levir import load_levir_split
+    from dahitra_tpu_torch.models.registry import define_g
+    from dahitra_tpu_torch.nn.blocks import TransformerDecoder
+    from dahitra_tpu_torch.nn.init import init_weights
+
+    pairs = load_levir_split(os.path.join(train_root, "data", "LEVIR_CD"),
+                             "train", IMG)
+    batch = [torch.from_numpy(t[:2]).cuda()
+             for t in (pairs.a, pairs.b, pairs.label)]
+    gen = torch.Generator().manual_seed(3)
+    model = init_weights(define_g("newUNetTrans", img_size=IMG,
+                                  generator=gen), "normal", 0.02, gen)
+    model.cuda().eval()
+    a, b, _ = augment_pairs(*batch, train=False)
+    outs, counts = [], []
+    for fast in (None, False):
+        for m in model.modules():
+            if isinstance(m, TransformerDecoder):
+                m.fast_vjp = fast
+        _reset_counts()
+        with torch.inference_mode():
+            outs.append(model(a, b))
+        torch.cuda.synchronize()
+        counts.append(_read_counts())
+    _, serr = scaled_err(outs[1], outs[0])
+    out = {"fast_vjp_off": {"launches_default": counts[0],
+                            "launches_fast_vjp_false": counts[1],
+                            "scaled_err_vs_k1_path": serr}}
+    want = [{**NO_KERNELS, "k1": 6, "k3": 3}, {**NO_KERNELS, "k3": 3}]
+    if counts != [{**NO_PAD, **w} for w in want] or serr > 1e-3:
+        fail(f"fast_vjp=False: {out}")
+    return out
+
+
+def check_count_params(torch) -> dict:
+    """``count_params`` over every ported key: each counted, the card's
+    allocated memory the same before and after."""
+    from dahitra_tpu_torch.cli import count_params
+    from dahitra_tpu_torch.models.registry import PORTED
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    counts = count_params.main(list(PORTED))
+    after = torch.cuda.memory_allocated()
+    if set(counts) != set(PORTED) or after != before:
+        fail(f"count_params: {len(counts)} of {len(PORTED)} keys, allocated "
+             f"{before} -> {after}")
+    return {"count_params": counts, "allocated_before": before,
+            "allocated_after": after}
+
+
+def run_zoo_phase(torch, tmp, train_root, dtypes, cm5) -> dict:
+    """Phase 17: the five LEVIR zoo keys at 256 px (``main_cd`` one epoch
+    on phase 7's splits, ``eval_cd`` on its checkpoint, the card's forward
+    against the CPU, warm steps; fp32 then bf16; no kernel launched), their
+    fp32 gradients against the CPU, a reproducible dropout step; then
+    ``demo``, ``import_checkpoint`` against phase 5, the ``fast_vjp=False``
+    forward and ``count_params``. Returns the launch counts by dtype and
+    phase."""
+    t0 = time.time()
+    data = os.path.join(tmp, "data")
+    by_phase = {"float32": {}, "bfloat16": {}}
+    for key in ZOO_KEYS:
+        print(json.dumps(check_zoo_forward_vs_cpu(torch, key, data)),
+              flush=True)
+        for flag, dname in dtypes:
+            extra = ["--multi_scale_loss"] if key == MULTI_SCALE_KEY else []
+            out = run_training(torch, train_root, flag + extra, dname,
+                               img=IMG, batch=BATCH, epochs=1,
+                               train_pairs=TRAIN_PAIRS, val_pairs=VAL_PAIRS,
+                               net_g=key, per_call=(0, 0))
+            by_phase[dname][f"zoo_{key}_train_256"] = out["launches"]
+            print(json.dumps({**out, "multi_scale_loss": bool(extra)}),
+                  flush=True)
+            out = run_eval(torch, os.path.join(train_root, "data"),
+                           os.path.join(train_root, "ckpt"),
+                           f"train_{key}_{dname}", flag, dname, IMG, BATCH,
+                           VAL_PAIRS, net_g=key, per_forward=(0, 0))
+            by_phase[dname][f"zoo_{key}_eval_256"] = out["launches"]
+            print(json.dumps(out), flush=True)
+            out = run_zoo_steps(torch, tmp, key, getattr(torch, dname))
+            by_phase[dname][f"zoo_{key}_steps_256"] = out["launches"]
+            print(json.dumps(out), flush=True)
+        print(json.dumps(check_zoo_grads(torch, train_root, key)), flush=True)
+        print(json.dumps(check_zoo_dropout_step(torch, tmp, key)), flush=True)
+    for flag, dname in dtypes:
+        out = run_demo(torch, tmp, flag, dname)
+        by_phase[dname]["demo_256"] = out["launches"]
+        print(json.dumps(out), flush=True)
+    out = check_import(torch, tmp, cm5)
+    by_phase["float32"]["import_eval_256"] = out["launches"]
+    print(json.dumps(out), flush=True)
+    out = check_fast_vjp_off(torch, train_root)
+    by_phase["float32"]["fast_vjp_off_256"] = \
+        out["fast_vjp_off"]["launches_fast_vjp_false"]
+    print(json.dumps(out), flush=True)
+    print(json.dumps(check_count_params(torch)), flush=True)
+    print(f"zoo phase: {time.time() - t0:.1f} s", flush=True)
+    return by_phase
+
+
 def main() -> None:
     try:
         import torch
@@ -2108,12 +2474,15 @@ def main() -> None:
     # 5. the eval path, fp32 then bf16
     dtypes = (([], "float32"), (["--bf16"], "bfloat16"))
     by_phase = {"float32": {}, "bfloat16": {}}
+    _record_confusion_matrices()
     for flag, dname in dtypes:
         out = run_eval(torch, os.path.join(tmp, "data"),
                        os.path.join(tmp, "ckpt"), "smoke", flag, dname, IMG,
                        BATCH, 64, patches=16)
         by_phase[dname]["eval_256"] = out["launches"]
         print(json.dumps(out), flush=True)
+        if dname == "float32":
+            cm5 = EVAL_CMS[-1]
 
     # 6. the card's forward (kernels) against the plain path on the CPU
     print(json.dumps(check_forward_vs_cpu(torch, model,
@@ -2205,6 +2574,12 @@ def main() -> None:
     # networks), gan and damage --elastic, visualize_results, warm steps, the
     # card's loc and GAN gradients at 256 px
     for dname, phases in run_xbd_tasks_phase(torch, tmp, dtypes).items():
+        by_phase[dname].update(phases)
+
+    # 17. the rest of the LEVIR zoo (no decoder or tokenizer kernel), demo,
+    # import_checkpoint, fast_vjp=False and count_params
+    for dname, phases in run_zoo_phase(torch, tmp, train_root, dtypes,
+                                       cm5).items():
         by_phase[dname].update(phases)
 
     if "--profile" in sys.argv[1:]:

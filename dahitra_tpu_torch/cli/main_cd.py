@@ -69,8 +69,9 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--vis_train_every", default=0, type=int,
                         help="training vis grid every N batches (0 = off)")
     parser.add_argument("--multi_scale_loss", action="store_true",
-                        help="deep supervision over multi-scale heads; "
-                        "newUNetTrans has one head, so no effect with it")
+                        help="deep supervision over the multi-scale heads "
+                        "(changeFormerV6): the weighted sum of the loss of "
+                        "every head, each against the nearest-resized label")
     parser.add_argument("--init_type", default="normal", type=str,
                         help="init_net weight init: normal|xavier|kaiming|"
                         "orthogonal|none (networks.py:77-127)")

@@ -4,7 +4,8 @@ Counterpart of dahitra_tpu/core/checkpoint.py, which keeps an Orbax pytree
 and a JSON sidecar. The port writes what the reference trainer wrote
 (models/trainer.py:150-158): one file ``<checkpoint_dir>/<name>.pt`` holding
 ``model_G_state_dict``, ``best_val_acc`` and ``best_epoch_id`` and, from a
-training run, ``epoch_id`` and ``optimizer_G_state_dict``, so reference
+training run, ``epoch_id``, ``optimizer_G_state_dict`` and the port's own
+``generator_states`` (the augmentation and dropout generators), so reference
 checkpoints and the port's own load through the same path and a
 ``best_ckpt.pt`` resumes a run (dahitra_tpu/train/engine.py ``_maybe_resume``).
 """
@@ -25,7 +26,8 @@ def checkpoint_path(checkpoint_dir: str, name: str = "best_ckpt") -> str:
 def save_checkpoint(checkpoint_dir: str, state_dict: StateDict,
                     best_val_acc: float = 0.0, best_epoch_id: int = 0,
                     name: str = "best_ckpt", epoch_id: Optional[int] = None,
-                    optimizer_state: Optional[dict] = None) -> str:
+                    optimizer_state: Optional[dict] = None,
+                    generator_states: Optional[dict] = None) -> str:
     """Write the reference-format dict; returns the file's path."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     ckpt = {"model_G_state_dict": {k: v.detach().cpu()
@@ -36,6 +38,8 @@ def save_checkpoint(checkpoint_dir: str, state_dict: StateDict,
         ckpt["epoch_id"] = int(epoch_id)
     if optimizer_state is not None:
         ckpt["optimizer_G_state_dict"] = optimizer_state
+    if generator_states is not None:
+        ckpt["generator_states"] = generator_states
     path = checkpoint_path(checkpoint_dir, name)
     torch.save(ckpt, path)
     return path
@@ -57,14 +61,14 @@ def load_checkpoint(checkpoint_dir: str, name: str = "best_ckpt"
                     ) -> Optional[Tuple[StateDict, dict]]:
     """(state_dict, metadata) of ``<checkpoint_dir>/<name>.pt``; None if
     the file is absent. The metadata holds whichever of ``best_val_acc``,
-    ``best_epoch_id``, ``epoch_id`` and ``optimizer_G_state_dict`` the file
-    has."""
+    ``best_epoch_id``, ``epoch_id``, ``optimizer_G_state_dict`` and
+    ``generator_states`` the file has."""
     path = checkpoint_path(checkpoint_dir, name)
     if not os.path.exists(path):
         return None
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     meta = {k: ckpt[k] for k in ("best_val_acc", "best_epoch_id", "epoch_id",
-                                 "optimizer_G_state_dict")
+                                 "optimizer_G_state_dict", "generator_states")
             if isinstance(ckpt, dict) and k in ckpt}
     return model_state_dict(ckpt), meta
 

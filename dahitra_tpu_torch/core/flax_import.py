@@ -10,12 +10,20 @@ inverses of ``convert_bit`` and ``convert_resnet_cd``, for ``BIT`` and
 ``res34_unet_flax_to_state_dict`` of ``convert_res34_unet`` and
 ``convert_res34_double_modified``, for every ResNet34 UNet (the xBD zoo's
 wrapped-trunk keys); ``discriminator_flax_to_state_dict`` carries the GAN
-trainer's ``Discriminator`` (its own flax names).
+trainer's ``Discriminator`` (its own flax names);
+``unet_change_transformer_flax_to_state_dict``,
+``siam_unet_conc_flax_to_state_dict`` and ``changeformer_flax_to_state_dict``
+are the inverses of ``convert_unet_change_transformer``,
+``convert_siam_unet_conc`` and ``convert_changeformer``.
 Conventions:
 
   * conv kernels HWIO -> OIHW, Dense kernels (in, out) -> Linear (out, in);
   * BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
-  * the decoder positional embedding NHWC -> NCHW.
+  * the decoder positional embedding NHWC -> NCHW;
+  * a flax ``ConvTranspose`` kernel (``transpose_kernel=True``) goes back
+    with the conv rule to the (in, out, kh, kw) of ``nn.ConvTranspose2d``;
+    the SAME convs that stand for stride-1 transposed convs
+    (``_ct_as_conv``) go back with their taps flipped.
 
 The trees are read as nested mappings of array-likes; nothing here imports
 JAX.
@@ -52,7 +60,7 @@ class _Writer:
         self.sd: StateDict = {}
 
     def put(self, key, value):
-        self.sd[key] = torch.tensor(np.asarray(value, np.float32))
+        self.sd[key] = torch.tensor(np.ascontiguousarray(value, np.float32))
 
     def conv(self, key, p):
         """Conv kernel HWIO -> ``key.weight`` OIHW, and its bias if any."""
@@ -91,7 +99,7 @@ class _Writer:
             for block in rp[layer]:
                 key = f"{names[layer]}.{block[len('block'):]}"
                 p, s = rp[layer][block], rs[layer][block]
-                for i in (1, 2):
+                for i in (1, 2, 3)[:3 if "conv3" in p else 2]:
                     self.put(f"{key}.conv{i}.weight",
                              _conv(p[f"conv{i}"]["kernel"]))
                     self.bn(f"{key}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
@@ -231,6 +239,109 @@ def discriminator_flax_to_state_dict(params: Mapping,
             {"conv1": "backbone.conv1", "bn1": "backbone.bn1",
              **{f"layer{i}": f"backbone.layer{i}" for i in range(1, 5)}})
     w.dense("fc", params["fc"])
+    return w.sd
+
+
+def unet_change_transformer_flax_to_state_dict(
+        params: Mapping, batch_stats: Mapping, two: bool = False) -> StateDict:
+    """``UNetChangeTransformer`` (or, with ``two``,
+    ``UNetChangeTwoTransformer``) variables -> the port's fp32
+    ``state_dict``."""
+    w = _Writer()
+    w.trunk(params["encoder"]["resnet"], batch_stats["encoder"]["resnet"],
+            _ZOO_TRUNK)
+    fuses = ("ca_skip_5", "ca_skip_2") if two else ("ca_skip_5",)
+    for name in fuses:
+        w.conv(f"{name}.conv1", params[name]["conv1"])
+    if not two:
+        for fc in ("fc1", "fc2"):
+            w.conv(f"ca_bottle_max.{fc}", params["ca_bottle_max"][fc])
+    for name in ("transformer", "transformer2") if two else ("transformer",):
+        w.encoder(name, params[name]["transformer"])
+    for name in sorted(k for k in params if k.startswith("conv")):
+        w.conv(f"{name}.layer.0", params[name]["conv"])
+    w.conv("res", params["res"])
+    return w.sd
+
+
+def siam_unet_conc_flax_to_state_dict(params: Mapping,
+                                      batch_stats: Mapping) -> StateDict:
+    """``SiamUnetConc`` variables -> the port's fp32 ``state_dict``: the
+    encoder's ``encNM`` to ``convNM``/``bnNM``, the up-convs as they are,
+    the decoder's SAME convs ``decNM`` back to the stride-1 transposed
+    convs ``convNMd`` (taps flipped, in and out swapped) with ``bnNMd``."""
+    w = _Writer()
+    for name, p in params.items():
+        if name.startswith("enc"):
+            w.conv(f"conv{name[3:]}", p["conv"])
+            w.bn(f"bn{name[3:]}", p["bn"], batch_stats[name]["bn"])
+        elif name.startswith("upconv"):
+            w.conv(name, p["upconv"])
+        elif name.startswith("dec"):
+            conv = p if name == "dec11" else p["conv"]
+            w.put(f"conv{name[3:]}d.weight", np.transpose(
+                np.asarray(conv["kernel"]), (2, 3, 0, 1))[:, :, ::-1, ::-1])
+            w.put(f"conv{name[3:]}d.bias", conv["bias"])
+            if name != "dec11":
+                w.bn(f"bn{name[3:]}d", p["bn"], batch_stats[name]["bn"])
+    return w.sd
+
+
+def changeformer_flax_to_state_dict(params: Mapping, batch_stats: Mapping,
+                                    v6: bool = True) -> StateDict:
+    """``ChangeFormerV6`` (or, with ``v6=False``, ``ChangeFormerV1``)
+    variables -> the port's fp32 ``state_dict`` (``Tenc_x2``/``TDec_x2``,
+    or ``Tenc``/``convproj``/``change_probability``)."""
+    w = _Writer()
+    enc = params["Tenc"]
+    ep = "Tenc_x2" if v6 else "Tenc"
+    for name, p in enc.items():
+        if name.startswith("patch_embed"):
+            w.conv(f"{ep}.{name}.proj", p["proj"])
+            w.ln(f"{ep}.{name}.norm", p["norm"])
+        elif name.startswith("norm"):
+            w.ln(f"{ep}.{name}", p)
+        else:  # blockS_I
+            stage, i = name[len("block"):].split("_")
+            base = f"{ep}.block{stage}.{i}"
+            for ln in ("norm1", "norm2"):
+                w.ln(f"{base}.{ln}", p[ln])
+            for lin in ("q", "kv", "proj"):
+                w.dense(f"{base}.attn.{lin}", p["attn"][lin])
+            if "sr" in p["attn"]:
+                w.conv(f"{base}.attn.sr", p["attn"]["sr"])
+                w.ln(f"{base}.attn.norm", p["attn"]["sr_norm"])
+            w.dense(f"{base}.mlp.fc1", p["mlp"]["fc1"])
+            w.conv(f"{base}.mlp.dwconv.dwconv", p["mlp"]["dwconv"])
+            w.dense(f"{base}.mlp.fc2", p["mlp"]["fc2"])
+
+    def residual(key, p):
+        w.conv(f"{key}.0.conv1.conv2d", p["conv1"])
+        w.conv(f"{key}.0.conv2.conv2d", p["conv2"])
+
+    if not v6:
+        for name, p in params["convproj"].items():
+            if name.startswith("dense"):
+                residual(f"convproj.{name}", p)
+            else:
+                w.conv(f"convproj.{name}.conv2d", p["conv"])
+        w.conv("change_probability.conv2d", params["change_probability"])
+        return w.sd
+    dec, stats = params["TDec"], batch_stats["TDec"]
+    for tag in "4321":
+        w.dense(f"TDec_x2.linear_c{tag}.proj", dec[f"linear_c{tag}"])
+        for mod in (f"diff_c{tag}", f"make_pred_c{tag}"):
+            w.conv(f"TDec_x2.{mod}.0", dec[mod]["conv1"])
+            w.bn(f"TDec_x2.{mod}.2", dec[mod]["bn"], stats[mod]["bn"])
+            w.conv(f"TDec_x2.{mod}.3", dec[mod]["conv2"])
+    w.conv("TDec_x2.linear_fuse.0", dec["linear_fuse"])
+    w.bn("TDec_x2.linear_fuse.1", dec["linear_fuse_bn"],
+         stats["linear_fuse_bn"])
+    for name in ("convd2x", "convd1x"):
+        w.conv(f"TDec_x2.{name}.conv2d", dec[name]["conv"])
+    for name in ("dense_2x", "dense_1x"):
+        residual(f"TDec_x2.{name}", dec[name])
+    w.conv("TDec_x2.change_probability.conv2d", dec["change_probability"])
     return w.sd
 
 

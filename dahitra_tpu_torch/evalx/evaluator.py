@@ -5,8 +5,9 @@ Counterpart of dahitra_tpu/evalx/evaluator.py (the reference's
 models/evaluator.py:20-182 and eval_cd.py's 16-patch sweep). One batch at a
 time: uint8 pairs go to the device (all at once first with
 ``device_cache``), are normalised there, run through the model, and the
-argmax feeds a batch or per-sample confusion matrix that stays on the device
-until the end of the pass. The JAX package's one-dispatch ``lax.scan`` epoch
+argmax of the full-resolution logits (the last entry of a multi-scale list)
+feeds a batch or per-sample confusion matrix that stays on the device until
+the end of the pass. The JAX package's one-dispatch ``lax.scan`` epoch
 has no counterpart: PyTorch runs eagerly.
 
 Artifacts as the reference writes them: the scores line in
@@ -26,7 +27,7 @@ from dahitra_tpu_torch.data.loader import BatchLoader
 from dahitra_tpu_torch.metrics.confusion import (batch_confusion_matrix,
                                                  cm2score,
                                                  per_sample_confusion_matrix)
-from dahitra_tpu_torch.models.registry import define_g
+from dahitra_tpu_torch.models.registry import define_g, final_logits
 from dahitra_tpu_torch.utils import Logger, Timer, disable_tf32, resolve_device
 
 
@@ -63,7 +64,7 @@ class CDEvaluator:
         per-sample (B, C, C) matrices when ``per_sample``."""
         a, b, label = augment_pairs(a_u8, b_u8, l_u8, train=False,
                                     dtype=self.dtype)
-        pred = self.model(a, b).argmax(-1)
+        pred = final_logits(self.model(a, b)).argmax(-1)
         cm_fn = per_sample_confusion_matrix if per_sample \
             else batch_confusion_matrix
         return cm_fn(pred, label, self.n_class), pred

@@ -23,8 +23,9 @@ squeezed).
     ``dice_argmax``; the reference builds a weight tensor and passes the
     unset one, so the CE is unweighted).
 
-The logits must have the target's spatial size: the JAX package resizes
-only for multi-scale heads, which this model does not have.
+The logits must have the target's spatial size; ``multi_scale_loss``
+(dahitra_tpu/train/engine.py:127-151) resizes the target for each head of
+a multi-scale model (``changeFormerV6``) with ``resize_labels_nearest``.
 """
 from __future__ import annotations
 
@@ -109,6 +110,35 @@ def levir_train_loss(logits: torch.Tensor, target: torch.Tensor,
         return (dice_argmax(logits, target, ignore_index=255)
                 + focal_loss(logits, target, ignore_index=255))
     return cross_entropy(logits, target)
+
+
+# The multi-scale heads' weights, coarsest first (models/trainer.py:271-285).
+MULTI_SCALE_WEIGHTS = (0.5, 0.5, 0.5, 0.8, 1.0)
+
+
+def resize_labels_nearest(target: torch.Tensor, h: int, w: int
+                          ) -> torch.Tensor:
+    """(B, H, W) labels to (B, h, w) the way ``jax.image.resize(...,
+    "nearest")`` resizes them: half-pixel centres, source index
+    floor((i + 0.5) * H / h), which is ``mode="nearest-exact"`` (torch's
+    ``"nearest"`` takes floor(i * H / h))."""
+    out = F.interpolate(target[:, None].float(), size=(h, w),
+                        mode="nearest-exact")
+    return out[:, 0].to(target.dtype)
+
+
+def multi_scale_loss(logits, target: torch.Tensor,
+                     batch_size: int) -> torch.Tensor:
+    """Deep supervision: the sum over the heads of ``levir_train_loss``
+    weighted by ``MULTI_SCALE_WEIGHTS``, each head against the target
+    resized to its size (fp32 logits)."""
+    target = _squeeze_target(target)
+    loss = 0.0
+    for wt, lg in zip(MULTI_SCALE_WEIGHTS, logits):
+        tgt = target if lg.shape[1:3] == target.shape[1:3] else \
+            resize_labels_nearest(target, lg.shape[1], lg.shape[2])
+        loss = loss + wt * levir_train_loss(lg.float(), tgt, batch_size)
+    return loss
 
 
 def focal_loss_2d_sigmoid(logits: torch.Tensor, target: torch.Tensor,

@@ -41,14 +41,15 @@ DECODER_FILTERS = (48, 64, 96, 160, 320)
 _BLOCKS = (3, 4, 6, 3)  # resnet34
 
 
-class _Res34Unet(nn.Module):
-    """The shared encoder and decoder: ``features`` returns every level,
-    ``core`` the 48-channel full-resolution map (``_Res34UnetCore``)."""
+class Res34Encoder(nn.Module):
+    """The zoo's wrapped resnet34 (``conv1`` = (conv, bn, relu), ``conv2`` =
+    (maxpool, layer1), ``conv3``-``conv5``), shared with the LEVIR UNet
+    change transformers (models/unet_change_transformer.py)."""
 
     def __init__(self, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
-        e, d = ENCODER_FILTERS, DECODER_FILTERS
+        e = ENCODER_FILTERS
         self.conv1 = nn.Sequential(nn.Conv2d(3, e[0], 7, 2, 3, bias=False),
                                    BatchNorm(e[0], dtype), nn.ReLU())
         self.conv2 = nn.Sequential(
@@ -56,6 +57,32 @@ class _Res34Unet(nn.Module):
         self.conv3 = ResNetLayer(e[1], e[2], _BLOCKS[1], 2, dtype)
         self.conv4 = ResNetLayer(e[2], e[3], _BLOCKS[2], 2, dtype)
         self.conv5 = ResNetLayer(e[3], e[4], _BLOCKS[3], 2, dtype)
+
+    def stem(self, x: torch.Tensor, train: bool,
+             pair: bool = False) -> torch.Tensor:
+        """relu(bn(conv 7x7 s2)): the 1/2-scale level, 64 channels."""
+        conv, bn = self.conv1[0], self.conv1[1]
+        return torch.relu(bn(conv2d_nhwc(x, conv.weight, stride=2, padding=3,
+                                         dtype=self.dtype), train, pair))
+
+    def encode(self, x: torch.Tensor, train: bool, pair: bool = False):
+        """enc1..enc5; with ``pair`` the batch is [date1; date2] and each
+        BatchNorm takes per-date statistics in train mode."""
+        enc1 = self.stem(x, train, pair)                          # 1/2, 64
+        enc2 = self.conv2[1](max_pool_3x3_s2(enc1), train, pair)  # 1/4, 64
+        enc3 = self.conv3(enc2, train, pair)                      # 1/8, 128
+        enc4 = self.conv4(enc3, train, pair)                      # 1/16, 256
+        enc5 = self.conv5(enc4, train, pair)                      # 1/32, 512
+        return enc1, enc2, enc3, enc4, enc5
+
+
+class _Res34Unet(Res34Encoder):
+    """The shared encoder and decoder: ``features`` returns every level,
+    ``core`` the 48-channel full-resolution map (``_Res34UnetCore``)."""
+
+    def __init__(self, dtype=torch.float32):
+        super().__init__(dtype)
+        e, d = ENCODER_FILTERS, DECODER_FILTERS
         self.conv6 = ConvRelu(e[4], d[4], dtype=dtype)
         self.conv6_2 = ConvRelu(d[4] + e[3], d[4], dtype=dtype)
         self.conv7 = ConvRelu(d[4], d[3], dtype=dtype)
@@ -65,20 +92,6 @@ class _Res34Unet(nn.Module):
         self.conv9 = ConvRelu(d[2], d[1], dtype=dtype)
         self.conv9_2 = ConvRelu(d[1] + e[0], d[1], dtype=dtype)
         self.conv10 = ConvRelu(d[1], d[0], dtype=dtype)
-
-    def stem(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """relu(bn(conv 7x7 s2)): the 1/2-scale level, 64 channels."""
-        conv, bn = self.conv1[0], self.conv1[1]
-        return torch.relu(bn(conv2d_nhwc(x, conv.weight, stride=2, padding=3,
-                                         dtype=self.dtype), train))
-
-    def encode(self, x: torch.Tensor, train: bool):
-        enc1 = self.stem(x, train)                                # 1/2, 64
-        enc2 = self.conv2[1](max_pool_3x3_s2(enc1), train)        # 1/4, 64
-        enc3 = self.conv3(enc2, train)                            # 1/8, 128
-        enc4 = self.conv4(enc3, train)                            # 1/16, 256
-        enc5 = self.conv5(enc4, train)                            # 1/32, 512
-        return enc1, enc2, enc3, enc4, enc5
 
     def decode(self, level: int, x: torch.Tensor, skip: torch.Tensor
                ) -> torch.Tensor:

@@ -15,9 +15,20 @@ a reference checkpoint loads as it is. Quirks kept:
 The TPU layout rewrites ``PhaseUpConv`` and ``PhasePackedConv``
 (blocks.py:71-180) are the plain ``relu(conv3x3(up2(x)) + b)`` (``UpConv``)
 and a plain 3x3 conv on the upsampled map.
+
+Dropout (blocks.py:340-517) is ``Dropout``: active only when the caller
+runs the block with ``deterministic=False`` (train mode) at a rate above 0,
+its mask drawn from the ``torch.Generator`` that ``set_dropout_generator``
+gave the model (on the tensor's device), or from torch's default generator.
+At rate 0 every block computes what it computes without dropout.
+
+``DAHITRA_FAST_VJP=0`` in the environment at import (blocks.py:33), or
+``TransformerDecoder(fast_vjp=False)``, sends the shapes that would take
+the decoder stack to the layer loop instead.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -29,13 +40,29 @@ from dahitra_tpu_torch.kernels.fused_decoder import (ORDER, FusedDecoderFn,
 from dahitra_tpu_torch.kernels.fused_tokenizer import SemanticTokenizerFn
 from dahitra_tpu_torch.nn.decoder_vjp import decoder_stack, pack_decoder_params
 
+# Read once at import, as the JAX package does (blocks.py:28-33).
+_FAST_VJP_DEFAULT = os.environ.get("DAHITRA_FAST_VJP", "1") != "0"
+
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, stride: int = 1,
-                padding: int = 0, dtype=torch.float32) -> torch.Tensor:
+                padding: int = 0, dtype=torch.float32,
+                groups: int = 1) -> torch.Tensor:
     """NHWC conv with an OIHW weight, computed in ``dtype``."""
     y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), weight.to(dtype),
-                 None if bias is None else bias.to(dtype), stride, padding)
+                 None if bias is None else bias.to(dtype), stride, padding,
+                 1, groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose2d_nhwc(x: torch.Tensor, conv: nn.ConvTranspose2d,
+                          dtype=torch.float32) -> torch.Tensor:
+    """NHWC ``nn.ConvTranspose2d`` (its stride, padding and output padding),
+    computed in ``dtype``."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dtype),
+                           conv.weight.to(dtype), bias, conv.stride,
+                           conv.padding, conv.output_padding)
     return y.permute(0, 2, 3, 1)
 
 
@@ -59,6 +86,50 @@ def upsample_bilinear(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """torch MaxPool2d(3, stride=2, padding=1) on NHWC."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """torch F.max_pool2d(kernel_size=2, stride=2) on NHWC: an odd last row
+    or column is dropped (blocks.py:220)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+class Dropout(nn.Module):
+    """Dropout at ``rate`` (flax ``nn.Dropout``): kept elements scaled by
+    1 / (1 - rate). ``per`` picks the mask's shape from x's: "element"
+    (``nn.Dropout``), "channel" (``Dropout2d`` on NHWC, one draw per sample
+    and channel, flax ``broadcast_dims=(1, 2)``) or "sample" (drop path,
+    one draw per sample). Identity when ``deterministic`` or at rate 0.
+    ``generator`` (set by ``set_dropout_generator``) lies on the device of
+    the tensors it drops from; None draws from torch's default generator."""
+
+    def __init__(self, rate: float = 0.0, per: str = "element"):
+        super().__init__()
+        self.rate, self.per = float(rate), per
+        self.generator: Optional[torch.Generator] = None
+
+    def mask_shape(self, x: torch.Tensor):
+        if self.per == "channel":
+            return (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        if self.per == "sample":
+            return (x.shape[0],) + (1,) * (x.dim() - 1)
+        return x.shape
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True
+                ) -> torch.Tensor:
+        if deterministic or self.rate == 0.0:
+            return x
+        keep = torch.rand(self.mask_shape(x), generator=self.generator,
+                          device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Draw every ``Dropout`` mask of ``model`` from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class BatchNorm(nn.Module):
@@ -141,6 +212,23 @@ class UpConv(nn.Sequential):
                                       dtype=self.dtype))
 
 
+class ConvReluBN(nn.Module):
+    """conv3x3 (padding 1)-BN-ReLU (networks.py:396-405; the JAX
+    ``ConvReluBN``, blocks.py:322), with ``conv`` and ``bn`` submodules."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.bn = BatchNorm(out_channels, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = conv2d_nhwc(x, self.conv.weight, self.conv.bias, padding=1,
+                        dtype=self.dtype)
+        return torch.relu(self.bn(x, train))
+
+
 class ConvRelu(nn.Module):
     """conv3x3 (padding 1) then ReLU (networks.py:408-416; the JAX
     ``ConvRelu``), with the reference's ``layer = Sequential(conv, relu)``
@@ -168,19 +256,21 @@ def _dense(x: torch.Tensor, linear: nn.Linear, dtype) -> torch.Tensor:
 
 
 class FeedForward(nn.Module):
-    """Linear-GELU-Dropout-Linear-Dropout (help_funcs.py:52-63); the
-    dropout rate is 0, so train and eval compute the same."""
+    """Linear-GELU-Dropout-Linear-Dropout (help_funcs.py:52-63)."""
 
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.net = nn.Sequential(nn.Linear(dim, hidden_dim), nn.GELU(),
-                                 nn.Dropout(0.0), nn.Linear(hidden_dim, dim),
-                                 nn.Dropout(0.0))
+                                 Dropout(dropout), nn.Linear(hidden_dim, dim),
+                                 Dropout(dropout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(_dense(x, self.net[0], self.dtype))
-        return _dense(h, self.net[3], self.dtype)
+    def forward(self, x: torch.Tensor, deterministic: bool = True
+                ) -> torch.Tensor:
+        h = self.net[2](F.gelu(_dense(x, self.net[0], self.dtype)),
+                        deterministic)
+        return self.net[4](_dense(h, self.net[3], self.dtype), deterministic)
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -204,17 +294,19 @@ class MultiHeadSelfAttention(nn.Module):
     """MHSA with a fused qkv projection (help_funcs.py:117-151)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout: float = 0.0):
         super().__init__()
         self.dim, self.heads, self.dtype = dim, heads, dtype
         inner = heads * dim_head
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(inner, dim), nn.Dropout(0.0))
+        self.to_out = nn.Sequential(nn.Linear(inner, dim), Dropout(dropout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True
+                ) -> torch.Tensor:
         q, k, v = (_split_heads(t, self.heads) for t in
                    _dense(x, self.to_qkv, self.dtype).chunk(3, dim=-1))
-        return _dense(_attend(q, k, v, self.dim), self.to_out[0], self.dtype)
+        out = _dense(_attend(q, k, v, self.dim), self.to_out[0], self.dtype)
+        return self.to_out[1](out, deterministic)
 
 
 class CrossAttention(nn.Module):
@@ -222,21 +314,24 @@ class CrossAttention(nn.Module):
     the max-shifted softmax; ``softmax=False`` mixes by the raw dots."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 softmax: bool = True, dtype=torch.float32):
+                 softmax: bool = True, dtype=torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.dim, self.heads, self.softmax, self.dtype = dim, heads, softmax, dtype
         inner = heads * dim_head
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_k = nn.Linear(dim, inner, bias=False)
         self.to_v = nn.Linear(dim, inner, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(inner, dim), nn.Dropout(0.0))
+        self.to_out = nn.Sequential(nn.Linear(inner, dim), Dropout(dropout))
 
-    def forward(self, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, m: torch.Tensor,
+                deterministic: bool = True) -> torch.Tensor:
         q, k, v = (_split_heads(_dense(t, lin, self.dtype), self.heads)
                    for t, lin in ((x, self.to_q), (m, self.to_k),
                                   (m, self.to_v)))
         out = _attend(q, k, v, self.dim, self.softmax)
-        return _dense(out, self.to_out[0], self.dtype)
+        return self.to_out[1](_dense(out, self.to_out[0], self.dtype),
+                              deterministic)
 
 
 class PreNorm(nn.Module):
@@ -248,8 +343,10 @@ class PreNorm(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.fn = fn
 
-    def forward(self, x: torch.Tensor, *mem: torch.Tensor) -> torch.Tensor:
-        return self.fn(self.norm(x.float()), *(self.norm(t.float()) for t in mem))
+    def forward(self, x: torch.Tensor, *mem: torch.Tensor,
+                **kw) -> torch.Tensor:
+        return self.fn(self.norm(x.float()),
+                       *(self.norm(t.float()) for t in mem), **kw)
 
 
 class Residual(nn.Module):
@@ -259,25 +356,28 @@ class Residual(nn.Module):
         super().__init__()
         self.fn = fn
 
-    def forward(self, x: torch.Tensor, *mem: torch.Tensor) -> torch.Tensor:
-        return x + self.fn(x, *mem)
+    def forward(self, x: torch.Tensor, *mem: torch.Tensor,
+                **kw) -> torch.Tensor:
+        return x + self.fn(x, *mem, **kw)
 
 
 class TransformerEncoder(nn.Module):
     """depth x [x += MHSA(LN(x)); x += FF(LN(x))] (help_funcs.py:154-167)."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
-                 mlp_dim: int, dtype=torch.float32):
+                 mlp_dim: int, dtype=torch.float32, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([nn.ModuleList([
             Residual(PreNorm(dim, MultiHeadSelfAttention(dim, heads, dim_head,
-                                                         dtype))),
-            Residual(PreNorm(dim, FeedForward(dim, mlp_dim, dtype))),
+                                                         dtype, dropout))),
+            Residual(PreNorm(dim, FeedForward(dim, mlp_dim, dtype, dropout))),
         ]) for _ in range(depth)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True
+                ) -> torch.Tensor:
         for attn, ff in self.layers:
-            x = ff(attn(x))
+            x = ff(attn(x, deterministic=deterministic),
+                   deterministic=deterministic)
         return x
 
 
@@ -297,41 +397,54 @@ class TransformerDecoder(nn.Module):
     ``mlp_dim`` may differ from ``dim`` on every path, as in the JAX module;
     the kernels are built for ``mlp_dim`` 32 and 64 (BIT's decoder), so on
     the card the first two paths raise a ``ValueError`` naming ``mlp_dim``
-    for any other width.
+    for any other width. Both kernel paths also need ``deterministic`` or
+    a ``dropout`` of 0; ``fast_vjp=False`` (or ``DAHITRA_FAST_VJP=0`` at
+    import) closes the stack path (the JAX gates, blocks.py:585-600).
     """
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, softmax: bool = True, dtype=torch.float32,
-                 pallas: Optional[bool] = None):
+                 pallas: Optional[bool] = None, dropout: float = 0.0,
+                 fast_vjp: Optional[bool] = None):
         super().__init__()
         self.dim, self.depth, self.heads = dim, depth, heads
         self.softmax, self.dtype, self.pallas = softmax, dtype, pallas
+        self.dropout, self.fast_vjp = float(dropout), fast_vjp
         self.layers = nn.ModuleList([nn.ModuleList([
             Residual(PreNorm(dim, CrossAttention(dim, heads, dim_head, softmax,
-                                                 dtype))),
-            Residual(PreNorm(dim, FeedForward(dim, mlp_dim, dtype))),
+                                                 dtype, dropout))),
+            Residual(PreNorm(dim, FeedForward(dim, mlp_dim, dtype, dropout))),
         ]) for _ in range(depth)])
 
-    def uses_fused(self, n: int, n_kv: int, x_dim: int) -> bool:
-        return bool(self.pallas and self.softmax and pick_tile(n) is not None
+    def uses_fused(self, n: int, n_kv: int, x_dim: int,
+                   deterministic: bool = True) -> bool:
+        return bool(self.pallas and self.softmax
+                    and (deterministic or self.dropout == 0.0)
+                    and pick_tile(n) is not None
                     and self.heads * n_kv <= 128 and x_dim == self.dim)
 
-    def uses_stack(self, n: int, n_kv: int, x_dim: int) -> bool:
-        return (self.softmax and n_kv <= 16 and n > 4 * n_kv
+    def uses_stack(self, n: int, n_kv: int, x_dim: int,
+                   deterministic: bool = True) -> bool:
+        return (self.fast_vjp is not False and _FAST_VJP_DEFAULT
+                and self.softmax and (deterministic or self.dropout == 0.0)
+                and n_kv <= 16 and n > 4 * n_kv
                 and self.heads * n_kv <= 128 and x_dim == self.dim)
 
-    def forward(self, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-        if self.uses_fused(x.shape[-2], m.shape[-2], x.shape[-1]):
+    def forward(self, x: torch.Tensor, m: torch.Tensor,
+                deterministic: bool = True) -> torch.Tensor:
+        shape = (x.shape[-2], m.shape[-2], x.shape[-1], deterministic)
+        if self.uses_fused(*shape):
             packed = pack_decoder_params(self)
             return FusedDecoderFn.apply(self.depth, self.heads, self.dtype, x,
                                         m, *(packed[k] for k in ORDER)
                                         ).to(x.dtype)
-        if self.uses_stack(x.shape[-2], m.shape[-2], x.shape[-1]):
+        if self.uses_stack(*shape):
             return decoder_stack(x.to(self.dtype), m.to(self.dtype),
                                  pack_decoder_params(self), self.depth,
                                  self.heads, self.dtype)
         for attn, ff in self.layers:
-            x = ff(attn(x, m))
+            x = ff(attn(x, m, deterministic=deterministic),
+                   deterministic=deterministic)
         return x
 
 

@@ -5,9 +5,12 @@ the reference's models/networks.py:77-127): every ``define_g`` model is
 re-initialized after construction with ``init_type`` (default 'normal',
 gain 0.02):
 
-  * Conv and Linear weights (the tokenizer's 1x1 conv included) ~ N(0, gain^2),
-    or xavier-normal / kaiming-normal (fan_in, a = 0) / orthogonal with torch's
-    fan conventions; their biases are 0;
+  * Conv, transposed-conv and Linear weights (the tokenizer's 1x1 conv and
+    the depthwise convs included) ~ N(0, gain^2), or xavier-normal /
+    kaiming-normal (fan_in, a = 0) / orthogonal with torch's fan conventions
+    (a ``ConvTranspose2d`` weight is (in, out, kh, kw), so its fan-in is
+    out * kh * kw, as ``_torch_fans(..., transpose)`` has it, :41); their
+    biases are 0;
   * BatchNorm weight ~ N(1, gain^2), bias 0;
   * LayerNorms and the positional embeddings are left as the constructor made
     them (ones and zeros; N(0, 1)).
@@ -75,7 +78,8 @@ def init_weights(model: nn.Module, init_type: str = "normal",
             module.weight.copy_(1.0 + init_gain * torch.randn(
                 module.weight.shape, generator=gen))
             module.bias.zero_()
-        elif isinstance(module, (nn.Conv2d, nn.Linear, SemanticTokenizer)):
+        elif isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear,
+                                 SemanticTokenizer)):
             module.weight.copy_(_draw(module.weight, init_type, init_gain, gen))
             if getattr(module, "bias", None) is not None:
                 module.bias.zero_()

@@ -4,9 +4,14 @@ Counterpart of dahitra_tpu/train/engine.py:51-499 (the reference's
 models/trainer.py:21-335), per-batch path. Each step: the uint8 batch goes
 to the device, is augmented there (flips, blur, normalisation), runs the
 train-mode forward (per-date BatchNorm statistics; the decoder stacks
-through K1 with saves), ``levir_train_loss`` on the fp32 logits with the
-batch's own size (a ragged batch of one takes the CE branch), backward (K2
-for the decoder stacks) and the AdamW step. The confusion matrix and the
+through K1 with saves; dropout drawn from the trainer's dropout generator,
+seeded from ``--seed`` + 1 on the device), ``levir_train_loss`` on the fp32
+logits with the batch's own size (a ragged batch of one takes the CE
+branch), backward (K2 for the decoder stacks) and the AdamW step. A model
+that returns a list of multi-scale logits (``changeFormerV6``) trains on
+its full-resolution head, or with ``--multi_scale_loss`` on the weighted
+sum over its heads (``losses/cd.py`` ``multi_scale_loss``,
+engine.py:127-151); its last entry is what validation scores. The confusion matrix and the
 losses stay on the device until a log line needs them. The learning rate
 is set per epoch.
 
@@ -14,7 +19,8 @@ Artifacts as the reference writes them: ``log.txt`` (the argument line,
 progress every ``--log_every`` batches, the epoch lines with ``imps``),
 ``train_acc.npy`` / ``val_acc.npy`` and ``best_ckpt.pt``, gated on the
 validation mF1; a ``best_ckpt.pt`` already in the checkpoint directory
-resumes the run after its epoch, optimizer state included.
+resumes the run after its epoch, optimizer state and the augmentation and
+dropout generators' states included.
 
 ``--scan_epoch`` and ``--log_chunks`` are TPU dispatch workarounds
 (engine.py:187-258) and have no effect here. ``--profile_dir`` writes a
@@ -31,9 +37,10 @@ import torch
 from dahitra_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from dahitra_tpu_torch.data.augment import augment_pairs
 from dahitra_tpu_torch.data.loader import BatchLoader
-from dahitra_tpu_torch.losses.cd import levir_train_loss
+from dahitra_tpu_torch.losses.cd import levir_train_loss, multi_scale_loss
 from dahitra_tpu_torch.metrics.confusion import batch_confusion_matrix, cm2score
-from dahitra_tpu_torch.models.registry import define_g
+from dahitra_tpu_torch.models.registry import define_g, final_logits
+from dahitra_tpu_torch.nn.blocks import set_dropout_generator
 from dahitra_tpu_torch.nn.init import init_weights
 from dahitra_tpu_torch.train.optim import (epoch_lr, make_optimizer,
                                            set_learning_rate)
@@ -65,6 +72,10 @@ class CDTrainer:
                                         weight_decay=0.01)
         self.aug_generator = torch.Generator(device=self.device)
         self.aug_generator.manual_seed(seed)
+        self.dropout_generator = torch.Generator(device=self.device)
+        self.dropout_generator.manual_seed(seed + 1)
+        set_dropout_generator(self.model, self.dropout_generator)
+        self.multi_scale = getattr(args, "multi_scale_loss", False)
 
         self.train_loader = BatchLoader(train_arrays, args.batch_size,
                                         shuffle=True, seed=seed)
@@ -87,8 +98,12 @@ class CDTrainer:
         a, b, label = augment_pairs(a_u8, b_u8, l_u8, train=True,
                                     dtype=self.dtype,
                                     generator=self.aug_generator)
-        logits = self.model(a, b, train=True)
-        loss = levir_train_loss(logits.float(), label, a.shape[0])
+        out = self.model(a, b, train=True)
+        logits = final_logits(out)
+        if self.multi_scale and isinstance(out, (list, tuple)):
+            loss = multi_scale_loss(out, label, a.shape[0])
+        else:
+            loss = levir_train_loss(logits.float(), label, a.shape[0])
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -175,8 +190,9 @@ class CDTrainer:
             a_u8, b_u8, l_u8 = self._to_device(batch)
             a, b, label = augment_pairs(a_u8, b_u8, l_u8, train=False,
                                         dtype=self.dtype)
-            cm += batch_confusion_matrix(self.model(a, b).argmax(-1), label,
-                                         self.n_class)
+            cm += batch_confusion_matrix(
+                final_logits(self.model(a, b)).argmax(-1), label,
+                self.n_class)
         scores = cm2score(cm.cpu().numpy())
         self.logger.write(
             f"Is_training: False. Epoch {epoch} / {self.max_epochs - 1}, "
@@ -197,6 +213,8 @@ class CDTrainer:
         self.model.load_state_dict(state_dict)
         if "optimizer_G_state_dict" in meta:
             self.optimizer.load_state_dict(meta["optimizer_G_state_dict"])
+        for name, state in meta.get("generator_states", {}).items():
+            getattr(self, f"{name}_generator").set_state(state)
         self.epoch_to_start = int(meta.get("epoch_id", -1)) + 1
         self.best_val_acc = float(meta.get("best_val_acc", 0.0))
         self.best_epoch_id = int(meta.get("best_epoch_id", 0))
@@ -216,7 +234,10 @@ class CDTrainer:
             save_checkpoint(self.checkpoint_dir, self.model.state_dict(),
                             best_val_acc=val_acc, best_epoch_id=epoch,
                             epoch_id=epoch,
-                            optimizer_state=self.optimizer.state_dict())
+                            optimizer_state=self.optimizer.state_dict(),
+                            generator_states={
+                                "aug": self.aug_generator.get_state(),
+                                "dropout": self.dropout_generator.get_state()})
             self.logger.write("*" * 10 + "Best model updated!\n\n")
 
     def train_models(self) -> list:

@@ -42,7 +42,7 @@ from dahitra_tpu_torch.data.synthetic import write_synthetic_levir
 from dahitra_tpu_torch.kernels import folded_decoder as fd
 from dahitra_tpu_torch.losses.cd import levir_train_loss
 from dahitra_tpu_torch.models.bit import BIT
-from dahitra_tpu_torch.models.registry import PORTED, define_g
+from dahitra_tpu_torch.models.registry import PORTED, define_g, final_logits
 from dahitra_tpu_torch.nn.blocks import upsample_bilinear
 
 IMG = 64
@@ -287,7 +287,8 @@ def test_state_dict_round_trip(key):
 
 def test_every_ported_key_builds_with_the_jax_output_shape():
     """Each ported key's forward at 32 px, batch 1, has the JAX model's
-    output shape (jax.eval_shape, nothing compiled), the xBD keys on the
+    output shape (jax.eval_shape, nothing compiled; the full-resolution
+    logits of changeFormerV6's list), the xBD keys on the
     6-channel pre|post input (the single-image ResNet34 UNets on one
     3-channel image); a key not ported yet raises by name."""
     x = np.zeros((1, 32, 32, 3), np.float32)
@@ -295,12 +296,12 @@ def test_every_ported_key_builds_with_the_jax_output_shape():
     for key in PORTED:
         ins = ((x, None) if key in ("xbd_res34_loc", "xbd_res34_single")
                else (x6, None) if key.startswith("xbd_") else (x, x))
-        want = jax.eval_shape(
+        want = final_logits(jax.eval_shape(
             lambda a: jax_define_g(key, img_size=32).init_with_output(
-                jax.random.PRNGKey(0), a, ins[1])[0], ins[0]).shape
+                jax.random.PRNGKey(0), a, ins[1])[0], ins[0])).shape
         with torch.no_grad():
-            got = define_g(key, img_size=32).eval()(
-                *(None if t is None else torch.from_numpy(t) for t in ins))
+            got = final_logits(define_g(key, img_size=32).eval()(
+                *(None if t is None else torch.from_numpy(t) for t in ins)))
         assert tuple(got.shape) == tuple(want), key
     with pytest.raises(NotImplementedError,
                        match="dual_hrnet.*Rest of the zoo"):

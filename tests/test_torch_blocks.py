@@ -207,5 +207,7 @@ def test_resnet_trunk_eval():
 
 
 def test_resnet_trunk_rejects_unported_backbone():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResNetTrunk("resnet50")
+    """resnet50 is ported (tests/test_torch_zoo_unet.py); a backbone the
+    JAX package does not have either raises by name."""
+    with pytest.raises(NotImplementedError, match="resnet101"):
+        ResNetTrunk("resnet101")

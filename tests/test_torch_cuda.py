@@ -669,3 +669,66 @@ def test_xbd_gan_step_launch_counts(card, tmp_path, dtype):
         moved = any(not torch.equal(a, b)
                     for a, b in zip(stats, trainer.disc.buffers()))
         assert moved == update
+
+
+ZOO_KEYS = ("unet_coupled_trans_256", "unet_coupled_two_trans_256",
+            "siamUnet_conc", "changeFormer", "changeFormerV6")
+
+
+@pytest.mark.parametrize("key", ZOO_KEYS)
+def test_zoo_forward_matches_cpu(card, key):
+    """The LEVIR zoo keys' fp32 eval forward at 256 px, batch 2 (the
+    full-resolution logits of changeFormerV6's list), card against the CPU
+    plain path: 1e-3 of the logits' scale, argmax agreement at least
+    99.9 %, and no decoder or tokenizer kernel launched."""
+    from dahitra_tpu_torch.models.registry import define_g, final_logits
+    from dahitra_tpu_torch.nn.init import init_random
+    from dahitra_tpu_torch.utils import disable_tf32
+
+    disable_tf32()
+    g = torch.Generator().manual_seed(5)
+    model = init_random(define_g(key), g)
+    a, b = (torch.rand(2, 256, 256, 3, generator=g) * 2 - 1 for _ in "ab")
+    before = (fd.launches, fd.launches_save, fd.launches_bwd, ft.launches,
+              kd.launches)
+    with torch.inference_mode():
+        ref = final_logits(model.eval()(a, b))
+        got = final_logits(model.to(card)(a.to(card), b.to(card))).cpu()
+    torch.cuda.synchronize()
+    assert (fd.launches, fd.launches_save, fd.launches_bwd, ft.launches,
+            kd.launches) == before
+    assert _scaled_err(got, ref) <= 1e-3
+    assert (got.argmax(-1) == ref.argmax(-1)).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_changeformer_v6_multi_scale_step_on_the_card(card, tmp_path, dtype):
+    """One CDTrainer step of changeFormerV6 at 256 px, batch 2, with the
+    multi-scale loss and dropout on: a finite loss, and the same bits from
+    a second trainer of the same seed (each on a freed card, cuDNN held to
+    deterministic algorithms, which otherwise may differ between the two)."""
+    import types
+
+    import numpy as np
+
+    from dahitra_tpu_torch.train.engine import CDTrainer
+
+    losses = []
+    torch.backends.cudnn.deterministic = True
+    for run in range(2):
+        torch.cuda.empty_cache()
+        args = types.SimpleNamespace(
+            n_class=2, checkpoint_dir=str(tmp_path / f"run{run}"), max_epochs=1,
+            bf16=dtype == torch.bfloat16, seed=0, net_G="changeFormerV6",
+            img_size=256, lr=5e-4, batch_size=2, multi_scale_loss=True)
+        empty = {k: np.zeros((0, 1), np.uint8) for k in ("a", "b", "label")}
+        trainer = CDTrainer(args, empty, empty, device="cuda")
+        g = torch.Generator().manual_seed(1)
+        batch = [torch.randint(0, 256, (2, 256, 256, 3), generator=g,
+                               dtype=torch.uint8).to(card) for _ in "ab"]
+        batch.append(torch.randint(0, 2, (2, 256, 256), generator=g,
+                                   dtype=torch.uint8).to(card))
+        losses.append(trainer.train_step(*batch)[0].item())
+        del trainer
+    torch.backends.cudnn.deterministic = False
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
