@@ -10,8 +10,10 @@ and ``dahitra_tpu_torch.cli.main_cd``, and xBD damage training and
 prediction at 1024 px (``xbd_dahitra``, ``xbd_bit``) through
 ``dahitra_tpu_torch.cli.xbd_train`` and ``xbd_predict``, the rest of
 the xBD stack (``xbd_train --task loc | adapt | gan``, ``--elastic``,
-``visualize_results``), and the rest of the LEVIR-CD zoo with ``demo``,
-``import_checkpoint`` and ``count_params``. Phases, each fatal on failure:
+``visualize_results``), the rest of the LEVIR-CD zoo with ``demo``,
+``import_checkpoint`` and ``count_params``, and the xBD half of the zoo
+(SE-ResNeXt50, SENet154 and DPN92 UNets, the xBD UNet change transformers,
+Dual-HRNet with ``xbd_train --task hrnet``). Phases, each fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``dahitra_tpu_torch/csrc`` (one nvcc per
@@ -167,14 +169,34 @@ the xBD stack (``xbd_train --task loc | adapt | gan``, ``--elastic``,
      result (phase 5's fp32 confusion matrix exactly), phase 8's forward
      with ``fast_vjp = False`` (0 K1, logits within 1e-3 of the K1 path's)
      and ``count_params`` for every ported key (the card's allocated memory
-     unchanged).
+     unchanged);
+ 18. the xBD half of the zoo (``run_xbd_zoo_phase``) on phase 15's tiles,
+     batch 1, cuDNN deterministic, fp32 then bf16: one epoch of ``xbd_train
+     --task damage`` with ``xbd_seresnext50_double``, ``xbd_senet154_double``,
+     ``xbd_dpn92_double`` and ``xbd_unet_change_transformer`` at 1024 px and
+     ``xbd_unet_change_transformer_bit`` at 256 px (its feed-forward is
+     dim^2 wide, dim = (img / 32)^2), ``--task loc`` with the three ``_loc``
+     keys and ``--task hrnet`` with ``dual_hrnet`` and ``dual_hrnet_fpn``,
+     each with 5 warm steps (median, range, peak memory), none launching
+     K1, K1-save, K2, K3 or K4; ``xbd_predict`` with the SENet154 double
+     checkpoint over 2 tiles; the fp32 SENet154 double and Dual-HRNet
+     checkpoints written as reference ``.pt`` files and imported, the
+     logits bit for bit those of the checkpoints; the card's fp32 eval
+     forward (1e-3, argmax) and train-step gradients and BN statistics
+     (1e-3 and 1e-4, or phase 16's rule where larger) of
+     ``xbd_seresnext50_double``,
+     ``xbd_dpn92_double``, ``xbd_unet_change_transformer_bit`` (dropout
+     rate 0) and ``dual_hrnet`` at 128 px against the CPU plain path; two
+     same-seed train steps of the ``_bit`` model with dropout on: the same
+     loss bits.
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10, 12, 13, 14, 15, 16, 17) and read just after; the counters of the padded
+7, 9, 10, 12, 13, 14, 15, 16, 17, 18) and read just after; the counters of the padded
 token counts (``NO_PAD``) must read 0 in every one of them. ``--profile`` adds a torch.profiler
 breakdown of the batch-8 forward and of one batch-8 training step by kernel
 class, with the device's idle share, on the default path and with
-``pallas = True``.
+``pallas = True``, and of one 1024 px xBD step of ``xbd_senet154_double``
+and ``dual_hrnet`` in each dtype.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when no
@@ -1563,7 +1585,7 @@ def run_xbd_predict(torch, test_root, out_dir, net_g, ckpt, flag, dname):
     """``xbd_predict`` over the ``XBD_PREDICT_TILES`` test tiles with one
     checkpoint, launch counters set to 0 just before and read just after:
     one forward of the 4 TTA views per tile (``XBD_CALLS[net_g]`` K1 and K3
-    each); both PNGs of every tile, 1024 x 1024 uint8, damage in 0..3. Then
+    each, none for a model without a decoder); both PNGs of every tile, 1024 x 1024 uint8, damage in 0..3. Then
     the warm rate: ``predict`` on the first tile, once to warm up and
     ``XBD_TIMED`` times timed alone, the model already built and loaded;
     ``cli_pairs_per_s`` is the whole CLI run's, model build, checkpoint load
@@ -1584,7 +1606,7 @@ def run_xbd_predict(torch, test_root, out_dir, net_g, ckpt, flag, dname):
     torch.cuda.synchronize()
     wall = time.time() - t0
     got = _read_counts()
-    dec = XBD_CALLS[net_g] * XBD_PREDICT_TILES
+    dec = XBD_CALLS.get(net_g, 0) * XBD_PREDICT_TILES
     want = {"k1": dec, "k1_save": 0, "k2": 0, "k3": dec, "k4": 0}
     pngs = [np.array(Image.open(os.path.join(out_dir, w))) for w in written]
     ok = len(pngs) == 2 * XBD_PREDICT_TILES and all(
@@ -1732,8 +1754,9 @@ def _task_launches(net_g, steps, forwards):
 
 
 def run_xbd_task(torch, data_root, ckpt_root, task, net_g, extra, flag,
-                 dname, n_val) -> dict:
-    """``xbd_train --task <task>`` at 1024 px, batch 1, one epoch with a
+                 dname, n_val, img: int = XBD_IMG) -> dict:
+    """``xbd_train --task <task>`` at ``img`` px (1024: the whole tiles),
+    batch 1, one epoch with a
     validation, launch counters set to 0 just before and read just after;
     finite loss and score, ``best_ckpt.pt`` (and for gan ``best_ckpt_D.pt``,
     with a discriminator update at batches 0 and 8 of the 11) written."""
@@ -1742,7 +1765,7 @@ def run_xbd_task(torch, data_root, ckpt_root, task, net_g, extra, flag,
     net = net_g or xbd_train.DEFAULT_NET.get(task, "xbd_dahitra")
     project = f"{task}_{net}{'_elastic' if extra else ''}_{dname}"
     argv = ["--data_root", data_root, "--task", task, "--img_size",
-            str(XBD_IMG), "--batch_size", "1", "--max_epochs", "1",
+            str(img), "--batch_size", "1", "--max_epochs", "1",
             "--eval_every", "1", "--checkpoint_root", ckpt_root,
             "--project_name", project, "--device", "cuda", *extra, *flag,
             *(["--net_G", net_g] if net_g else [])]
@@ -1767,7 +1790,7 @@ def run_xbd_task(torch, data_root, ckpt_root, task, net_g, extra, flag,
             and (task != "gan" or updates == -(-h["pairs"] // 8))):
         fail(f"xbd_train --task {task} {net} {dname}: {h} or no {ckpts}")
     return {"xbd_task": task, "net_G": net, "flags": extra, "dtype": dname,
-            "img_size": XBD_IMG, "batch": 1, "steps": h["pairs"],
+            "img_size": img, "batch": 1, "steps": h["pairs"],
             "disc_updates": updates, "val_pairs": n_val,
             "pairs_per_s_epoch0": h["imps"], "loss": h["loss"],
             "val": h["val"], "wall_s": wall,
@@ -1794,15 +1817,17 @@ def _task_trainer(torch, tmp, task, net_g, dtype, arrays, img=None,
     return XBDTrainer(args, arrays, arrays, device=device, task=task)
 
 
-def run_xbd_task_steps(torch, tmp, task, net_g, dtype, arrays) -> dict:
-    """``XBD_TIMED`` warm train steps of ``task`` at 1024 px, batch 1 (the
+def run_xbd_task_steps(torch, tmp, task, net_g, dtype, arrays,
+                       img: int = XBD_IMG) -> dict:
+    """``XBD_TIMED`` warm train steps of ``task`` at ``img`` px (``arrays``
+    of that size), batch 1 (the
     GAN's without a discriminator update, then ``XBD_TIMED`` with one), each
     timed alone on the host clock after a warm-up, launch counters set to 0
     just before and read just after; for gan also one ``--effective_gan``
     step, whose adversarial gradient (its generator gradient less that of
     the same step without it) must be nonzero."""
     dname = str(dtype).split(".")[-1]
-    trainer = _task_trainer(torch, tmp, task, net_g, dtype, arrays)
+    trainer = _task_trainer(torch, tmp, task, net_g, dtype, arrays, img)
     batch = [torch.from_numpy(arrays[k][:1]).cuda()
              for k in ("img_pre", "img_post", "msk", "lbl_msk")]
     kinds = {"step": lambda: trainer.train_step(*batch)}
@@ -1810,7 +1835,7 @@ def run_xbd_task_steps(torch, tmp, task, net_g, dtype, arrays) -> dict:
         kinds["step_with_disc_update"] = lambda: trainer.gan_step(
             *batch, update_disc=True)[0]
     out = {"xbd_task_steps": task, "net_G": net_g, "dtype": dname,
-           "img_size": XBD_IMG, "batch": 1}
+           "img_size": img, "batch": 1}
     for kind, fn in kinds.items():
         fn()
         torch.cuda.synchronize()
@@ -2125,6 +2150,19 @@ def run_zoo_steps(torch, tmp, key, dtype) -> dict:
             "launches": got}
 
 
+def _heads(out) -> dict:
+    """A model's logits as a dict of heads (Dual-HRNet's loc and cls)."""
+    return out if isinstance(out, dict) else {"logits": out}
+
+
+def _no_dropout(model) -> None:
+    from dahitra_tpu_torch.nn.blocks import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+
+
 def check_zoo_grads(torch, train_root, key) -> dict:
     """The card's fp32 training gradients and updated BN statistics of
     ``key`` against the CPU plain path: a batch of 2 of phase 7's train
@@ -2139,7 +2177,6 @@ def check_zoo_grads(torch, train_root, key) -> dict:
     from dahitra_tpu_torch.data.levir import load_levir_split
     from dahitra_tpu_torch.losses.cd import levir_train_loss, multi_scale_loss
     from dahitra_tpu_torch.models.registry import define_g, final_logits
-    from dahitra_tpu_torch.nn.blocks import Dropout
     from dahitra_tpu_torch.nn.init import init_weights
 
     pairs = load_levir_split(os.path.join(train_root, "data", "LEVIR_CD"),
@@ -2148,9 +2185,7 @@ def check_zoo_grads(torch, train_root, key) -> dict:
     gen = torch.Generator().manual_seed(3)
     init = init_weights(define_g(key, img_size=IMG, generator=gen), "normal",
                         0.02, gen)
-    for m in init.modules():
-        if isinstance(m, Dropout):
-            m.rate = 0.0
+    _no_dropout(init)
 
     def run(dev, move=0):
         model = copy.deepcopy(init).to(dev)
@@ -2381,6 +2416,279 @@ def run_zoo_phase(torch, tmp, train_root, dtypes, cm5) -> dict:
     return by_phase
 
 
+# The xBD half of the zoo (phase 18) on phase 15's tiles, batch 1: (task,
+# --net_G, image size). None of these models runs a decoder stack or a
+# tokenizer. xbd_unet_change_transformer_bit trains at 256 px: its channel
+# tokens are (img / 32)^2 wide and its feed-forward dim^2, 17.2 G parameters
+# at 1024 px (ROADMAP.md section 3).
+XBD_ZOO_BIT_IMG = 256
+XBD_ZOO_RUNS = (
+    ("damage", "xbd_seresnext50_double", XBD_IMG),
+    ("damage", "xbd_senet154_double", XBD_IMG),
+    ("damage", "xbd_dpn92_double", XBD_IMG),
+    ("damage", "xbd_unet_change_transformer", XBD_IMG),
+    ("damage", "xbd_unet_change_transformer_bit", XBD_ZOO_BIT_IMG),
+    ("loc", "xbd_seresnext50_loc", XBD_IMG),
+    ("loc", "xbd_senet154_loc", XBD_IMG),
+    ("loc", "xbd_dpn92_loc", XBD_IMG),
+    ("hrnet", "dual_hrnet", XBD_IMG),
+    ("hrnet", "dual_hrnet_fpn", XBD_IMG))
+# One key of each family against the CPU plain path, at 128 px.
+XBD_ZOO_CHECKS = (("damage", "xbd_seresnext50_double"),
+                  ("damage", "xbd_dpn92_double"),
+                  ("damage", "xbd_unet_change_transformer_bit"),
+                  ("hrnet", "dual_hrnet"))
+XBD_ZOO_CHECK_IMG = 128
+XBD_ZOO_PREDICT = "xbd_senet154_double"
+XBD_ZOO_IMPORTS = ("xbd_senet154_double", "dual_hrnet")
+
+
+def check_xbd_zoo_vs_cpu(torch, tmp, data_root) -> dict:
+    """For one key of each family (``XBD_ZOO_CHECKS``) at 128 px, batch 1
+    (a crop of a synthetic tile), fp32, the card against the CPU plain
+    path: a seeded model's eval forward, each head within 1e-3 of its scale
+    and the same argmax at >= 99.9 % of the pixels; then one train step of
+    the key's task from the same seeded trainer (no augmentation, dropout
+    rate 0): the gradients within 1e-3 of the whole gradient's scale or,
+    where larger, twice the CPU path's own largest move under
+    ``GRAD_MOVES`` input moves of 1e-6 (taken only then; phase 16's rule),
+    the updated BN statistics within 1e-4 or, where larger, twice the CPU
+    path's own largest move under the same input moves: at 128 px, batch
+    1, Dual-HRNet's coarsest branch is 4 x 4 pixels, and the train-mode
+    statistics there move about 1e-3 of their scale under the CPU's own
+    1e-6 input moves (ROADMAP.md section 3, fault 5)."""
+    import copy
+
+    from dahitra_tpu_torch.data.xbd import load_xbd_pairs, scan_xbd_files
+    from dahitra_tpu_torch.data.xbd_augment import augment_xbd
+    from dahitra_tpu_torch.models.registry import define_g
+    from dahitra_tpu_torch.nn.init import init_random
+
+    img = XBD_ZOO_CHECK_IMG
+    arrays = load_xbd_pairs(scan_xbd_files([data_root])[:1], train=False,
+                            crop_size=img, seed=0).arrays()
+    host = [torch.from_numpy(v) for v in arrays.values()]
+    out = {}
+    for task, key in XBD_ZOO_CHECKS:
+        model = init_random(define_g(key, img_size=img),
+                            torch.Generator().manual_seed(19)).eval()
+        img6 = augment_xbd(*host, train=False)[0]
+        with torch.inference_mode():
+            ref = _heads(model(img6))
+            got = _heads(copy.deepcopy(model).cuda()(img6.cuda()))
+        fwd = {h: {"scaled_err": scaled_err(got[h].cpu(), r)[1],
+                   "argmax_agreement": (got[h].cpu().argmax(-1)
+                                        == r.argmax(-1)).float().mean()
+                   .item()} for h, r in ref.items()}
+        del model
+
+        def step(dev, move=0):
+            tr = _task_trainer(torch, tmp, task, key, torch.float32, arrays,
+                               img, dev)
+            _no_dropout(tr.model)
+
+            def augment(*batch):
+                img6, masks, lbl = augment_xbd(*batch, train=False)
+                if move:
+                    img6 = img6 + 1e-6 * torch.randn(
+                        img6.shape, generator=torch.Generator().manual_seed(
+                            move)).to(img6.device)
+                return img6, masks, lbl
+
+            tr._augment = augment
+            tr.train_step(*(t.to(dev) for t in host))
+            # Dual-HRNet's loc head gets no gradient (the loss reads its
+            # argmax): JAX's zeros
+            return ({k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                     .detach().cpu() for k, p in
+                     tr.model.named_parameters()},
+                    {k: b.cpu() for k, b in tr.model.named_buffers()})
+
+        def bn_worst(bufs):
+            return max(scaled_err(bufs[k], v)[1] for k, v in ref_b.items())
+
+        ref_g, ref_b = step("cpu")
+        card_g, card_b = step("cuda")
+        torch.cuda.synchronize()
+        scale = max(g.abs().max().item() for g in ref_g.values())
+        port = _grad_blocks(ref_g, card_g, scale)
+        worst = max(port, key=port.get)
+        bn_err = bn_worst(card_b)
+        own, own_bn = [], []
+        if port[worst] > 1e-3 or bn_err > 1e-4:
+            for m in range(1, GRAD_MOVES + 1):
+                g, b = step("cpu", m)
+                own.append(max(_grad_blocks(ref_g, g, scale).values()))
+                own_bn.append(bn_worst(b))
+        bound = max([1e-3] + [2 * o for o in own])
+        bn_bound = max([1e-4] + [2 * o for o in own_bn])
+        out[key] = {"task": task, "forward": fwd,
+                    "grad_worst_over_scale": port[worst],
+                    "worst_block": list(worst), "cpu_own_moves": own,
+                    "bound": bound, "bn_stats_worst_scaled_err": bn_err,
+                    "bn_cpu_own_moves": own_bn, "bn_bound": bn_bound}
+        print(json.dumps({"xbd_zoo_vs_cpu_plain": key, **out[key]}),
+              flush=True)
+        if not (all(f["scaled_err"] <= 1e-3 and f["argmax_agreement"] >= 0.999
+                    for f in fwd.values())
+                and port[worst] <= bound and bn_err <= bn_bound):
+            fail(f"{key}: the card disagrees with the CPU plain path: "
+                 f"{out[key]}")
+    return {"xbd_zoo_vs_cpu_plain": {"img_size": img, "batch": 1, **out}}
+
+
+def check_xbd_zoo_dropout_step(torch, tmp, arrays) -> dict:
+    """``xbd_unet_change_transformer_bit``'s transformer drops at 0.05 in
+    training: one train step at 256 px from two trainers of the same seed,
+    each built on a freed card (cuDNN deterministic, set by the phase): the
+    loss is finite and the same bits, the dropout generators drew masks and
+    end in the same state."""
+    import gc
+
+    key = "xbd_unet_change_transformer_bit"
+    losses, states, drew = [], [], []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = _task_trainer(torch, tmp, "damage", key, torch.float32, arrays,
+                           XBD_ZOO_BIT_IMG)
+        fresh = tr.dropout_generator.get_state()
+        losses.append(tr.train_step(*(torch.from_numpy(arrays[k][:1]).cuda()
+                                      for k in ("img_pre", "img_post", "msk",
+                                                "lbl_msk"))).item())
+        states.append(tr.dropout_generator.get_state())
+        drew.append(not torch.equal(fresh, states[-1]))
+        del tr
+    out = {"xbd_zoo_dropout_step": key, "img_size": XBD_ZOO_BIT_IMG,
+           "losses": [float.hex(v) for v in losses], "masks_drawn": drew,
+           "generator_states_equal": torch.equal(*states)}
+    if not (np.isfinite(losses[0]) and losses[0] == losses[1] and all(drew)
+            and out["generator_states_equal"]):
+        fail(f"{key}: dropout step not reproducible: {out}")
+    return out
+
+
+def check_xbd_zoo_import(torch, tmp, ckpts) -> dict:
+    """For each of ``XBD_ZOO_IMPORTS``: its fp32 checkpoint from this phase
+    written as a reference ``.pt`` (``state_dict``, ``module.`` prefix),
+    imported with ``import_checkpoint --net_G``; the imported weights'
+    logits (every head) on the card equal, bit for bit, those of the
+    checkpoint they came from, on a seeded 256 px pair."""
+    from dahitra_tpu_torch.cli import import_checkpoint
+    from dahitra_tpu_torch.core.checkpoint import (load_checkpoint,
+                                                    load_weights)
+    from dahitra_tpu_torch.models.registry import define_g
+
+    x = torch.from_numpy(np.random.RandomState(18).uniform(
+        -1, 1, (1, 256, 256, 6)).astype(np.float32)).cuda()
+    out = {}
+    for key in XBD_ZOO_IMPORTS:
+        sd = load_checkpoint(ckpts[key, "float32"])[0]
+        pt = os.path.join(tmp, f"reference_{key}.pt")
+        torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+                   pt)
+        dst = os.path.join(tmp, "imported", key)
+        import_checkpoint.main([pt, "--net_G", key, "--img_size",
+                                str(XBD_IMG), "--out", dst])
+        logits = []
+        for weights in (sd, load_checkpoint(dst)[0]):
+            model = define_g(key, img_size=XBD_IMG)
+            load_weights(model, weights)
+            with torch.inference_mode():
+                logits.append(_heads(model.cuda().eval()(x)))
+            del model
+        out[key] = {"tensors": len(sd), "logits_equal": all(
+            torch.equal(logits[0][h], logits[1][h]) for h in logits[0])}
+        if not out[key]["logits_equal"]:
+            fail(f"import_checkpoint {key}: logits differ from the "
+                 f"checkpoint's: {out[key]}")
+    return {"xbd_zoo_import": out}
+
+
+# Phase 18's steps that --profile breaks down: the slowest fp32 step and
+# the most host-bound one.
+XBD_ZOO_PROFILED = (("damage", "xbd_senet154_double"), ("hrnet", "dual_hrnet"))
+
+
+def profile_xbd_zoo_steps(torch, tmp) -> dict:
+    """``--profile``: device time by kernel class, device busy and idle
+    share of one warm ``XBDTrainer.train_step`` at 1024 px, batch 1, per
+    key of ``XBD_ZOO_PROFILED`` and dtype, on phase 15's first tile."""
+    import gc
+
+    from dahitra_tpu_torch.data.xbd import load_xbd_pairs, scan_xbd_files
+
+    arrays = load_xbd_pairs(scan_xbd_files([os.path.join(
+        tmp, "xbd", "train")])[:1], train=True).arrays()
+    out = {}
+    for task, key in XBD_ZOO_PROFILED:
+        for dtype in (torch.float32, torch.bfloat16):
+            gc.collect()
+            torch.cuda.empty_cache()
+            trainer = _task_trainer(torch, tmp, task, key, dtype, arrays)
+            batch = [torch.from_numpy(arrays[k][:1]).cuda()
+                     for k in ("img_pre", "img_post", "msk", "lbl_msk")]
+            prof = _profile(torch, lambda: trainer.train_step(*batch), 3)
+            out[f"{key}/{str(dtype).split('.')[-1]}"] = {**prof, "batch": 1}
+            del trainer
+    return {"profile_xbd_zoo_step_1024": out}
+
+
+def run_xbd_zoo_phase(torch, tmp, dtypes) -> dict:
+    """Phase 18: the xBD half of the zoo on phase 15's tiles, batch 1,
+    cuDNN deterministic, fp32 then bf16: for every run of
+    ``XBD_ZOO_RUNS`` one epoch of ``xbd_train`` with a validation and
+    ``XBD_TIMED`` warm steps (median, range, peak memory; no decoder or
+    tokenizer launch), ``xbd_predict`` with the SENet154 double checkpoint;
+    then the imported checkpoints, the card against the CPU plain path
+    and the dropout step. Returns the launch counts by dtype and phase."""
+    import gc
+
+    from dahitra_tpu_torch.data.xbd import (load_xbd_pairs, scan_xbd_files,
+                                            split_and_upsample)
+
+    t0 = time.time()
+    root = os.path.join(tmp, "xbd")
+    data_root, test_root = (os.path.join(root, s) for s in ("train", "test"))
+    ckpt_root = os.path.join(root, "ckpt_zoo")
+    files = scan_xbd_files([data_root])
+    n_val = len(split_and_upsample(files, seed=0)[1])
+    arrays = {img: load_xbd_pairs(files[:1], train=True,
+                                  crop_size=img).arrays()
+              for img in (XBD_IMG, XBD_ZOO_BIT_IMG)}
+    torch.backends.cudnn.deterministic = True
+    by_phase = {"float32": {}, "bfloat16": {}}
+    ckpts = {}
+    for flag, dname in dtypes:
+        dtype = getattr(torch, dname)
+        for task, net_g, img in XBD_ZOO_RUNS:
+            gc.collect()
+            out = run_xbd_task(torch, data_root, ckpt_root, task, net_g, [],
+                               flag, dname, n_val, img)
+            ckpts[net_g, dname] = out["checkpoint"]
+            by_phase[dname][f"{net_g}_{task}_{img}"] = out["launches"]
+            gc.collect()
+            steps = run_xbd_task_steps(torch, tmp, task, net_g, dtype,
+                                       arrays[img], img)["step"]
+            by_phase[dname][f"{net_g}_{task}_steps_{img}"] = \
+                steps["launches"]
+            print(json.dumps({**out, "warm_steps": steps}), flush=True)
+        gc.collect()
+        out = run_xbd_predict(torch, test_root, os.path.join(
+            root, f"pred_zoo_{dname}"), XBD_ZOO_PREDICT,
+            ckpts[XBD_ZOO_PREDICT, dname], flag, dname)
+        by_phase[dname]["xbd_zoo_predict_1024"] = out["launches"]
+        print(json.dumps(out), flush=True)
+    gc.collect()
+    print(json.dumps(check_xbd_zoo_import(torch, tmp, ckpts)), flush=True)
+    print(json.dumps(check_xbd_zoo_vs_cpu(torch, tmp, data_root)), flush=True)
+    print(json.dumps(check_xbd_zoo_dropout_step(
+        torch, tmp, arrays[XBD_ZOO_BIT_IMG])), flush=True)
+    torch.backends.cudnn.deterministic = False
+    print(f"xBD zoo phase: {time.time() - t0:.1f} s", flush=True)
+    return by_phase
+
+
 def main() -> None:
     try:
         import torch
@@ -2582,6 +2890,12 @@ def main() -> None:
                                        cm5).items():
         by_phase[dname].update(phases)
 
+    # 18. the xBD half of the zoo (no decoder or tokenizer kernel):
+    # xbd_train --task damage | loc | hrnet, xbd_predict, import_checkpoint,
+    # the card against the CPU at 128 px, a reproducible dropout step
+    for dname, phases in run_xbd_zoo_phase(torch, tmp, dtypes).items():
+        by_phase[dname].update(phases)
+
     if "--profile" in sys.argv[1:]:
         for net_g, project, n_dec in (("newUNetTrans", "smoke", 3),
                                       (BIT_KEY, BIT_KEY, 1)):
@@ -2592,6 +2906,7 @@ def main() -> None:
                         torch, sd, dtype, pallas, net_g, n_dec)), flush=True)
                     print(json.dumps(profile_train_step(
                         torch, tmp, dtype, pallas, net_g, n_dec)), flush=True)
+        print(json.dumps(profile_xbd_zoo_steps(torch, tmp)), flush=True)
 
     kernels = []
     src = "dahitra_tpu_torch/csrc/"

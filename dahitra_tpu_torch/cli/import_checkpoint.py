@@ -23,6 +23,8 @@ trunk (``conv1.0``, ``conv1.1``, ``conv2.1.*``, ``conv3``-``conv5``; JAX's
 the ResNet34 UNets (the reference's ``pretrained=True`` encoder,
 zoo/models.py:586-597). The Dpn92 UNets raise as in the JAX package
 (torch_import.py:747-752): no reference checkpoint of them can exist.
+``dual_hrnet_fpn`` refuses a checkpoint without the FPN's weights, as the
+JAX importer does (torch_import.py:733-738): import it as ``dual_hrnet``.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from dahitra_tpu_torch.models.registry import define_g
 # transformer (networks.py:1233-1236) and the xBD copy's unused positional
 # embeddings, the UNet change transformers' unused attention, decoder and
 # classifier modules (torch_import.py:371-376), ChangeFormer V1's
-# intra-patch blocks (:480).
+# intra-patch blocks (:480), the xBD UNet change transformer's transformer.
 _TRUNK_TAIL = r"^resnet\.(layer4|fc)\."
 _DAHITRA_FINEST = (r"^(conv_squeeze|conv_token|transformer|transformer_decoder"
                    r"|conv_decode)_2\.|^pos_embedding(_decoder)?_2$")
@@ -57,6 +59,9 @@ _DEAD = {
     "unet_coupled_trans_256": (_UNET_DEAD,),
     "unet_coupled_two_trans_256": (_UNET_DEAD, r"^ca_bottle_max\."),
     "changeFormer": (r"^Tenc\.(.*\.)?(patch_block|pnorm)",),
+    # the xBD UNet change transformer's bottleneck transformer: its forward
+    # comments the call out (torch_import.py:553-556)
+    "xbd_unet_change_transformer": (r"^transformer\.",),
 }
 for _key in ("xbd_bit", "base_transformer_pos_s4", "base_transformer_pos_s4_dd8",
              "base_transformer_pos_s4_dd8_o5",
@@ -87,6 +92,12 @@ def convert_reference(sd: dict, net_g: str, img_size: int = 256) -> dict:
             "zoo/models.py:256 uses an undefined 'dpn92' symbol (NameError "
             "at construction), so no reference checkpoint of them can "
             "exist to import")
+    if net_g == "dual_hrnet_fpn" and not any(k.startswith("fpn_loc.")
+                                             for k in sd):
+        raise ValueError(
+            "checkpoint has no fpn_loc/fpn_cls weights (and its head is the "
+            "480-ch concat, not the 32-ch FPN head): import it as --net_G "
+            "dual_hrnet instead")
     with torch.device("meta"):
         own = define_g(net_g, img_size=img_size).state_dict()
     unexpected = sorted(k for k in sd if k not in own and not is_dead(net_g, k))

@@ -12,6 +12,9 @@ of ``--checkpoints`` (port checkpoints: a directory holding
 center-cropped (the positional embeddings fix the input size). Writes
 ``<name>_part1.png`` (the loc probability x 255) and ``<name>_part2.png``
 (the damage argmax over the four classes, 0 where loc <= ``--thr``).
+Dual-HRNet (``dual_hrnet*``) is refused by name: it returns a dict of
+heads, which this predictor, as the JAX one (xbd_predict.py:60-64), does
+not score.
 
     python -m dahitra_tpu_torch.cli.xbd_predict --test_root xbd/test \\
         --net_G xbd_dahitra --checkpoints weights/xbd_dahitra \\
@@ -81,6 +84,11 @@ def main(argv=None) -> list:
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default; raises without a card) or cpu")
     args = parser.parse_args(argv)
+    if args.net_G.startswith("dual_hrnet"):
+        raise NotImplementedError(
+            f"--net_G {args.net_G}: xbd_predict takes the sigmoid of one "
+            "logits tensor, and Dual-HRNet returns a dict of loc and cls "
+            "heads (as in the JAX predictor)")
     device = resolve_device(args.device)
     disable_tf32()
     os.makedirs(args.out_dir, exist_ok=True)

@@ -17,14 +17,14 @@ filters the names), splits 90/10 with the class-presence upsampling
   * ``--task gan``: ``GANTrainer``, the damage model against the mask
     discriminator (``best_ckpt_D.pt`` beside), ``--effective_gan`` giving
     the generator the adversarial gradient the reference detaches.
+  * ``--task hrnet``: Dual-HRNet (default net ``dual_hrnet``; also
+    ``dual_hrnet_fpn``) on ``dual_hrnet_loss``.
 
 ``--elastic`` adds the UNet-transformer recipe's gated elastic jitter.
 
     python -m dahitra_tpu_torch.cli.xbd_train --data_root xbd/train \\
         --net_G xbd_dahitra --img_size 1024 --batch_size 1 --max_epochs 100 \\
         --checkpoint_root weights --project_name xbd_dahitra [--bf16]
-
-``--task hrnet`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,8 +33,7 @@ from argparse import ArgumentParser
 
 from dahitra_tpu_torch.data.xbd import (load_xbd_pairs, scan_xbd_files,
                                         split_and_upsample)
-from dahitra_tpu_torch.train.xbd_engine import (GANTrainer, XBDTrainer,
-                                                pending_task)
+from dahitra_tpu_torch.train.xbd_engine import GANTrainer, XBDTrainer
 from dahitra_tpu_torch.utils import resolve_device
 
 _NO_EFFECT = "accepted for the JAX package's command lines; no effect here"
@@ -85,13 +84,13 @@ def build_parser() -> ArgumentParser:
 
 
 # The task's model where --net_G is left at its default (the JAX CLI's).
-DEFAULT_NET = {"loc": "xbd_res34_loc", "adapt": "xbd_adapt_res34"}
+DEFAULT_NET = {"loc": "xbd_res34_loc", "adapt": "xbd_adapt_res34",
+               "hrnet": "dual_hrnet"}
 
 
 def main(argv=None) -> list:
     """Train; returns the per-epoch lines of ``train_models``."""
     args = build_parser().parse_args(argv)
-    pending_task(args.task)
     resolve_device(args.device)  # a missing card fails before any loading
     if args.net_G == "xbd_dahitra":
         args.net_G = DEFAULT_NET.get(args.task, args.net_G)

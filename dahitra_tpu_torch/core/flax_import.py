@@ -14,7 +14,12 @@ trainer's ``Discriminator`` (its own flax names);
 ``unet_change_transformer_flax_to_state_dict``,
 ``siam_unet_conc_flax_to_state_dict`` and ``changeformer_flax_to_state_dict``
 are the inverses of ``convert_unet_change_transformer``,
-``convert_siam_unet_conc`` and ``convert_changeformer``.
+``convert_siam_unet_conc`` and ``convert_changeformer``;
+``se_unet_flax_to_state_dict``, ``xbd_unet_change_transformer_flax_to_state_dict``
+and ``dual_hrnet_flax_to_state_dict`` of ``convert_se_unet``,
+``convert_xbd_unet_change_transformer`` and ``convert_dual_hrnet``;
+``dpn_unet_flax_to_state_dict`` carries the DPN92 UNets, which have no
+reference checkpoint and keep their flax names.
 Conventions:
 
   * conv kernels HWIO -> OIHW, Dense kernels (in, out) -> Linear (out, in);
@@ -30,7 +35,9 @@ JAX.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterator, Mapping, Tuple
+
+import re
 
 import numpy as np
 import torch
@@ -343,6 +350,136 @@ def changeformer_flax_to_state_dict(params: Mapping, batch_stats: Mapping,
         residual(f"TDec_x2.{name}", dec[name])
     w.conv("TDec_x2.change_probability.conv2d", dec["change_probability"])
     return w.sd
+
+
+def _leaf_modules(params: Mapping, stats: Mapping, prefix: Tuple = ()
+                  ) -> Iterator[Tuple[Tuple[str, ...], Mapping, Mapping]]:
+    """(path, params, batch_stats) of every module of a flax tree that
+    holds arrays (a conv, a norm); ``batch_stats`` is None where it has
+    none."""
+    for name, p in params.items():
+        path, s = prefix + (name,), (stats or {}).get(name)
+        if any(not isinstance(v, Mapping) for v in p.values()):
+            yield path, p, s
+        else:
+            yield from _leaf_modules(p, s or {}, path)
+
+
+def _write_renamed(params: Mapping, stats: Mapping, key_of) -> StateDict:
+    """Every leaf module of the tree under the name ``key_of(path)`` gives
+    it: a conv (kernel), a BatchNorm (scale with statistics) or a
+    GroupNorm (scale without)."""
+    w = _Writer()
+    for path, p, s in _leaf_modules(params, stats):
+        key = key_of(path)
+        if "kernel" in p:
+            w.conv(key, p)
+        elif s is not None:
+            w.bn(key, p, s)
+        else:
+            w.ln(key, p)
+    return w.sd
+
+
+# A ResNet-style block's projection -> the reference's names.
+_DOWN = {"down_conv": "downsample.0", "down_bn": "downsample.1",
+         "se": "se_module"}
+# The SE UNets' layer N -> the zoo's wrapped module (zoo/models.py:72-148).
+_SE_LAYERS = {"1": "conv2.1", "2": "conv3", "3": "conv4", "4": "conv5"}
+
+
+def _se_key(path) -> str:
+    if path[0] == "res":
+        return "res"
+    mod, rest = path[1], path[2:]
+    stem = re.fullmatch(r"stem_(conv|bn)(\d)", mod)
+    if stem:  # conv1 = Sequential(conv, bn, relu[, conv, bn, relu, ...])
+        return f"conv1.{3 * (int(stem[2]) - 1) + (stem[1] == 'bn')}"
+    block = re.fullmatch(r"layer(\d)_block(\d+)", mod)
+    if block:
+        return ".".join((_SE_LAYERS[block[1]], block[2],
+                         *(_DOWN.get(n, n) for n in rest)))
+    return f"{mod}.layer.0"  # the decoder's ConvRelu
+
+
+def se_unet_flax_to_state_dict(params: Mapping,
+                               batch_stats: Mapping) -> StateDict:
+    """Any SE-ResNeXt50 or SENet154 UNet's variables (``Loc`` or
+    ``Double``) -> the port's fp32 ``state_dict``: the inverse of
+    ``convert_se_unet``."""
+    return _write_renamed(params, batch_stats, _se_key)
+
+
+def _dpn_key(path) -> str:
+    """The flax names, ``ConvRelu``'s ``conv`` as ``layer.0``."""
+    return re.sub(r"(conv\d+(_2)?)\.conv$", r"\1.layer.0", ".".join(path))
+
+
+def dpn_unet_flax_to_state_dict(params: Mapping,
+                                batch_stats: Mapping) -> StateDict:
+    """``Dpn92UnetLoc`` or ``Dpn92UnetDouble`` variables -> the port's
+    fp32 ``state_dict`` (``_dpn_key``)."""
+    return _write_renamed(params, batch_stats, _dpn_key)
+
+
+def xbd_unet_change_transformer_flax_to_state_dict(
+        params: Mapping, batch_stats: Mapping) -> StateDict:
+    """``XBDUNetChangeTransformer`` variables (either variant) -> the
+    port's fp32 ``state_dict``: the inverse of
+    ``convert_xbd_unet_change_transformer``."""
+    w = _Writer()
+    w.trunk(params["resnet"], batch_stats["resnet"], _ZOO_TRUNK)
+    for name, p in params.items():
+        if name.startswith("ca_"):
+            for conv, q in p.items():
+                w.conv(f"{name}.{conv}", q)
+        elif name == "transformer":
+            w.encoder(name, p["transformer"])
+        elif name.startswith("conv"):
+            w.conv(f"{name}.layer.0", p["conv"])
+    w.conv("res", params["res"])
+    return w.sd
+
+
+def _hrnet_key(path) -> str:
+    head, mod, rest = path[0], path[1], path[2:]
+
+    def seq(*idx):
+        return ".".join(str(i) for i in idx if i != "")
+
+    m = re.fullmatch(r"fuse(\d+)_(conv|bn)", mod)
+    if head.startswith("fuse_"):  # _FuseList: Sequential(conv, bn, relu)
+        return f"{head}.{seq(m[1], int(m[2] == 'bn'))}"
+    m = re.fullmatch(r"fpn(\d+)_(conv|gn)(\d*)", mod)
+    if m:  # branch 0 flat, branch i > 0 a Sequential per chain step
+        return f"{head}.{seq(m[1], m[3], int(m[2] == 'gn'))}"
+    if mod in ("conv1", "bn1", "conv2", "bn2"):
+        return f"{head}.{mod}"
+    if mod.startswith("last_"):
+        return f"{head}.last_layer." + {"last_conv1": "0", "last_bn": "1",
+                                        "last_conv2": "3"}[mod]
+    if mod.startswith("layer1_block"):
+        return ".".join((head, "layer1", mod[len("layer1_block"):],
+                         *(_DOWN.get(n, n) for n in rest)))
+    m = re.fullmatch(r"transition(\d)", mod)
+    if m:
+        t = re.fullmatch(r"trans(\d+)_(conv|bn)(\d*)", rest[0])
+        return (f"{head}.transitions.{int(m[1]) - 1}."
+                f"{seq(t[1], t[3], int(t[2] == 'bn'))}")
+    s, mi = re.fullmatch(r"stage(\d)_m(\d+)", mod).groups()
+    base = f"{head}.stage{s}.{mi}"
+    b = re.fullmatch(r"branch(\d+)_block(\d+)", rest[0])
+    if b:
+        return f"{base}.branches.{b[1]}.{b[2]}.{rest[1]}"
+    f = re.fullmatch(r"fuse(\d+)_(\d+)_(conv|bn)(\d*)", rest[0])
+    return f"{base}.fuse_layers.{seq(f[1], f[2], f[4], int(f[3] == 'bn'))}"
+
+
+def dual_hrnet_flax_to_state_dict(params: Mapping,
+                                  batch_stats: Mapping) -> StateDict:
+    """``DualHRNet`` variables (with or without the FPN) -> the port's fp32
+    ``state_dict``: the inverse of ``convert_dual_hrnet``."""
+    return _write_renamed(params, batch_stats, _hrnet_key)
 
 
 def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -116,15 +116,21 @@ def levir_train_loss(logits: torch.Tensor, target: torch.Tensor,
 MULTI_SCALE_WEIGHTS = (0.5, 0.5, 0.5, 0.8, 1.0)
 
 
-def resize_labels_nearest(target: torch.Tensor, h: int, w: int
-                          ) -> torch.Tensor:
-    """(B, H, W) labels to (B, h, w) the way ``jax.image.resize(...,
-    "nearest")`` resizes them: half-pixel centres, source index
+def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """NHWC (float) resized to (h, w) the way ``jax.image.resize(...,
+    "nearest")`` resizes: half-pixel centres, source index
     floor((i + 0.5) * H / h), which is ``mode="nearest-exact"`` (torch's
     ``"nearest"`` takes floor(i * H / h))."""
-    out = F.interpolate(target[:, None].float(), size=(h, w),
-                        mode="nearest-exact")
-    return out[:, 0].to(target.dtype)
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w),
+                      mode="nearest-exact")
+    return y.permute(0, 2, 3, 1)
+
+
+def resize_labels_nearest(target: torch.Tensor, h: int, w: int
+                          ) -> torch.Tensor:
+    """(B, H, W) labels to (B, h, w), as ``resize_nearest``."""
+    return resize_nearest(target[..., None].float(), h, w)[..., 0].to(
+        target.dtype)
 
 
 def multi_scale_loss(logits, target: torch.Tensor,

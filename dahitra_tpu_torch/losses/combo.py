@@ -19,11 +19,12 @@ xBD_code/losses.py):
     the GAN recipes ``xbd_gan_generator_loss`` (train_GAN.py:364-377, with
     the reference's detached adversarial term unless ``effective_gan``) and
     ``xbd_gan_discriminator_loss`` (:350-361), on ``bce_with_logits``
-    (combo.py:196-286).
+    (combo.py:196-286);
+  * the Dual-HRNet recipe ``dual_hrnet_loss`` (train_dual_hrnet.py:
+    318-346, combo.py:226).
 
 Inputs are channel-last; a per-class call takes (B, H, W) logits and
-targets. Everything reduces in fp32. ``dual_hrnet_loss`` waits for the
-dual HRNet (ROADMAP.md section 1, item 6).
+targets. Everything reduces in fp32.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from typing import Dict
 
 import torch
 
-from dahitra_tpu_torch.losses.cd import cross_entropy
+from dahitra_tpu_torch.losses.cd import cross_entropy, resize_nearest
 
 EPS = 1e-6
 
@@ -250,3 +251,21 @@ def xbd_gan_discriminator_loss(real_logits: torch.Tensor,
     real = bce_with_logits(real_logits, torch.ones_like(real_logits))
     fake = bce_with_logits(fake_logits, torch.zeros_like(fake_logits))
     return 0.1 * (real + fake) / 2.0
+
+
+def dual_hrnet_loss(out: dict, masks5: torch.Tensor) -> torch.Tensor:
+    """Dual-HRNet's split loss on {"loc": (B, h, w, 2), "cls": (B, h, w, 4)}
+    logits and (B, H, W, 5) masks: both heads resized to the masks' size
+    as ``jax.image.resize(..., "nearest")`` does (``resize_nearest``);
+    ComboLoss{dice: 1, focal: 8} of the loc head's argmax (as a float, so
+    no gradient: train_dual_hrnet.py:336-337) against the loc mask, plus 5
+    times the CE of the cls head with class weights (0.1, 2, 1, 2) against
+    the argmax of the four damage channels."""
+    h, w = masks5.shape[1], masks5.shape[2]
+    loc = resize_nearest(out["loc"].float(), h, w)
+    cls = resize_nearest(out["cls"].float(), h, w)
+    seg = ComboLoss({"dice": 1.0, "focal": 8.0})
+    loss_seg = seg(loc.argmax(-1).float(), masks5[..., 0])
+    target = masks5[..., 1:].float().argmax(-1)
+    return loss_seg + 5.0 * cross_entropy(cls, target,
+                                          weight=(0.1, 2.0, 1.0, 2.0))

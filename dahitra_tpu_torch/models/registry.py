@@ -14,8 +14,12 @@ the ResNet34 UNets of the xBD zoo (registry.py:98-152): ``xbd_res34_loc``,
 (registry.py:73-96): ``unet_coupled_trans_256``,
 ``unet_coupled_two_trans_256`` (``img_size`` sets their token width),
 ``changeFormer``, ``changeFormerV6`` (a list of five logits) and
-``siamUnet_conc``; every other key of the JAX registry raises
-``NotImplementedError`` naming its ROADMAP item.
+``siamUnet_conc``, and the rest of the xBD zoo (registry.py:154-218,
+``XBD_ZOO``): the SE-ResNeXt50, SENet154 and DPN92 UNets (``_loc`` on one
+image, ``_double`` on the 6-channel pair), the xBD UNet change transformers
+(``img_size`` sets the ``_bit`` transformer's token width) and Dual-HRNet
+(``dual_hrnet``, ``dual_hrnet_fpn``: a dict of loc and cls heads). Every key
+of the JAX registry builds; another raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,13 +31,21 @@ from dahitra_tpu_torch.models.bit import BIT
 from dahitra_tpu_torch.models.changeformer import (ChangeFormerV1,
                                                    ChangeFormerV6)
 from dahitra_tpu_torch.models.dahitra import DAHiTraUNet
+from dahitra_tpu_torch.models.dpn_unet import Dpn92UnetDouble, Dpn92UnetLoc
+from dahitra_tpu_torch.models.dual_hrnet import DualHRNet
 from dahitra_tpu_torch.models.res34_unet import (Res34UnetDouble,
                                                  Res34UnetDoubleModified,
                                                  Res34UnetLoc, Res34UnetSingle)
 from dahitra_tpu_torch.models.resnet_cd import ResNetCD
+from dahitra_tpu_torch.models.senet_unet import (SeNet154UnetDouble,
+                                                 SeNet154UnetLoc,
+                                                 SeResNext50UnetDouble,
+                                                 SeResNext50UnetLoc)
 from dahitra_tpu_torch.models.siam_unet_conc import SiamUnetConc
 from dahitra_tpu_torch.models.unet_change_transformer import (
     UNetChangeTransformer, UNetChangeTwoTransformer)
+from dahitra_tpu_torch.models.xbd_unet_change_transformer import (
+    XBDUNetChangeTransformer)
 
 # BIT keys -> their arguments beside resnet_stages_num = 4.
 _BIT = {
@@ -71,15 +83,24 @@ _ZOO = {
     "siamUnet_conc": lambda dt, img: SiamUnetConc(3, 2, dt),
 }
 
-# Keys of the JAX registry not ported yet -> ROADMAP.md section 1 item.
-_PENDING = {k: "Rest of the zoo" for k in (
-    "xbd_seresnext50_loc", "xbd_seresnext50_double", "xbd_senet154_loc",
-    "xbd_senet154_double", "xbd_dpn92_loc", "xbd_dpn92_double",
-    "xbd_unet_change_transformer", "xbd_unet_change_transformer_bit",
-    "dual_hrnet", "dual_hrnet_fpn")}
+# The rest of the xBD zoo -> its constructor (dtype, img_size).
+XBD_ZOO = {
+    "xbd_seresnext50_loc": lambda dt, img: SeResNext50UnetLoc(dt),
+    "xbd_seresnext50_double": lambda dt, img: SeResNext50UnetDouble(5, dt),
+    "xbd_senet154_loc": lambda dt, img: SeNet154UnetLoc(dt),
+    "xbd_senet154_double": lambda dt, img: SeNet154UnetDouble(5, dt),
+    "xbd_dpn92_loc": lambda dt, img: Dpn92UnetLoc(dt),
+    "xbd_dpn92_double": lambda dt, img: Dpn92UnetDouble(5, dt),
+    "xbd_unet_change_transformer": lambda dt, img: XBDUNetChangeTransformer(
+        5, img, False, dt),
+    "xbd_unet_change_transformer_bit":
+        lambda dt, img: XBDUNetChangeTransformer(5, img, True, dt),
+    "dual_hrnet": lambda dt, img: DualHRNet(dt),
+    "dual_hrnet_fpn": lambda dt, img: DualHRNet(dt, use_fpn=True),
+}
 
 PORTED = ("newUNetTrans", "base_resnet18", "xbd_bit", *_XBD_DAHITRA, *_BIT,
-          *_RES34, *_ZOO)
+          *_RES34, *_ZOO, *XBD_ZOO)
 
 
 def define_g(net_g: str, dtype=torch.float32, img_size: int = 256,
@@ -89,7 +110,8 @@ def define_g(net_g: str, dtype=torch.float32, img_size: int = 256,
     """Build a model by its reference ``--net_G`` key (random weights; the
     draws the port makes itself come from ``generator``). ``img_size`` and
     ``output_nc`` are read by ``newUNetTrans`` only (``img_size`` also by
-    the xBD DAHiTra keys), as in the JAX registry."""
+    the xBD DAHiTra keys and the UNet change transformers), as in the JAX
+    registry."""
     if net_g == "newUNetTrans":
         return DAHiTraUNet(output_nc=output_nc, img_size=img_size, dtype=dtype,
                            generator=generator)
@@ -110,10 +132,8 @@ def define_g(net_g: str, dtype=torch.float32, img_size: int = 256,
                    **_BIT[net_g])
     if net_g in _ZOO:
         return _ZOO[net_g](dtype, img_size)
-    if net_g in _PENDING:
-        raise NotImplementedError(
-            f"--net_G {net_g} is not ported yet: ROADMAP.md section 1, "
-            f"item '{_PENDING[net_g]}'")
+    if net_g in XBD_ZOO:
+        return XBD_ZOO[net_g](dtype, img_size)
     raise NotImplementedError(
         f"Generator model name [{net_g}] is not recognized. Available: "
         f"{sorted(PORTED)}")

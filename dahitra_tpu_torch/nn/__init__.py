@@ -5,7 +5,9 @@ from dahitra_tpu_torch.nn.blocks import (ConvRelu, ConvReluBN, CrossAttention,
                                          SemanticTokenizer, TransformerDecoder,
                                          TransformerEncoder, TwoLayerConv,
                                          max_pool_2x2, max_pool_3x3_s2,
-                                         upsample_bilinear, upsample_nearest)
+                                         max_pool_3x3_s2_ceil,
+                                         resize_bilinear, upsample_bilinear,
+                                         upsample_nearest)
 from dahitra_tpu_torch.nn.resnet import BasicBlock, Bottleneck, ResNetTrunk
 
 __all__ = [
@@ -21,6 +23,8 @@ __all__ = [
     "TwoLayerConv",
     "max_pool_2x2",
     "max_pool_3x3_s2",
+    "max_pool_3x3_s2_ceil",
+    "resize_bilinear",
     "upsample_bilinear",
     "upsample_nearest",
     "BasicBlock",

@@ -55,6 +55,14 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
     return y.permute(0, 2, 3, 1)
 
 
+def apply_conv(conv: nn.Conv2d, x: torch.Tensor,
+               dtype=torch.float32) -> torch.Tensor:
+    """``conv`` (its weight, bias, stride, padding and groups) on NHWC,
+    computed in ``dtype``."""
+    return conv2d_nhwc(x, conv.weight, conv.bias, conv.stride[0],
+                       conv.padding[0], dtype, conv.groups)
+
+
 def conv_transpose2d_nhwc(x: torch.Tensor, conv: nn.ConvTranspose2d,
                           dtype=torch.float32) -> torch.Tensor:
     """NHWC ``nn.ConvTranspose2d`` (its stride, padding and output padding),
@@ -86,6 +94,22 @@ def upsample_bilinear(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """torch MaxPool2d(3, stride=2, padding=1) on NHWC."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def max_pool_3x3_s2_ceil(x: torch.Tensor) -> torch.Tensor:
+    """torch MaxPool2d(3, stride=2, ceil_mode=True) on NHWC: no padding,
+    the last, clipped window kept (the SENet pool, blocks.py:204)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2,
+                        ceil_mode=True).permute(0, 2, 3, 1)
+
+
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """NHWC resized to (h, w) bilinearly with half-pixel centres
+    (``jax.image.resize`` "bilinear" when it enlarges; see
+    ``upsample_bilinear``). Computed in x's dtype."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -145,14 +169,15 @@ class BatchNorm(nn.Module):
     one). ``pair=True`` reads the leading batch axis as [date1; date2]:
     each half is normalized by its own statistics and the running statistics
     take the two sequential updates, ``m (m ra + (1 - m) s1) + (1 - m) s2``.
+    ``momentum`` is flax's (torch's 1 - momentum).
     """
 
-    momentum = 0.9
-
-    def __init__(self, channels: int, dtype=torch.float32, eps: float = 1e-5):
+    def __init__(self, channels: int, dtype=torch.float32, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -243,10 +268,7 @@ class ConvRelu(nn.Module):
                       padding=kernel_size // 2), nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = self.layer[0]
-        return torch.relu(conv2d_nhwc(x, conv.weight, conv.bias,
-                                      padding=conv.padding[0],
-                                      dtype=self.dtype))
+        return torch.relu(apply_conv(self.layer[0], x, self.dtype))
 
 
 def _dense(x: torch.Tensor, linear: nn.Linear, dtype) -> torch.Tensor:

@@ -18,6 +18,11 @@ train_loc.py, train_adapt.py and train_GAN.py), per-batch path. Tasks:
   * ``adapt``: the 4 merged channels (the caller loads the masks with
     ``merge_34``), ``xbd_adapt_loss``, lr 1.5e-4; the damage scores over 3
     classes;
+  * ``hrnet``: Dual-HRNet (``dual_hrnet``, ``dual_hrnet_fpn``), whose
+    {"loc", "cls"} heads at 1/4 resolution go to ``dual_hrnet_loss``
+    (:230-231), lr 1.5e-4; validation resizes both heads bilinearly to the
+    masks and scores the loc head's softmax (channel 1) beside the cls
+    head's sigmoids (:253-261);
   * ``GANTrainer`` (task ``gan``): the damage model against the mask
     ``Discriminator``, which has its own AdamW (1e-4, weight decay 1e-6, no
     clip), seeded from seed + 99, and updates before the generator at every
@@ -47,10 +52,11 @@ The weights start from ``nn/init.py`` ``init_random`` with identity BN
 statistics, the counterpart of the flax initializer the JAX trainer starts
 from, then ``zoo_ctor_init`` as the JAX trainer applies
 ``zoo_ctor_init_variables`` (:96-101): the ResNet34 UNets' decoder convs
-``conv6``-``conv10`` and ``res`` head get Kaiming draws, the DAHiTra and BIT
-models have no such module. The losses run with no ignore value, so the
-loader drops a ragged last batch. The task ``hrnet`` waits for the dual
-HRNet (ROADMAP.md section 1, item 6).
+``conv6``-``conv10`` and ``res`` head get Kaiming draws, the DAHiTra, BIT
+and Dual-HRNet models have no such module. Dropout masks (the
+``xbd_unet_change_transformer_bit`` transformer's) come from the trainer's
+``dropout_generator`` on the device, seeded from seed + 1. The losses run
+with no ignore value, so the loader drops a ragged last batch.
 """
 from __future__ import annotations
 
@@ -64,33 +70,27 @@ import torch
 from dahitra_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from dahitra_tpu_torch.data.loader import BatchLoader
 from dahitra_tpu_torch.data.xbd_augment import augment_xbd
-from dahitra_tpu_torch.losses.combo import (xbd_adapt_loss, xbd_damage_loss,
+from dahitra_tpu_torch.losses.combo import (dual_hrnet_loss, xbd_adapt_loss,
+                                            xbd_damage_loss,
                                             xbd_gan_discriminator_loss,
                                             xbd_gan_generator_loss,
                                             xbd_localization_loss)
 from dahitra_tpu_torch.models.discriminator import Discriminator
 from dahitra_tpu_torch.models.registry import define_g
+from dahitra_tpu_torch.nn.blocks import resize_bilinear, set_dropout_generator
 from dahitra_tpu_torch.nn.init import init_random, zoo_ctor_init
 from dahitra_tpu_torch.train.optim import (XBD_MULTISTEP_MILESTONES, epoch_lr,
                                            make_optimizer, set_learning_rate)
 from dahitra_tpu_torch.utils import Logger, Timer, disable_tf32, resolve_device
 
-TASKS = ("damage", "loc", "adapt")
-# Tasks of the JAX trainer not ported yet -> ROADMAP.md section 1 item.
-PENDING_TASKS = {"hrnet": "Rest of the zoo"}
+TASKS = ("damage", "loc", "adapt", "hrnet")
 N_DAMAGE = 4
-# The recipe's loss of each task on fp32 logits and the float masks.
+# The recipe's loss of each task on fp32 logits (Dual-HRNet's dict of
+# heads) and the float masks.
 _LOSSES = {"damage": xbd_damage_loss, "adapt": xbd_adapt_loss,
+           "hrnet": dual_hrnet_loss,
            "loc": lambda logits, masks: xbd_localization_loss(
                logits, masks[..., 0])}
-
-
-def pending_task(task: str) -> None:
-    """Raise for a task of the JAX trainer that is not ported yet."""
-    if task in PENDING_TASKS:
-        raise NotImplementedError(
-            f"--task {task} is not ported yet: ROADMAP.md section 1, item "
-            f"'{PENDING_TASKS[task]}' (dual_hrnet and dual_hrnet_loss)")
 
 
 @contextlib.contextmanager
@@ -158,7 +158,6 @@ class XBDTrainer:
     def __init__(self, args, train_arrays: Dict[str, np.ndarray],
                  val_arrays: Dict[str, np.ndarray], device="cuda",
                  task: str = "damage"):
-        pending_task(task)
         if task not in TASKS:
             raise ValueError(f"unknown xBD task {task!r}")
         self.args = args
@@ -189,6 +188,9 @@ class XBDTrainer:
                                         weight_decay=1e-6, clip_norm=0.999)
         self.aug_generator = torch.Generator(device=self.device)
         self.aug_generator.manual_seed(seed)
+        self.dropout_generator = torch.Generator(device=self.device)
+        self.dropout_generator.manual_seed(seed + 1)
+        set_dropout_generator(self.model, self.dropout_generator)
 
         self.train_loader = BatchLoader(train_arrays, args.batch_size,
                                         shuffle=True, seed=seed,
@@ -252,7 +254,9 @@ class XBDTrainer:
         """One optimizer step on a uint8 batch already on the device;
         returns the loss, a device tensor."""
         img6, masks, _ = self._augment(pre, post, msk, lbl)
-        loss = _LOSSES[self.task](self._forward(img6, True).float(), masks)
+        out = self._forward(img6, True)
+        loss = _LOSSES[self.task](out if isinstance(out, dict)
+                                  else out.float(), masks)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -264,7 +268,15 @@ class XBDTrainer:
         the counts are 0 for ``loc``."""
         img6, masks, lbl_i = augment_xbd(pre, post, msk, lbl, train=False,
                                          dtype=self.dtype)
-        probs = torch.sigmoid(self._forward(img6).float())
+        out = self._forward(img6)
+        if isinstance(out, dict):
+            h, w = masks.shape[1], masks.shape[2]
+            loc, cls = (resize_bilinear(out[k].float(), h, w)
+                        for k in ("loc", "cls"))
+            probs = torch.cat([torch.softmax(loc, -1)[..., 1:2],
+                               torch.sigmoid(cls)], -1)
+        else:
+            probs = torch.sigmoid(out.float())
         if self.task == "loc":
             zero = torch.zeros(N_DAMAGE, dtype=torch.long, device=probs.device)
             loc = dice_per_image(probs[..., 0] > self.thr, masks[..., 0] > 0)

@@ -32,6 +32,7 @@ from flax import traverse_util
 
 from dahitra_tpu.core.torch_import import convert_bit, convert_resnet_cd
 from dahitra_tpu.losses.cd import levir_train_loss as jax_levir_train_loss
+from dahitra_tpu.models.registry import available_models as jax_available_models
 from dahitra_tpu.models.registry import define_g as jax_define_g
 from dahitra_tpu.nn.blocks import upsample_bilinear as jax_upsample_bilinear
 from dahitra_tpu_torch.cli import eval_cd, main_cd
@@ -42,7 +43,8 @@ from dahitra_tpu_torch.data.synthetic import write_synthetic_levir
 from dahitra_tpu_torch.kernels import folded_decoder as fd
 from dahitra_tpu_torch.losses.cd import levir_train_loss
 from dahitra_tpu_torch.models.bit import BIT
-from dahitra_tpu_torch.models.registry import PORTED, define_g, final_logits
+from dahitra_tpu_torch.models.registry import (PORTED, XBD_ZOO, define_g,
+                                               final_logits)
 from dahitra_tpu_torch.nn.blocks import upsample_bilinear
 
 IMG = 64
@@ -285,15 +287,27 @@ def test_state_dict_round_trip(key):
                                           err_msg=str(k))
 
 
-def test_every_ported_key_builds_with_the_jax_output_shape():
+@pytest.fixture
+def few_threads():
+    """torch on 2 CPU threads (the suite's six workers share eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def test_every_ported_key_builds_with_the_jax_output_shape(few_threads):
     """Each ported key's forward at 32 px, batch 1, has the JAX model's
     output shape (jax.eval_shape, nothing compiled; the full-resolution
     logits of changeFormerV6's list), the xBD keys on the
     6-channel pre|post input (the single-image ResNet34 UNets on one
-    3-channel image); a key not ported yet raises by name."""
+    3-channel image); the keys of ``XBD_ZOO`` are held against the JAX
+    forwards, shapes included, in tests/test_torch_xbd_zoo.py. Every key
+    of the JAX registry is ported."""
+    assert set(PORTED) == set(jax_available_models())
     x = np.zeros((1, 32, 32, 3), np.float32)
     x6 = np.zeros((1, 32, 32, 6), np.float32)
-    for key in PORTED:
+    for key in (k for k in PORTED if k not in XBD_ZOO):
         ins = ((x, None) if key in ("xbd_res34_loc", "xbd_res34_single")
                else (x6, None) if key.startswith("xbd_") else (x, x))
         want = final_logits(jax.eval_shape(
@@ -303,9 +317,6 @@ def test_every_ported_key_builds_with_the_jax_output_shape():
             got = final_logits(define_g(key, img_size=32).eval()(
                 *(None if t is None else torch.from_numpy(t) for t in ins)))
         assert tuple(got.shape) == tuple(want), key
-    with pytest.raises(NotImplementedError,
-                       match="dual_hrnet.*Rest of the zoo"):
-        define_g("dual_hrnet")
 
 
 def test_bit_fields_and_six_channel_input():

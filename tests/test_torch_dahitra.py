@@ -142,8 +142,10 @@ def test_xbd_variant_keys_match_flax_tree():
 
 
 def test_train_mode_and_unported_keys_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_g("dual_hrnet")
+    """Every key of the JAX registry builds (the last ones, Dual-HRNet's,
+    since the xBD half of the zoo); a key of neither registry raises by
+    name."""
+    assert isinstance(define_g("dual_hrnet"), torch.nn.Module)
     with pytest.raises(NotImplementedError, match="not recognized"):
         define_g("no_such_model")
 

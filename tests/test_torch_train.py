@@ -307,6 +307,17 @@ def test_init_touches_what_init_net_touches():
 
 # ----------------------------------------------------------- end to end
 
+@pytest.fixture
+def few_threads():
+    """torch on 2 CPU threads: under the suite's six workers on eight cores
+    full thread pools in the parameter-sized passes of the CLI runs (init,
+    AdamW, checkpoints) slow them several times."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def synthetic_tree(tmp_path_factory):
     root = tmp_path_factory.mktemp("train")
@@ -323,7 +334,8 @@ def _argv(root, *extra):
             "--log_every", "1", *extra]
 
 
-def test_main_cd_trains_and_resumes_on_cpu(synthetic_tree, monkeypatch):
+def test_main_cd_trains_and_resumes_on_cpu(synthetic_tree, monkeypatch,
+                                          few_threads):
     """Two epochs at 64 px, batch 2: the reference artifacts, a finite loss
     in log.txt, a test pass, the epoch-0 profiler trace and the training
     vis grids; a rerun resumes from best_ckpt.pt after the saved epoch,
@@ -366,7 +378,7 @@ def test_main_cd_default_device_without_cuda_raises(synthetic_tree,
     assert "no effect here" in help_text and "--device" in help_text
 
 
-def test_train_step_batch_of_one_takes_cross_entropy(tmp_path):
+def test_train_step_batch_of_one_takes_cross_entropy(tmp_path, few_threads):
     """A ragged last batch of one takes the CE branch, as the reference's
     trainer does with its batch size."""
     import copy
