@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 1-3,19] [--profile]
 
 Drives the port's main paths, LEVIR-CD evaluation and training of DAHiTra
 (``newUNetTrans``) at its published width, at 256 px and then at 512 and
@@ -13,7 +13,12 @@ the xBD stack (``xbd_train --task loc | adapt | gan``, ``--elastic``,
 ``visualize_results``), the rest of the LEVIR-CD zoo with ``demo``,
 ``import_checkpoint`` and ``count_params``, and the xBD half of the zoo
 (SE-ResNeXt50, SENet154 and DPN92 UNets, the xBD UNet change transformers,
-Dual-HRNet with ``xbd_train --task hrnet``). Phases, each fatal on failure:
+Dual-HRNet with ``xbd_train --task hrnet``), and data parallelism
+(``core/mesh.py``: ``--gpu_ids``, DDP, global BatchNorm statistics, the
+padded loader). ``--phases`` runs the phases it lists (every phase
+without it), with the phases whose output they read (``PHASE_NEEDS``) and
+phase 1; the kernels are built in every selection. Phases, each fatal on
+failure:
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``dahitra_tpu_torch/csrc`` (one nvcc per
@@ -188,23 +193,41 @@ Dual-HRNet with ``xbd_train --task hrnet``). Phases, each fatal on failure:
      ``xbd_dpn92_double``, ``xbd_unet_change_transformer_bit`` (dropout
      rate 0) and ``dual_hrnet`` at 128 px against the CPU plain path; two
      same-seed train steps of the ``_bit`` model with dropout on: the same
-     loss bits.
+     loss bits;
+ 19. data parallelism (``run_mesh_phase``): ``CDTrainer`` of
+     ``newUNetTrans`` in ``DistributedDataParallel`` under NCCL at world
+     size 1 against the plain trainer (the same bits over 2 steps, the warm
+     step of both); two gloo ranks on the card (collectives staged through
+     host memory) against one process on the joined batch: a
+     ``newUNetTrans`` step at joined batch 8 and an ``xbd_dahitra`` damage
+     step at 256 px, joined batch 2, fp32 and bf16 (the loss, every
+     gradient, the running statistics; K1-save, K2 and K3 launched on each
+     rank as in one step of phases 7 and 15), and ``CDEvaluator`` over 5
+     padded patches at batch 4 (one process's matrix exactly); then
+     ``main_cd``, ``xbd_train`` and ``eval_cd`` with ``--gpu_ids 0``: no
+     process group, the same results as their bodies run directly.
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10, 12, 13, 14, 15, 16, 17, 18) and read just after; the counters of the padded
+7, 9, 10, 12, 13, 14, 15, 16, 17, 18) and read just after (phase 19 reads
+each rank's counters before and after its run); the counters of the padded
 token counts (``NO_PAD``) must read 0 in every one of them. ``--profile`` adds a torch.profiler
 breakdown of the batch-8 forward and of one batch-8 training step by kernel
 class, with the device's idle share, on the default path and with
 ``pallas = True``, and of one 1024 px xBD step of ``xbd_senet154_double``
 and ``dual_hrnet`` in each dtype.
 
-The line before the last is ``{"kernels": [...]}``; the last is
+``{"phase_seconds": {...}}`` gives each phase's wall time (9 and 10 as one,
+``profile`` the ``--profile`` breakdowns). The line before the last is
+``{"kernels": [...]}`` (a phase that did not
+run gives ``null`` launches, and without phase 3 every measured number is
+``null``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when no
 CUDA device is present or the port's package is missing. Needs one card;
 imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -293,6 +316,42 @@ WIDE_SHAPES = [(f"wide/l{tokens}h{heads}", 2 * BATCH, 4096, 8, heads, tokens,
                                           (25, 5))]
 # Calls of a shape per forward or step, where more than one.
 CALLS = {"bit/dd8": 2, "xbd_bit/s4": 2, "xbd_bit_tta/s4": 2}
+
+
+PHASES = range(1, 20)
+# What a phase reads from another: phase 4's tree and checkpoint, phase 5's
+# confusion matrix, phase 15's damage checkpoints. (Phase 7's splits and
+# phase 15's tiles are written for whichever phase reads them.)
+PHASE_NEEDS = {5: {4}, 6: {4}, 9: {4}, 10: {4}, 12: {4}, 14: {4}, 16: {15},
+               17: {4, 5}, 19: {4, 5}}
+
+
+def selected_phases(argv) -> set:
+    """The phases of ``--phases`` (for example ``1-3,19``; every phase
+    without it), with the phases they read from and phase 1; the kernels'
+    build (phase 2's ``_build.build``) runs in every selection."""
+    spec = None
+    for i, a in enumerate(argv):
+        if a == "--phases" and i + 1 < len(argv):
+            spec = argv[i + 1]
+        elif a.startswith("--phases="):
+            spec = a.split("=", 1)[1]
+    if spec is None:
+        return set(PHASES)
+    sel = {1}
+    try:
+        for part in filter(None, (p.strip() for p in spec.split(","))):
+            lo, _, hi = part.partition("-")
+            sel.update(range(int(lo), int(hi or lo) + 1))
+    except ValueError:
+        fail(f"--phases {spec!r}: not a list of phases and ranges")
+    if not sel <= set(PHASES):
+        fail(f"--phases {spec!r}: phases run from 1 to {PHASES[-1]}")
+    while True:
+        more = set().union(*(PHASE_NEEDS.get(p, set()) for p in sel)) - sel
+        if not more:
+            return sel
+        sel |= more
 
 
 def fail(msg: str) -> None:
@@ -977,6 +1036,14 @@ def summarize(name, source, replaces, dname, rows, launches, tol,
     ``main_size`` "bit"), errors the worst over those shapes; the other
     shapes under ``other_sizes``, summed per image size or model;
     ``launches_by_phase`` the kernel's count in every main-path run."""
+    if not rows:  # phase 3 not selected: every measured number null
+        return {"name": f"{name}[{dname}]", "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                **{k: None for k in ("max_abs_err", "scaled_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+                "tolerance": tol[dname], "launches_by_phase": by_phase or {},
+                **extra}
     by_size = {}
     for r in rows:
         by_size.setdefault(_size_of(r["shape"]), []).append(r)
@@ -1682,6 +1749,20 @@ def check_xbd_grads(torch, data_root) -> dict:
     return out
 
 
+def xbd_tiles(tmp) -> tuple:
+    """Phase 15's seeded synthetic tiles, ``XBD_TILES`` to train on and
+    ``XBD_PREDICT_TILES`` to predict, under ``<tmp>/xbd``, written once
+    (phases 18 and 19 read them without phase 15)."""
+    from dahitra_tpu_torch.data.synthetic import write_synthetic_xbd
+
+    root = os.path.join(tmp, "xbd")
+    roots = tuple(os.path.join(root, s) for s in ("train", "test"))
+    if not os.path.isdir(roots[0]):
+        write_synthetic_xbd(roots[0], XBD_TILES, XBD_IMG, seed=0)
+        write_synthetic_xbd(roots[1], XBD_PREDICT_TILES, XBD_IMG, seed=1)
+    return roots
+
+
 def run_xbd_phase(torch, tmp, dtypes) -> dict:
     """Phase 15: the xBD damage path at 1024 px on seeded synthetic tiles.
     ``xbd_train`` (xbd_dahitra) and ``xbd_predict`` with its checkpoint per
@@ -1689,16 +1770,12 @@ def run_xbd_phase(torch, tmp, dtypes) -> dict:
     trainer's weights, and the card's gradients against the CPU. Returns
     the launch counts by dtype and phase."""
     from dahitra_tpu_torch.core.checkpoint import save_checkpoint
-    from dahitra_tpu_torch.data.synthetic import write_synthetic_xbd
     from dahitra_tpu_torch.data.xbd import (load_xbd_pairs, scan_xbd_files,
                                             split_and_upsample)
 
     t0 = time.time()
     root = os.path.join(tmp, "xbd")
-    data_root = write_synthetic_xbd(os.path.join(root, "train"), XBD_TILES,
-                                    XBD_IMG, seed=0)
-    test_root = write_synthetic_xbd(os.path.join(root, "test"),
-                                    XBD_PREDICT_TILES, XBD_IMG, seed=1)
+    data_root, test_root = xbd_tiles(tmp)
     files = scan_xbd_files([data_root])
     n_val = len(split_and_upsample(files, seed=0)[1])
     one = load_xbd_pairs(files[:1], train=True).arrays()
@@ -1818,10 +1895,10 @@ def _task_trainer(torch, tmp, task, net_g, dtype, arrays, img=None,
 
 
 def run_xbd_task_steps(torch, tmp, task, net_g, dtype, arrays,
-                       img: int = XBD_IMG) -> dict:
-    """``XBD_TIMED`` warm train steps of ``task`` at ``img`` px (``arrays``
+                       img: int = XBD_IMG, timed: int = XBD_TIMED) -> dict:
+    """``timed`` warm train steps of ``task`` at ``img`` px (``arrays``
     of that size), batch 1 (the
-    GAN's without a discriminator update, then ``XBD_TIMED`` with one), each
+    GAN's without a discriminator update, then ``timed`` with one), each
     timed alone on the host clock after a warm-up, launch counters set to 0
     just before and read just after; for gan also one ``--effective_gan``
     step, whose adversarial gradient (its generator gradient less that of
@@ -1842,13 +1919,13 @@ def run_xbd_task_steps(torch, tmp, task, net_g, dtype, arrays,
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         losses, times = [], []
-        for _ in range(XBD_TIMED):
+        for _ in range(timed):
             t0 = time.time()
             losses.append(fn().item())
             torch.cuda.synchronize()
             times.append((time.time() - t0) * 1e3)
         got = _read_counts()
-        want = _task_launches(net_g, XBD_TIMED, XBD_TIMED * (kind != "step"))
+        want = _task_launches(net_g, timed, timed * (kind != "step"))
         if got != {**NO_PAD, **want} or not np.isfinite(losses).all():
             fail(f"xBD {task} {kind} {net_g} {dname}: launches {got} != "
                  f"{want} or losses {losses}")
@@ -2440,6 +2517,9 @@ XBD_ZOO_CHECKS = (("damage", "xbd_seresnext50_double"),
                   ("hrnet", "dual_hrnet"))
 XBD_ZOO_CHECK_IMG = 128
 XBD_ZOO_PREDICT = "xbd_senet154_double"
+# Warm steps per run of phase 18 (3, down from phase 16's 5 since PR 16,
+# which added phase 19 within the run's 900 s).
+XBD_ZOO_TIMED = 3
 XBD_ZOO_IMPORTS = ("xbd_senet154_double", "dual_hrnet")
 
 
@@ -2638,7 +2718,7 @@ def run_xbd_zoo_phase(torch, tmp, dtypes) -> dict:
     """Phase 18: the xBD half of the zoo on phase 15's tiles, batch 1,
     cuDNN deterministic, fp32 then bf16: for every run of
     ``XBD_ZOO_RUNS`` one epoch of ``xbd_train`` with a validation and
-    ``XBD_TIMED`` warm steps (median, range, peak memory; no decoder or
+    ``XBD_ZOO_TIMED`` warm steps (median, range, peak memory; no decoder or
     tokenizer launch), ``xbd_predict`` with the SENet154 double checkpoint;
     then the imported checkpoints, the card against the CPU plain path
     and the dropout step. Returns the launch counts by dtype and phase."""
@@ -2669,7 +2749,8 @@ def run_xbd_zoo_phase(torch, tmp, dtypes) -> dict:
             by_phase[dname][f"{net_g}_{task}_{img}"] = out["launches"]
             gc.collect()
             steps = run_xbd_task_steps(torch, tmp, task, net_g, dtype,
-                                       arrays[img], img)["step"]
+                                       arrays[img], img,
+                                       XBD_ZOO_TIMED)["step"]
             by_phase[dname][f"{net_g}_{task}_steps_{img}"] = \
                 steps["launches"]
             print(json.dumps({**out, "warm_steps": steps}), flush=True)
@@ -2689,7 +2770,437 @@ def run_xbd_zoo_phase(torch, tmp, dtypes) -> dict:
     return by_phase
 
 
+# Phase 19: data parallelism (core/mesh.py) on the one card. Decoder (K1,
+# K1-save, K2) and K3 calls per forward of each model, as phases 7 and 15
+# count them; 5 timed warm steps; the patches of the padded evaluation.
+MESH_CALLS = {"newUNetTrans": (6, 3), "xbd_dahitra": (XBD_CALLS["xbd_dahitra"],
+                                                      3)}
+MESH_TIMED = 5
+MESH_EVAL_PATCHES, MESH_EVAL_BATCH = 5, 4
+MESH_XBD_IMG = 256
+# xbd_dahitra's leaves on the path of its trans modules 3 and 4 (their own
+# parameters, the trunk that feeds them, the heads that read their
+# decoders). With seeded weights the two dates' tokens there nearly agree,
+# so the difference memory |t2 - t1| of their decoders cancels: a bf16
+# rounding that a per-forward batch of 1 or a BatchNorm summation order
+# decides moves these leaves' bf16 gradients by most of the gradient's
+# scale within one process (phase 19c prints both readings; PERF.md).
+# Phase 19c holds the other leaves to the flat bf16 bound.
+MESH_BF16_UNHELD = ("resnet.conv1.", "resnet.bn1.", "resnet.layer1.",
+                    "resnet.layer2.", "conv_layer2.", "conv_layer3.",
+                    "conv_layer4.", "classifier.")
+
+
+def _trans34_path(name: str) -> bool:
+    return (name.split(".")[0].endswith(("_3", "_4"))
+            or name.startswith(MESH_BF16_UNHELD))
+
+
+def _mesh_cfg(tmp, tag, net_g, img, batch, dname, **kw) -> dict:
+    return dict(n_class=2, checkpoint_dir=os.path.join(tmp, "mesh", tag),
+                max_epochs=1, net_G=net_g, img_size=img, lr=1e-3,
+                batch_size=batch, lr_policy="linear", device="cuda:0",
+                seed=0, bf16=dname == "bfloat16", **kw)
+
+
+def _ddp_world1(mesh, cfgs, arrays) -> dict:
+    """A plain ``CDTrainer`` and one in ``DistributedDataParallel`` under
+    ``mesh`` (``cfgs``: the two configurations), each two ``train_step``
+    calls on epoch 0's first batches (cuDNN deterministic): their losses,
+    the last step's gradients and the running statistics; then each
+    trainer's warm step timed alone by CUDA events, ``MESH_TIMED`` pairs
+    taken in turns (plain first, then DDP first), the medians."""
+    import argparse
+
+    import torch
+
+    from dahitra_tpu_torch.tools.mesh_checks import _state
+    from dahitra_tpu_torch.train.engine import CDTrainer
+
+    out, steps = {}, {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag, m in (("plain", None), ("ddp", mesh)):
+            tr = CDTrainer(argparse.Namespace(**cfgs[tag]), arrays, arrays,
+                           device="cuda:0", mesh=m)
+            batches = [tr._to_device(b)
+                       for _, b in zip(range(2), tr.train_loader)]
+            losses = torch.stack([tr.train_step(*b)[0] for b in batches])
+            torch.cuda.synchronize()
+            out[tag] = {"loss": losses, **_state(tr.model),
+                        "ddp": type(tr.net).__name__ ==
+                        "DistributedDataParallel"}
+            steps[tag] = (lambda tr=tr, b=batches[0]: tr.train_step(*b))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    times = {"plain": [], "ddp": []}
+    for r in range(MESH_TIMED + 1):  # the first pair warms up
+        for tag in (("plain", "ddp") if r % 2 else ("ddp", "plain")):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            s.record()
+            steps[tag]()
+            e.record()
+            e.synchronize()
+            if r:
+                times[tag].append(s.elapsed_time(e))
+    for tag in times:
+        out[tag]["step_ms"] = statistics.median(times[tag])
+    return out
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _scaled_max(got: dict, ref: dict, keep=None) -> float:
+    """The largest difference over the tensors of ``ref`` (those whose name
+    ``keep`` accepts, where given) over the largest element of any of them
+    (the whole gradient's scale)."""
+    if got.keys() != ref.keys():
+        fail(f"mesh: tensors differ: {sorted(set(got) ^ set(ref))}")
+    scale = max(float(v.float().abs().max()) for v in ref.values())
+    return max(float((got[k].float().cpu() - ref[k].float().cpu()).abs()
+                     .max()) for k in ref if keep is None or keep(k)) \
+        / max(scale, 1e-12)
+
+
+def _worst(got: dict, ref: dict, keep) -> str:
+    """The name of the tensor that ``keep`` accepts with the largest
+    difference."""
+    return max((k for k in ref if keep(k)), key=lambda k: float(
+        (got[k].float().cpu() - ref[k].float().cpu()).abs().max()))
+
+
+def _own_moves(torch, base, fn, module, name, n_images) -> tuple:
+    """The one-process step's (``base``) largest own moves of its gradients
+    and running statistics (scale-normalized) under four 1e-6 moves of the
+    augmented images: ``fn()`` runs the step again with ``module.name`` (the
+    augmentation, whose first ``n_images`` outputs are images) wrapped so
+    that its images move."""
+    aug = getattr(module, name)
+    moves = []
+    for i in range(4):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+
+        def moved(*a, **k):
+            out = aug(*a, **k)
+            return tuple(t + (1e-6 * torch.randn(
+                t.shape, generator=g, device="cuda")).to(t.dtype)
+                if j < n_images else t for j, t in enumerate(out))
+
+        setattr(module, name, moved)
+        try:
+            mv = fn()
+        finally:
+            setattr(module, name, aug)
+        moves.append((_scaled_max(mv["grads"], base["grads"]),
+                      _scaled_max(mv["stats"], base["stats"])))
+    return max(m[0] for m in moves), max(m[1] for m in moves)
+
+
+def _check_two_ranks(torch, got, kind, dname, net_g, ref, order, step,
+                     module, aug, n_images, by_phase) -> None:
+    """Phase 19b-c for one case: the two ranks' results ``got`` against
+    the one-process step ``ref`` (and, for c, ``order``: the one-process
+    step summing BatchNorm's statistics in the ranks' order, and the
+    tokens' cancellation). Loss, statistics and gradients at the flat
+    bounds (fp32 1e-5, 1e-5, 1e-4 of scale; bf16 2e-2, 2e-2, 6e-2); in
+    fp32, where a flat bound is passed, ROADMAP rule 5: twice the
+    one-process step's own largest move under four 1e-6 moves of its
+    augmented images. c in fp32 also holds the flat bounds against the
+    ranks' summation order; c in bf16 holds its gradients outside
+    ``MESH_BF16_UNHELD`` and prints the rest."""
+    bf16 = dname == "bfloat16"
+    flat = GTOL["bfloat16"] if bf16 else 1e-4
+    s_flat = l_tol = TOL["bfloat16"] if bf16 else 1e-5
+
+    def loss_rel(a, b):
+        return abs(float(a["loss"][0]) - float(b["loss"][0])) \
+            / abs(float(b["loss"][0]))
+
+    held = _trans34_path if bf16 and kind == "c" else None
+    keep = None if held is None else (lambda k: not held(k))
+    loss_err = max(loss_rel(g, ref) for g in got)
+    g_err = max(_scaled_max(g["grads"], ref["grads"], keep) for g in got)
+    s_err = max(_scaled_max(g["stats"], ref["stats"]) for g in got)
+    g_move = s_move = None
+    if not bf16 and (g_err > flat or s_err > s_flat):
+        g_move, s_move = _own_moves(torch, ref, step, module, aug, n_images)
+    g_tol = flat if g_move is None else max(flat, 2 * g_move)
+    s_tol = s_flat if s_move is None else max(s_flat, 2 * s_move)
+    dec, k3 = MESH_CALLS[net_g]
+    want = {**NO_PAD, "k1": 0, "k1_save": dec, "k2": dec, "k3": k3, "k4": 0}
+    out = {"mesh": f"{kind}_two_gloo_ranks", "net_G": net_g, "dtype": dname,
+           "joined_batch": BATCH if kind == "b" else 2,
+           "loss": float(ref["loss"][0]), "loss_rel_err": loss_err,
+           "loss_tol": l_tol, "grad_err": g_err, "grad_tol": g_tol,
+           "grad_bound": "flat" if g_tol == flat else
+           "rule 5: twice the one-process step's own largest move",
+           "own_grad_move": g_move, "stats_err": s_err, "stats_tol": s_tol,
+           "own_stats_move": s_move,
+           "ranks_same_stats": _same_bits(got[0]["stats"], got[1]["stats"]),
+           "launches_per_rank": [g["launches"] for g in got],
+           "launches_one_process": ref["launches"]}
+    ok = True
+    if order is not None:
+        oref, cancel = order
+        if cancel is not None:
+            out["token_cancellation"] = cancel
+        out["rank_order"] = {
+            "loss_rel_err": max(loss_rel(g, oref) for g in got),
+            "grad_err": max(_scaled_max(g["grads"], oref["grads"])
+                            for g in got),
+            "stats_err": max(_scaled_max(g["stats"], oref["stats"])
+                             for g in got),
+            "one_process_order_move": _scaled_max(oref["grads"],
+                                                  ref["grads"])}
+        if not bf16:
+            ro = out["rank_order"]
+            ok = (ro["loss_rel_err"] <= l_tol and ro["grad_err"] <= flat
+                  and ro["stats_err"] <= s_flat)
+    if held is not None:
+        out["grad_bound"] = "flat, leaves off trans modules 3-4's path"
+        out["held_leaves"] = sum(not held(k) for k in ref["grads"])
+        out["unheld_leaves"] = sum(held(k) for k in ref["grads"])
+        out["unheld_grad_err"] = max(_scaled_max(g["grads"], ref["grads"],
+                                                 held) for g in got)
+        out["unheld_worst_leaf"] = _worst(got[0]["grads"], ref["grads"],
+                                          held)
+        out["rank_order"]["one_process_order_move_held"] = _scaled_max(
+            order[0]["grads"], ref["grads"], keep)
+    print(json.dumps(out), flush=True)
+    if got[0]["launches"] == got[1]["launches"]:
+        by_phase[dname][f"mesh_{kind}"] = got[0]["launches"]
+    if not (ok and loss_err <= l_tol and g_err <= g_tol and s_err <= s_tol
+            and out["ranks_same_stats"]
+            and all(g["launches"] == want for g in got)):
+        fail(f"mesh ({kind}) {net_g} {dname}: {out}")
+
+
+def run_mesh_phase(torch, tmp, train_root, cm5) -> dict:
+    """Phase 19 (``core/mesh.py``). (a) ``CDTrainer`` of ``newUNetTrans`` at
+    256 px, batch 8, in ``DistributedDataParallel`` under NCCL at world size
+    1 (``launch`` in this process) against the plain trainer, cuDNN
+    deterministic: 2 steps with the same loss, gradient and statistics bits;
+    the warm step of both, timed in turns. (b-d) Two gloo ranks on cuda:0
+    (spawned, CUDA tensors staged through host memory for gloo's
+    collectives) against one process on the joined batch, cuDNN
+    deterministic on both sides (``_check_two_ranks``): (b) one step of
+    ``newUNetTrans``, joined batch 8 (4 a rank), fp32 and bf16; (c) one
+    ``--task damage`` step of ``xbd_dahitra`` at 256 px, joined batch 2,
+    also against one process that sums BatchNorm's statistics in the ranks'
+    order; both ranks with the same statistics bits and each rank's
+    K1-save, K2 and K3 launches those of one step of phases 7 and 15; (d)
+    ``CDEvaluator`` of phase 4's checkpoint over 5 patches at batch 4,
+    padded (each rank 2 rows, then 1 and a filler): the confusion matrix
+    exactly one process's, both at the ranks' per-forward batch of 2 and at
+    the joined batch of 4.
+    (e) ``main_cd``, ``xbd_train`` (one epoch each on phase 7's splits and
+    phase 15's tiles) and ``eval_cd`` (phase 4's patches) with ``--gpu_ids
+    0``: no process group, and the same confusion matrices, losses and
+    scores, bit for bit (cuDNN deterministic), as the same runs through the
+    CLIs' bodies with no launcher; ``eval_cd``'s matrix phase 5's where it
+    ran."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from dahitra_tpu_torch.core import mesh as mesh_mod
+    from dahitra_tpu_torch.data.levir import load_levir_split
+    from dahitra_tpu_torch.tools import mesh_checks
+    from dahitra_tpu_torch.train import engine, xbd_engine
+
+    t_phase = time.time()
+    by_phase = {"float32": {}, "bfloat16": {}}
+    lev = load_levir_split(os.path.join(train_root, "data", "LEVIR_CD"),
+                           "train", IMG)
+    arrays = {"a": lev.a, "b": lev.b, "label": lev.label}
+    rng = np.random.default_rng(19)
+    s = MESH_XBD_IMG
+    xarrays = {"img_pre": rng.integers(0, 255, (2, s, s, 3), dtype=np.uint8),
+               "img_post": rng.integers(0, 255, (2, s, s, 3), dtype=np.uint8),
+               "msk": rng.integers(0, 2, (2, s, s, 5)).astype(np.uint8),
+               "lbl_msk": rng.integers(0, 4, (2, s, s)).astype(np.uint8)}
+
+    # (a) NCCL at world size 1 against the plain trainer
+    cfgs = {tag: _mesh_cfg(tmp, f"a_{tag}", "newUNetTrans", IMG, BATCH,
+                           "float32") for tag in ("plain", "ddp")}
+    both = mesh_mod.launch(_ddp_world1, (cfgs, arrays), devices=["cuda:0"],
+                           backend="nccl", timeout=300)[0]
+    plain, ddp = both["plain"], both["ddp"]
+    same = {k: _same_bits(ddp[k], plain[k]) if isinstance(plain[k], dict)
+            else bool(torch.equal(ddp[k], plain[k]))
+            for k in ("loss", "grads", "stats")}
+    out_a = {"mesh": "a_nccl_world1", "ddp": ddp["ddp"], "same_bits": same,
+             "loss": plain["loss"].tolist(),
+             "step_ms_plain": plain["step_ms"], "step_ms_ddp": ddp["step_ms"],
+             "ddp_overhead_ms": ddp["step_ms"] - plain["step_ms"]}
+    print(json.dumps(out_a), flush=True)
+    if not (ddp["ddp"] and all(same.values())):
+        fail(f"mesh (a): DDP at world size 1 differs from the plain step: "
+             f"{same}")
+
+    # (b-d) one-process references in this process, then one launch of two
+    # gloo ranks on cuda:0 for every case; cuDNN deterministic on both sides
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cases, refs = [], []
+        for dname in ("float32", "bfloat16"):
+            cfg = _mesh_cfg(tmp, f"b_{dname}", "newUNetTrans", IMG, BATCH,
+                            dname)
+            xcfg = _mesh_cfg(tmp, f"c_{dname}", "xbd_dahitra", s, 2, dname,
+                             val_batch_size=2)
+            for kind, c, arr, fn, mod, aug, n_img in (
+                    ("b", cfg, arrays, mesh_checks.cd_steps, engine,
+                     "augment_pairs", 2),
+                    ("c", xcfg, xarrays, mesh_checks.xbd_steps, xbd_engine,
+                     "augment_xbd", 1)):
+                step = (lambda fn=fn, c=c, arr=arr: fn(None, c, arr, 1))
+                cases.append((fn.__name__, (c, arr, 1)))
+                # c: also one process summing BatchNorm's statistics in the
+                # ranks' order, and in bf16 the tokens' cancellation
+                order = None if kind == "b" else (
+                    mesh_checks.xbd_steps(None, c, arr, 1, sums_of=2),
+                    mesh_checks.token_cancellation(c, arr)
+                    if dname == "bfloat16" else None)
+                refs.append((kind, dname, c["net_G"], step(), order, step,
+                             mod, aug, n_img))
+        ev_dir = os.path.join(tmp, "mesh", "d")
+        os.makedirs(ev_dir, exist_ok=True)
+        shutil.copy(os.path.join(tmp, "ckpt", "smoke", "best_ckpt.pt"),
+                    ev_dir)
+        ecfg = dict(n_class=2, checkpoint_dir=ev_dir, net_G="newUNetTrans",
+                    img_size=IMG, batch_size=MESH_EVAL_BATCH, device="cuda:0")
+        tiles = os.path.join(tmp, "data", "LEVIR_CD")
+        parts = [load_levir_split(tiles, "test", IMG, patch=p)
+                 for p in (0, 1)]
+        patches = {k: np.concatenate([getattr(p, k) for p in parts])[
+            :MESH_EVAL_PATCHES] for k in ("a", "b", "label")}
+        ev_one = {b: mesh_checks.cd_eval(None, {**ecfg, "batch_size": b},
+                                         patches)
+                  for b in (2, MESH_EVAL_BATCH)}
+        cases.append(("cd_eval", (ecfg, patches)))
+        t0 = time.time()
+        ranks = mesh_mod.launch(mesh_checks.run_cases, (cases, True),
+                                devices=["cuda:0", "cuda:0"],
+                                backend="gloo", timeout=600)
+        launch_s = time.time() - t0
+        print(json.dumps({"mesh": "two_gloo_ranks_launch",
+                          "launch_s": launch_s, "cases": len(cases)}),
+              flush=True)
+        for i, ref_case in enumerate(refs):
+            _check_two_ranks(torch, [r[i] for r in ranks], *ref_case,
+                             by_phase)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    ev = [r[-2] for r in ranks]
+    cm = ev[0]["cm"].numpy()
+    out_d = {"mesh": "d_padded_eval", "patches": MESH_EVAL_PATCHES,
+             "batch": MESH_EVAL_BATCH, "cm": cm.tolist(),
+             "equal_one_process_batch2": bool(np.array_equal(
+                 cm, ev_one[2]["cm"].numpy())),
+             "equal_one_process_batch4": bool(np.array_equal(
+                 cm, ev_one[MESH_EVAL_BATCH]["cm"].numpy())),
+             "ranks_agree": bool(np.array_equal(cm, ev[1]["cm"].numpy())),
+             "pairs_counted": ev[0]["scores"]["imps"] > 0,
+             "launches_per_rank": [e["launches"] for e in ev],
+             "collectives_staged_through_host_per_rank": [
+                 r[-1] for r in ranks],
+             "launch_s": launch_s}
+    print(json.dumps(out_d), flush=True)
+    want = {**NO_PAD, "k1": 6 * 2, "k1_save": 0, "k2": 0, "k3": 3 * 2,
+            "k4": 0}
+    if not (out_d["equal_one_process_batch2"]
+            and out_d["equal_one_process_batch4"] and out_d["ranks_agree"]
+            and all(e["launches"] == want for e in ev)):
+        fail(f"mesh (d): padded evaluation: {out_d}")
+
+    # (e) the CLIs with --gpu_ids 0: no group, the same results
+    from dahitra_tpu_torch.cli import eval_cd, main_cd, xbd_train
+
+    groups = mesh_mod.GROUPS_STARTED
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    os.environ["DAHITRA_DATA_ROOT"] = os.path.join(train_root, "data")
+    out_e = {"mesh": "e_cli_gpu_ids_0"}
+    try:
+        def levir(project, *extra):
+            return main_cd.build_parser().parse_args([
+                "--checkpoint_root", os.path.join(tmp, "mesh", "e"),
+                "--project_name", project, "--img_size", str(IMG),
+                "--batch_size", str(BATCH), "--max_epochs", "1",
+                "--skip_test", "--device", "cuda", *extra])
+
+        cli = main_cd.main(["--checkpoint_root",
+                            os.path.join(tmp, "mesh", "e"), "--project_name",
+                            "main_cd_cli", "--img_size", str(IMG),
+                            "--batch_size", str(BATCH), "--max_epochs", "1",
+                            "--skip_test", "--device", "cuda",
+                            "--gpu_ids", "0"])
+        args = levir("main_cd_direct")
+        args.checkpoint_dir = os.path.join(args.checkpoint_root,
+                                           args.project_name)
+        direct = main_cd.train(args)
+        vals = [np.load(os.path.join(tmp, "mesh", "e", p, "val_acc.npy"))
+                for p in ("main_cd_cli", "main_cd_direct")]
+        strip = [{k: v for k, v in h.items() if k != "imps"}
+                 for h in (cli[0], direct[0])]
+        out_e["main_cd_same"] = strip[0] == strip[1] and bool(
+            np.array_equal(*vals))
+        out_e["main_cd_epoch0"] = strip[0]
+
+        xroot = os.path.join(tmp, "xbd", "train")
+        xargv = ["--data_root", xroot, "--task", "damage", "--net_G",
+                 "xbd_dahitra", "--img_size", str(XBD_IMG), "--batch_size",
+                 "1", "--max_epochs", "1", "--eval_every", "1",
+                 "--checkpoint_root", os.path.join(tmp, "mesh", "e"),
+                 "--device", "cuda"]
+        xcli = xbd_train.main(xargv + ["--project_name", "xbd_cli",
+                                       "--gpu_ids", "0"])
+        xargs = xbd_train.build_parser().parse_args(
+            xargv + ["--project_name", "xbd_direct"])
+        xargs.checkpoint_dir = os.path.join(xargs.checkpoint_root,
+                                            xargs.project_name)
+        xargs.device = "cuda:0"
+        os.makedirs(xargs.checkpoint_dir, exist_ok=True)
+        xdirect = xbd_train._run(None, xargs)
+        xs = [{k: v for k, v in h[0].items() if k != "imps"}
+              for h in (xcli, xdirect)]
+        out_e["xbd_train_same"] = xs[0] == xs[1]
+        out_e["xbd_train_epoch0"] = xs[0]
+
+        os.environ["DAHITRA_DATA_ROOT"] = os.path.join(tmp, "data")
+        eargv = ["--checkpoint_root", os.path.join(tmp, "ckpt"),
+                 "--project_name", "smoke", "--split", "test", "--img_size",
+                 str(IMG), "--batch_size", str(BATCH), "--device", "cuda"]
+        eval_cd.main(eargv + ["--gpu_ids", "0"])
+        ecm = EVAL_CMS[-1]
+        out_e["eval_cd_cm"] = ecm.tolist()
+        if cm5 is not None:
+            out_e["eval_cd_same_as_phase5"] = bool(np.array_equal(ecm, cm5))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out_e["process_groups_started"] = mesh_mod.GROUPS_STARTED - groups
+    out_e["group_initialized"] = dist.is_initialized()
+    out_e["phase_s"] = time.time() - t_phase
+    print(json.dumps(out_e), flush=True)
+    if not (out_e["main_cd_same"] and out_e["xbd_train_same"]
+            and out_e.get("eval_cd_same_as_phase5", True)
+            and out_e["process_groups_started"] == 0
+            and not out_e["group_initialized"]):
+        fail(f"mesh (e): --gpu_ids 0 differs from the direct run: {out_e}")
+    return by_phase
+
+
 def main() -> None:
+    sel = selected_phases(sys.argv[1:])
+    started = {}  # phase -> time.time() at its start, for phase_seconds
     try:
         import torch
     except ImportError:
@@ -2706,6 +3217,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port's package is missing beside this script ({e})")
 
+    started["1"] = time.time()
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2713,77 +3225,96 @@ def main() -> None:
     print(smi, flush=True)
     disable_tf32()
 
+    started["2"] = time.time()
     # 2. build, and the decoder row kernels' registers, spills, HMMA
     # instructions and CTAs per SM
     t0 = time.time()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    ptxas = {src: start_ptxas_report(tmp, src) for src in ROW_KERNELS}
+    print(json.dumps({"phases": sorted(sel)}), flush=True)
+    ptxas = {src: start_ptxas_report(tmp, src) for src in ROW_KERNELS} \
+        if 2 in sel else {}
     _build.build(_build.sources())
     print(f"build: {_build.sources()} in {time.time() - t0:.1f} s", flush=True)
     resources = {src: row_kernel_resources(torch, tmp, src, proc)
                  for src, proc in ptxas.items()}
-    print(json.dumps({"row_kernel_resources": resources}), flush=True)
+    if 2 in sel:
+        print(json.dumps({"row_kernel_resources": resources}), flush=True)
 
+    started["3"] = time.time()
     # 3. kernels against their plain versions
-    torch.manual_seed(0)
-    gen = torch.Generator().manual_seed(0)
-    floor_ms = empty_launch_ms(torch)
-    print(json.dumps({"empty_launch_ms": floor_ms}), flush=True)
     checks = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        train = [sh for sh in XBD_K1_SHAPES if sh[1] == 1]
-        checks[("k1", dname)] = check_k1(torch, dtype, gen) + check_k1(
-            torch, dtype, gen, XBD_K1_SHAPES)
-        checks[("k1_save", dname)], checks[("k2", dname)] = (
-            a + b for a, b in zip(check_k1_save_k2(torch, dtype, gen),
-                                  check_k1_save_k2(torch, dtype, gen, train)))
-        checks[("k3", dname)] = check_k3(torch, dtype, gen)
-        checks[("k4", dname)], io_rows = check_k4(torch, dtype, gen)
-        checks[("k4_io", dname)] = io_rows
-        # the mlp_dim-64 instances at BIT's shapes
-        checks[("k1_mlp64", dname)] = check_k1(
-            torch, dtype, gen, BIT_SHAPES + XBD_BIT_SHAPES, BIT_MLP)
-        checks[("k1_save_mlp64", dname)], checks[("k2_mlp64", dname)] = \
-            check_k1_save_k2(torch, dtype, gen,
-                             BIT_SHAPES + XBD_BIT_SHAPES[:1], BIT_MLP)
-        checks[("k4_mlp64", dname)] = check_k4(torch, dtype, gen, BIT_SHAPES,
-                                               BIT_MLP)[0]
-        # token counts the tiles do not hold as they are (fault 3.2)
-        checks[("k1_pad", dname)] = check_k1(torch, dtype, gen, PAD_SHAPES)
-        checks[("k1_save_pad", dname)], checks[("k2_pad", dname)] = \
-            check_k1_save_k2(torch, dtype, gen, PAD_SHAPES)
-        checks[("k4_pad", dname)] = check_k4(torch, dtype, gen,
-                                             PAD_SHAPES_K4)[0]
-        # padded hl above 128 (fault 3.2, closed)
-        checks[("k1_wide", dname)] = check_k1(torch, dtype, gen, WIDE_SHAPES)
-        checks[("k1_save_wide", dname)], checks[("k2_wide", dname)] = \
-            check_k1_save_k2(torch, dtype, gen, WIDE_SHAPES)
-        for kid in ("k1", "k1_save", "k2", "k3", "k4", "k4_io", "k1_mlp64",
-                    "k1_save_mlp64", "k2_mlp64", "k4_mlp64", "k1_pad",
-                    "k1_save_pad", "k2_pad", "k4_pad", "k1_wide",
-                    "k1_save_wide", "k2_wide"):
-            for r in checks[(kid, dname)]:
-                print(json.dumps({"check": f"{kid}[{dname}]", **r}),
-                      flush=True)
-    print(json.dumps(check_k4_grads(torch, gen)), flush=True)
+    floor_ms = None
+    if 3 in sel:
+        torch.manual_seed(0)
+        gen = torch.Generator().manual_seed(0)
+        floor_ms = empty_launch_ms(torch)
+        print(json.dumps({"empty_launch_ms": floor_ms}), flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            train = [sh for sh in XBD_K1_SHAPES if sh[1] == 1]
+            checks[("k1", dname)] = check_k1(torch, dtype, gen) + check_k1(
+                torch, dtype, gen, XBD_K1_SHAPES)
+            checks[("k1_save", dname)], checks[("k2", dname)] = (
+                a + b for a, b in zip(check_k1_save_k2(torch, dtype, gen),
+                                      check_k1_save_k2(torch, dtype, gen, train)))
+            checks[("k3", dname)] = check_k3(torch, dtype, gen)
+            checks[("k4", dname)], io_rows = check_k4(torch, dtype, gen)
+            checks[("k4_io", dname)] = io_rows
+            # the mlp_dim-64 instances at BIT's shapes
+            checks[("k1_mlp64", dname)] = check_k1(
+                torch, dtype, gen, BIT_SHAPES + XBD_BIT_SHAPES, BIT_MLP)
+            checks[("k1_save_mlp64", dname)], checks[("k2_mlp64", dname)] = \
+                check_k1_save_k2(torch, dtype, gen,
+                                 BIT_SHAPES + XBD_BIT_SHAPES[:1], BIT_MLP)
+            checks[("k4_mlp64", dname)] = check_k4(torch, dtype, gen, BIT_SHAPES,
+                                                   BIT_MLP)[0]
+            # token counts the tiles do not hold as they are (fault 3.2)
+            checks[("k1_pad", dname)] = check_k1(torch, dtype, gen, PAD_SHAPES)
+            checks[("k1_save_pad", dname)], checks[("k2_pad", dname)] = \
+                check_k1_save_k2(torch, dtype, gen, PAD_SHAPES)
+            checks[("k4_pad", dname)] = check_k4(torch, dtype, gen,
+                                                 PAD_SHAPES_K4)[0]
+            # padded hl above 128 (fault 3.2, closed)
+            checks[("k1_wide", dname)] = check_k1(torch, dtype, gen, WIDE_SHAPES)
+            checks[("k1_save_wide", dname)], checks[("k2_wide", dname)] = \
+                check_k1_save_k2(torch, dtype, gen, WIDE_SHAPES)
+            for kid in ("k1", "k1_save", "k2", "k3", "k4", "k4_io", "k1_mlp64",
+                        "k1_save_mlp64", "k2_mlp64", "k4_mlp64", "k1_pad",
+                        "k1_save_pad", "k2_pad", "k4_pad", "k1_wide",
+                        "k1_save_wide", "k2_wide"):
+                for r in checks[(kid, dname)]:
+                    print(json.dumps({"check": f"{kid}[{dname}]", **r}),
+                          flush=True)
+        print(json.dumps(check_k4_grads(torch, gen)), flush=True)
 
+    started["4"] = time.time()
     # 4. synthetic LEVIR and a seeded checkpoint
-    t0 = time.time()
-    write_synthetic_levir(os.path.join(tmp, "data"), n_tiles=4, size=1024,
-                          seed=0)
-    model = define_g("newUNetTrans", img_size=IMG)
-    model.init_weights(torch.Generator().manual_seed(0))
-    save_checkpoint(os.path.join(tmp, "ckpt", "smoke"), model.state_dict(),
-                    best_val_acc=0.0, best_epoch_id=0)
-    print(f"setup: synthetic LEVIR + checkpoint in {time.time() - t0:.1f} s",
-          flush=True)
+    if 4 in sel:
+        t0 = time.time()
+        write_synthetic_levir(os.path.join(tmp, "data"), n_tiles=4,
+                              size=1024, seed=0)
+        model = define_g("newUNetTrans", img_size=IMG)
+        model.init_weights(torch.Generator().manual_seed(0))
+        save_checkpoint(os.path.join(tmp, "ckpt", "smoke"),
+                        model.state_dict(), best_val_acc=0.0,
+                        best_epoch_id=0)
+        print(f"setup: synthetic LEVIR + checkpoint in "
+              f"{time.time() - t0:.1f} s", flush=True)
+    # phase 7's splits, which phases 8, 11, 14, 17 and 19 also read
+    train_root = os.path.join(tmp, "train")
+    if sel & {7, 8, 11, 14, 17, 19}:
+        for split, n, seed in (("train", TRAIN_PAIRS, 1),
+                               ("val", VAL_PAIRS, 2)):
+            write_synthetic_levir(os.path.join(train_root, "data"), n_tiles=n,
+                                  size=IMG, split=split, seed=seed)
 
+    started["5"] = time.time()
     # 5. the eval path, fp32 then bf16
     dtypes = (([], "float32"), (["--bf16"], "bfloat16"))
     by_phase = {"float32": {}, "bfloat16": {}}
     _record_confusion_matrices()
-    for flag, dname in dtypes:
+    cm5 = None
+    for flag, dname in dtypes if 5 in sel else ():
         out = run_eval(torch, os.path.join(tmp, "data"),
                        os.path.join(tmp, "ckpt"), "smoke", flag, dname, IMG,
                        BATCH, 64, patches=16)
@@ -2792,113 +3323,148 @@ def main() -> None:
         if dname == "float32":
             cm5 = EVAL_CMS[-1]
 
+    started["6"] = time.time()
     # 6. the card's forward (kernels) against the plain path on the CPU
-    print(json.dumps(check_forward_vs_cpu(torch, model,
-                                          os.path.join(tmp, "data"), IMG, 2,
-                                          patch=5)), flush=True)
+    if 6 in sel:
+        print(json.dumps(check_forward_vs_cpu(
+            torch, model, os.path.join(tmp, "data"), IMG, 2, patch=5)),
+            flush=True)
+    if 4 in sel:
+        del model
 
+    started["7"] = time.time()
     # 7. the training path, fp32 then bf16
-    train_root = os.path.join(tmp, "train")
-    for split, n, seed in (("train", TRAIN_PAIRS, 1), ("val", VAL_PAIRS, 2)):
-        write_synthetic_levir(os.path.join(train_root, "data"), n_tiles=n,
-                              size=IMG, split=split, seed=seed)
-    for flag, dname in dtypes:
+    for flag, dname in dtypes if 7 in sel else ():
         out = run_training(torch, train_root, flag, dname)
         by_phase[dname]["train_256"] = out["launches"]
         print(json.dumps(out), flush=True)
 
+    started["8"] = time.time()
     # 8. the card's training gradients against the plain path on the CPU
-    print(json.dumps(check_train_grads(torch, train_root)), flush=True)
+    if 8 in sel:
+        print(json.dumps(check_train_grads(torch, train_root)), flush=True)
 
+    started["9-10"] = time.time()
     # 9-10. the pallas path (K4): eval forwards, then train steps
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        out = run_pallas_eval(torch, tmp, dtype)
-        by_phase[dname]["pallas_eval_256"] = out["launches"]
-        print(json.dumps(out), flush=True)
-        out = run_pallas_train(torch, tmp, dtype)
-        by_phase[dname]["pallas_train_256"] = out["launches"]
-        print(json.dumps(out), flush=True)
+        if 9 in sel:
+            out = run_pallas_eval(torch, tmp, dtype)
+            by_phase[dname]["pallas_eval_256"] = out["launches"]
+            print(json.dumps(out), flush=True)
+        if 10 in sel:
+            out = run_pallas_train(torch, tmp, dtype)
+            by_phase[dname]["pallas_train_256"] = out["launches"]
+            print(json.dumps(out), flush=True)
 
+    started["11"] = time.time()
     # 11. the pallas path's training gradients against the CPU
-    print(json.dumps(check_train_grads(torch, train_root, pallas=True)),
-          flush=True)
+    if 11 in sel:
+        print(json.dumps(check_train_grads(torch, train_root, pallas=True)),
+              flush=True)
 
+    started["12"] = time.time()
     # 12. eval at 512 px (16 tiles of 512 px, batch 8) and at 1024 px (phase
     # 4's tiles, batch 2), each with a seeded checkpoint of its size
-    del model
     root512 = os.path.join(tmp, "px512")
-    write_synthetic_levir(os.path.join(root512, "data"), n_tiles=16, size=512,
-                          seed=3)
-    models = {}
-    for img in (512, 1024):
-        models[img] = define_g("newUNetTrans", img_size=img)
-        models[img].init_weights(torch.Generator().manual_seed(img))
-        save_checkpoint(os.path.join(tmp, "ckpt", f"smoke{img}"),
-                        models[img].state_dict(), best_val_acc=0.0,
-                        best_epoch_id=0)
-    for img, batch, n_pairs, data in (
-            (512, BATCH, 16, os.path.join(root512, "data")),
-            (1024, 2, 4, os.path.join(tmp, "data"))):
-        for flag, dname in dtypes:
-            out = run_eval(torch, data, os.path.join(tmp, "ckpt"),
-                           f"smoke{img}", flag, dname, img, batch, n_pairs)
-            by_phase[dname][f"eval_{img}"] = out["launches"]
-            print(json.dumps(out), flush=True)
-    print(json.dumps(check_forward_vs_cpu(torch, models[512],
-                                          os.path.join(root512, "data"), 512,
-                                          1)), flush=True)
-    del models
+    if 12 in sel:
+        write_synthetic_levir(os.path.join(root512, "data"), n_tiles=16,
+                              size=512, seed=3)
+        models = {}
+        for img in (512, 1024):
+            models[img] = define_g("newUNetTrans", img_size=img)
+            models[img].init_weights(torch.Generator().manual_seed(img))
+            save_checkpoint(os.path.join(tmp, "ckpt", f"smoke{img}"),
+                            models[img].state_dict(), best_val_acc=0.0,
+                            best_epoch_id=0)
+        for img, batch, n_pairs, data in (
+                (512, BATCH, 16, os.path.join(root512, "data")),
+                (1024, 2, 4, os.path.join(tmp, "data"))):
+            for flag, dname in dtypes:
+                out = run_eval(torch, data, os.path.join(tmp, "ckpt"),
+                               f"smoke{img}", flag, dname, img, batch, n_pairs)
+                by_phase[dname][f"eval_{img}"] = out["launches"]
+                print(json.dumps(out), flush=True)
+        print(json.dumps(check_forward_vs_cpu(
+            torch, models[512], os.path.join(root512, "data"), 512, 1)),
+            flush=True)
+        del models
 
+    started["13"] = time.time()
     # 13. training at 512 px (batch 4, one epoch over 8 pairs, 4 val pairs),
     # then one train step at 1024 px per dtype and path
-    for split, n, seed in (("train", 8, 4), ("val", 4, 5)):
-        write_synthetic_levir(os.path.join(root512, "data"), n_tiles=n,
-                              size=512, split=split, seed=seed)
-    for flag, dname in dtypes:
-        out = run_training(torch, root512, flag, dname, img=512, batch=4,
-                           epochs=1, train_pairs=8, val_pairs=4)
-        by_phase[dname]["train_512"] = out["launches"]
-        print(json.dumps(out), flush=True)
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        for pallas in (False, True):
-            out = run_step_1024(torch, tmp, dtype, pallas)
-            by_phase[dname]["pallas_step_1024" if pallas
-                            else "step_1024"] = out["launches"]
+    if 13 in sel:
+        for split, n, seed in (("train", 8, 4), ("val", 4, 5)):
+            write_synthetic_levir(os.path.join(root512, "data"), n_tiles=n,
+                                  size=512, split=split, seed=seed)
+        for flag, dname in dtypes:
+            out = run_training(torch, root512, flag, dname, img=512, batch=4,
+                               epochs=1, train_pairs=8, val_pairs=4)
+            by_phase[dname]["train_512"] = out["launches"]
             print(json.dumps(out), flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for pallas in (False, True):
+                out = run_step_1024(torch, tmp, dtype, pallas)
+                by_phase[dname]["pallas_step_1024" if pallas
+                                else "step_1024"] = out["launches"]
+                print(json.dumps(out), flush=True)
 
+    started["14"] = time.time()
     # 14. BIT (base_transformer_pos_s4_dd8, mlp_dim 64) and base_resnet18
-    by_phase_bit = run_bit_phase(torch, tmp, train_root, dtypes)
-    for dname, phases in by_phase_bit.items():
-        by_phase[dname].update(phases)
+    if 14 in sel:
+        for dname, phases in run_bit_phase(torch, tmp, train_root,
+                                           dtypes).items():
+            by_phase[dname].update(phases)
 
+    started["15"] = time.time()
     # 15. xBD: xbd_train and xbd_predict (xbd_dahitra), one step and a
     # prediction of xbd_bit, at 1024 px; the card's gradients at 256 px
-    for dname, phases in run_xbd_phase(torch, tmp, dtypes).items():
-        by_phase[dname].update(phases)
+    if 15 in sel:
+        for dname, phases in run_xbd_phase(torch, tmp, dtypes).items():
+            by_phase[dname].update(phases)
 
+    started["16"] = time.time()
     # 16. the rest of the xBD stack: xbd_train --task loc, adapt (both
     # networks), gan and damage --elastic, visualize_results, warm steps, the
     # card's loc and GAN gradients at 256 px
-    for dname, phases in run_xbd_tasks_phase(torch, tmp, dtypes).items():
-        by_phase[dname].update(phases)
+    if 16 in sel:
+        for dname, phases in run_xbd_tasks_phase(torch, tmp, dtypes).items():
+            by_phase[dname].update(phases)
 
+    started["17"] = time.time()
     # 17. the rest of the LEVIR zoo (no decoder or tokenizer kernel), demo,
     # import_checkpoint, fast_vjp=False and count_params
-    for dname, phases in run_zoo_phase(torch, tmp, train_root, dtypes,
-                                       cm5).items():
-        by_phase[dname].update(phases)
+    if 17 in sel:
+        for dname, phases in run_zoo_phase(torch, tmp, train_root, dtypes,
+                                           cm5).items():
+            by_phase[dname].update(phases)
 
+    started["18"] = time.time()
     # 18. the xBD half of the zoo (no decoder or tokenizer kernel):
     # xbd_train --task damage | loc | hrnet, xbd_predict, import_checkpoint,
     # the card against the CPU at 128 px, a reproducible dropout step
-    for dname, phases in run_xbd_zoo_phase(torch, tmp, dtypes).items():
-        by_phase[dname].update(phases)
+    if 18 in sel:
+        xbd_tiles(tmp)
+        for dname, phases in run_xbd_zoo_phase(torch, tmp, dtypes).items():
+            by_phase[dname].update(phases)
 
+    started["19"] = time.time()
+    # 19. data parallelism (core/mesh.py): DDP under NCCL at world size 1,
+    # two gloo ranks on the card against one process, a padded evaluation,
+    # the CLIs with --gpu_ids 0
+    if 19 in sel:
+        xbd_tiles(tmp)
+        for dname, phases in run_mesh_phase(torch, tmp, train_root,
+                                            cm5).items():
+            by_phase[dname].update(phases)
+
+    started["profile"] = time.time()
     if "--profile" in sys.argv[1:]:
         for net_g, project, n_dec in (("newUNetTrans", "smoke", 3),
                                       (BIT_KEY, BIT_KEY, 1)):
+            if not sel & ({5, 7} if n_dec == 3 else {14}):
+                continue
             sd = load_checkpoint(os.path.join(tmp, "ckpt", project))[0]
             for dtype in (torch.float32, torch.bfloat16):
                 for pallas in (False, True):
@@ -2906,10 +3472,20 @@ def main() -> None:
                         torch, sd, dtype, pallas, net_g, n_dec)), flush=True)
                     print(json.dumps(profile_train_step(
                         torch, tmp, dtype, pallas, net_g, n_dec)), flush=True)
-        print(json.dumps(profile_xbd_zoo_steps(torch, tmp)), flush=True)
+        if 18 in sel:
+            print(json.dumps(profile_xbd_zoo_steps(torch, tmp)), flush=True)
+
+    started["end"] = time.time()
+    names = list(started)
+    print(json.dumps({"phase_seconds": {
+        a: round(started[b] - started[a], 1)
+        for a, b in zip(names, names[1:])}}), flush=True)
 
     kernels = []
     src = "dahitra_tpu_torch/csrc/"
+    if 2 not in sel:  # no resource report: every instance's entry null
+        resources = collections.defaultdict(
+            lambda: collections.defaultdict(lambda: None))
     fwd_res = resources["decoder_fwd"]
     k1_res = {d: fwd_res[d] for d in ("float32", "bfloat16")}
     k1_save_res = {d: fwd_res[d + "_save"] for d in ("float32", "bfloat16")}
@@ -3013,9 +3589,10 @@ def main() -> None:
             phases = {ph: c[counter] for ph, c in by_phase[dname].items()
                       if kid == "k3" or pad or ph == "resnet_eval_256"
                       or ph.startswith("bit_") == mlp64}
+            # null launches where the phase did not run (--phases)
             kernels.append(summarize(
-                name, src + source, replaces, dname, checks[(kid, dname)],
-                by_phase[dname][phase][counter], tol, phases,
+                name, src + source, replaces, dname, checks.get((kid, dname)),
+                by_phase[dname].get(phase, {}).get(counter), tol, phases,
                 main_size="bit" if mlp64 else kid.rsplit("_", 1)[1] if pad
                 else str(IMG), **{k: v[dname] for k, v in extra.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,6 +5,8 @@ Counterpart of dahitra_tpu/cli/eval_cd.py, with the same flags plus
 loops over the 16 fixed 256 px patches of each 1024 px tile re-creating its
 loader (eval_cd.py:49-55); confusion matrices add, so every requested patch
 is evaluated in one pass and both per-patch and total scores are reported.
+``--gpu_ids`` with several ids splits every batch over those cards, one
+process each (``core/mesh.py``); each rank loads the split.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from argparse import ArgumentParser
 
 import numpy as np
 
+from dahitra_tpu_torch.core.mesh import launch_gpu_ids
 from dahitra_tpu_torch.data.levir import (crop_origin, load_levir_split,
                                           tile_width)
 from dahitra_tpu_torch.data.registry import get_data_config
@@ -25,8 +28,9 @@ _PRINTED = ("acc", "miou", "mf1", "F1_1", "iou_1")
 def main(argv=None) -> dict:
     parser = ArgumentParser()
     parser.add_argument("--gpu_ids", type=str, default="0",
-                        help="accepted for the reference's command lines; "
-                        "the card is chosen by --device")
+                        help="device ordinals, e.g. 0,1,2,3: one process per "
+                        "device under torch.distributed, each batch split "
+                        "over them (with --device cpu, CPU processes)")
     parser.add_argument("--project_name", default="test", type=str)
     parser.add_argument("--checkpoint_root", default="checkpoints", type=str)
     parser.add_argument("--data_name", default="LEVIR", type=str)
@@ -44,7 +48,17 @@ def main(argv=None) -> dict:
     resolve_device(args.device)  # a missing card fails before any loading
     args.checkpoint_dir = os.path.join(args.checkpoint_root, args.project_name)
     args.vis_dir = os.path.join("vis", args.project_name)
+    scores = launch_gpu_ids(_run, args)[0]
+    for g in scores.get("per_group", []):
+        print({k: (round(v, 5) if isinstance(v, float) else v)
+               for k, v in g.items() if k in ("patch",) + _PRINTED})
+    print({k: round(v, 5) for k, v in scores.items()
+           if k in _PRINTED + ("imps",)})
+    return scores
 
+
+def _run(mesh, args) -> dict:
+    """One rank's (or the one process's) load and evaluation."""
     cfg = get_data_config(args.data_name)
     split = args.split
     if not os.path.isdir(os.path.join(cfg.root_dir, split, "A")):
@@ -69,14 +83,8 @@ def main(argv=None) -> dict:
                                for i, c in enumerate(chunks)]) \
         if patched else None
 
-    evaluator = CDEvaluator(args, arrays, device=args.device)
-    scores = evaluator.eval_models(save_vis=args.save_vis, group_of=group_of)
-    for g in scores.get("per_group", []):
-        print({k: (round(v, 5) if isinstance(v, float) else v)
-               for k, v in g.items() if k in ("patch",) + _PRINTED})
-    print({k: round(v, 5) for k, v in scores.items()
-           if k in _PRINTED + ("imps",)})
-    return scores
+    evaluator = CDEvaluator(args, arrays, device=args.device, mesh=mesh)
+    return evaluator.eval_models(save_vis=args.save_vis, group_of=group_of)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,9 @@ be asked for with ``--device cpu``). It trains ``CDTrainer`` on ``--split``,
 validates on ``--split_val`` every epoch, then, unless ``--skip_test``,
 scores ``best_ckpt.pt`` on the test split through the port's
 ``CDEvaluator`` (on ``--split_val`` when the data has no test split).
+``--gpu_ids 0,1,2,3`` trains and tests on those four cards, one process
+each under torch.distributed (``core/mesh.py``); one id runs on that card
+alone; under ``torchrun`` each process is the rank torchrun starts.
 
     python -m dahitra_tpu_torch.cli.main_cd --data_name LEVIR \\
         --net_G newUNetTrans --img_size 256 --batch_size 8 --max_epochs 2 \\
@@ -16,6 +19,7 @@ from __future__ import annotations
 import os
 from argparse import ArgumentParser
 
+from dahitra_tpu_torch.core.mesh import barrier, launch_gpu_ids
 from dahitra_tpu_torch.data.levir import load_levir_split
 from dahitra_tpu_torch.data.registry import get_data_config
 from dahitra_tpu_torch.evalx.evaluator import CDEvaluator
@@ -28,8 +32,9 @@ _NO_EFFECT = "accepted for the JAX package's command lines; no effect here"
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser()
     parser.add_argument("--gpu_ids", type=str, default="0",
-                        help="accepted for the reference's command lines; "
-                        "the card is chosen by --device")
+                        help="device ordinals, e.g. 0,1,2,3: one process per "
+                        "device under torch.distributed, the batch split "
+                        "over them (with --device cpu, CPU processes)")
     parser.add_argument("--project_name", default="test", type=str)
     parser.add_argument("--checkpoint_root", default="checkpoints", type=str)
     parser.add_argument("--num_workers", default=4, type=int,
@@ -91,21 +96,31 @@ def _arrays(cfg, split, args) -> dict:
     return {"a": p.a, "b": p.b, "label": p.label}
 
 
-def train(args) -> list:
+def train(args, mesh=None) -> list:
     cfg = get_data_config(args.data_name)
     trainer = CDTrainer(args, _arrays(cfg, args.split, args),
-                        _arrays(cfg, args.split_val, args), device=args.device)
+                        _arrays(cfg, args.split_val, args), device=args.device,
+                        mesh=mesh)
     return trainer.train_models()
 
 
-def test(args) -> dict:
+def test(args, mesh=None) -> dict:
     cfg = get_data_config(args.data_name)
     split = "test"
     if not os.path.isdir(os.path.join(cfg.root_dir, split, "A")):
         split = args.split_val  # no test split: score the validation split
     evaluator = CDEvaluator(args, _arrays(cfg, split, args),
-                            device=args.device)
+                            device=args.device, mesh=mesh)
     return evaluator.eval_models()
+
+
+def _run(mesh, args) -> list:
+    """One rank's (or the one process's) training and test."""
+    history = train(args, mesh)
+    barrier(mesh)  # the test reads the checkpoint rank 0 wrote
+    if not args.skip_test:
+        test(args, mesh)
+    return history
 
 
 def main(argv=None) -> list:
@@ -115,10 +130,7 @@ def main(argv=None) -> list:
     args.checkpoint_dir = os.path.join(args.checkpoint_root, args.project_name)
     os.makedirs(args.checkpoint_dir, exist_ok=True)
     args.vis_dir = os.path.join(args.checkpoint_dir, "vis")
-    history = train(args)
-    if not args.skip_test:
-        test(args)
-    return history
+    return launch_gpu_ids(_run, args)[0]
 
 
 if __name__ == "__main__":

@@ -21,6 +21,9 @@ filters the names), splits 90/10 with the class-presence upsampling
     ``dual_hrnet_fpn``) on ``dual_hrnet_loss``.
 
 ``--elastic`` adds the UNet-transformer recipe's gated elastic jitter.
+``--gpu_ids 0,1,2,3`` trains on those four cards, one process each under
+torch.distributed (``core/mesh.py``), each loading the tiles; the batch size
+must be a multiple of their number.
 
     python -m dahitra_tpu_torch.cli.xbd_train --data_root xbd/train \\
         --net_G xbd_dahitra --img_size 1024 --batch_size 1 --max_epochs 100 \\
@@ -31,6 +34,7 @@ from __future__ import annotations
 import os
 from argparse import ArgumentParser
 
+from dahitra_tpu_torch.core.mesh import launch_gpu_ids
 from dahitra_tpu_torch.data.xbd import (load_xbd_pairs, scan_xbd_files,
                                         split_and_upsample)
 from dahitra_tpu_torch.train.xbd_engine import GANTrainer, XBDTrainer
@@ -76,8 +80,9 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--eval_every", default=2, type=int)
     parser.add_argument("--gpu_ids", default="0", type=str,
-                        help="accepted for the reference's command lines; "
-                        "the card is chosen by --device")
+                        help="device ordinals, e.g. 0,1,2,3: one process per "
+                        "device under torch.distributed, the batch split "
+                        "over them (with --device cpu, CPU processes)")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default; raises without a card) or cpu")
     return parser
@@ -96,6 +101,11 @@ def main(argv=None) -> list:
         args.net_G = DEFAULT_NET.get(args.task, args.net_G)
     args.checkpoint_dir = os.path.join(args.checkpoint_root, args.project_name)
     os.makedirs(args.checkpoint_dir, exist_ok=True)
+    return launch_gpu_ids(_run, args)[0]
+
+
+def _run(mesh, args) -> list:
+    """One rank's (or the one process's) load and training."""
     files = scan_xbd_files([args.data_root], disasters=args.disasters)
     train_idx, val_idx = split_and_upsample(files, seed=args.seed)
     merge = args.task == "adapt"
@@ -105,9 +115,10 @@ def main(argv=None) -> list:
              for idx, train in ((train_idx, True), (val_idx, False))]
     if args.task == "gan":
         trainer = GANTrainer(args, *pairs, device=args.device,
-                             effective_gan=args.effective_gan)
+                             effective_gan=args.effective_gan, mesh=mesh)
     else:
-        trainer = XBDTrainer(args, *pairs, device=args.device, task=args.task)
+        trainer = XBDTrainer(args, *pairs, device=args.device, task=args.task,
+                             mesh=mesh)
     return trainer.train_models(eval_every=args.eval_every)
 
 

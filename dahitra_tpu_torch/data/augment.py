@@ -17,11 +17,14 @@ Train (augment.py:76-129), per sample:
 
 Every draw comes from the ``torch.Generator`` the caller passes, which lives
 on the batch's device. The draws differ from the JAX package's keys; their
-distributions are the same.
+distributions are the same. Under data parallelism (``shard=(rank,
+world)``) each rank draws for the global batch of ``world`` times its rows
+and keeps its own rows' draws, so the ranks together augment as one process
+does.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -69,19 +72,26 @@ def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 def augment_pairs(a_u8: torch.Tensor, b_u8: torch.Tensor,
                   label_u8: torch.Tensor, train: bool = False,
                   dtype=torch.float32, generator: torch.Generator = None,
-                  blur: bool = True, rot: bool = False
+                  blur: bool = True, rot: bool = False,
+                  shard: Optional[Tuple[int, int]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, H, W, 3) uint8 pairs and (B, H, W) uint8 labels -> normalised
     images in ``dtype`` and int64 labels, on the inputs' device. ``train``
     needs ``generator`` (on that device); ``blur`` and ``rot`` switch the
-    blur and the rot90 draw of the train branch."""
+    blur and the rot90 draw of the train branch; ``shard`` (rank, world)
+    keeps the rank's rows of draws made for the global batch."""
     if train:
         if generator is None:
             raise ValueError("augment_pairs(train=True) needs a generator")
         n, dev = a_u8.shape[0], a_u8.device
+        rank, world = shard or (0, 1)
+        own = slice(rank * n, (rank + 1) * n)
+
+        def rand():
+            return torch.rand(n * world, generator=generator, device=dev)[own]
 
         def coin():
-            return torch.rand(n, generator=generator, device=dev) < 0.5
+            return rand() < 0.5
 
         for dim in (2, 1):  # hflip, then vflip
             do = coin()
@@ -89,7 +99,8 @@ def augment_pairs(a_u8: torch.Tensor, b_u8: torch.Tensor,
                                     (a_u8, b_u8, label_u8))
         if rot:
             do = coin()
-            k90 = torch.randint(1, 4, (n,), generator=generator, device=dev)
+            k90 = torch.randint(1, 4, (n * world,), generator=generator,
+                                device=dev)[own]
             for k in (1, 2, 3):
                 sel = do & (k90 == k)
                 a_u8, b_u8, label_u8 = (
@@ -98,7 +109,7 @@ def augment_pairs(a_u8: torch.Tensor, b_u8: torch.Tensor,
         a = a_u8.to(dtype) / 255.0
         b = b_u8.to(dtype) / 255.0
         if blur:
-            sigma = torch.rand(n, generator=generator, device=dev)
+            sigma = rand()
             a, b = separable_blur(a, sigma), separable_blur(b, sigma)
         return (a - 0.5) / 0.5, (b - 0.5) / 0.5, label_u8.long()
     return (normalize_images(a_u8, dtype), normalize_images(b_u8, dtype),

@@ -142,12 +142,14 @@ def augment_xbd(pre_u8: torch.Tensor, post_u8: torch.Tensor,
                 msk_u8: torch.Tensor, lbl_u8: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 train: bool = True, dtype=torch.float32,
-                elastic: bool = False):
+                elastic: bool = False,
+                shard: Optional[Tuple[int, int]] = None):
     """(B, H, W, 3) uint8 pre and post, (B, H, W, C) uint8 masks and
     (B, H, W) uint8 labels -> the normalized 6-channel input in ``dtype``,
     fp32 masks and int64 labels, on the inputs' device. ``train`` draws
     from ``generator`` (on that device) and augments; ``elastic`` adds the
-    gated elastic jitter there."""
+    gated elastic jitter there; ``shard`` (rank, world) keeps the rank's
+    rows of draws made for the global batch of ``world`` times B."""
     pre = pre_u8.float() / 255.0
     post = post_u8.float() / 255.0
     msk = msk_u8.float()
@@ -156,12 +158,18 @@ def augment_xbd(pre_u8: torch.Tensor, post_u8: torch.Tensor,
         if generator is None:
             raise ValueError("augment_xbd(train=True) needs a generator")
         n, h, w = pre.shape[:3]
-        draws = draw_xbd(n, h, generator, pre.device)
+        rank, world = shard or (0, 1)
+
+        def own(draws: Draws) -> Draws:
+            return {k: v[rank * n:(rank + 1) * n] for k, v in draws.items()}
+
+        draws = own(draw_xbd(n * world, h, generator, pre.device))
         pre, post, msk, lbl = apply_xbd(pre, post, msk, lbl, draws)
         if elastic:
             from dahitra_tpu_torch.data.xbd_cd_augment import (
                 draw_elastic_gated, elastic_gated)
-            pre, post = (elastic_gated(t, draw_elastic_gated(
-                n, h, w, generator, pre.device)) for t in (pre, post))
+            pre, post = (elastic_gated(t, own(draw_elastic_gated(
+                n * world, h, w, generator, pre.device)))
+                for t in (pre, post))
     img6 = torch.cat([pre, post], -1) * (255.0 / 127.0) - 1.0
     return img6.to(dtype), msk, lbl

@@ -12,6 +12,12 @@ has no counterpart: PyTorch runs eagerly.
 
 Artifacts as the reference writes them: the scores line in
 ``log_test.txt``, the ``<mf1>.txt`` marker and ``scores_dict.npy``.
+
+With a ``mesh`` (``core/mesh.py``) each rank scores its rows of every
+batch, padded to the world size (the first sample repeated, label 255, a
+``valid`` vector): the batch matrices are summed over the ranks (the 255
+filler enters no class), per-sample matrices are gathered in dataset order
+with the filler rows dropped, and only rank 0 writes the artifacts.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from dahitra_tpu_torch.core.checkpoint import load_checkpoint, load_weights
+from dahitra_tpu_torch.core.mesh import all_gather_rows, reduce_sum_
 from dahitra_tpu_torch.data.augment import augment_pairs
 from dahitra_tpu_torch.data.loader import BatchLoader
 from dahitra_tpu_torch.metrics.confusion import (batch_confusion_matrix,
@@ -33,16 +40,23 @@ from dahitra_tpu_torch.utils import Logger, Timer, disable_tf32, resolve_device
 
 class CDEvaluator:
     def __init__(self, args, arrays: Dict[str, np.ndarray],
-                 device="cuda", state_dict: Optional[dict] = None):
+                 device="cuda", state_dict: Optional[dict] = None,
+                 mesh=None):
         self.args = args
         self.n_class = args.n_class
         self.checkpoint_dir = args.checkpoint_dir
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.main = mesh is None or mesh.is_main
+        self.device = resolve_device(mesh.device if mesh else device)
         disable_tf32()
         self.dtype = torch.bfloat16 if getattr(args, "bf16", False) \
             else torch.float32
-        self.logger = Logger(os.path.join(args.checkpoint_dir, "log_test.txt"))
-        self.loader = BatchLoader(arrays, args.batch_size)
+        self.logger = Logger(os.path.join(args.checkpoint_dir, "log_test.txt"),
+                             enabled=self.main)
+        world = mesh.world_size if mesh else 1
+        self.loader = BatchLoader(arrays, args.batch_size,
+                                  pad_to_multiple=world if world > 1 else None,
+                                  shard=mesh.shard if mesh else None)
         if state_dict is None:
             restored = load_checkpoint(self.checkpoint_dir, "best_ckpt")
             if restored is None:
@@ -70,8 +84,12 @@ class CDEvaluator:
         return cm_fn(pred, label, self.n_class), pred
 
     def _to_device(self, batch: Dict[str, np.ndarray]):
-        return tuple(torch.from_numpy(batch[k]).to(self.device)
-                     for k in ("a", "b", "label"))
+        """(a, b, label, valid) on the device; ``valid`` None unpadded."""
+        valid = batch.get("valid")
+        return (*(torch.from_numpy(batch[k]).to(self.device)
+                  for k in ("a", "b", "label")),
+                None if valid is None else
+                torch.from_numpy(valid).to(self.device))
 
     def stage_on_device(self) -> list:
         """The whole uint8 eval set on the device, batch by batch."""
@@ -90,17 +108,26 @@ class CDEvaluator:
         batches = (self.stage_on_device() if device_cache
                    else (self._to_device(b) for b in self.loader))
         cms, n_img = [], 0
-        for a, b, l in batches:
+        for a, b, l, valid in batches:
             cm, pred = self.eval_step(a, b, l, per_sample=grouped)
+            if valid is not None:
+                keep = all_gather_rows(valid.byte()) > 0
+                n_img += int(keep.sum())
+                if grouped:  # every rank's matrices, filler dropped
+                    cm = all_gather_rows(cm)[keep]
+            else:  # unpadded: one process (or a mesh of one)
+                n_img += a.shape[0]
             cms.append(cm)
-            n_img += a.shape[0]
-            if save_vis:
+            if save_vis and self.main:
                 self._save_vis(a, b, l, pred, n_img)
         if grouped:
             all_ps = torch.cat(cms).cpu().numpy()
             total = all_ps.sum(axis=0)
         else:
-            total = torch.stack(cms).sum(0).cpu().numpy()
+            total = torch.stack(cms).sum(0)
+            if self.mesh:
+                reduce_sum_(total)
+            total = total.cpu().numpy()
         imps = timer.images_per_sec(n_img)
         scores = cm2score(total)
         if grouped:
@@ -118,10 +145,12 @@ class CDEvaluator:
             " ".join(f"{k}: {v:.5f}" for k, v in scores.items()
                      if not isinstance(v, list))
             + f" imps: {imps:.2f}\n\n")
-        with open(os.path.join(self.checkpoint_dir, f"{scores['mf1']}.txt"),
-                  "a"):
-            pass
-        np.save(os.path.join(self.checkpoint_dir, "scores_dict.npy"), scores)
+        if self.main:
+            with open(os.path.join(self.checkpoint_dir,
+                                   f"{scores['mf1']}.txt"), "a"):
+                pass
+            np.save(os.path.join(self.checkpoint_dir, "scores_dict.npy"),
+                    scores)
         scores["imps"] = imps
         self.confusion_matrix = total
         return scores

@@ -368,15 +368,17 @@ def _fwd(x, a, z, w1, w2, vecs, depth, heads, dtype, save, b1, tokens,
     if save:
         xsave = torch.empty((depth, b, n, _DIM), dtype=dtype, device=x.device)
         attnsave = torch.empty((depth, b, n, hl), dtype=dtype, device=x.device)
-        status = _fn("decoder_fwd", "decoder_stack_fwd_save", dtype, 10, 7)(
-            *ptrs, xsave.data_ptr(), attnsave.data_ptr(), b, n, depth, hl,
-            hl // heads, tokens, mlp, stream)
+        with torch.cuda.device(x.device):  # the launch's device
+            status = _fn("decoder_fwd", "decoder_stack_fwd_save", dtype, 10,
+                         7)(*ptrs, xsave.data_ptr(), attnsave.data_ptr(), b,
+                            n, depth, hl, hl // heads, tokens, mlp, stream)
         _build.check(status, "decoder_stack_fwd(save)")
         launches_save += 1
         launches_save_pad += padded or tokens > 8
         return y, xsave, attnsave
-    status = _fn("decoder_fwd", "decoder_stack_fwd", dtype, 8, 7)(
-        *ptrs, b, n, depth, hl, hl // heads, tokens, mlp, stream)
+    with torch.cuda.device(x.device):
+        status = _fn("decoder_fwd", "decoder_stack_fwd", dtype, 8, 7)(
+            *ptrs, b, n, depth, hl, hl // heads, tokens, mlp, stream)
     _build.check(status, "decoder_stack_fwd")
     launches += 1
     launches_pad += padded or tokens > 8
@@ -418,7 +420,9 @@ def _bwd_slots(dev, dtype, hl: int, mlp: int, pad: int) -> int:
     key = (dev.index, dtype, hl, mlp, pad)
     if key not in _slots:
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        _slots[key] = _ctas_per_sm("decoder_bwd", dtype, hl, mlp, pad) * n_sm
+        with torch.cuda.device(dev):
+            per_sm = _ctas_per_sm("decoder_bwd", dtype, hl, mlp, pad)
+        _slots[key] = per_sm * n_sm
     return _slots[key]
 
 
@@ -491,11 +495,12 @@ def _bwd(xsave, attnsave, dy, a, z, w1, w2, vecs, depth, heads, dtype, b1,
     db1 = torch.empty((depth, mlp), dtype=torch.float32, device=dev) \
         if wide else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    status = _fn("decoder_bwd", "decoder_stack_bwd", dtype, 17, 7)(
-        *[None if t is None else t.data_ptr()
-          for t in (xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da, dz,
-                    dw1, dw2, dvecs, db1, part)],
-        b, n, depth, hl, hl // heads, rows, mlp, stream)
+    with torch.cuda.device(dev):
+        status = _fn("decoder_bwd", "decoder_stack_bwd", dtype, 17, 7)(
+            *[None if t is None else t.data_ptr()
+              for t in (xsave, attnsave, dy, a, z, w1, w2, vecs, b1, dx, da,
+                        dz, dw1, dw2, dvecs, db1, part)],
+            b, n, depth, hl, hl // heads, rows, mlp, stream)
     _build.check(status, "decoder_stack_bwd")
     launches_bwd += 1
     launches_bwd_pad += padded

@@ -329,9 +329,11 @@ def _prologue(m, packed, vecs, depth: int, heads: int, precise: bool):
     w = [packed[k].float().contiguous() for k in ("wq", "wk", "wv", "wo")]
     a = torch.empty((depth, b, _DIM, hl), dtype=torch.float32, device=m.device)
     z = torch.empty((depth, b, hl, _DIM), dtype=torch.float32, device=m.device)
-    status = _fn(f"fused_decoder_az_{_ops(precise)}", 8, 5)(
-        *[t.data_ptr() for t in (mc, *w, vecs, a, z)], b, depth, l, heads,
-        w[0].shape[-1], torch.cuda.current_stream(m.device).cuda_stream)
+    with torch.cuda.device(m.device):  # the launch's device
+        status = _fn(f"fused_decoder_az_{_ops(precise)}", 8, 5)(
+            *[t.data_ptr() for t in (mc, *w, vecs, a, z)], b, depth, l,
+            heads, w[0].shape[-1],
+            torch.cuda.current_stream(m.device).cuda_stream)
     _build.check(status, "fused_decoder prologue")
     return a, z
 
@@ -346,11 +348,12 @@ def _rows(x, a, z, packed, vecs, depth: int, heads: int, precise: bool,
     w1, w2 = (packed[k].float().contiguous() for k in ("w1", "w2"))
     b1 = _b1(packed)
     y = torch.empty_like(xc)
-    status = _fn(f"fused_decoder_{_IO[x.dtype]}_{_ops(precise)}", 8, 7)(
-        *[None if t is None else t.data_ptr()
-          for t in (xc, a, z, w1, w2, vecs, b1, y)], b, n, depth, hl,
-        hl // heads, tokens, w1.shape[-1],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        status = _fn(f"fused_decoder_{_IO[x.dtype]}_{_ops(precise)}", 8, 7)(
+            *[None if t is None else t.data_ptr()
+              for t in (xc, a, z, w1, w2, vecs, b1, y)], b, n, depth, hl,
+            hl // heads, tokens, w1.shape[-1],
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "fused_decoder rows")
     return y
 

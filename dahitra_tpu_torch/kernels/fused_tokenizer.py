@@ -126,8 +126,9 @@ def semantic_tokenizer(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     scratch = torch.empty(ctas * l * (2 + c) + b, dtype=torch.float32,
                           device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _fn(x.dtype)(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                          scratch.data_ptr(), b, n, l, chunk, stream)
+    with torch.cuda.device(x.device):  # the launch's device
+        status = _fn(x.dtype)(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                              scratch.data_ptr(), b, n, l, chunk, stream)
     _build.check(status, "semantic_tokenizer")
     launches += 1
     return out

@@ -35,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dahitra_tpu_torch.core.mesh import all_reduce_sum, world_size
 from dahitra_tpu_torch.kernels.fused_decoder import (ORDER, FusedDecoderFn,
                                                      pick_tile)
 from dahitra_tpu_torch.kernels.fused_tokenizer import SemanticTokenizerFn
@@ -156,6 +157,18 @@ def set_dropout_generator(model: nn.Module,
             m.generator = generator
 
 
+def _global_moments(xf: torch.Tensor):
+    """Mean and biased variance of (G, n, C) per group over every rank's
+    rows: one all-reduce of [sum x | sum x^2 | n] per group."""
+    c = xf.shape[-1]
+    n = xf.new_full((xf.shape[0], 1), float(xf.shape[1]))
+    sums = all_reduce_sum(torch.cat([xf.sum(1), (xf * xf).sum(1), n], -1))
+    count = sums[:, 2 * c:]
+    mean = sums[:, :c] / count
+    var = (sums[:, c:2 * c] / count - mean * mean).clamp_min(0.0)
+    return mean, var
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with fp32 statistics and arithmetic and its output in
     ``dtype``: dahitra_tpu/nn/resnet.py ``PairBatchNorm`` (:45-113) with
@@ -170,6 +183,14 @@ class BatchNorm(nn.Module):
     each half is normalized by its own statistics and the running statistics
     take the two sequential updates, ``m (m ra + (1 - m) s1) + (1 - m) s2``.
     ``momentum`` is flax's (torch's 1 - momentum).
+
+    Under a process group of more than one rank (``core/mesh.py``) the
+    train statistics are those of the global batch, as GSPMD makes them on
+    the JAX ``data`` axis: each rank's per-date sums of x and x^2 and its
+    element count go through one differentiable all-reduce (in pair mode
+    the date-1 statistics come from every rank's first half), and every
+    rank takes the same running update. Filler rows of a padded batch enter
+    them, as in the JAX package.
     """
 
     def __init__(self, channels: int, dtype=torch.float32, eps: float = 1e-5,
@@ -189,8 +210,11 @@ class BatchNorm(nn.Module):
         mean, var = self.running_mean, self.running_var
         if train:
             xf = xf.reshape(2 if pair else 1, -1, x.shape[-1])
-            gmean = xf.mean(1)
-            gvar = ((xf * xf).mean(1) - gmean * gmean).clamp_min(0.0)
+            if world_size() > 1:
+                gmean, gvar = _global_moments(xf)
+            else:
+                gmean = xf.mean(1)
+                gvar = ((xf * xf).mean(1) - gmean * gmean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 for s_mean, s_var in zip(gmean, gvar):

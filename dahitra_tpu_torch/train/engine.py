@@ -22,6 +22,21 @@ validation mF1; a ``best_ckpt.pt`` already in the checkpoint directory
 resumes the run after its epoch, optimizer state and the augmentation and
 dropout generators' states included.
 
+With a ``mesh`` (``core/mesh.py``; ``--gpu_ids`` with several ordinals)
+each rank holds the model in ``DistributedDataParallel`` and takes its rows
+of every batch, padded to the world size as the JAX trainer pads them
+(engine.py:95-101: the first sample repeated, label 255). BatchNorm takes
+the global batch's statistics, the augmentation draws are the global
+batch's (``shard``), and the fp32 logits and the labels are gathered so that
+every rank computes the loss and the confusion matrix of the global batch,
+``batch_size`` its padded size as in JAX. The ranks' joined step is then
+the one-process step on the joined batch, with one difference: dropout
+masks come from a generator per rank (seed + 1 + 1000 rank), so a model
+with dropout draws other masks than one process. Only rank 0 writes
+``log.txt``, the ``*.npy`` curves, checkpoints and visualisations; every
+rank resumes from the same checkpoint; ``imps`` counts the real pairs of all
+ranks.
+
 ``--scan_epoch`` and ``--log_chunks`` are TPU dispatch workarounds
 (engine.py:187-258) and have no effect here. ``--profile_dir`` writes a
 torch.profiler trace of epoch 0 (``trace.json``).
@@ -35,6 +50,8 @@ import numpy as np
 import torch
 
 from dahitra_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+from dahitra_tpu_torch.core.mesh import (all_gather_rows, reduce_sum_,
+                                         wrap_ddp)
 from dahitra_tpu_torch.data.augment import augment_pairs
 from dahitra_tpu_torch.data.loader import BatchLoader
 from dahitra_tpu_torch.losses.cd import levir_train_loss, multi_scale_loss
@@ -49,17 +66,22 @@ from dahitra_tpu_torch.utils import Logger, Timer, disable_tf32, resolve_device
 
 class CDTrainer:
     def __init__(self, args, train_arrays: Dict[str, np.ndarray],
-                 val_arrays: Dict[str, np.ndarray], device="cuda"):
+                 val_arrays: Dict[str, np.ndarray], device="cuda",
+                 mesh=None):
         self.args = args
         self.n_class = args.n_class
         self.checkpoint_dir = args.checkpoint_dir
         self.max_epochs = args.max_epochs
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.main = mesh is None or mesh.is_main
+        self.device = resolve_device(mesh.device if mesh else device)
         disable_tf32()
         self.dtype = torch.bfloat16 if getattr(args, "bf16", False) \
             else torch.float32
         seed = getattr(args, "seed", 0)
-        self.logger = Logger(os.path.join(self.checkpoint_dir, "log.txt"))
+        rank, world = mesh.shard if mesh else (0, 1)
+        self.logger = Logger(os.path.join(self.checkpoint_dir, "log.txt"),
+                             enabled=self.main)
         self.logger.write_dict(vars(args))
 
         gen = torch.Generator().manual_seed(seed)
@@ -68,18 +90,24 @@ class CDTrainer:
         init_weights(self.model, getattr(args, "init_type", "normal"),
                      getattr(args, "init_gain", 0.02), gen)
         self.model.to(self.device)
+        # the module each step runs: DDP over the ranks, or the model
+        self.net = wrap_ddp(self.model, mesh)
         self.optimizer = make_optimizer(self.model.parameters(), args.lr,
                                         weight_decay=0.01)
         self.aug_generator = torch.Generator(device=self.device)
         self.aug_generator.manual_seed(seed)
         self.dropout_generator = torch.Generator(device=self.device)
-        self.dropout_generator.manual_seed(seed + 1)
+        self.dropout_generator.manual_seed(seed + 1 + 1000 * rank)
         set_dropout_generator(self.model, self.dropout_generator)
         self.multi_scale = getattr(args, "multi_scale_loss", False)
 
+        pad = world if world > 1 else None
+        shard = mesh.shard if mesh else None
         self.train_loader = BatchLoader(train_arrays, args.batch_size,
-                                        shuffle=True, seed=seed)
-        self.val_loader = BatchLoader(val_arrays, args.batch_size)
+                                        shuffle=True, seed=seed,
+                                        pad_to_multiple=pad, shard=shard)
+        self.val_loader = BatchLoader(val_arrays, args.batch_size,
+                                      pad_to_multiple=pad, shard=shard)
 
         self.epoch_to_start = 0
         self.best_val_acc = 0.0
@@ -93,17 +121,23 @@ class CDTrainer:
                      for k in ("a", "b", "label"))
 
     def train_step(self, a_u8, b_u8, l_u8):
-        """One optimizer step on a uint8 batch already on the device;
-        returns (loss, confusion matrix), both device tensors."""
+        """One optimizer step on a uint8 batch already on the device (the
+        rank's rows under a mesh); returns (loss, confusion matrix) of the
+        global batch, both device tensors."""
         a, b, label = augment_pairs(a_u8, b_u8, l_u8, train=True,
                                     dtype=self.dtype,
-                                    generator=self.aug_generator)
-        out = self.model(a, b, train=True)
-        logits = final_logits(out)
+                                    generator=self.aug_generator,
+                                    shard=self.mesh.shard if self.mesh
+                                    else None)
+        out = self.net(a, b, train=True)
+        label = all_gather_rows(label)
         if self.multi_scale and isinstance(out, (list, tuple)):
-            loss = multi_scale_loss(out, label, a.shape[0])
+            out = [all_gather_rows(lg.float()) for lg in out]
+            logits = out[-1]
+            loss = multi_scale_loss(out, label, label.shape[0])
         else:
-            loss = levir_train_loss(logits.float(), label, a.shape[0])
+            logits = all_gather_rows(final_logits(out).float())
+            loss = levir_train_loss(logits, label, label.shape[0])
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -118,7 +152,7 @@ class CDTrainer:
         self.logger.write(f"lr: {lr:.7f}\n")
         profile_dir = getattr(self.args, "profile_dir", None)
         prof = None
-        if profile_dir and epoch == 0:
+        if profile_dir and epoch == 0 and self.main:
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU] + (
@@ -136,7 +170,7 @@ class CDTrainer:
             loss, cm = self.train_step(*self._to_device(batch))
             cm_dev += cm
             losses.append(loss)
-            n_img += len(batch["a"])
+            n_img += self.train_loader.real_rows(bi)
             if log_every and (bi + 1) % log_every == 0:
                 el = timer.elapsed()
                 rem = (n_batches - bi - 1) + n_batches * max(
@@ -148,7 +182,7 @@ class CDTrainer:
                     f"G_loss: {torch.stack(losses).mean().item():.5f}, "
                     f"running_mf1: {cm2score(cm_dev.cpu().numpy())['mf1']:.5f}"
                     "\n")
-            if vis_every and (bi + 1) % vis_every == 0:
+            if vis_every and (bi + 1) % vis_every == 0 and self.main:
                 self._save_train_vis(batch, epoch, bi + 1)
         scores = cm2score(cm_dev.cpu().numpy())
         imps = timer.images_per_sec(n_img)
@@ -163,8 +197,9 @@ class CDTrainer:
             f"epoch_mF1= {scores['mf1']:.5f}, imps: {imps:.2f}, "
             f"G_loss: {mean_loss:.5f}\n")
         self.train_acc_curve.append(scores["mf1"])
-        np.save(os.path.join(self.checkpoint_dir, "train_acc.npy"),
-                np.asarray(self.train_acc_curve, np.float32))
+        if self.main:
+            np.save(os.path.join(self.checkpoint_dir, "train_acc.npy"),
+                    np.asarray(self.train_acc_curve, np.float32))
         return {**scores, "imps": imps, "loss": mean_loss}
 
     def _save_train_vis(self, batch, epoch: int, batch_id: int) -> None:
@@ -193,6 +228,8 @@ class CDTrainer:
             cm += batch_confusion_matrix(
                 final_logits(self.model(a, b)).argmax(-1), label,
                 self.n_class)
+        if self.mesh:  # filler rows carry label 255, which no class counts
+            reduce_sum_(cm)
         scores = cm2score(cm.cpu().numpy())
         self.logger.write(
             f"Is_training: False. Epoch {epoch} / {self.max_epochs - 1}, "
@@ -200,8 +237,9 @@ class CDTrainer:
         self.logger.write(" ".join(f"{k}: {v:.5f}" for k, v in scores.items())
                           + "\n\n")
         self.val_acc_curve.append(scores["mf1"])
-        np.save(os.path.join(self.checkpoint_dir, "val_acc.npy"),
-                np.asarray(self.val_acc_curve, np.float32))
+        if self.main:
+            np.save(os.path.join(self.checkpoint_dir, "val_acc.npy"),
+                    np.asarray(self.val_acc_curve, np.float32))
         return scores
 
     def _maybe_resume(self) -> None:
@@ -231,13 +269,14 @@ class CDTrainer:
         if val_acc > self.best_val_acc:
             self.best_val_acc = val_acc
             self.best_epoch_id = epoch
-            save_checkpoint(self.checkpoint_dir, self.model.state_dict(),
-                            best_val_acc=val_acc, best_epoch_id=epoch,
-                            epoch_id=epoch,
-                            optimizer_state=self.optimizer.state_dict(),
-                            generator_states={
-                                "aug": self.aug_generator.get_state(),
-                                "dropout": self.dropout_generator.get_state()})
+            if self.main:
+                save_checkpoint(
+                    self.checkpoint_dir, self.model.state_dict(),
+                    best_val_acc=val_acc, best_epoch_id=epoch, epoch_id=epoch,
+                    optimizer_state=self.optimizer.state_dict(),
+                    generator_states={
+                        "aug": self.aug_generator.get_state(),
+                        "dropout": self.dropout_generator.get_state()})
             self.logger.write("*" * 10 + "Best model updated!\n\n")
 
     def train_models(self) -> list:

@@ -57,6 +57,18 @@ and Dual-HRNet models have no such module. Dropout masks (the
 ``xbd_unet_change_transformer_bit`` transformer's) come from the trainer's
 ``dropout_generator`` on the device, seeded from seed + 1. The losses run
 with no ignore value, so the loader drops a ragged last batch.
+
+With a ``mesh`` (``core/mesh.py``) the trainers run as ``CDTrainer`` does
+under one: DDP on the model, the rank's rows of each batch, global
+BatchNorm statistics, augmentation draws of the global batch, the loss of
+the gathered logits and masks, dropout masks from a generator per rank (seed
++ 1 + 1000 rank), and only rank 0 writing the log and checkpoints. A
+``--batch_size`` that is not a multiple of the world size is refused, as
+the JAX trainer refuses it (xbd_engine.py:113-123). Validation batches are
+padded to the world size with a ``valid`` vector: the filler enters no dice
+and no tp / fp / fn count. The GAN's discriminator has a DDP of its own,
+used only in its update; the generator step runs the bare discriminator,
+whose parameters then take no gradient.
 """
 from __future__ import annotations
 
@@ -68,6 +80,8 @@ import numpy as np
 import torch
 
 from dahitra_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+from dahitra_tpu_torch.core.mesh import (all_gather_rows, reduce_sum_,
+                                         wrap_ddp)
 from dahitra_tpu_torch.data.loader import BatchLoader
 from dahitra_tpu_torch.data.xbd_augment import augment_xbd
 from dahitra_tpu_torch.losses.combo import (dual_hrnet_loss, xbd_adapt_loss,
@@ -120,18 +134,20 @@ def dice_per_image(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 
 
 def damage_counts(probs: torch.Tensor, masks: torch.Tensor,
-                  lbl: torch.Tensor, thr: float):
+                  lbl: torch.Tensor, thr: float, valid=None):
     """(dice (B,), tp, fp, fn (4,)) of one batch: ``probs`` (B, H, W, 5)
     sigmoids, ``masks`` (B, H, W, 5), ``lbl`` (B, H, W) the damage class of
-    each pixel (val variant, 0-3)."""
+    each pixel (val variant, 0-3); samples whose ``valid`` (B,) is False
+    (padding filler) enter no count."""
     loc_gt = masks[..., 0] > 0
     loc_pred = probs[..., 0] > thr
     dices = dice_per_image(loc_pred, loc_gt)
     dmg_pred = probs[..., 1:].argmax(-1) * loc_pred
+    gt_px = loc_gt if valid is None else loc_gt & valid[:, None, None]
     counts = torch.zeros((3, N_DAMAGE), dtype=torch.long, device=probs.device)
     for c in range(masks.shape[-1] - 1):
-        p_c = (dmg_pred == c) & loc_gt
-        t_c = (lbl == c) & loc_gt
+        p_c = (dmg_pred == c) & gt_px
+        t_c = (lbl == c) & gt_px
         counts[0, c] = (p_c & t_c).sum()
         counts[1, c] = (p_c & ~t_c).sum()
         counts[2, c] = (~p_c & t_c).sum()
@@ -157,21 +173,31 @@ def xview2_scores(dice: float, tp, fp, fn) -> Dict[str, object]:
 class XBDTrainer:
     def __init__(self, args, train_arrays: Dict[str, np.ndarray],
                  val_arrays: Dict[str, np.ndarray], device="cuda",
-                 task: str = "damage"):
+                 task: str = "damage", mesh=None):
         if task not in TASKS:
             raise ValueError(f"unknown xBD task {task!r}")
+        rank, world = mesh.shard if mesh else (0, 1)
+        if args.batch_size % world:
+            raise ValueError(
+                f"--batch_size {args.batch_size} must be a multiple of the "
+                f"mesh data axis ({world}) for xBD training: "
+                f"pad filler has no ignore value in the ComboLoss recipes "
+                f"and would skew gradients")
         self.args = args
         self.task = task
         self.elastic = bool(getattr(args, "elastic", False))
         self.checkpoint_dir = args.checkpoint_dir
         self.max_epochs = args.max_epochs
         self.thr = getattr(args, "loc_thr", 0.3)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.main = mesh is None or mesh.is_main
+        self.device = resolve_device(mesh.device if mesh else device)
         disable_tf32()
         self.dtype = torch.bfloat16 if getattr(args, "bf16", False) \
             else torch.float32
         seed = getattr(args, "seed", 0)
-        self.logger = Logger(os.path.join(self.checkpoint_dir, "log.txt"))
+        self.logger = Logger(os.path.join(self.checkpoint_dir, "log.txt"),
+                             enabled=self.main)
 
         gen = torch.Generator().manual_seed(seed)
         self.model = define_g(args.net_G, dtype=self.dtype,
@@ -182,6 +208,8 @@ class XBDTrainer:
         if warm:
             self.warm_start_from(warm)
         self.model.to(self.device)
+        # the module each step runs: DDP over the ranks, or the model
+        self.net = wrap_ddp(self.model, mesh)
         self.base_lr = args.lr if args.lr else (
             1e-4 if task == "damage" else 1.5e-4)
         self.optimizer = make_optimizer(self.model.parameters(), self.base_lr,
@@ -189,14 +217,16 @@ class XBDTrainer:
         self.aug_generator = torch.Generator(device=self.device)
         self.aug_generator.manual_seed(seed)
         self.dropout_generator = torch.Generator(device=self.device)
-        self.dropout_generator.manual_seed(seed + 1)
+        self.dropout_generator.manual_seed(seed + 1 + 1000 * rank)
         set_dropout_generator(self.model, self.dropout_generator)
 
+        shard = mesh.shard if mesh else None
         self.train_loader = BatchLoader(train_arrays, args.batch_size,
                                         shuffle=True, seed=seed,
-                                        drop_last=True)
+                                        drop_last=True, shard=shard)
         self.val_loader = BatchLoader(
-            val_arrays, getattr(args, "val_batch_size", args.batch_size))
+            val_arrays, getattr(args, "val_batch_size", args.batch_size),
+            pad_to_multiple=world if world > 1 else None, shard=shard)
         self.best_score = 0.0
         self.epoch_to_start = 0
         self._maybe_resume()
@@ -240,32 +270,36 @@ class XBDTrainer:
         return tuple(torch.from_numpy(batch[k]).to(self.device)
                      for k in ("img_pre", "img_post", "msk", "lbl_msk"))
 
-    def _forward(self, img6: torch.Tensor, train: bool = False):
-        """The model on the task's input: the pre image for ``loc``, the
-        6-channel pair otherwise."""
-        return self.model(img6[..., :3] if self.task == "loc" else img6,
-                          train=train)
+    def _forward(self, img6: torch.Tensor, train: bool = False, net=None):
+        """The model (or ``net``, its DDP) on the task's input: the pre
+        image for ``loc``, the 6-channel pair otherwise."""
+        return (net or self.model)(
+            img6[..., :3] if self.task == "loc" else img6, train=train)
 
     def _augment(self, pre, post, msk, lbl):
         return augment_xbd(pre, post, msk, lbl, self.aug_generator,
-                           train=True, dtype=self.dtype, elastic=self.elastic)
+                           train=True, dtype=self.dtype, elastic=self.elastic,
+                           shard=self.mesh.shard if self.mesh else None)
 
     def train_step(self, pre, post, msk, lbl) -> torch.Tensor:
-        """One optimizer step on a uint8 batch already on the device;
-        returns the loss, a device tensor."""
+        """One optimizer step on a uint8 batch already on the device (the
+        rank's rows under a mesh); returns the global batch's loss, a device
+        tensor."""
         img6, masks, _ = self._augment(pre, post, msk, lbl)
-        out = self._forward(img6, True)
-        loss = _LOSSES[self.task](out if isinstance(out, dict)
-                                  else out.float(), masks)
+        out = self._forward(img6, True, self.net)
+        out = ({k: all_gather_rows(v) for k, v in out.items()}
+               if isinstance(out, dict) else all_gather_rows(out.float()))
+        loss = _LOSSES[self.task](out, all_gather_rows(masks))
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
 
     @torch.inference_mode()
-    def eval_step(self, pre, post, msk, lbl):
+    def eval_step(self, pre, post, msk, lbl, valid=None):
         """(dice (B,), tp, fp, fn (4,)) of one uint8 batch on the device;
-        the counts are 0 for ``loc``."""
+        the counts are 0 for ``loc``; filler samples (``valid`` False) enter
+        no count."""
         img6, masks, lbl_i = augment_xbd(pre, post, msk, lbl, train=False,
                                          dtype=self.dtype)
         out = self._forward(img6)
@@ -281,7 +315,7 @@ class XBDTrainer:
             zero = torch.zeros(N_DAMAGE, dtype=torch.long, device=probs.device)
             loc = dice_per_image(probs[..., 0] > self.thr, masks[..., 0] > 0)
             return loc, zero, zero, zero
-        return damage_counts(probs, masks, lbl_i, self.thr)
+        return damage_counts(probs, masks, lbl_i, self.thr, valid)
 
     def train_one_epoch(self, epoch: int) -> dict:
         lr = epoch_lr(self.base_lr, epoch, "multistep", self.max_epochs,
@@ -290,9 +324,9 @@ class XBDTrainer:
         set_learning_rate(self.optimizer, lr)
         losses, n_img = [], 0
         timer = Timer()
-        for batch in self.train_loader:
+        for bi, batch in enumerate(self.train_loader):
             losses.append(self.train_step(*self._to_device(batch)))
-            n_img += len(batch["img_pre"])
+            n_img += self.train_loader.real_rows(bi)
         mean_loss = torch.stack(losses).mean().item() if losses else 0.0
         imps = timer.images_per_sec(n_img)
         self.logger.write(f"epoch: {epoch}; lr {lr:.7f}; Loss {mean_loss:.4f}; "
@@ -305,9 +339,15 @@ class XBDTrainer:
         for batch in self.val_loader:
             # adapt merges classes 3 and 4: loc and 3 damage channels
             n_dmg = batch["msk"].shape[-1] - 1
-            d, tp, fp, fn = self.eval_step(*self._to_device(batch))
+            valid = torch.from_numpy(batch["valid"]).to(self.device) \
+                if "valid" in batch else None
+            d, tp, fp, fn = self.eval_step(*self._to_device(batch), valid)
+            if valid is not None:  # every rank's dice, filler dropped
+                d = all_gather_rows(d)[all_gather_rows(valid.byte()) > 0]
             dices.append(d)
             counts.append(torch.stack([tp, fp, fn]))
+        if self.mesh and counts:
+            counts = [reduce_sum_(torch.stack(counts).sum(0))]
         dice = torch.cat(dices).mean().item() if dices else 0.0
         if self.task == "loc":
             self.logger.write(f"Val Dice: {dice:.5f}\n")
@@ -328,10 +368,11 @@ class XBDTrainer:
         scores = self.validate()
         if scores["score"] > self.best_score:
             self.best_score = scores["score"]
-            save_checkpoint(self.checkpoint_dir, self.model.state_dict(),
-                            best_val_acc=self.best_score, best_epoch_id=epoch,
-                            epoch_id=epoch,
-                            optimizer_state=self.optimizer.state_dict())
+            if self.main:
+                save_checkpoint(self.checkpoint_dir, self.model.state_dict(),
+                                best_val_acc=self.best_score,
+                                best_epoch_id=epoch, epoch_id=epoch,
+                                optimizer_state=self.optimizer.state_dict())
         self.logger.write(
             f"score: {scores['score']}\tscore_best: {self.best_score}\n")
         return scores
@@ -358,13 +399,17 @@ class GANTrainer(XBDTrainer):
     disc_every = 8
 
     def __init__(self, args, train_arrays, val_arrays, device="cuda",
-                 effective_gan: bool = False):
+                 effective_gan: bool = False, mesh=None):
         super().__init__(args, train_arrays, val_arrays, device=device,
-                         task="damage")
+                         task="damage", mesh=mesh)
         self.effective_gan = effective_gan
         gen = torch.Generator().manual_seed(getattr(args, "seed", 0) + 99)
         self.disc = init_random(Discriminator(5, dtype=self.dtype), gen,
                                 running_stats=False).to(self.device)
+        # the discriminator update's module, which runs it twice before one
+        # backward (every parameter used); the generator step runs the bare
+        # discriminator (no parameter of it takes a gradient there)
+        self.d_net = wrap_ddp(self.disc, mesh, static_graph=False)
         self.d_optimizer = make_optimizer(self.disc.parameters(), 1e-4,
                                           weight_decay=1e-6)
         restored = load_checkpoint(self.checkpoint_dir, "best_ckpt_D")
@@ -378,7 +423,7 @@ class GANTrainer(XBDTrainer):
     def evaluate_and_checkpoint(self, epoch: int) -> dict:
         prev_best = self.best_score
         scores = super().evaluate_and_checkpoint(epoch)
-        if scores["score"] > prev_best:  # the generator was just saved
+        if scores["score"] > prev_best and self.main:  # G was just saved
             save_checkpoint(self.checkpoint_dir, self.disc.state_dict(),
                             name="best_ckpt_D", epoch_id=epoch,
                             optimizer_state=self.d_optimizer.state_dict())
@@ -396,21 +441,24 @@ class GANTrainer(XBDTrainer):
         if update_disc:
             with torch.no_grad(), _running_stats_kept(self.model):
                 fake = self.model(img6, train=True)
-            real_logits = self.disc(masks.to(self.dtype), train=True)
-            fake_logits = self.disc(fake, train=True)
-            d_loss = xbd_gan_discriminator_loss(real_logits.float(),
-                                                fake_logits.float())
+            real_logits = self.d_net(masks.to(self.dtype), train=True)
+            fake_logits = self.d_net(fake, train=True)
+            d_loss = xbd_gan_discriminator_loss(
+                all_gather_rows(real_logits.float()),
+                all_gather_rows(fake_logits.float()))
             self.d_optimizer.zero_grad(set_to_none=True)
             d_loss.backward()
             self.d_optimizer.step()
-        logits = self.model(img6, train=True).float()
+        logits = self.net(img6, train=True).float()
         fake_in = logits if self.effective_gan else logits.detach()
         self.disc.requires_grad_(False)
         try:
             with _running_stats_kept(self.disc):
                 fake_logits = self.disc(fake_in.to(self.dtype), train=True)
-            loss = xbd_gan_generator_loss(logits, masks, fake_logits.float(),
-                                          effective_gan=self.effective_gan)
+            loss = xbd_gan_generator_loss(
+                all_gather_rows(logits), all_gather_rows(masks),
+                all_gather_rows(fake_logits.float()),
+                effective_gan=self.effective_gan)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         finally:
@@ -433,7 +481,7 @@ class GANTrainer(XBDTrainer):
                                  update_disc=i % self.disc_every == 0)
             g_losses.append(g)
             d_losses.append(d)
-            n_img += len(batch["img_pre"])
+            n_img += self.train_loader.real_rows(i)
         g = torch.stack(g_losses).mean().item() if g_losses else 0.0
         d = torch.stack(d_losses).mean().item() if d_losses else 0.0
         imps = timer.images_per_sec(n_img)

@@ -15,14 +15,18 @@ import torch
 
 
 class Logger:
-    """Tees messages to stdout and, when given a path, to that file."""
+    """Tees messages to stdout and, when given a path, to that file; a
+    disabled logger (a rank other than 0) writes nothing."""
 
-    def __init__(self, path: Optional[str] = None):
-        self.path = path
-        if path:
+    def __init__(self, path: Optional[str] = None, enabled: bool = True):
+        self.path = path if enabled else None
+        self.enabled = enabled
+        if self.path:
             os.makedirs(os.path.dirname(path), exist_ok=True)
 
     def write(self, msg: str) -> None:
+        if not self.enabled:
+            return
         sys.stdout.write(msg)
         sys.stdout.flush()
         if self.path:
