@@ -13,9 +13,11 @@ the xBD stack (``xbd_train --task loc | adapt | gan``, ``--elastic``,
 ``visualize_results``), the rest of the LEVIR-CD zoo with ``demo``,
 ``import_checkpoint`` and ``count_params``, and the xBD half of the zoo
 (SE-ResNeXt50, SENet154 and DPN92 UNets, the xBD UNet change transformers,
-Dual-HRNet with ``xbd_train --task hrnet``), and data parallelism
+Dual-HRNet with ``xbd_train --task hrnet``), data parallelism
 (``core/mesh.py``: ``--gpu_ids``, DDP, global BatchNorm statistics, the
-padded loader). ``--phases`` runs the phases it lists (every phase
+padded loader), and the host-free step (``--scan_epoch``,
+``eval_models(scan=True)``: CUDA-graph replays of the train and eval
+steps). ``--phases`` runs the phases it lists (every phase
 without it), with the phases whose output they read (``PHASE_NEEDS``) and
 phase 1; the kernels are built in every selection. Phases, each fatal on
 failure:
@@ -205,10 +207,36 @@ failure:
      rank as in one step of phases 7 and 15), and ``CDEvaluator`` over 5
      padded patches at batch 4 (one process's matrix exactly); then
      ``main_cd``, ``xbd_train`` and ``eval_cd`` with ``--gpu_ids 0``: no
-     process group, the same results as their bodies run directly.
+     process group, the same results as their bodies run directly;
+ 20. the host-free step (``run_graph_phase``, ``train/graph.py``), cuDNN
+     deterministic: (a) two ``newUNetTrans`` trainers of one seed with
+     ``--scan_epoch`` at 256 px, batch 8, fp32 then bf16, ``GRAPH_STEPS``
+     steps of epoch 0 in ``_epoch_perm`` order, one as CUDA-graph replays
+     of the captured step (K1-save, K2, K3 inside), one as eager
+     ``train_step`` calls: the same loss, parameter, buffer and generator
+     bits; the warm step of each (median of ``GRAPH_TIMED``), one replay's
+     and one eager step's device-busy time and idle share (torch.profiler),
+     a replay's kernel rows (6 K1-save, 6 K2 of 2 kernels, 3 K3 of 2);
+     (b) the same with ``pallas = True`` (6 K4 of 2 kernels, 3 K3; the
+     plain-stack backward in the graph); (f) the captured step in
+     ``DistributedDataParallel`` under NCCL at world size 1: (a)'s fp32
+     bits; (c) ``main_cd --scan_epoch --log_chunks 2`` for 2 epochs on
+     phase 7's splits: a progress line after the 2nd of 4 steps in each
+     epoch, then a trainer with its weights at batch 3 (a tail of 2): the
+     replayed validation matrix equals the per-batch one; (d)
+     ``CDEvaluator.eval_models(scan=True)`` over phase 4's 64 patches at
+     batch 8: phase 5's matrix exactly, its pairs/s beside phase 5's, the
+     warm replays' rate and a replay's kernel rows (6 K1, 3 K3); (e)
+     ``xbd_dahitra`` damage at 1024 px, batch 1, over phase 15's 8 tiles,
+     fp32 then bf16, graphed against eager as (a) (3 K1-save, 3 K2, 3 K3 a
+     replay). The launch counters, set to 0 before each graphed run, count
+     the ``GRAPH_WARMUP`` warm-up steps and the capture, never a replay
+     (the Python wrappers do not run then); the profiler's kernel rows
+     count a replay's launches (``launches_per_replay`` in the kernels
+     line).
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10, 12, 13, 14, 15, 16, 17, 18) and read just after (phase 19 reads
+7, 9, 10, 12, 13, 14, 15, 16, 17, 18, 20) and read just after (phase 19 reads
 each rank's counters before and after its run); the counters of the padded
 token counts (``NO_PAD``) must read 0 in every one of them. ``--profile`` adds a torch.profiler
 breakdown of the batch-8 forward and of one batch-8 training step by kernel
@@ -318,12 +346,12 @@ WIDE_SHAPES = [(f"wide/l{tokens}h{heads}", 2 * BATCH, 4096, 8, heads, tokens,
 CALLS = {"bit/dd8": 2, "xbd_bit/s4": 2, "xbd_bit_tta/s4": 2}
 
 
-PHASES = range(1, 20)
+PHASES = range(1, 21)
 # What a phase reads from another: phase 4's tree and checkpoint, phase 5's
 # confusion matrix, phase 15's damage checkpoints. (Phase 7's splits and
 # phase 15's tiles are written for whichever phase reads them.)
 PHASE_NEEDS = {5: {4}, 6: {4}, 9: {4}, 10: {4}, 12: {4}, 14: {4}, 16: {15},
-               17: {4, 5}, 19: {4, 5}}
+               17: {4, 5}, 19: {4, 5}, 20: {4, 5}}
 
 
 def selected_phases(argv) -> set:
@@ -3198,6 +3226,326 @@ def run_mesh_phase(torch, tmp, train_root, cm5) -> dict:
     return by_phase
 
 
+# Phase 20, the host-free step: graphed steps against eager ones.
+GRAPH_STEPS = 8  # replays (and eager steps) per comparison, >= 8
+GRAPH_TIMED = 8  # warm calls per timing
+GRAPH_WARMUP = 3  # StepGraph's warm-up steps before the capture, one process
+# The profiler's kernel rows of one replay: 256 px default train step (6
+# K1-save, 6 K2 of 2 kernels, 3 K3 of 2), its pallas step (6 K4 of 2
+# kernels: prologue and rows), the eval forward (6 K1, 3 K3).
+GRAPH_ROWS = {"train": {"k1": 0, "k1_save": 6, "k2": 12, "k3": 6, "k4": 0},
+              "pallas": {"k1": 0, "k1_save": 0, "k2": 0, "k3": 6, "k4": 12},
+              "eval": {"k1": 6, "k1_save": 0, "k2": 0, "k3": 6, "k4": 0},
+              "xbd": {"k1": 0, "k1_save": 3, "k2": 6, "k3": 6, "k4": 0}}
+# Launches per replay (kernel rows per kernel id, calls of 2 kernels
+# halved) for the kernels line: dtype -> kernel id -> count.
+REPLAY_LAUNCHES = {"float32": {}, "bfloat16": {}}
+
+
+def _free(torch) -> None:
+    """Collect the trainers of a finished part (a captured step and its
+    trainer reference each other) and return their memory, graph pools
+    included, to the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _graph_arrays(n: int, img: int, seed: int) -> dict:
+    """``n`` seeded uint8 LEVIR pairs of ``img`` px with blocky labels."""
+    rng = np.random.default_rng(seed)
+    lab = rng.integers(0, 2, (n, img // 16, img // 16), dtype=np.uint8)
+    return {"a": rng.integers(0, 256, (n, img, img, 3), dtype=np.uint8),
+            "b": rng.integers(0, 256, (n, img, img, 3), dtype=np.uint8),
+            "label": lab.repeat(16, 1).repeat(16, 2)}
+
+
+def _graph_cfg(tmp, tag, dtype, **kw) -> dict:
+    import torch
+
+    return {"n_class": 2, "checkpoint_dir": os.path.join(tmp, "graph", tag),
+            "max_epochs": 1, "net_G": "newUNetTrans", "img_size": IMG,
+            "lr": 5e-4, "batch_size": BATCH, "lr_policy": "linear",
+            "device": "cuda", "seed": 0, "bf16": dtype == torch.bfloat16,
+            **kw}
+
+
+def _per_replay(rows: dict) -> dict:
+    """Kernel rows of one replay as launches (K2, K3 and K4 run 2 kernels
+    a launch)."""
+    return {k: v // (2 if k in ("k2", "k3", "k4") else 1)
+            for k, v in rows.items()}
+
+
+def _graph_vs_eager(torch, make, steps_fn, tag, want_rows, want_counts,
+                    batch_of) -> tuple:
+    """Two trainers from ``make()`` (same seed): epoch 0 through the scan
+    path (graph replays) on one, eager ``train_step``s in the same order on
+    the other, cuDNN deterministic; the same bits or a failure. Then each
+    trainer's warm step timed (``GRAPH_TIMED`` calls, the median) and one
+    graphed and one eager step profiled (device busy, idle share, kernel
+    rows; a replay's rows must be ``want_rows``). The launch counters read
+    over the graphed epoch count the warm-up and capture
+    (``want_counts``), never a replay. Returns (the line, the eager
+    run's state)."""
+    from dahitra_tpu_torch.tools import graph_checks as gc
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        graphed = make()
+        _reset_counts()
+        got = steps_fn(graphed, True)
+        counts = _read_counts()
+        if counts != {**NO_PAD, **want_counts}:
+            fail(f"graph {tag}: launches over warm-up and capture {counts} "
+                 f"!= {want_counts}")
+        eager = make()
+        ref = steps_fn(eager, False)
+        diff = gc.differing(got, ref)
+        if diff or len(got["loss"]) < GRAPH_STEPS \
+                or not torch.isfinite(got["loss"]).all():
+            fail(f"graph {tag}: replays against eager steps differ in "
+                 f"{diff[:8]} ({len(diff)} entries), losses {got['loss']} / "
+                 f"{ref['loss']}")
+        g_call = gc.graphed_call(graphed)
+        e_call = gc.eager_call(eager, batch_of(eager))
+        times = {"eager": gc.time_steps(e_call, graphed.device, GRAPH_TIMED),
+                 "graphed": gc.time_steps(g_call, graphed.device,
+                                          GRAPH_TIMED)}
+        prof = {"graphed": gc.profile_replay(
+                    g_call, times["graphed"]["median"]),
+                "eager": gc.profile_replay(e_call, times["eager"]["median"])}
+        if prof["graphed"]["kernel_rows"] != want_rows:
+            fail(f"graph {tag}: a replay's kernel rows "
+                 f"{prof['graphed']['kernel_rows']} != {want_rows}")
+        line = {"graph": tag, "steps": len(got["loss"]),
+                "same_bits": True, "loss": got["loss"].tolist(),
+                "step_ms": times,
+                "speedup": times["eager"]["median"]
+                / times["graphed"]["median"],
+                "profile": prof, "capture_launches": counts,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        return line, ref
+    finally:
+        torch.backends.cudnn.deterministic = det
+        graphed = eager = g_call = e_call = None
+        _free(torch)
+
+
+def check_scan_cli(torch, train_root, tmp) -> dict:
+    """(c) ``main_cd --scan_epoch --log_chunks 2`` for 2 epochs on phase
+    7's splits (4 steps an epoch, a progress line after the 2nd), launch
+    counters over the run: the train step's and the eval forward's warm-up
+    and capture (``GRAPH_WARMUP`` + 1 steps each); then the validation
+    matrix of a trainer with the run's weights at batch 3 (two full batches
+    and a tail of 2) through the replays against the per-batch pass."""
+    from dahitra_tpu_torch.cli import main_cd
+    from dahitra_tpu_torch.core.checkpoint import load_checkpoint
+    from dahitra_tpu_torch.data.levir import load_levir_split
+    from dahitra_tpu_torch.data.registry import get_data_config
+    from dahitra_tpu_torch.tools import graph_checks as gc
+
+    root = os.path.join(train_root, "ckpt")
+    os.environ["DAHITRA_DATA_ROOT"] = os.path.join(train_root, "data")
+    argv = ["--checkpoint_root", root, "--project_name", "scan",
+            "--data_name", "LEVIR", "--img_size", str(IMG), "--batch_size",
+            str(BATCH), "--max_epochs", "2", "--skip_test", "--scan_epoch",
+            "--log_chunks", "2", "--device", "cuda"]
+    _reset_counts()
+    t0 = time.time()
+    history = main_cd.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = _read_counts()
+    w = GRAPH_WARMUP + 1
+    want = {"k1": 6 * w, "k1_save": 6 * w, "k2": 6 * w, "k3": 3 * 2 * w,
+            "k4": 0}
+    if got != {**NO_PAD, **want}:
+        fail(f"main_cd --scan_epoch: launches {got} != {want}")
+    log = open(os.path.join(root, "scan", "log.txt")).read()
+    steps = TRAIN_PAIRS // BATCH
+    lines = re.findall(
+        r"Is_training: True\. \[(\d+),(\d+)\]\[(\d+)\], imps: [\d.]+, "
+        r"est: [\d.]+h, G_loss: [\d.]+, running_mf1: [\d.]+\n", log)
+    epochs = re.findall(r"Is_training: True\. Epoch (\d) / 1, epoch_mF1= "
+                        r"[\d.]+, imps: [\d.]+, G_loss: [\d.]+\n", log)
+    want_lines = [(str(e), str(steps // 2), str(steps)) for e in (0, 1)]
+    if lines != want_lines or epochs != ["0", "1"] \
+            or not all(np.isfinite([h["loss"] for h in history])):
+        fail(f"main_cd --scan_epoch: progress lines {lines} != {want_lines}"
+             f", epoch lines {epochs} or losses {history}")
+    cfg_data = get_data_config("LEVIR")
+    p = load_levir_split(cfg_data.root_dir, "val", IMG,
+                         cfg_data.label_transform)
+    arrays = {"a": p.a, "b": p.b, "label": p.label}
+    tr = gc.cd_trainer(_graph_cfg(tmp, "scan_val", torch.float32,
+                                  batch_size=3), arrays)
+    tr.model.load_state_dict(load_checkpoint(os.path.join(root, "scan"))[0])
+    tr.validate(0)
+    cm_scan = tr.confusion_matrix
+    tr.scan = False
+    tr.validate(0)
+    if not np.array_equal(cm_scan, tr.confusion_matrix):
+        fail(f"scan validation matrix {cm_scan.tolist()} != per-batch "
+             f"{tr.confusion_matrix.tolist()}")
+    del tr
+    _free(torch)
+    return {"scan_cli": "main_cd --scan_epoch --log_chunks 2", "epochs": 2,
+            "pairs_per_s_by_epoch": [h["imps"] for h in history],
+            "loss_by_epoch": [h["loss"] for h in history], "wall_s": wall,
+            "progress_lines": len(lines), "launches": got,
+            "val_matrix": cm_scan.tolist(), "val_matrix_equal": True}
+
+
+def check_eval_scan(torch, tmp, cm5, pairs_per_s5) -> dict:
+    """(d) ``CDEvaluator.eval_models(scan=True)`` on phase 4's checkpoint
+    over the 64 patches at batch 8, fp32, the patch blocks on: phase 5's
+    matrix exactly; the run's pairs/s (capture included) beside phase 5's,
+    then the warm replays alone (``EvalScan`` over the staged batches,
+    median of 3) and one replay's kernel rows."""
+    import types
+
+    from dahitra_tpu_torch.data.levir import load_levir_split
+    from dahitra_tpu_torch.data.registry import get_data_config
+    from dahitra_tpu_torch.evalx.evaluator import (CDEvaluator,
+                                                   stage_full_batches)
+    from dahitra_tpu_torch.tools import graph_checks as gc
+    from dahitra_tpu_torch.train.graph import EvalScan
+
+    os.environ["DAHITRA_DATA_ROOT"] = os.path.join(tmp, "data")
+    cfg = get_data_config("LEVIR")
+    chunks = [load_levir_split(cfg.root_dir, "test", IMG, cfg.label_transform,
+                               patch=i) for i in range(16)]
+    arrays = {k: np.concatenate([getattr(c, k) for c in chunks])
+              for k in ("a", "b", "label")}
+    group_of = np.concatenate([np.full(len(c.a), i, np.int32)
+                               for i, c in enumerate(chunks)])
+    args = types.SimpleNamespace(
+        n_class=2, checkpoint_dir=os.path.join(tmp, "ckpt", "smoke"),
+        net_G="newUNetTrans", img_size=IMG, batch_size=BATCH, bf16=False)
+    ev = CDEvaluator(args, arrays, device="cuda")
+    _reset_counts()
+    scores = ev.eval_models(scan=True, group_of=group_of)
+    torch.cuda.synchronize()
+    got = _read_counts()
+    w = GRAPH_WARMUP + 1
+    want = {"k1": 6 * w, "k1_save": 0, "k2": 0, "k3": 3 * w, "k4": 0}
+    if got != {**NO_PAD, **want}:
+        fail(f"eval_models(scan=True): launches {got} != {want}")
+    if cm5 is not None and not np.array_equal(ev.confusion_matrix, cm5):
+        fail(f"eval_models(scan=True) matrix {ev.confusion_matrix.tolist()} "
+             f"!= phase 5's {cm5.tolist()}")
+    if len(scores.get("per_group", [])) != 16:
+        fail("eval_models(scan=True): patch blocks missing")
+    stack, _ = stage_full_batches(ev.loader, ("a", "b", "label"), ev.device)
+    es = EvalScan(lambda a, b, l: ev.eval_step(a, b, l)[0], stack, 2,
+                  ev.device)
+    ms = gc.time_steps(es, ev.device, 3)["median"]
+    one = gc.profile_replay(lambda: (es.step.reset(), es.step()),
+                            ms / len(stack[0]))
+    if one["kernel_rows"] != GRAPH_ROWS["eval"]:
+        fail(f"eval replay kernel rows {one['kernel_rows']} != "
+             f"{GRAPH_ROWS['eval']}")
+    REPLAY_LAUNCHES["float32"]["k1"] = _per_replay(one["kernel_rows"]).get("k1")
+    del ev, es, stack
+    _free(torch)
+    return {"eval_scan": "float32", "pairs": len(arrays["a"]),
+            "matrix_equal_phase5": cm5 is not None,
+            "pairs_per_s": scores["imps"], "phase5_pairs_per_s": pairs_per_s5,
+            "warm_replays_pairs_per_s": len(arrays["a"]) / (ms / 1e3),
+            "replay": one, "launches": got}
+
+
+def _xbd_graph_arrays(tmp) -> dict:
+    """Phase 15's 8 training tiles at 1024 px, decoded as ``xbd_train``
+    decodes them."""
+    from dahitra_tpu_torch.data.xbd import load_xbd_pairs, scan_xbd_files
+
+    files = scan_xbd_files([xbd_tiles(tmp)[0]])
+    return load_xbd_pairs(files, train=True, crop_size=XBD_IMG,
+                          seed=0).arrays()
+
+
+def run_graph_phase(torch, tmp, train_root, cm5, pairs_per_s5) -> dict:
+    """Phase 20: the host-free step (module docstring). Returns the
+    launches per dtype and run for the kernels line."""
+    from dahitra_tpu_torch.core.mesh import launch
+    from dahitra_tpu_torch.tools import graph_checks as gc
+
+    out = {"float32": {}, "bfloat16": {}}
+    arrays = _graph_arrays(GRAPH_STEPS * BATCH, IMG, 20)
+    w = GRAPH_WARMUP + 1
+    ref32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for pallas in (False, True):
+            kind = "pallas" if pallas else "train"
+            tag = f"{kind}_{dname}"
+            want = ({"k1": 0, "k1_save": 0, "k2": 0, "k3": 3 * w, "k4": 6 * w}
+                    if pallas else
+                    {"k1": 0, "k1_save": 6 * w, "k2": 6 * w, "k3": 3 * w,
+                     "k4": 0})
+            line, ref = _graph_vs_eager(
+                torch, lambda: gc.cd_trainer(_graph_cfg(tmp, tag, dtype),
+                                             arrays, pallas=pallas),
+                gc.cd_steps, tag, GRAPH_ROWS[kind], want, gc.first_batch)
+            print(json.dumps(line), flush=True)
+            out[dname][f"graph_{kind}_256"] = line["capture_launches"]
+            per = _per_replay(line["profile"]["graphed"]["kernel_rows"])
+            for k, v in per.items():
+                if v:
+                    REPLAY_LAUNCHES[dname][k] = v
+            if dtype == torch.float32 and not pallas:
+                ref32 = ref
+            del ref
+    # (f) DDP under NCCL at world size 1, captured: (a)'s fp32 bits
+    ddp = launch(gc.scan_steps, (_graph_cfg(tmp, "ddp", torch.float32),
+                                arrays), devices=["cuda:0"],
+                 backend="nccl")[0]
+    diff = gc.differing(ddp, ref32)
+    if diff or not (ddp["ddp"] and ddp["graphed"]):
+        fail(f"graph ddp: DDP replays against (a)'s eager fp32 steps differ "
+             f"in {diff[:8]} ({len(diff)} entries) or not captured under "
+             f"DDP ({ddp['ddp']}, {ddp['graphed']})")
+    print(json.dumps({"graph": "ddp_nccl_world1", "same_bits_as_a": True,
+                      "loss": ddp["loss"].tolist()}), flush=True)
+    del ref32, ddp
+    _free(torch)
+    # (c) the CLI, (d) the evaluator
+    line = check_scan_cli(torch, train_root, tmp)
+    out["float32"]["scan_cli_256"] = line["launches"]
+    print(json.dumps(line), flush=True)
+    line = check_eval_scan(torch, tmp, cm5, pairs_per_s5)
+    out["float32"]["eval_scan_256"] = line["launches"]
+    print(json.dumps(line), flush=True)
+    # (e) xbd_dahitra damage at 1024 px, batch 1
+    xbd = _xbd_graph_arrays(tmp)
+    dec = XBD_CALLS["xbd_dahitra"]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+
+        def make(dtype=dtype, dname=dname):
+            return gc.xbd_trainer(dict(
+                checkpoint_dir=os.path.join(tmp, "graph", f"xbd_{dname}"),
+                max_epochs=1, net_G="xbd_dahitra", img_size=XBD_IMG, lr=0.0,
+                batch_size=1, val_batch_size=1, device="cuda", seed=0,
+                bf16=dtype == torch.bfloat16), xbd)
+
+        line, _ = _graph_vs_eager(
+            torch, make, gc.xbd_steps, f"xbd_{dname}", GRAPH_ROWS["xbd"],
+            {"k1": 0, "k1_save": dec * w, "k2": dec * w, "k3": dec * w,
+             "k4": 0},
+            lambda tr: tuple(torch.from_numpy(xbd[k][:1]).cuda() for k in
+                             ("img_pre", "img_post", "msk", "lbl_msk")))
+        out[dname]["graph_xbd_1024"] = line["capture_launches"]
+        print(json.dumps(line), flush=True)
+    return out
+
+
 def main() -> None:
     sel = selected_phases(sys.argv[1:])
     started = {}  # phase -> time.time() at its start, for phase_seconds
@@ -3302,7 +3650,7 @@ def main() -> None:
               f"{time.time() - t0:.1f} s", flush=True)
     # phase 7's splits, which phases 8, 11, 14, 17 and 19 also read
     train_root = os.path.join(tmp, "train")
-    if sel & {7, 8, 11, 14, 17, 19}:
+    if sel & {7, 8, 11, 14, 17, 19, 20}:
         for split, n, seed in (("train", TRAIN_PAIRS, 1),
                                ("val", VAL_PAIRS, 2)):
             write_synthetic_levir(os.path.join(train_root, "data"), n_tiles=n,
@@ -3313,7 +3661,7 @@ def main() -> None:
     dtypes = (([], "float32"), (["--bf16"], "bfloat16"))
     by_phase = {"float32": {}, "bfloat16": {}}
     _record_confusion_matrices()
-    cm5 = None
+    cm5 = p5 = None
     for flag, dname in dtypes if 5 in sel else ():
         out = run_eval(torch, os.path.join(tmp, "data"),
                        os.path.join(tmp, "ckpt"), "smoke", flag, dname, IMG,
@@ -3322,6 +3670,7 @@ def main() -> None:
         print(json.dumps(out), flush=True)
         if dname == "float32":
             cm5 = EVAL_CMS[-1]
+            p5 = out["pairs_per_s"]
 
     started["6"] = time.time()
     # 6. the card's forward (kernels) against the plain path on the CPU
@@ -3459,6 +3808,15 @@ def main() -> None:
                                             cm5).items():
             by_phase[dname].update(phases)
 
+    started["20"] = time.time()
+    # 20. the host-free step: graphed train steps against eager ones
+    # (default and pallas path, both dtypes), DDP captured under NCCL,
+    # main_cd --scan_epoch, eval_models(scan=True), xBD at 1024 px
+    if 20 in sel:
+        for dname, phases in run_graph_phase(torch, tmp, train_root, cm5,
+                                             p5).items():
+            by_phase[dname].update(phases)
+
     started["profile"] = time.time()
     if "--profile" in sys.argv[1:]:
         for net_g, project, n_dec in (("newUNetTrans", "smoke", 3),
@@ -3594,7 +3952,9 @@ def main() -> None:
                 name, src + source, replaces, dname, checks.get((kid, dname)),
                 by_phase[dname].get(phase, {}).get(counter), tol, phases,
                 main_size="bit" if mlp64 else kid.rsplit("_", 1)[1] if pad
-                else str(IMG), **{k: v[dname] for k, v in extra.items()}))
+                else str(IMG),
+                launches_per_replay=REPLAY_LAUNCHES[dname].get(kid),
+                **{k: v[dname] for k, v in extra.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

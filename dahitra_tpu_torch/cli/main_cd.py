@@ -9,6 +9,11 @@ scores ``best_ckpt.pt`` on the test split through the port's
 ``--gpu_ids 0,1,2,3`` trains and tests on those four cards, one process
 each under torch.distributed (``core/mesh.py``); one id runs on that card
 alone; under ``torchrun`` each process is the rank torchrun starts.
+``--scan_epoch`` stages the training set on the device and runs every
+train step, and validation's full batches, as replays of a captured CUDA
+graph (``train/engine.py``; eagerly with ``--device cpu``), in JAX's
+scan-path batch order; ``--log_chunks N`` adds a progress line after each
+of N chunks of the epoch.
 
     python -m dahitra_tpu_torch.cli.main_cd --data_name LEVIR \\
         --net_G newUNetTrans --img_size 256 --batch_size 8 --max_epochs 2 \\
@@ -25,9 +30,6 @@ from dahitra_tpu_torch.data.registry import get_data_config
 from dahitra_tpu_torch.evalx.evaluator import CDEvaluator
 from dahitra_tpu_torch.train.engine import CDTrainer
 from dahitra_tpu_torch.utils import resolve_device
-
-_NO_EFFECT = "accepted for the JAX package's command lines; no effect here"
-
 
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser()
@@ -64,13 +66,16 @@ def build_parser() -> ArgumentParser:
                         help="write a torch.profiler trace of epoch 0 here "
                         "(trace.json)")
     parser.add_argument("--scan_epoch", action="store_true",
-                        help="TPU dispatch workaround (one lax.scan per "
-                        "epoch); " + _NO_EFFECT)
+                        help="stage the training set on the device (each "
+                        "rank its shard) and run each train step and each "
+                        "full validation batch as one CUDA-graph replay, "
+                        "in JAX's scan-path order (the ragged last batch "
+                        "dropped)")
     parser.add_argument("--log_every", default=100, type=int,
                         help="progress line every N batches (0 = off)")
     parser.add_argument("--log_chunks", default=1, type=int,
-                        help="TPU dispatch workaround (scan chunks); "
-                        + _NO_EFFECT)
+                        help="--scan_epoch: split the epoch into N chunks "
+                        "with a progress line after each but the last")
     parser.add_argument("--vis_train_every", default=0, type=int,
                         help="training vis grid every N batches (0 = off)")
     parser.add_argument("--multi_scale_loss", action="store_true",

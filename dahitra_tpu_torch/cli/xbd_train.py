@@ -21,6 +21,10 @@ filters the names), splits 90/10 with the class-presence upsampling
     ``dual_hrnet_fpn``) on ``dual_hrnet_loss``.
 
 ``--elastic`` adds the UNet-transformer recipe's gated elastic jitter.
+``--scan_epoch`` trains each epoch in chunks of ``--scan_chunk_batches``
+batches staged on the device, each step one CUDA-graph replay
+(``train/xbd_engine.py``; eagerly with ``--device cpu``), in JAX's order;
+with ``--task gan`` it changes nothing, as in JAX.
 ``--gpu_ids 0,1,2,3`` trains on those four cards, one process each under
 torch.distributed (``core/mesh.py``), each loading the tiles; the batch size
 must be a multiple of their number.
@@ -39,9 +43,6 @@ from dahitra_tpu_torch.data.xbd import (load_xbd_pairs, scan_xbd_files,
                                         split_and_upsample)
 from dahitra_tpu_torch.train.xbd_engine import GANTrainer, XBDTrainer
 from dahitra_tpu_torch.utils import resolve_device
-
-_NO_EFFECT = "accepted for the JAX package's command lines; no effect here"
-
 
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser()
@@ -73,10 +74,13 @@ def build_parser() -> ArgumentParser:
                         help="the UNet-transformer recipe's per-date "
                         "elastic jitter at p about 0.017")
     parser.add_argument("--scan_epoch", action="store_true",
-                        help="TPU dispatch workaround (chunked lax.scan "
-                        "epochs); " + _NO_EFFECT)
+                        help="train each epoch in chunks staged on the "
+                        "device, each step one CUDA-graph replay, in JAX's "
+                        "scan-path order; no effect with --task gan (the "
+                        "JAX GAN epoch has no scan path)")
     parser.add_argument("--scan_chunk_batches", default=0, type=int,
-                        help=_NO_EFFECT)
+                        help="--scan_epoch: batches staged per chunk "
+                        "(0 = ceil(256 / batch size))")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--eval_every", default=2, type=int)
     parser.add_argument("--gpu_ids", default="0", type=str,

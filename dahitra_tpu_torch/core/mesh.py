@@ -190,7 +190,7 @@ def barrier(mesh: Optional[Mesh]) -> None:
 
 
 def wrap_ddp(model: torch.nn.Module, mesh: Optional[Mesh],
-             static_graph: bool = True):
+             static_graph: bool = True, capture: bool = False):
     """``model`` in ``DistributedDataParallel`` under a mesh, else itself.
 
     ``broadcast_buffers=False``: the running statistics are equal on every
@@ -201,19 +201,30 @@ def wrap_ddp(model: torch.nn.Module, mesh: Optional[Mesh],
     first step (their gradients stay None, as in one process) instead of
     searching the autograd graph for them every step
     (``find_unused_parameters``). Without it every parameter must take a
-    gradient in every backward."""
+    gradient in every backward. ``capture``: a CUDA graph will capture the
+    step (``--scan_epoch``), so DDP is built on the graph's side stream
+    (``train/graph.py`` ``capture_stream``)."""
     if mesh is None:
         return model
     import warnings
 
     from torch.nn.parallel import DistributedDataParallel
 
-    kw = {"device_ids": [mesh.device.index]} \
-        if mesh.device.type == "cuda" else {}
-    with warnings.catch_warnings():
+    cuda = mesh.device.type == "cuda"
+    kw = {"device_ids": [mesh.device.index]} if cuda else {}
+    stream = None
+    if capture and cuda:
+        from dahitra_tpu_torch.train.graph import capture_stream
+
+        stream = capture_stream(mesh.device)
+        stream.wait_stream(torch.cuda.current_stream(mesh.device))
+    with warnings.catch_warnings(), torch.cuda.stream(stream):
         warnings.simplefilter("ignore", FutureWarning)  # broadcast_buffers
-        return DistributedDataParallel(model, broadcast_buffers=False,
-                                       static_graph=static_graph, **kw)
+        ddp = DistributedDataParallel(model, broadcast_buffers=False,
+                                      static_graph=static_graph, **kw)
+    if stream is not None:
+        torch.cuda.current_stream(mesh.device).wait_stream(stream)
+    return ddp
 
 
 def _free_port() -> int:

@@ -7,8 +7,11 @@ time: uint8 pairs go to the device (all at once first with
 ``device_cache``), are normalised there, run through the model, and the
 argmax of the full-resolution logits (the last entry of a multi-scale list)
 feeds a batch or per-sample confusion matrix that stays on the device until
-the end of the pass. The JAX package's one-dispatch ``lax.scan`` epoch
-has no counterpart: PyTorch runs eagerly.
+the end of the pass. ``scan=True`` is the counterpart of the JAX
+package's one-dispatch ``eval_epoch_scan`` (evaluator.py:132-180): the
+full batches are staged on the device once and each is one replay of a
+captured eval forward (``train/graph.py`` ``EvalScan``; eagerly on the
+CPU), the ragged tail runs per batch, and ``save_vis`` switches it off.
 
 Artifacts as the reference writes them: the scores line in
 ``log_test.txt``, the ``<mf1>.txt`` marker and ``scores_dict.npy``.
@@ -35,7 +38,21 @@ from dahitra_tpu_torch.metrics.confusion import (batch_confusion_matrix,
                                                  cm2score,
                                                  per_sample_confusion_matrix)
 from dahitra_tpu_torch.models.registry import define_g, final_logits
+from dahitra_tpu_torch.train.graph import EvalScan
 from dahitra_tpu_torch.utils import Logger, Timer, disable_tf32, resolve_device
+
+
+def stage_full_batches(loader: BatchLoader, keys, device):
+    """The loader's full batches (``batch_size`` real samples) stacked on
+    ``device``, one (n, B, ...) tensor per key, or None without one; and
+    the other batches, as the loader yields them."""
+    full, tail = [], []
+    for i, batch in enumerate(loader):
+        (full if loader.real_rows(i) == loader.batch_size else tail).append(
+            batch)
+    stack = tuple(torch.from_numpy(np.stack([b[k] for b in full])).to(device)
+                  for k in keys) if full else None
+    return stack, tail
 
 
 class CDEvaluator:
@@ -96,18 +113,37 @@ class CDEvaluator:
         return [self._to_device(batch) for batch in self.loader]
 
     def eval_models(self, save_vis: bool = False, device_cache: bool = False,
+                    scan: bool = False,
                     group_of: Optional[np.ndarray] = None) -> dict:
         """Score the split. ``device_cache`` stages the dataset on the
-        device before the pass. ``group_of`` (the patch of each dataset
-        position) switches to per-sample matrices so that the result also
-        carries a reference-style score block per patch (``per_group``).
-        The summed matrix stays on ``self.confusion_matrix``."""
+        device before the pass. ``scan`` runs the full batches as replays of
+        a captured forward (module docstring); ``save_vis`` turns it into
+        ``device_cache``, as in JAX (evaluator.py:154-159). ``group_of``
+        (the patch of each dataset position) switches to per-sample
+        matrices so that the result also carries a reference-style score
+        block per patch (``per_group``). The summed matrix stays on
+        ``self.confusion_matrix``."""
         self.logger.write("Begin evaluation...\n")
         timer = Timer()
         grouped = group_of is not None
-        batches = (self.stage_on_device() if device_cache
-                   else (self._to_device(b) for b in self.loader))
+        if scan and save_vis:  # the replays keep no prediction to draw
+            scan, device_cache = False, True
         cms, n_img = [], 0
+        if scan:
+            stack, tail = stage_full_batches(self.loader, ("a", "b", "label"),
+                                             self.device)
+            if stack is not None:
+                out = EvalScan(
+                    lambda a, b, l: self.eval_step(a, b, l, grouped)[0],
+                    stack, self.n_class, self.device, grouped)()
+                # per full batch, every rank's matrices; or the sum
+                cms += [all_gather_rows(ps) for ps in out] if grouped \
+                    else [out]
+                n_img += stack[0].shape[0] * self.loader.batch_size
+            batches = (self._to_device(b) for b in tail)
+        else:
+            batches = (self.stage_on_device() if device_cache
+                       else (self._to_device(b) for b in self.loader))
         for a, b, l, valid in batches:
             cm, pred = self.eval_step(a, b, l, per_sample=grouped)
             if valid is not None:

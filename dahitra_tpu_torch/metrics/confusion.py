@@ -3,9 +3,12 @@
 Counterpart of dahitra_tpu/metrics/confusion.py (the reference's
 misc/metric_tool.py:48-158). Rows are ground truth, columns prediction;
 pixels whose ground truth lies outside [0, n_class) (the 255 ignore label)
-are dropped. The matrices are ``torch.bincount``s of ``n*gt + pred``; the
-dropped pixels land in one extra bin that is cut off, so nothing syncs
-with the host until ``cm2score``.
+are dropped. The matrices count ``n*gt + pred`` into ``n*n + 1`` bins of
+fixed size with ``scatter_add_`` (exact integer counts); the dropped pixels
+land in the extra bin, which is cut off. ``torch.bincount`` would read the
+input's extremes back to the host to size its output on a CUDA tensor, so
+a CUDA graph could not capture it; this form syncs nothing until
+``cm2score``.
 """
 from __future__ import annotations
 
@@ -21,12 +24,18 @@ def _flat_index(pred: torch.Tensor, gt: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(valid, gt * n + pred.long(), n * n)
 
 
+def _counts(idx: torch.Tensor, bins: int) -> torch.Tensor:
+    """Occurrences of each of ``bins`` values in the flat int64 ``idx``."""
+    return torch.zeros(bins, dtype=torch.long, device=idx.device) \
+        .scatter_add_(0, idx, torch.ones_like(idx))
+
+
 def batch_confusion_matrix(pred: torch.Tensor, gt: torch.Tensor,
                            num_classes: int) -> torch.Tensor:
     """(n_class, n_class) int64 matrix of one batch of class indices."""
     n = num_classes
     idx = _flat_index(pred.reshape(-1), gt.reshape(-1), n)
-    return torch.bincount(idx, minlength=n * n + 1)[:n * n].view(n, n)
+    return _counts(idx, n * n + 1)[:n * n].view(n, n)
 
 
 def per_sample_confusion_matrix(pred: torch.Tensor, gt: torch.Tensor,
@@ -36,7 +45,7 @@ def per_sample_confusion_matrix(pred: torch.Tensor, gt: torch.Tensor,
     n, b = num_classes, pred.shape[0]
     idx = _flat_index(pred.reshape(b, -1), gt.reshape(b, -1), n)
     idx = idx + torch.arange(b, device=idx.device)[:, None] * (n * n + 1)
-    cm = torch.bincount(idx.reshape(-1), minlength=b * (n * n + 1))
+    cm = _counts(idx.reshape(-1), b * (n * n + 1))
     return cm.view(b, n * n + 1)[:, :n * n].reshape(b, n, n)
 
 

@@ -37,9 +37,23 @@ with dropout draws other masks than one process. Only rank 0 writes
 rank resumes from the same checkpoint; ``imps`` counts the real pairs of all
 ranks.
 
-``--scan_epoch`` and ``--log_chunks`` are TPU dispatch workarounds
-(engine.py:187-258) and have no effect here. ``--profile_dir`` writes a
-torch.profiler trace of epoch 0 (``trace.json``).
+``--scan_epoch`` is the host-free epoch (engine.py:327-384): the training
+set is staged on the device once (``_stage_train``, trimmed to a multiple
+of the world size, each rank holding its contiguous shard), each epoch is
+ordered by ``_epoch_perm`` (the JAX draw, a permutation per shard under a
+mesh, the ragged last batch dropped), and every step gathers its batch from
+the staged arrays by an index row and runs ``train_step``, the gather and
+the step captured together as one CUDA graph (``train/graph.py``; AdamW
+``capturable`` with its learning rate a device tensor). ``--log_chunks N``
+splits the epoch into N chunks with a progress line after each but the
+last, in JAX's format; the per-batch losses are kept exactly. Validation
+then replays a captured eval forward over the staged full batches and runs
+the ragged tail per batch (engine.py:434-446). On the CPU the same staged
+loop runs eagerly, with no graph. A batch size the world size does not
+divide takes the per-batch path, as in JAX (``scan_ok``); two gloo ranks on
+CUDA tensors (collectives staged through host memory, ``core/mesh.py``)
+cannot be captured and raise. ``--profile_dir`` writes a torch.profiler
+trace of epoch 0 (``trace.json``) on either path.
 """
 from __future__ import annotations
 
@@ -54,11 +68,13 @@ from dahitra_tpu_torch.core.mesh import (all_gather_rows, reduce_sum_,
                                          wrap_ddp)
 from dahitra_tpu_torch.data.augment import augment_pairs
 from dahitra_tpu_torch.data.loader import BatchLoader
+from dahitra_tpu_torch.evalx.evaluator import stage_full_batches
 from dahitra_tpu_torch.losses.cd import levir_train_loss, multi_scale_loss
 from dahitra_tpu_torch.metrics.confusion import batch_confusion_matrix, cm2score
 from dahitra_tpu_torch.models.registry import define_g, final_logits
 from dahitra_tpu_torch.nn.blocks import set_dropout_generator
 from dahitra_tpu_torch.nn.init import init_weights
+from dahitra_tpu_torch.train.graph import EvalScan, StepGraph
 from dahitra_tpu_torch.train.optim import (epoch_lr, make_optimizer,
                                            set_learning_rate)
 from dahitra_tpu_torch.utils import Logger, Timer, disable_tf32, resolve_device
@@ -90,10 +106,19 @@ class CDTrainer:
         init_weights(self.model, getattr(args, "init_type", "normal"),
                      getattr(args, "init_gain", 0.02), gen)
         self.model.to(self.device)
+        self.scan = bool(getattr(args, "scan_epoch", False))
         # the module each step runs: DDP over the ranks, or the model
-        self.net = wrap_ddp(self.model, mesh)
-        self.optimizer = make_optimizer(self.model.parameters(), args.lr,
-                                        weight_decay=0.01)
+        self.net = wrap_ddp(self.model, mesh, capture=self.scan)
+        if self.scan and mesh and mesh.backend == "gloo" \
+                and self.device.type == "cuda":
+            raise ValueError(
+                "--scan_epoch: gloo stages collectives on CUDA tensors "
+                "through host memory, which a CUDA graph cannot capture; "
+                "run the ranks under NCCL")
+        self.optimizer = make_optimizer(
+            self.model.parameters(), args.lr, weight_decay=0.01,
+            capturable_on=self.device
+            if self.scan and self.device.type == "cuda" else None)
         self.aug_generator = torch.Generator(device=self.device)
         self.aug_generator.manual_seed(seed)
         self.dropout_generator = torch.Generator(device=self.device)
@@ -109,6 +134,11 @@ class CDTrainer:
         self.val_loader = BatchLoader(val_arrays, args.batch_size,
                                       pad_to_multiple=pad, shard=shard)
 
+        self._train_arrays = train_arrays
+        self._staged_train = None  # the scan path's staged data and steps
+        self._train_graph = None
+        self._val_scan = self._val_tail = None
+        self.last_epoch_losses = None  # each batch's loss, last epoch
         self.epoch_to_start = 0
         self.best_val_acc = 0.0
         self.best_epoch_id = 0
@@ -145,6 +175,108 @@ class CDTrainer:
                                     self.n_class)
         return loss.detach(), cm
 
+    def _stage_train(self) -> None:
+        """The training set on the device once (engine.py:208-221): trimmed
+        to a multiple of the world size; each rank holds its contiguous
+        shard, as the JAX arrays shard over ``data``."""
+        rank, world = self.mesh.shard if self.mesh else (0, 1)
+        n = len(self._train_arrays["a"])
+        self._staged_n = (n // world) * world
+        local = self._staged_n // world
+        self._staged_train = tuple(
+            torch.from_numpy(np.ascontiguousarray(
+                self._train_arrays[k][rank * local:(rank + 1) * local]))
+            .to(self.device) for k in ("a", "b", "label"))
+
+    def _epoch_perm(self, epoch: int, n_batches: int, bs: int) -> np.ndarray:
+        """Shuffled batch indices (n_batches, bs), JAX's draw
+        (engine.py:223-245): one global permutation, or under a mesh of d
+        ranks each shard permuted alone and every batch taking bs / d
+        shard-local indices from each shard, rank order."""
+        rng = np.random.default_rng(
+            getattr(self.args, "seed", 0) * 100003 + epoch)
+        d = self.mesh.world_size if self.mesh else 1
+        if d == 1:
+            return rng.permutation(self._staged_n)[: n_batches * bs].reshape(
+                n_batches, bs)
+        n_local = self._staged_n // d
+        per_dev = bs // d
+        cols = []
+        for _ in range(d):
+            cols.append(rng.permutation(n_local)[: n_batches * per_dev]
+                        .reshape(n_batches, per_dev))
+        return np.concatenate(cols, axis=1)
+
+    def _scan_step(self, n_batches: int, per_rank: int) -> StepGraph:
+        """The captured step over the staged data (built once): the batch
+        gather by the epoch's index row ``slot`` and ``train_step``, the
+        loss and matrix written to buffers on the device."""
+        if self._train_graph is None:
+            dev = self.device
+            self._perm = torch.zeros((n_batches, per_rank), dtype=torch.long,
+                                     device=dev)
+            self._losses = torch.zeros(n_batches, device=dev)
+            self._cm = torch.zeros((self.n_class,) * 2, dtype=torch.long,
+                                   device=dev)
+
+            def body(slot):
+                i = slot.view(1)
+                idx = self._perm.index_select(0, i).view(-1)
+                loss, cm = self.train_step(
+                    *(t.index_select(0, idx) for t in self._staged_train))
+                self._losses.index_copy_(0, i, loss.view(1))
+                self._cm.add_(cm)
+
+            self._train_graph = StepGraph(
+                body, dev, "train step",
+                generators=(self.aug_generator, self.dropout_generator),
+                keep=(self.model,), optimizer=self.optimizer,
+                warmup=11 if self.mesh else 3)
+        return self._train_graph
+
+    def _progress_line(self, epoch, timer, done_img, done, total, mf1,
+                       loss) -> None:
+        el = timer.elapsed()
+        rem = (total - done) + total * max(self.max_epochs - 1 - epoch, 0)
+        self.logger.write(
+            f"Is_training: True. [{epoch},{done}][{total}], "
+            f"imps: {done_img / max(el, 1e-9):.2f}, "
+            f"est: {el / max(done, 1) * rem / 3600.0:.4f}h, "
+            f"G_loss: {loss:.5f}, running_mf1: {mf1:.5f}\n")
+
+    def _scan_epoch(self, epoch: int, timer: Timer):
+        """The staged epoch (engine.py:327-384): ``log_chunks`` chunks of
+        steps, a progress line after each but the last. Returns (matrix,
+        per-batch losses, pairs)."""
+        if self._staged_train is None:
+            self._stage_train()
+        bs = self.args.batch_size
+        rank, world = self.mesh.shard if self.mesh else (0, 1)
+        per = bs // world
+        n_batches = self._staged_n // bs
+        cm = torch.zeros((self.n_class,) * 2, dtype=torch.long,
+                         device=self.device)
+        if n_batches == 0:
+            return cm, torch.zeros(0), 0
+        perm = self._epoch_perm(epoch, n_batches, bs)
+        step = self._scan_step(n_batches, per)
+        self._perm.copy_(torch.from_numpy(
+            np.ascontiguousarray(perm[:, rank * per:(rank + 1) * per])))
+        self._cm.zero_()
+        step.reset()
+        chunks = max(int(getattr(self.args, "log_chunks", 1) or 1), 1)
+        chunk = max(1, -(-n_batches // chunks))
+        for start in range(0, n_batches, chunk):
+            end = min(start + chunk, n_batches)
+            for _ in range(start, end):
+                step()
+            if end < n_batches:  # the epoch line follows the last chunk
+                self._progress_line(
+                    epoch, timer, end * bs, end, n_batches,
+                    cm2score(self._cm.cpu().numpy())["mf1"],
+                    self._losses[:end].mean().item())
+        return self._cm.clone(), self._losses.clone(), n_batches * bs
+
     def train_one_epoch(self, epoch: int) -> dict:
         lr = epoch_lr(self.args.lr, epoch, self.args.lr_policy,
                       self.max_epochs)
@@ -159,31 +291,12 @@ class CDTrainer:
                 [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
             prof = profile(activities=acts)
             prof.__enter__()
-        log_every = int(getattr(self.args, "log_every", 100) or 0)
-        vis_every = int(getattr(self.args, "vis_train_every", 0) or 0)
-        n_batches = len(self.train_loader)
-        cm_dev = torch.zeros((self.n_class,) * 2, dtype=torch.long,
-                             device=self.device)
-        losses, n_img = [], 0
         timer = Timer()
-        for bi, batch in enumerate(self.train_loader):
-            loss, cm = self.train_step(*self._to_device(batch))
-            cm_dev += cm
-            losses.append(loss)
-            n_img += self.train_loader.real_rows(bi)
-            if log_every and (bi + 1) % log_every == 0:
-                el = timer.elapsed()
-                rem = (n_batches - bi - 1) + n_batches * max(
-                    self.max_epochs - 1 - epoch, 0)
-                self.logger.write(
-                    f"Is_training: True. [{epoch},{bi + 1}][{n_batches}], "
-                    f"imps: {n_img / max(el, 1e-9):.2f}, "
-                    f"est: {el / (bi + 1) * rem / 3600.0:.4f}h, "
-                    f"G_loss: {torch.stack(losses).mean().item():.5f}, "
-                    f"running_mf1: {cm2score(cm_dev.cpu().numpy())['mf1']:.5f}"
-                    "\n")
-            if vis_every and (bi + 1) % vis_every == 0 and self.main:
-                self._save_train_vis(batch, epoch, bi + 1)
+        world = self.mesh.world_size if self.mesh else 1
+        if self.scan and self.args.batch_size % world == 0:  # scan_ok
+            cm_dev, losses, n_img = self._scan_epoch(epoch, timer)
+        else:
+            cm_dev, losses, n_img = self._loader_epoch(epoch, timer)
         scores = cm2score(cm_dev.cpu().numpy())
         imps = timer.images_per_sec(n_img)
         if prof is not None:
@@ -191,7 +304,8 @@ class CDTrainer:
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
             self.logger.write(f"profiler trace written to {profile_dir}\n")
-        mean_loss = torch.stack(losses).mean().item() if losses else 0.0
+        self.last_epoch_losses = losses
+        mean_loss = losses.mean().item() if len(losses) else 0.0
         self.logger.write(
             f"Is_training: True. Epoch {epoch} / {self.max_epochs - 1}, "
             f"epoch_mF1= {scores['mf1']:.5f}, imps: {imps:.2f}, "
@@ -201,6 +315,30 @@ class CDTrainer:
             np.save(os.path.join(self.checkpoint_dir, "train_acc.npy"),
                     np.asarray(self.train_acc_curve, np.float32))
         return {**scores, "imps": imps, "loss": mean_loss}
+
+    def _loader_epoch(self, epoch: int, timer: Timer):
+        """The per-batch epoch: the loader's batches copied to the device
+        one by one. Returns (matrix, per-batch losses, pairs)."""
+        log_every = int(getattr(self.args, "log_every", 100) or 0)
+        vis_every = int(getattr(self.args, "vis_train_every", 0) or 0)
+        n_batches = len(self.train_loader)
+        cm_dev = torch.zeros((self.n_class,) * 2, dtype=torch.long,
+                             device=self.device)
+        losses, n_img = [], 0
+        for bi, batch in enumerate(self.train_loader):
+            loss, cm = self.train_step(*self._to_device(batch))
+            cm_dev += cm
+            losses.append(loss)
+            n_img += self.train_loader.real_rows(bi)
+            if log_every and (bi + 1) % log_every == 0:
+                self._progress_line(
+                    epoch, timer, n_img, bi + 1, n_batches,
+                    cm2score(cm_dev.cpu().numpy())["mf1"],
+                    torch.stack(losses).mean().item())
+            if vis_every and (bi + 1) % vis_every == 0 and self.main:
+                self._save_train_vis(batch, epoch, bi + 1)
+        losses = torch.stack(losses) if losses else torch.zeros(0)
+        return cm_dev, losses, n_img
 
     def _save_train_vis(self, batch, epoch: int, batch_id: int) -> None:
         """A | B | GT rows of one batch as a JPEG (models/trainer.py:196-204)."""
@@ -216,21 +354,39 @@ class CDTrainer:
         Image.fromarray(grid).save(
             os.path.join(vis_dir, f"train_e{epoch}_b{batch_id}.jpg"))
 
+    def _eval_cm(self, a_u8, b_u8, l_u8) -> torch.Tensor:
+        """The confusion matrix of the eval forward (running statistics;
+        K1 without saves) on one uint8 batch on the device."""
+        a, b, label = augment_pairs(a_u8, b_u8, l_u8, train=False,
+                                    dtype=self.dtype)
+        return batch_confusion_matrix(
+            final_logits(self.model(a, b)).argmax(-1), label, self.n_class)
+
     @torch.inference_mode()
     def validate(self, epoch: int) -> dict:
-        """The eval forward (running statistics; K1 without saves)."""
+        """Every validation batch through ``_eval_cm``; under
+        ``--scan_epoch`` the full batches, staged once, as replays of a
+        captured forward (``EvalScan``) and the ragged tail per batch. The
+        summed matrix stays on ``self.confusion_matrix``."""
         cm = torch.zeros((self.n_class,) * 2, dtype=torch.long,
                          device=self.device)
-        for batch in self.val_loader:
-            a_u8, b_u8, l_u8 = self._to_device(batch)
-            a, b, label = augment_pairs(a_u8, b_u8, l_u8, train=False,
-                                        dtype=self.dtype)
-            cm += batch_confusion_matrix(
-                final_logits(self.model(a, b)).argmax(-1), label,
-                self.n_class)
+        batches = self.val_loader
+        if self.scan:
+            if self._val_tail is None:
+                stack, self._val_tail = stage_full_batches(
+                    self.val_loader, ("a", "b", "label"), self.device)
+                if stack is not None:
+                    self._val_scan = EvalScan(self._eval_cm, stack,
+                                              self.n_class, self.device)
+            if self._val_scan is not None:
+                cm += self._val_scan()
+            batches = self._val_tail
+        for batch in batches:
+            cm += self._eval_cm(*self._to_device(batch))
         if self.mesh:  # filler rows carry label 255, which no class counts
             reduce_sum_(cm)
-        scores = cm2score(cm.cpu().numpy())
+        self.confusion_matrix = cm.cpu().numpy()
+        scores = cm2score(self.confusion_matrix)
         self.logger.write(
             f"Is_training: False. Epoch {epoch} / {self.max_epochs - 1}, "
             f"epoch_mF1= {scores['mf1']:.5f}\n")

@@ -12,6 +12,12 @@ models/trainer.py:39-40 and models/networks.py:22-49):
     an applied update.
   * ``epoch_lr`` (linear / step / multistep / constant), ``poly_lr`` and
     ``sgdr_lr``: the same curves as the JAX package.
+
+For a step captured as a CUDA graph (``train/graph.py``) the optimizer is
+built with ``capturable=True`` and its learning rate is a device tensor,
+which ``set_learning_rate`` writes in place: a graph captured in one epoch
+then reads each later epoch's rate. The clip reads nothing from the host
+on any step.
 """
 from __future__ import annotations
 
@@ -63,7 +69,11 @@ def sgdr_lr(base_lr: float, step: int, cycle_steps: int,
 
 class AdamW(torch.optim.AdamW):
     """torch AdamW with an optional global-norm clip of the gradients before
-    each step (``clip_norm``; None = no clip)."""
+    each step (``clip_norm``; None = no clip).
+
+    A checkpoint's state loads into either mode: the learning rate is saved
+    as a number, and ``load_state_dict`` keeps this optimizer's own
+    ``capturable`` setting, learning-rate tensor and ``step`` placement."""
 
     def __init__(self, params, clip_norm: Optional[float] = None, **kwargs):
         super().__init__(params, **kwargs)
@@ -75,24 +85,51 @@ class AdamW(torch.optim.AdamW):
             grads = [p.grad for g in self.param_groups for p in g["params"]
                      if p.grad is not None]
             norm = torch.sqrt(sum(gr.float().square().sum() for gr in grads))
-            scale = self.clip_norm / torch.maximum(
-                norm, torch.tensor(self.clip_norm, device=norm.device))
+            scale = self.clip_norm / norm.clamp_min(self.clip_norm)
             for gr in grads:
                 gr.mul_(scale)
         return super().step(closure)
 
+    def state_dict(self):
+        sd = super().state_dict()
+        for g in sd["param_groups"]:
+            g["lr"] = float(g["lr"])
+        return sd
+
+    def load_state_dict(self, state_dict) -> None:
+        own = [(g["capturable"], g["lr"]) for g in self.param_groups]
+        super().load_state_dict(state_dict)
+        for g, (capturable, lr) in zip(self.param_groups, own):
+            saved = float(g["lr"])
+            g["capturable"] = capturable
+            g["lr"] = lr.fill_(saved) if torch.is_tensor(lr) else saved
+            for p in g["params"]:
+                st = self.state.get(p, {})
+                if "step" in st:  # on the device only when capturable
+                    st["step"] = st["step"].to(
+                        p.device if capturable else "cpu", torch.float32)
+
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                    weight_decay: float = 0.01, b1: float = 0.9,
-                   b2: float = 0.999, clip_norm: Optional[float] = None
-                   ) -> AdamW:
+                   b2: float = 0.999, clip_norm: Optional[float] = None,
+                   capturable_on: Optional[torch.device] = None) -> AdamW:
+    """AdamW as the module docstring says; ``capturable_on`` (a CUDA
+    device) builds it for graph capture, its learning rate a tensor there."""
+    if capturable_on is not None:
+        lr = torch.tensor(float(lr), device=capturable_on)
     return AdamW(params, clip_norm=clip_norm, lr=lr, betas=(b1, b2), eps=1e-8,
-                 weight_decay=weight_decay)
+                 weight_decay=weight_decay,
+                 capturable=capturable_on is not None)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's rate; a tensor rate is written in place."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def current_learning_rate(optimizer: torch.optim.Optimizer) -> float:

@@ -2,7 +2,7 @@
 
 Counterpart of dahitra_tpu/train/xbd_engine.py (``XBDTrainer`` :62-445 and
 ``GANTrainer`` :446-574; the reference's xBD_code/train.py:247-470,
-train_loc.py, train_adapt.py and train_GAN.py), per-batch path. Tasks:
+train_loc.py, train_adapt.py and train_GAN.py). Tasks:
 
   * ``damage``: each step the uint8 batch goes to the device and is
     augmented there (``data/xbd_augment.py``, with ``--elastic`` the gated
@@ -35,6 +35,17 @@ train_loc.py, train_adapt.py and train_GAN.py), per-batch path. Tasks:
     the discriminator step's fake pass takes the running statistics its
     real pass left. ``best_ckpt_D.pt`` is saved beside ``best_ckpt.pt`` and
     resumed.
+
+``--scan_epoch`` (``XBDTrainer``, every task above; xbd_engine.py:310-365)
+trains the epoch in chunks, in JAX's order: ``_scan_chunks`` draws the
+epoch's permutation (``seed * 100003 + epoch``), drops the ragged last
+batch and cuts ``--scan_chunk_batches`` batches a chunk (by default
+ceil(256 / batch size)); each chunk is copied into buffers on the device and
+each of its steps is one replay of a CUDA graph that selects the step's
+batch and runs ``train_step`` (``train/graph.py``; AdamW ``capturable``),
+eagerly on the CPU. A progress line follows each chunk but the last.
+``GANTrainer``'s epoch has no such path in JAX (:555-574), and
+``--scan_epoch`` changes nothing there. Validation is per batch, as in JAX.
 
 ``validate``: per image the localization dice at threshold ``loc_thr``
 (0.3), and per damage class tp / fp / fn over the ground-truth building
@@ -93,6 +104,7 @@ from dahitra_tpu_torch.models.discriminator import Discriminator
 from dahitra_tpu_torch.models.registry import define_g
 from dahitra_tpu_torch.nn.blocks import resize_bilinear, set_dropout_generator
 from dahitra_tpu_torch.nn.init import init_random, zoo_ctor_init
+from dahitra_tpu_torch.train.graph import StepGraph
 from dahitra_tpu_torch.train.optim import (XBD_MULTISTEP_MILESTONES, epoch_lr,
                                            make_optimizer, set_learning_rate)
 from dahitra_tpu_torch.utils import Logger, Timer, disable_tf32, resolve_device
@@ -171,6 +183,9 @@ def xview2_scores(dice: float, tp, fp, fn) -> Dict[str, object]:
 
 
 class XBDTrainer:
+    # --scan_epoch takes the chunked epoch (the GAN's epoch has none)
+    has_scan_path = True
+
     def __init__(self, args, train_arrays: Dict[str, np.ndarray],
                  val_arrays: Dict[str, np.ndarray], device="cuda",
                  task: str = "damage", mesh=None):
@@ -208,12 +223,22 @@ class XBDTrainer:
         if warm:
             self.warm_start_from(warm)
         self.model.to(self.device)
+        self.scan = bool(getattr(args, "scan_epoch", False)) \
+            and self.has_scan_path
         # the module each step runs: DDP over the ranks, or the model
-        self.net = wrap_ddp(self.model, mesh)
+        self.net = wrap_ddp(self.model, mesh, capture=self.scan)
         self.base_lr = args.lr if args.lr else (
             1e-4 if task == "damage" else 1.5e-4)
-        self.optimizer = make_optimizer(self.model.parameters(), self.base_lr,
-                                        weight_decay=1e-6, clip_norm=0.999)
+        if self.scan and mesh and mesh.backend == "gloo" \
+                and self.device.type == "cuda":
+            raise ValueError(
+                "--scan_epoch: gloo stages collectives on CUDA tensors "
+                "through host memory, which a CUDA graph cannot capture; "
+                "run the ranks under NCCL")
+        self.optimizer = make_optimizer(
+            self.model.parameters(), self.base_lr, weight_decay=1e-6,
+            clip_norm=0.999, capturable_on=self.device
+            if self.scan and self.device.type == "cuda" else None)
         self.aug_generator = torch.Generator(device=self.device)
         self.aug_generator.manual_seed(seed)
         self.dropout_generator = torch.Generator(device=self.device)
@@ -227,6 +252,9 @@ class XBDTrainer:
         self.val_loader = BatchLoader(
             val_arrays, getattr(args, "val_batch_size", args.batch_size),
             pad_to_multiple=world if world > 1 else None, shard=shard)
+        self._train_arrays = train_arrays
+        self._chunk = self._chunk_step = None  # the scan path's buffers, step
+        self.last_epoch_losses = None  # each batch's loss, last epoch
         self.best_score = 0.0
         self.epoch_to_start = 0
         self._maybe_resume()
@@ -317,17 +345,96 @@ class XBDTrainer:
             return loc, zero, zero, zero
         return damage_counts(probs, masks, lbl_i, self.thr, valid)
 
+    def _scan_chunks(self, epoch: int):
+        """Host chunks of stacked shuffled batches (k, B, ...) per key, in
+        JAX's order (xbd_engine.py:310-329): ``drop_last``, chunks of
+        ``scan_chunk_batches`` batches or ceil(256 / B)."""
+        bs = self.args.batch_size
+        n = len(next(iter(self._train_arrays.values())))
+        n_batches = n // bs  # drop_last, like the loader
+        rng = np.random.default_rng(
+            getattr(self.args, "seed", 0) * 100003 + epoch)
+        order = rng.permutation(n)[: n_batches * bs]
+        chunk_b = max(1, int(getattr(self.args, "scan_chunk_batches", 0))
+                      or min(n_batches, max(1, (256 + bs - 1) // bs)))
+        keys = ("img_pre", "img_post", "msk", "lbl_msk")
+        for start in range(0, n_batches, chunk_b):
+            idx = order[start * bs:(start + chunk_b) * bs]
+            k = len(idx) // bs
+            yield tuple(
+                self._train_arrays[key][idx].reshape(
+                    (k, bs) + self._train_arrays[key].shape[1:])
+                for key in keys)
+
+    def _chunk_graph(self) -> StepGraph:
+        """The captured step over the chunk buffers (built once, after the
+        first chunk is copied in): the ``slot``-th batch of the chunk
+        through ``train_step``, its loss written to a buffer on the
+        device."""
+        if self._chunk_step is None:
+            self._chunk_losses = torch.zeros(self._chunk[0].shape[0],
+                                             device=self.device)
+
+            def body(slot):
+                i = slot.view(1)
+                loss = self.train_step(
+                    *(t.index_select(0, i)[0] for t in self._chunk))
+                self._chunk_losses.index_copy_(0, i, loss.view(1))
+
+            self._chunk_step = StepGraph(
+                body, self.device, "xBD train step",
+                generators=(self.aug_generator, self.dropout_generator),
+                keep=(self.model,), optimizer=self.optimizer,
+                warmup=11 if self.mesh else 3)
+        return self._chunk_step
+
+    def _scan_epoch(self, epoch: int, timer: Timer) -> list:
+        """The chunked epoch (xbd_engine.py:338-365): each chunk (the
+        rank's rows of its batches) copied into buffers on the device sized
+        by the first, then one step per batch. Returns each batch's loss."""
+        rank, world = self.mesh.shard if self.mesh else (0, 1)
+        bs = self.args.batch_size
+        rows = slice(rank * bs // world, (rank + 1) * bs // world)
+        n_total = len(self._train_arrays["img_pre"]) // bs
+        losses = []
+        for chunk in self._scan_chunks(epoch):
+            chunk = [torch.from_numpy(np.ascontiguousarray(c[:, rows]))
+                     for c in chunk]
+            if self._chunk is None:
+                self._chunk = [torch.empty(c.shape, dtype=c.dtype,
+                                           device=self.device) for c in chunk]
+            k = chunk[0].shape[0]
+            for buf, c in zip(self._chunk, chunk):
+                buf[:k].copy_(c)
+            step = self._chunk_graph()
+            step.reset()
+            for _ in range(k):
+                step()
+            losses += self._chunk_losses[:k].tolist()
+            if len(losses) < n_total:  # mid-epoch progress line
+                self.logger.write(
+                    f"epoch {epoch} [{len(losses)}/{n_total}] "
+                    f"imps: {len(losses) * bs / max(timer.elapsed(), 1e-9):.2f}"
+                    f", Loss {float(np.mean(losses)):.4f}\n")
+        return losses
+
     def train_one_epoch(self, epoch: int) -> dict:
         lr = epoch_lr(self.base_lr, epoch, "multistep", self.max_epochs,
                       milestones=XBD_MULTISTEP_MILESTONES, gamma=0.6,
                       after_epoch_step=True)
         set_learning_rate(self.optimizer, lr)
-        losses, n_img = [], 0
         timer = Timer()
-        for bi, batch in enumerate(self.train_loader):
-            losses.append(self.train_step(*self._to_device(batch)))
-            n_img += self.train_loader.real_rows(bi)
-        mean_loss = torch.stack(losses).mean().item() if losses else 0.0
+        if self.scan:
+            losses = torch.tensor(self._scan_epoch(epoch, timer))
+            n_img = len(losses) * self.args.batch_size
+        else:
+            losses, n_img = [], 0
+            for bi, batch in enumerate(self.train_loader):
+                losses.append(self.train_step(*self._to_device(batch)))
+                n_img += self.train_loader.real_rows(bi)
+            losses = torch.stack(losses) if losses else torch.zeros(0)
+        self.last_epoch_losses = losses
+        mean_loss = losses.mean().item() if len(losses) else 0.0
         imps = timer.images_per_sec(n_img)
         self.logger.write(f"epoch: {epoch}; lr {lr:.7f}; Loss {mean_loss:.4f}; "
                           f"imps: {imps:.2f}\n")
@@ -397,6 +504,7 @@ class GANTrainer(XBDTrainer):
 
     # The discriminator updates at the epoch's batch indices i % 8 == 0.
     disc_every = 8
+    has_scan_path = False
 
     def __init__(self, args, train_arrays, val_arrays, device="cuda",
                  effective_gan: bool = False, mesh=None):

@@ -7,6 +7,9 @@ imports no JAX, so it also runs where JAX is absent:
 
 Tolerances, scale-normalized: forward fp32 1e-4 (summation order) and bf16
 2e-2; gradients fp32 1e-4 and bf16 6e-2 (tests/test_decoder_vjp.py:27-30).
+The host-free step's replays (``--scan_epoch``, CUDA graphs with the
+kernels inside) are held to eager steps bit for bit: the same kernels on
+the same inputs, cuDNN deterministic.
 """
 import pytest
 import torch
@@ -732,3 +735,87 @@ def test_changeformer_v6_multi_scale_step_on_the_card(card, tmp_path, dtype):
         del trainer
     torch.backends.cudnn.deterministic = False
     assert np.isfinite(losses[0]) and losses[0] == losses[1]
+
+
+def _graph_arrays(keys, n, s, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shapes = {"a": (3,), "b": (3,), "label": (), "img_pre": (3,),
+              "img_post": (3,), "msk": (5,), "lbl_msk": ()}
+    top = {"label": 2, "msk": 2, "lbl_msk": 4}
+    return {k: rng.integers(0, top.get(k, 256), (n, s, s) + shapes[k])
+            .astype(np.uint8) for k in keys}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pallas", [False, True])
+def test_cd_scan_epoch_replays_equal_eager_steps(card, tmp_path, dtype,
+                                                 pallas):
+    """``--scan_epoch`` on the card: every step a replay of the captured
+    train step (K1-save, K2 and K3 inside; with ``pallas`` K4 and the
+    plain-stack backward), 3 of them at 64 px, batch 2, against eager
+    ``train_step``s in ``_epoch_perm`` order from a trainer of the same
+    seed: the same bits (cuDNN deterministic)."""
+    from dahitra_tpu_torch.tools import graph_checks as gc
+
+    arrays = _graph_arrays(("a", "b", "label"), 7, 64, 0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for graphed in (True, False):
+            cfg = dict(n_class=2, checkpoint_dir=str(tmp_path / str(graphed)),
+                       max_epochs=1, net_G="newUNetTrans", img_size=64,
+                       lr=5e-4, batch_size=2, lr_policy="linear",
+                       device="cuda", seed=0, bf16=dtype == torch.bfloat16)
+            tr = gc.cd_trainer(cfg, arrays, pallas=pallas)
+            runs.append(gc.cd_steps(tr, graphed))
+            if graphed:
+                assert tr._train_graph.graph is not None
+            del tr
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert len(runs[0]["loss"]) == 3 and torch.isfinite(runs[0]["loss"]).all()
+    assert gc.differing(*runs) == []
+    assert torch.equal(runs[0]["cm"], runs[1]["cm"])
+
+
+def test_xbd_scan_epoch_replays_equal_eager_steps(card, tmp_path):
+    """``xbd_train --scan_epoch`` on the card: ``xbd_dahitra`` at 256 px,
+    batch 1, 3 tiles in chunks of 2, each step a replay, against eager
+    steps over ``_scan_chunks``: the same bits."""
+    from dahitra_tpu_torch.tools import graph_checks as gc
+
+    arrays = _graph_arrays(("img_pre", "img_post", "msk", "lbl_msk"), 3, 256,
+                           1)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for graphed in (True, False):
+            cfg = dict(checkpoint_dir=str(tmp_path / str(graphed)),
+                       max_epochs=1, net_G="xbd_dahitra", img_size=256,
+                       lr=0.0, batch_size=1, val_batch_size=1, device="cuda",
+                       seed=0, scan_chunk_batches=2)
+            runs.append(gc.xbd_steps(gc.xbd_trainer(cfg, arrays), graphed))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert len(runs[0]["loss"]) == 3 and torch.isfinite(runs[0]["loss"]).all()
+    assert gc.differing(*runs) == []
+
+
+def test_confusion_matrix_needs_no_host_sync(card):
+    """The batch and per-sample matrices count into fixed-size bins:
+    ``torch.bincount`` read the input's extremes back to the host, which a
+    CUDA graph cannot capture."""
+    from dahitra_tpu_torch.metrics.confusion import (
+        batch_confusion_matrix, per_sample_confusion_matrix)
+
+    pred = torch.randint(0, 2, (2, 8, 8), device=card)
+    gt = torch.randint(0, 2, (2, 8, 8), device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch_confusion_matrix(pred, gt, 2)
+        per_sample_confusion_matrix(pred, gt, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -375,7 +375,7 @@ def test_main_cd_default_device_without_cuda_raises(synthetic_tree,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main_cd.main(_argv(synthetic_tree))
     help_text = main_cd.build_parser().format_help()
-    assert "no effect here" in help_text and "--device" in help_text
+    assert "CUDA-graph replay" in help_text and "--device" in help_text
 
 
 def test_train_step_batch_of_one_takes_cross_entropy(tmp_path, few_threads):
