@@ -15,9 +15,10 @@ the xBD stack (``xbd_train --task loc | adapt | gan``, ``--elastic``,
 (SE-ResNeXt50, SENet154 and DPN92 UNets, the xBD UNet change transformers,
 Dual-HRNet with ``xbd_train --task hrnet``), data parallelism
 (``core/mesh.py``: ``--gpu_ids``, DDP, global BatchNorm statistics, the
-padded loader), and the host-free step (``--scan_epoch``,
+padded loader), the host-free step (``--scan_epoch``,
 ``eval_models(scan=True)``: CUDA-graph replays of the train and eval
-steps). ``--phases`` runs the phases it lists (every phase
+steps), and the space axis (``nn/space.py``: image rows sharded over the
+ranks of a grid, with halo exchanges and the rank-split K3). ``--phases`` runs the phases it lists (every phase
 without it), with the phases whose output they read (``PHASE_NEEDS``) and
 phase 1; the kernels are built in every selection. Phases, each fatal on
 failure:
@@ -177,8 +178,8 @@ failure:
      with ``fast_vjp = False`` (0 K1, logits within 1e-3 of the K1 path's)
      and ``count_params`` for every ported key (the card's allocated memory
      unchanged);
- 18. the xBD half of the zoo (``run_xbd_zoo_phase``) on phase 15's tiles,
-     batch 1, cuDNN deterministic, fp32 then bf16: one epoch of ``xbd_train
+ 18. the xBD half of the zoo (``run_xbd_zoo_phase``) on 4 seeded 1024 px
+     tiles of its own (phase 15's test tiles to predict), batch 1, cuDNN deterministic, fp32 then bf16: one epoch of ``xbd_train
      --task damage`` with ``xbd_seresnext50_double``, ``xbd_senet154_double``,
      ``xbd_dpn92_double`` and ``xbd_unet_change_transformer`` at 1024 px and
      ``xbd_unet_change_transformer_bit`` at 256 px (its feed-forward is
@@ -233,12 +234,29 @@ failure:
      the ``GRAPH_WARMUP`` warm-up steps and the capture, never a replay
      (the Python wrappers do not run then); the profiler's kernel rows
      count a replay's launches (``launches_per_replay`` in the kernels
-     line).
+     line);
+ 21. the space axis (``run_space_phase``, ``nn/space.py``), cuDNN
+     deterministic: two gloo ranks on cuda:0 (n_data 1, n_space 2; halos,
+     gathers and all-reduces staged through host memory), each holding half
+     the rows, against one process on the same card, weights and data: (a)
+     the ``newUNetTrans`` eval forward at 256 px, batch 8; (b) its
+     row-sharded ``CDTrainer.train_step`` on pairs with a painted change;
+     (c) ``xbd_dahitra``'s damage step at 1024 px, batch 1; (d) the
+     rank-split K3 at every tokenizer shape (a)-(c) send (the same token
+     bits on both ranks); (e) the replicated grid (``spatial=False``), each
+     in fp32 and bf16 ((e) fp32): the logits, the loss, every gradient leaf,
+     the updated BatchNorm statistics, each rank's launches (the rank-split
+     K3 3 a forward and the one-process K3 0 in the row-sharded runs, K1 6,
+     K1-save 6, K2 6), peak memory and warm step beside one process's;
+     then the rank-split K3's per-rank launches timed with two
+     ranks simulated in one process (``semantic_tokenizer_ranks`` in the
+     kernels line).
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10, 12, 13, 14, 15, 16, 17, 18, 20) and read just after (phase 19 reads
-each rank's counters before and after its run); the counters of the padded
-token counts (``NO_PAD``) must read 0 in every one of them. ``--profile`` adds a torch.profiler
+7, 9, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21) and read just after (phases 19
+and 21 read each rank's counters before and after its run); the counters of the padded
+token counts and of the rank-split K3 (``NO_PAD``) must read 0 in every one of
+them but phase 21's row-sharded runs, which launch the rank-split K3. ``--profile`` adds a torch.profiler
 breakdown of the batch-8 forward and of one batch-8 training step by kernel
 class, with the device's idle share, on the default path and with
 ``pallas = True``, and of one 1024 px xBD step of ``xbd_senet154_double``
@@ -346,7 +364,7 @@ WIDE_SHAPES = [(f"wide/l{tokens}h{heads}", 2 * BATCH, 4096, 8, heads, tokens,
 CALLS = {"bit/dd8": 2, "xbd_bit/s4": 2, "xbd_bit_tta/s4": 2}
 
 
-PHASES = range(1, 21)
+PHASES = range(1, 22)
 # What a phase reads from another: phase 4's tree and checkpoint, phase 5's
 # confusion matrix, phase 15's damage checkpoints. (Phase 7's splits and
 # phase 15's tiles are written for whichever phase reads them.)
@@ -440,29 +458,22 @@ def _reps(n: int) -> dict:
 
 
 def _reset_counts() -> None:
-    from dahitra_tpu_torch.kernels import folded_decoder as fd
-    from dahitra_tpu_torch.kernels import fused_decoder as kd
-    from dahitra_tpu_torch.kernels import fused_tokenizer as ft
+    from dahitra_tpu_torch.tools.mesh_checks import reset_launches
 
-    fd.launches = fd.launches_save = fd.launches_bwd = ft.launches = 0
-    fd.launches_pad = fd.launches_save_pad = fd.launches_bwd_pad = 0
-    kd.launches = kd.launches_pad = 0
+    reset_launches()
 
 
 # The pad counters (the main-path runs send no token count that the kernels
-# pad): every main-path run must read them 0.
-NO_PAD = {"k1_pad": 0, "k1_save_pad": 0, "k2_pad": 0, "k4_pad": 0}
+# pad) and the rank-split K3's (only phase 21's row-sharded runs split the
+# tokenizer over ranks): every other main-path run must read them 0.
+NO_PAD = {"k1_pad": 0, "k1_save_pad": 0, "k2_pad": 0, "k4_pad": 0,
+          "k3_ranks": 0}
 
 
 def _read_counts() -> dict:
-    from dahitra_tpu_torch.kernels import folded_decoder as fd
-    from dahitra_tpu_torch.kernels import fused_decoder as kd
-    from dahitra_tpu_torch.kernels import fused_tokenizer as ft
+    from dahitra_tpu_torch.tools.mesh_checks import launches
 
-    return {"k1": fd.launches, "k1_save": fd.launches_save,
-            "k2": fd.launches_bwd, "k3": ft.launches, "k4": kd.launches,
-            "k1_pad": fd.launches_pad, "k1_save_pad": fd.launches_save_pad,
-            "k2_pad": fd.launches_bwd_pad, "k4_pad": kd.launches_pad}
+    return launches()
 
 
 def _set_pallas(model, on: bool, n_decoders: int = 3) -> None:
@@ -2521,7 +2532,7 @@ def run_zoo_phase(torch, tmp, train_root, dtypes, cm5) -> dict:
     return by_phase
 
 
-# The xBD half of the zoo (phase 18) on phase 15's tiles, batch 1: (task,
+# The xBD half of the zoo (phase 18), batch 1: (task,
 # --net_G, image size). None of these models runs a decoder stack or a
 # tokenizer. xbd_unet_change_transformer_bit trains at 256 px: its channel
 # tokens are (img / 32)^2 wide and its feed-forward dim^2, 17.2 G parameters
@@ -2545,6 +2556,10 @@ XBD_ZOO_CHECKS = (("damage", "xbd_seresnext50_double"),
                   ("hrnet", "dual_hrnet"))
 XBD_ZOO_CHECK_IMG = 128
 XBD_ZOO_PREDICT = "xbd_senet154_double"
+# Phase 18's own seeded training tiles: half of phase 15's 8, so that an
+# epoch of each run is half as long and phases 1-21 stay inside the 1200 s
+# a smoke run may take (941 s with 8 tiles).
+XBD_ZOO_TILES = 4
 # Warm steps per run of phase 18 (3, down from phase 16's 5 since PR 16,
 # which added phase 19 within the run's 900 s).
 XBD_ZOO_TIMED = 3
@@ -2743,7 +2758,8 @@ def profile_xbd_zoo_steps(torch, tmp) -> dict:
 
 
 def run_xbd_zoo_phase(torch, tmp, dtypes) -> dict:
-    """Phase 18: the xBD half of the zoo on phase 15's tiles, batch 1,
+    """Phase 18: the xBD half of the zoo on ``XBD_ZOO_TILES`` seeded tiles
+    of its own (phase 15's test tiles to predict), batch 1,
     cuDNN deterministic, fp32 then bf16: for every run of
     ``XBD_ZOO_RUNS`` one epoch of ``xbd_train`` with a validation and
     ``XBD_ZOO_TIMED`` warm steps (median, range, peak memory; no decoder or
@@ -2755,9 +2771,13 @@ def run_xbd_zoo_phase(torch, tmp, dtypes) -> dict:
     from dahitra_tpu_torch.data.xbd import (load_xbd_pairs, scan_xbd_files,
                                             split_and_upsample)
 
+    from dahitra_tpu_torch.data.synthetic import write_synthetic_xbd
+
     t0 = time.time()
     root = os.path.join(tmp, "xbd")
-    data_root, test_root = (os.path.join(root, s) for s in ("train", "test"))
+    test_root = xbd_tiles(tmp)[1]
+    data_root = os.path.join(root, "zoo_train")
+    write_synthetic_xbd(data_root, XBD_ZOO_TILES, XBD_IMG, seed=0)
     ckpt_root = os.path.join(root, "ckpt_zoo")
     files = scan_xbd_files([data_root])
     n_val = len(split_and_upsample(files, seed=0)[1])
@@ -2811,9 +2831,11 @@ MESH_XBD_IMG = 256
 # decoders). With seeded weights the two dates' tokens there nearly agree,
 # so the difference memory |t2 - t1| of their decoders cancels: a bf16
 # rounding that a per-forward batch of 1 or a BatchNorm summation order
-# decides moves these leaves' bf16 gradients by most of the gradient's
-# scale within one process (phase 19c prints both readings; PERF.md).
-# Phase 19c holds the other leaves to the flat bf16 bound.
+# decides moves these leaves' bf16 gradients by a large part of the
+# gradient's scale within one process. The post tiles carry a painted
+# change; the tokens still agree to about a tenth there (phase 19c prints
+# the reading; PERF.md). Phase 19c holds the other leaves to the flat bf16
+# bound and prints how many of these are within it.
 MESH_BF16_UNHELD = ("resnet.conv1.", "resnet.bn1.", "resnet.layer1.",
                     "resnet.layer2.", "conv_layer2.", "conv_layer3.",
                     "conv_layer4.", "classifier.")
@@ -2931,83 +2953,118 @@ def _own_moves(torch, base, fn, module, name, n_images) -> tuple:
     return max(m[0] for m in moves), max(m[1] for m in moves)
 
 
-def _check_two_ranks(torch, got, kind, dname, net_g, ref, order, step,
-                     module, aug, n_images, by_phase) -> None:
-    """Phase 19b-c for one case: the two ranks' results ``got`` against
-    the one-process step ``ref`` (and, for c, ``order``: the one-process
-    step summing BatchNorm's statistics in the ranks' order, and the
-    tokens' cancellation). Loss, statistics and gradients at the flat
-    bounds (fp32 1e-5, 1e-5, 1e-4 of scale; bf16 2e-2, 2e-2, 6e-2); in
-    fp32, where a flat bound is passed, ROADMAP rule 5: twice the
-    one-process step's own largest move under four 1e-6 moves of its
-    augmented images. c in fp32 also holds the flat bounds against the
-    ranks' summation order; c in bf16 holds its gradients outside
-    ``MESH_BF16_UNHELD`` and prints the rest."""
+def _check_two_ranks(torch, got, ref, line, dname, moves=None, order=None,
+                     held=None, order_rounds_as_ranks=False) -> dict:
+    """Two ranks' results ``got`` against the one-process step ``ref``
+    (phases 19b-c and 21b, c and e): the loss, every gradient leaf and the
+    running statistics after the step at the flat bounds (fp32 1e-5, 1e-4
+    of scale, 1e-5; bf16 2e-2, 6e-2, 2e-2), in fp32, where a flat bound is
+    passed, ROADMAP rule 5 with ``moves()`` (twice the one-process step's
+    own largest move under four 1e-6 moves of its augmented images); both
+    ranks with the same gradient and statistics bits. Printed beside them:
+    each rank's launches, and where the runs measured them its peak memory,
+    warm step and staged collectives, and the confusion matrix's agreement.
+    Returns ``line`` with the readings and "ok".
+
+    ``order`` is (one process that sums BatchNorm's statistics in the
+    ranks' order, the tokens' cancellation or None); in fp32 the flat
+    bounds hold against it too. ``held`` names leaves (bf16
+    ``xbd_dahitra``: trans modules 3-4's path, whose dates' tokens nearly
+    cancel) that are printed against ``ref``, not held (the worst, how many
+    within the flat bound); the other leaves are held. With
+    ``order_rounds_as_ranks`` (phase 21c: rows split at batch 1, which
+    ``order`` rounds as the ranks do) the loss and every leaf are held at
+    the flat bounds against ``order``, and the loss against ``ref`` is
+    printed beside ``order``'s own move from it; otherwise (phase 19c, the
+    ranks at batch 1 where ``order`` runs 2, which cuDNN rounds otherwise
+    in bf16) the loss is held against ``ref``."""
     bf16 = dname == "bfloat16"
-    flat = GTOL["bfloat16"] if bf16 else 1e-4
-    s_flat = l_tol = TOL["bfloat16"] if bf16 else 1e-5
+    l_tol, g_flat, s_flat = ((TOL["bfloat16"], GTOL["bfloat16"],
+                              TOL["bfloat16"]) if bf16 else (1e-5, 1e-4, 1e-5))
 
     def loss_rel(a, b):
         return abs(float(a["loss"][0]) - float(b["loss"][0])) \
             / abs(float(b["loss"][0]))
 
-    held = _trans34_path if bf16 and kind == "c" else None
     keep = None if held is None else (lambda k: not held(k))
     loss_err = max(loss_rel(g, ref) for g in got)
     g_err = max(_scaled_max(g["grads"], ref["grads"], keep) for g in got)
     s_err = max(_scaled_max(g["stats"], ref["stats"]) for g in got)
     g_move = s_move = None
-    if not bf16 and (g_err > flat or s_err > s_flat):
-        g_move, s_move = _own_moves(torch, ref, step, module, aug, n_images)
-    g_tol = flat if g_move is None else max(flat, 2 * g_move)
+    if moves is not None and not bf16 and (g_err > g_flat or s_err > s_flat):
+        g_move, s_move = moves()
+    g_tol = g_flat if g_move is None else max(g_flat, 2 * g_move)
     s_tol = s_flat if s_move is None else max(s_flat, 2 * s_move)
-    dec, k3 = MESH_CALLS[net_g]
-    want = {**NO_PAD, "k1": 0, "k1_save": dec, "k2": dec, "k3": k3, "k4": 0}
-    out = {"mesh": f"{kind}_two_gloo_ranks", "net_G": net_g, "dtype": dname,
-           "joined_batch": BATCH if kind == "b" else 2,
-           "loss": float(ref["loss"][0]), "loss_rel_err": loss_err,
-           "loss_tol": l_tol, "grad_err": g_err, "grad_tol": g_tol,
-           "grad_bound": "flat" if g_tol == flat else
+    out = {**line, "dtype": dname, "loss": float(ref["loss"][0]),
+           "loss_rel_err": loss_err, "loss_tol": l_tol, "grad_err": g_err,
+           "grad_tol": g_tol,
+           "leaves_held": sum(keep is None or keep(k) for k in ref["grads"]),
+           "grad_bound": "flat" if g_tol == g_flat else
            "rule 5: twice the one-process step's own largest move",
            "own_grad_move": g_move, "stats_err": s_err, "stats_tol": s_tol,
            "own_stats_move": s_move,
+           "ranks_same_grads": _same_bits(got[0]["grads"], got[1]["grads"]),
            "ranks_same_stats": _same_bits(got[0]["stats"], got[1]["stats"]),
            "launches_per_rank": [g["launches"] for g in got],
            "launches_one_process": ref["launches"]}
-    ok = True
+    by_order = held is not None and order_rounds_as_ranks
+    ok = loss_err <= l_tol or by_order
     if order is not None:
         oref, cancel = order
         if cancel is not None:
             out["token_cancellation"] = cancel
-        out["rank_order"] = {
+        ro = out["rank_order"] = {
             "loss_rel_err": max(loss_rel(g, oref) for g in got),
             "grad_err": max(_scaled_max(g["grads"], oref["grads"])
                             for g in got),
             "stats_err": max(_scaled_max(g["stats"], oref["stats"])
                              for g in got),
-            "one_process_order_move": _scaled_max(oref["grads"],
-                                                  ref["grads"])}
-        if not bf16:
-            ro = out["rank_order"]
-            ok = (ro["loss_rel_err"] <= l_tol and ro["grad_err"] <= flat
-                  and ro["stats_err"] <= s_flat)
+            "one_process_order_move": {
+                "loss_rel": loss_rel(oref, ref),
+                "grads": _scaled_max(oref["grads"], ref["grads"]),
+                "grads_held": _scaled_max(oref["grads"], ref["grads"], keep)}}
+        if not bf16 or by_order:
+            ok = (ok and ro["loss_rel_err"] <= l_tol
+                  and ro["grad_err"] <= g_flat and ro["stats_err"] <= s_flat)
     if held is not None:
-        out["grad_bound"] = "flat, leaves off trans modules 3-4's path"
-        out["held_leaves"] = sum(not held(k) for k in ref["grads"])
+        out["loss_held"] = ("against one process in the ranks' BN order"
+                            if by_order else "against one process")
+        scale = max(float(v.float().abs().max())
+                    for v in ref["grads"].values())
+
+        def leaf_err(k):
+            return max(float((g["grads"][k].float().cpu()
+                              - ref["grads"][k].float().cpu()).abs().max())
+                       for g in got) / scale
+
         out["unheld_leaves"] = sum(held(k) for k in ref["grads"])
         out["unheld_grad_err"] = max(_scaled_max(g["grads"], ref["grads"],
                                                  held) for g in got)
         out["unheld_worst_leaf"] = _worst(got[0]["grads"], ref["grads"],
                                           held)
-        out["rank_order"]["one_process_order_move_held"] = _scaled_max(
-            order[0]["grads"], ref["grads"], keep)
-    print(json.dumps(out), flush=True)
-    if got[0]["launches"] == got[1]["launches"]:
-        by_phase[dname][f"mesh_{kind}"] = got[0]["launches"]
-    if not (ok and loss_err <= l_tol and g_err <= g_tol and s_err <= s_tol
-            and out["ranks_same_stats"]
-            and all(g["launches"] == want for g in got)):
-        fail(f"mesh ({kind}) {net_g} {dname}: {out}")
+        out["unheld_within_flat"] = sum(held(k) and leaf_err(k) <= g_flat
+                                        for k in ref["grads"])
+        out["unheld_outside_flat"] = sorted(
+            k for k in ref["grads"] if held(k) and leaf_err(k) > g_flat)
+    if "peak_bytes" in ref:
+        out.update({"peak_gib_per_rank": [g["peak_bytes"] / 2 ** 30
+                                          for g in got],
+                    "peak_gib_one_process": ref["peak_bytes"] / 2 ** 30})
+    if "step_s" in ref:
+        out.update({"warm_step_s_per_rank": [g["step_s"] for g in got],
+                    "warm_step_s_one_process": ref["step_s"],
+                    "warm_peak_gib_per_rank": [g["warm_peak_bytes"] / 2 ** 30
+                                               for g in got],
+                    "warm_peak_gib_one_process":
+                        ref["warm_peak_bytes"] / 2 ** 30,
+                    "staged_per_step_per_rank": [g["staged_per_step"]
+                                                 for g in got]})
+    if "cm" in ref and not bf16:
+        out["same_confusion_matrix"] = all(
+            torch.equal(g["cm"].cpu(), ref["cm"].cpu()) for g in got)
+    out["ok"] = bool(ok and g_err <= g_tol and s_err <= s_tol
+                     and out["ranks_same_grads"] and out["ranks_same_stats"])
+    return out
 
 
 def run_mesh_phase(torch, tmp, train_root, cm5) -> dict:
@@ -3050,8 +3107,10 @@ def run_mesh_phase(torch, tmp, train_root, cm5) -> dict:
     arrays = {"a": lev.a, "b": lev.b, "label": lev.label}
     rng = np.random.default_rng(19)
     s = MESH_XBD_IMG
+    # the post tiles with a painted change: the dates' tokens must differ
     xarrays = {"img_pre": rng.integers(0, 255, (2, s, s, 3), dtype=np.uint8),
-               "img_post": rng.integers(0, 255, (2, s, s, 3), dtype=np.uint8),
+               "img_post": paint_change(rng.integers(0, 255, (2, s, s, 3),
+                                                     dtype=np.uint8)),
                "msk": rng.integers(0, 2, (2, s, s, 5)).astype(np.uint8),
                "lbl_msk": rng.integers(0, 4, (2, s, s)).astype(np.uint8)}
 
@@ -3122,9 +3181,24 @@ def run_mesh_phase(torch, tmp, train_root, cm5) -> dict:
         print(json.dumps({"mesh": "two_gloo_ranks_launch",
                           "launch_s": launch_s, "cases": len(cases)}),
               flush=True)
-        for i, ref_case in enumerate(refs):
-            _check_two_ranks(torch, [r[i] for r in ranks], *ref_case,
-                             by_phase)
+        for i, (kind, dname, net_g, ref, order, step, mod, aug,
+                n_img) in enumerate(refs):
+            got = [r[i] for r in ranks]
+            line = _check_two_ranks(
+                torch, got, ref,
+                {"mesh": f"{kind}_two_gloo_ranks", "net_G": net_g,
+                 "joined_batch": BATCH if kind == "b" else 2}, dname,
+                lambda: _own_moves(torch, ref, step, mod, aug, n_img), order,
+                _trans34_path if dname == "bfloat16" and kind == "c"
+                else None)
+            print(json.dumps(line), flush=True)
+            dec, k3 = MESH_CALLS[net_g]
+            want = {**NO_PAD, "k1": 0, "k1_save": dec, "k2": dec, "k3": k3,
+                    "k4": 0}
+            if got[0]["launches"] == got[1]["launches"]:
+                by_phase[dname][f"mesh_{kind}"] = got[0]["launches"]
+            if not (line["ok"] and all(g["launches"] == want for g in got)):
+                fail(f"mesh ({kind}) {net_g} {dname}: {line}")
     finally:
         torch.backends.cudnn.deterministic = det
     ev = [r[-2] for r in ranks]
@@ -3224,6 +3298,322 @@ def run_mesh_phase(torch, tmp, train_root, cm5) -> dict:
             and not out_e["group_initialized"]):
         fail(f"mesh (e): --gpu_ids 0 differs from the direct run: {out_e}")
     return by_phase
+
+
+# Phase 21: the space axis (nn/space.py) on the one card: two gloo ranks of
+# one data row, each holding half the rows, against one process.
+SPACE_TIMED = 3  # warm steps timed after each step case
+# Tokenizer inputs a forward sends at (a)-(b) (256 px, batch 8: both dates
+# batch-stacked) and (c) (1024 px, batch 1), as (name, B, H, W) feature maps
+SPACE_K3 = [(f"r{img}/s{s}", 2 * b, img // s, img // s)
+            for img, b in ((IMG, BATCH), (XBD_IMG, 1)) for s in (4, 8, 16)]
+
+
+def space_arrays(n: int, img: int, seed: int, xbd: bool = False) -> dict:
+    """Seeded uint8 pairs: 16-pixel blocks of colour, the post image with a
+    building painted into its middle quarter (``paint_change``, the change
+    label)."""
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(0, 256, (n, img // 16, img // 16, 3), dtype=np.uint8)
+    pre = np.repeat(np.repeat(pre, 16, 1), 16, 2)
+    post = paint_change(pre)
+    label = np.zeros((n, img, img), np.uint8)
+    q = img // 4
+    label[:, q:3 * q, q:3 * q] = 1
+    if not xbd:
+        return {"a": pre, "b": post, "label": label}
+    msk = np.zeros((n, img, img, 5), np.uint8)
+    msk[..., 0] = msk[..., 2] = label
+    return {"img_pre": pre, "img_post": post, "msk": msk, "lbl_msk": label}
+
+
+def paint_change(post: np.ndarray) -> np.ndarray:
+    """``post`` with a building painted into its middle quarter, so that
+    the two dates' tokens differ there (ROADMAP §3, the bf16 xbd_dahitra
+    cancellation)."""
+    post = post.copy()
+    q = post.shape[1] // 4
+    post[:, q:3 * q, q:3 * q] = (200, 60, 30)
+    return post
+
+
+def check_k3_ranks(torch, dtype, gen) -> list:
+    """The rank-split K3 at phase 21's shapes (``SPACE_K3``), two ranks
+    simulated in one process: per rank the statistics and pool launches on
+    its half of the pixels; the gathered statistics are the two ranks'
+    joined. Held against ``semantic_tokenizer_ranks_plain`` (and the ranks'
+    M and S bit for bit); ``ms`` (back to back), ``device_ms`` (behind
+    queued work) and ``plain_ms`` are one rank's two launches and its plain
+    steps, ``library_ms`` one scaled_dot_product_attention call on the
+    rank's pixels; the bound is one rank's bytes and operations."""
+    import torch.nn.functional as F
+
+    from dahitra_tpu_torch.kernels import fused_tokenizer as ft
+
+    dname = str(dtype).split(".")[-1]
+    rows = []
+    for name, b, h, w in SPACE_K3:
+        n = h * w // 2
+        x = torch.randn(b, 2 * n, DIM, generator=gen).cuda().to(dtype)
+        wk = (torch.randn(DIM, TOKENS, generator=gen) * DIM ** -0.5
+              ).cuda().to(dtype)
+        parts = [p.contiguous() for p in x.split(n, 1)]
+        chunk = ft._chunk(b, n, ft._n_sm(0))
+        scratch = [ft._scratch(b, n, TOKENS, chunk, x.device) for _ in parts]
+        stats = torch.cat([ft.ranks_stats(p, wk, chunk, s)
+                           for p, s in zip(parts, scratch)], 1)
+        pooled = [ft.ranks_pool(p, wk, stats, chunk, s)
+                  for p, s in zip(parts, scratch)]
+        got = ft.sum_in_order([p for p, _ in pooled]).to(dtype)
+        ref = ft.semantic_tokenizer_ranks_plain(parts, wk, chunk)
+        torch.cuda.synchronize()
+        err, serr = scaled_err(got, ref)
+        if not (torch.isfinite(got.float()).all() and serr <= TOL[dname]
+                and torch.equal(pooled[0][1], pooled[1][1])):
+            fail(f"K3 ranks {name} {dname}: scaled error {serr:.3e} > "
+                 f"{TOL[dname]}, or the ranks' M and S differ")
+        x0, s0 = parts[0], scratch[0]
+        # both ranks' statistics, gathered once outside the timed calls
+        plain_stats = torch.cat([ft.chunk_stats_plain(p, wk, chunk)
+                                 for p in parts], 1)
+
+        def rank_launches():
+            ft.ranks_stats(x0, wk, chunk, s0)
+            ft.ranks_pool(x0, wk, stats, chunk, s0)
+
+        def rank_plain():
+            ft.chunk_stats_plain(x0, wk, chunk)
+            m, s = ft.combine_stats_plain(plain_stats)
+            ft.pool_plain(x0, wk, m, s, chunk)
+
+        q = wk.t().unsqueeze(0).expand(b, TOKENS, DIM)
+        itemsize = torch.finfo(dtype).bits // 8
+        nbytes = (b * n * DIM + DIM * TOKENS) * itemsize + b * TOKENS * DIM * 4
+        ops = b * n * (4 * DIM * TOKENS + 5 * TOKENS)
+        bms, by = bound(nbytes, ops, dname)
+        rows.append({
+            "shape": name, "B": b, "N_rank": n, "ranks": 2, "L": TOKENS,
+            "max_abs_err": err, "scaled_err": serr,
+            "ms": time_ms(rank_launches, torch, **_reps(n)),
+            "device_ms": time_ms(rank_launches, torch, queued=True,
+                                 **_reps(n)),
+            "plain_ms": time_ms(rank_plain, torch, **_reps(n)),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, x0, x0, scale=1.0), torch, **_reps(n))})
+    return rows
+
+
+def run_space_phase(torch, tmp) -> tuple:
+    """Phase 21 (``nn/space.py``), cuDNN deterministic on both sides. One
+    launch of two gloo ranks on cuda:0 (n_data 1, n_space 2; every halo,
+    gather and all-reduce staged through host memory) against one process
+    on the same card, weights and data: (a) the ``newUNetTrans`` eval
+    forward at 256 px, batch 8, fp32 and bf16 (the gathered logits at 1e-5
+    and 2e-2, beside one process's own move when it runs the batch in two
+    halves; each rank's launches: the rank-split K3 3, the one-process K3
+    0, K1 6); (b) its row-sharded ``CDTrainer.train_step`` on seeded pairs
+    with a painted change, both dtypes (``_check_two_ranks``: loss, every
+    gradient leaf, updated BN statistics; the rank-split K3 3, K1-save 6,
+    K2 6 a rank) and ``SPACE_TIMED`` warm steps on the host
+    clock; (c) ``xbd_dahitra``'s ``--task damage`` step at 1024 px, batch 1,
+    both dtypes; (d) the rank-split K3 in the ranks at every tokenizer
+    shape (a)-(c) send, fp32 and bf16: the same tokens bit for bit on both
+    ranks, tokens against the plain tokenizer of all the pixels and the
+    gradients against the one-process ``SemanticTokenizerFn`` on the card;
+    (e) the replicated grid (``spatial=False``), one ``newUNetTrans`` step
+    against one process. Returns (the launches per dtype and run, the K3
+    rank-split rows per dtype for the kernels line)."""
+    from dahitra_tpu_torch.core import mesh as mesh_mod
+    from dahitra_tpu_torch.kernels import fused_tokenizer as ft
+    from dahitra_tpu_torch.models.registry import define_g as _define_g
+    from dahitra_tpu_torch.tools import mesh_checks
+    from dahitra_tpu_torch.tools import space_checks as sc
+    from dahitra_tpu_torch.train import engine, xbd_engine
+
+    t_phase = time.time()
+    by_phase = {"float32": {}, "bfloat16": {}}
+    model = _define_g("newUNetTrans", img_size=IMG)
+    model.init_weights(torch.Generator().manual_seed(21))
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    rng = np.random.default_rng(21)
+    fwd_in = {k: rng.uniform(-1, 1, (BATCH, IMG, IMG, 3)).astype(np.float32)
+              for k in ("a", "b")}
+    cd_arrays = space_arrays(BATCH, IMG, 21)
+    xbd_arrays = space_arrays(1, XBD_IMG, 22, xbd=True)
+    k3 = [(b, h, w, TOKENS, 30 + i, d)
+          for d in ("float32", "bfloat16")
+          for i, (_, b, h, w) in enumerate(SPACE_K3)]
+
+    def cfg(tag, net_g, img, batch, dname, **kw):
+        return _mesh_cfg(tmp, f"space_{tag}_{dname}", net_g, img, batch,
+                         dname, **kw)
+
+    cases, refs = [], []
+    for dname in ("float32", "bfloat16"):
+        cases.append(("forward_rows", ("newUNetTrans", IMG, sd, fwd_in, dname,
+                                       False, None, True, "cuda:0")))
+        c = cfg("b", "newUNetTrans", IMG, BATCH, dname)
+        cases.append(("trainer_steps", ("cd", c, cd_arrays, True,
+                                        SPACE_TIMED)))
+        x = cfg("c", "xbd_dahitra", XBD_IMG, 1, dname, val_batch_size=1)
+        cases.append(("trainer_steps", ("xbd", x, xbd_arrays, True,
+                                        SPACE_TIMED)))
+    cases.append(("k3_ranks", (k3, "cuda:0")))
+    e_cfg = cfg("e", "newUNetTrans", IMG, BATCH, "float32")
+    cases.append(("trainer_steps", ("cd", e_cfg, cd_arrays, False, 0)))
+    for c in cases:
+        if isinstance(c[1][1], dict) and "checkpoint_dir" in c[1][1]:
+            os.makedirs(c[1][1]["checkpoint_dir"], exist_ok=True)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.time()
+        ranks = mesh_mod.launch(sc.run_cases, (cases, True),
+                                devices=["cuda:0", "cuda:0"], backend="gloo",
+                                timeout=600, n_space=2)
+        launch_s = time.time() - t0
+        # one-process references, the same functions with no mesh
+        for name, args in cases:
+            if name == "k3_ranks":
+                refs.append(None)
+                continue
+            if name == "forward_rows":
+                refs.append(sc.forward_rows(None, *args))
+                # one process on the batch in two halves: how far other
+                # shapes (cuDNN's choices) move the logits, no rows split
+                halves = [sc.forward_rows(None, *args[:3], {
+                    k: v[h] for k, v in args[3].items()}, *args[4:])["logits"]
+                    for h in (slice(0, BATCH // 2), slice(BATCH // 2, None))]
+                refs[-1]["batch_split_move"] = scaled_err(
+                    torch.cat(halves), refs[-1]["logits"])[1]
+            else:
+                refs.append(sc.trainer_steps(None, *args))
+                if args[0] == "xbd" and args[1].get("bf16"):
+                    # one process summing BatchNorm's statistics in the
+                    # ranks' order, and the tokens' cancellation
+                    with mesh_checks.rank_sums(2):
+                        order = sc.trainer_steps(None, *args[:4])
+                    refs[-1]["order"] = (order, mesh_checks.token_cancellation(
+                        args[1], args[2]))
+            _free(torch)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    print(json.dumps({"space": "two_gloo_ranks_launch", "launch_s": launch_s,
+                      "cases": len(cases), "staged_per_rank": [
+                          r[-1] for r in ranks]}), flush=True)
+    ok = True
+    dec, k3n = MESH_CALLS["newUNetTrans"]
+    xdec, xk3 = MESH_CALLS["xbd_dahitra"]
+    for i, (name, args) in enumerate(cases):
+        got = [r[i] for r in ranks]
+        ref = refs[i]
+        if name == "forward_rows":
+            dname = args[4]
+            errs = [scaled_err(g["whole"], ref["logits"].cpu())[1]
+                    for g in got]
+            tol = 1e-5 if dname == "float32" else TOL[dname]
+            want = {**NO_PAD, "k1": dec, "k1_save": 0, "k2": 0, "k3": 0,
+                    "k3_ranks": k3n, "k4": 0}
+            line = {"space": "a_eval_forward", "dtype": dname,
+                    "logits_scaled_err": max(errs), "tol": tol,
+                    "one_process_batch_split_move": ref["batch_split_move"],
+                    "rows_per_rank": [int(g["logits"].shape[1]) for g in got],
+                    "launches_per_rank": [g["launches"] for g in got],
+                    "launches_one_process": ref["launches"],
+                    "peak_gib_per_rank": [g["peak_bytes"] / 2 ** 30
+                                          for g in got],
+                    "peak_gib_one_process": ref["peak_bytes"] / 2 ** 30}
+            line["ok"] = bool(max(errs) <= tol and all(
+                g["launches"] == want for g in got) and all(
+                    r == IMG // 2 for r in line["rows_per_rank"]))
+            by_phase[dname]["space_eval_256"] = got[0]["launches"]
+        elif name == "k3_ranks":
+            line = _space_k3_line(torch, ft, sc, args[0], got)
+        else:
+            kind, c, arrays, spatial = args[:4]
+            dname = "bfloat16" if c.get("bf16") else "float32"
+            tag = ("e_replicated" if not spatial else
+                   "b_train_step" if kind == "cd" else "c_xbd_damage_1024")
+
+            def moves(kind=kind, args=args, ref=ref):
+                mod, aug, n_img = ((engine, "augment_pairs", 2)
+                                   if kind == "cd" else
+                                   (xbd_engine, "augment_xbd", 1))
+                return _own_moves(torch, ref, lambda: sc.trainer_steps(
+                    None, *args[:4], 0), mod, aug, n_img)
+
+            bf16_xbd = kind == "xbd" and dname == "bfloat16"
+            line = _check_two_ranks(
+                torch, got, ref, {"space": tag}, dname, moves,
+                ref.get("order"), _trans34_path if bf16_xbd else None,
+                order_rounds_as_ranks=True)
+            n_dec, n_k3 = (dec, k3n) if kind == "cd" else (xdec, xk3)
+            # the row-sharded runs split K3 over the ranks; the replicated
+            # one runs the one-process K3
+            want = {**NO_PAD, "k1": 0, "k1_save": n_dec, "k2": n_dec,
+                    "k3": 0 if spatial else n_k3,
+                    "k3_ranks": n_k3 if spatial else 0, "k4": 0}
+            line["ok"] = line["ok"] and line.get(
+                "same_confusion_matrix", True) and all(
+                    g["launches"] == want for g in got)
+            key = {"b_train_step": "space_train_256",
+                   "c_xbd_damage_1024": "space_xbd_1024",
+                   "e_replicated": "grid_replicated_256"}[tag]
+            by_phase[dname][key] = got[0]["launches"]
+        print(json.dumps(line), flush=True)
+        ok = ok and line["ok"]
+    k3_rows = {}
+    gen = torch.Generator().manual_seed(21)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        k3_rows[dname] = check_k3_ranks(torch, dtype, gen)
+        for r in k3_rows[dname]:
+            print(json.dumps({"check": f"k3_ranks[{dname}]", **r}), flush=True)
+    print(json.dumps({"space": "phase_s", "seconds": time.time() - t_phase}),
+          flush=True)
+    if not ok:
+        fail("space (phase 21): a row-sharded run differs from one process "
+             "(the lines above)")
+    return by_phase, k3_rows
+
+
+def _space_k3_line(torch, ft, sc, cases, got) -> dict:
+    """Phase 21d: the ranks' rank-split K3 at each case against the plain
+    tokenizer of all the pixels (tokens) and the one-process
+    ``SemanticTokenizerFn`` on the card (the joined pixel gradients, the
+    summed dw)."""
+    worst = {"tokens": 0.0, "dx": 0.0, "dw": 0.0}
+    same = True
+    ok = True
+    for j, (b, h, w, l, seed, dname) in enumerate(cases):
+        dtype = getattr(torch, dname)
+        x, wk, dt = sc.k3_inputs(b, h, w, l, seed)
+        xt = torch.from_numpy(x).cuda().to(dtype).reshape(b, h * w, 32)
+        xt.requires_grad_(True)
+        wt = torch.from_numpy(wk).cuda().to(dtype).requires_grad_(True)
+        tokens = ft.SemanticTokenizerFn.apply(xt, wt)
+        (tokens.float() * torch.from_numpy(dt).cuda()).sum().backward()
+        plain = ft.semantic_tokenizer_plain(xt.detach(), wt.detach())
+        r0, r1 = got[0][j], got[1][j]
+        same = same and bool(torch.equal(r0["tokens"], r1["tokens"]))
+        errs = {"tokens": scaled_err(r0["tokens"].cuda(), plain)[1],
+                "dx": scaled_err(torch.cat([r0["dx"], r1["dx"]], 1).cuda()
+                                 .reshape(b, h * w, 32), xt.grad)[1],
+                "dw": scaled_err((r0["dw"].float() + r1["dw"].float()).cuda(),
+                                 wt.grad)[1]}
+        ok = ok and errs["tokens"] <= TOL[dname] and max(
+            errs["dx"], errs["dw"]) <= GTOL[dname]
+        for k in worst:
+            worst[k] = max(worst[k], errs[k])
+    want = {**NO_PAD, "k1": 0, "k1_save": 0, "k2": 0, "k3": 0,
+            "k3_ranks": len(cases), "k4": 0}
+    launches = [g[-1] for g in got]
+    return {"space": "d_k3_rank_split", "cases": len(cases),
+            "shapes": SPACE_K3, "worst_scaled_err": worst,
+            "ranks_same_token_bits": same, "launches_per_rank": launches,
+            "ok": bool(ok and same and all(n == want for n in launches))}
 
 
 # Phase 20, the host-free step: graphed steps against eager ones.
@@ -3817,6 +4207,15 @@ def main() -> None:
                                              p5).items():
             by_phase[dname].update(phases)
 
+    started["21"] = time.time()
+    # 21. the space axis: two gloo ranks on the card, each holding half the
+    # rows, against one process; the rank-split K3
+    space_k3 = {}
+    if 21 in sel:
+        phases, space_k3 = run_space_phase(torch, tmp)
+        for dname, ph in phases.items():
+            by_phase[dname].update(ph)
+
     started["profile"] = time.time()
     if "--profile" in sys.argv[1:]:
         for net_g, project, n_dec in (("newUNetTrans", "smoke", 3),
@@ -3945,8 +4344,9 @@ def main() -> None:
             mlp64 = kid.endswith("_mlp64")
             pad = kid.endswith(("_pad", "_wide"))
             phases = {ph: c[counter] for ph, c in by_phase[dname].items()
-                      if kid == "k3" or pad or ph == "resnet_eval_256"
-                      or ph.startswith("bit_") == mlp64}
+                      if (kid == "k3" or pad or ph == "resnet_eval_256"
+                          or ph.startswith("bit_") == mlp64)
+                      and not ph.startswith("space_")}
             # null launches where the phase did not run (--phases)
             kernels.append(summarize(
                 name, src + source, replaces, dname, checks.get((kid, dname)),
@@ -3955,6 +4355,17 @@ def main() -> None:
                 else str(IMG),
                 launches_per_replay=REPLAY_LAUNCHES[dname].get(kid),
                 **{k: v[dname] for k, v in extra.items()}))
+        # K3 split over the space ranks (phase 21): per rank, at 256 px
+        # batch 8; launches from each rank's row-sharded train step (the
+        # replicated grid, "grid_replicated_256", runs the one-process K3)
+        kernels.append(summarize(
+            "semantic_tokenizer_ranks", src + "tokenizer.cu",
+            "dahitra_tpu/pallas/fused_tokenizer.py:42", dname,
+            space_k3.get(dname), by_phase[dname].get(
+                "space_train_256", {}).get("k3_ranks"), TOL,
+            {ph: c["k3_ranks"] for ph, c in by_phase[dname].items()
+             if ph.startswith("space_")}, main_size=f"r{IMG}",
+            empty_launch_ms=floor_ms))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,17 @@
 //                 of a sample to finish (a ticket per sample) sums the
 //                 partials in index order and stores the tokens as T.
 //
+// Split over the ranks of a row-sharded grid, each rank holding some of a
+// sample's pixels, the same two kernels run through two more entry points:
+// semantic_tokenizer_stats_* launches stats_kernel on the rank's pixels; the
+// caller gathers every rank's statistics and lays them out (B, ranks *
+// chunks, L, 2) in (rank, chunk) order; semantic_tokenizer_pool_* launches
+// pool_kernel, whose prologue combines all of them in that order (every rank
+// gets the same M and S bits), on the rank's pixels, and writes the rank's
+// fp32 partial tokens and M and S; the caller sums the ranks' partials in
+// rank order. The one-process entry points run the same code with the
+// sample's own chunk statistics and store the tokens as T.
+//
 // M and S are global because T rounds attn after it is normalised. Both
 // passes form the logits with one inlined function, so they are the same
 // bits. In both, a thread owns a pixel of a 128-pixel tile: the tile of x is
@@ -236,24 +247,28 @@ stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// Sum a sample's partial tokens over its chunks in index order; store as T.
-// The loads bypass L1: other CTAs of this launch may have written `part`.
-template <typename T>
-__device__ __forceinline__ void sum_partials(const float* part, T* out, int b,
+// Sum a sample's partial tokens over its chunks in index order; store as
+// OutT (T, or float for a rank's partial tokens). The loads bypass L1: other
+// CTAs of this launch may have written `part`.
+template <typename OutT>
+__device__ __forceinline__ void sum_partials(const float* part, OutT* out, int b,
                                              int n_chunks, int L, int tid) {
   const float* pb = part + static_cast<int64_t>(b) * n_chunks * L * C;
   for (int i = tid; i < L * C; i += THREADS) {
     float s = 0.0f;
     for (int c = 0; c < n_chunks; ++c) s += __ldcg(pb + c * L * C + i);
-    out[static_cast<int64_t>(b) * L * C + i] = from_f<T>(s);
+    out[static_cast<int64_t>(b) * L * C + i] = from_f<OutT>(s);
   }
 }
 
-template <typename T, int LT>
+// stats: (B, n_stat, L, 2), combined in index order; ms (nullable): the
+// combined (B, L, 2), written by each sample's first CTA.
+template <typename T, int LT, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
-            const float* __restrict__ stats, float* part, int* ticket, T* out,
-            int N, int L, int chunk, int n_chunks) {
+            const float* __restrict__ stats, int n_stat, float* part,
+            int* ticket, OutT* out, float* ms, int N, int L, int chunk,
+            int n_chunks) {
   __shared__ __align__(16) T sX[2][TILE * C];
   __shared__ float sW[C * LT];
   // (LT, TILE) attention of the tile; later the (WARPS, LT, C) warp partials.
@@ -271,17 +286,21 @@ pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   stage_tile(sX[0], xb, p0, p1, tid);
   load_w<T, LT>(sW, w, L, tid);
-  // The sample's M and S from its chunk statistics, in index order; every
-  // CTA of the sample gets the same bits.
+  // The sample's M and S from its statistics, in index order; every CTA of
+  // the sample gets the same bits.
   if (tid < L) {
-    const float* st = stats + (static_cast<int64_t>(b) * n_chunks * L + tid) * 2;
+    const float* st = stats + (static_cast<int64_t>(b) * n_stat * L + tid) * 2;
     float mm = neg_inf();
-    for (int c = 0; c < n_chunks; ++c) mm = fmaxf(mm, st[c * L * 2]);
+    for (int c = 0; c < n_stat; ++c) mm = fmaxf(mm, st[c * L * 2]);
     float ss = 0.0f;
-    for (int c = 0; c < n_chunks; ++c)
+    for (int c = 0; c < n_stat; ++c)
       ss = fmaf(st[c * L * 2 + 1], rescale(st[c * L * 2], mm), ss);
     sM[tid] = mm;
     sS[tid] = ss;
+    if (ms != nullptr && ch == 0) {
+      ms[(static_cast<int64_t>(b) * L + tid) * 2] = mm;
+      ms[(static_cast<int64_t>(b) * L + tid) * 2 + 1] = ss;
+    }
   }
 
   float acc[LT];
@@ -339,40 +358,71 @@ pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
   __syncthreads();
   if (sLast) {
     __threadfence();
-    sum_partials<T>(part, out, b, n_chunks, L, tid);
+    sum_partials<OutT>(part, out, b, n_chunks, L, tid);
   }
 }
 
-template <typename T, int LT>
-int launch_lt(const T* x, const T* w, T* out, float* scratch, int B, int N,
-              int L, int chunk, cudaStream_t stream) {
+// The scratch of one call: the chunk statistics (B, n_chunks, L, 2), the
+// partial tokens (B, n_chunks, L, C) and a ticket per sample.
+struct Scratch {
+  float* stats;
+  float* part;
+  int* ticket;
+  Scratch(void* scratch, int64_t ctas, int L) {
+    stats = static_cast<float*>(scratch);
+    part = stats + ctas * L * 2;
+    ticket = reinterpret_cast<int*>(part + ctas * L * C);
+  }
+};
+
+// What a launch does: the statistics, the pool, or both (one process).
+enum Pass { STATS = 1, POOL = 2 };
+
+// stats: the pool's statistics (B, n_stat, L, 2); null in the one-process
+// call, which pools with its own chunks' statistics and stores T.
+template <typename T, int LT, typename OutT>
+int launch_lt(const T* x, const T* w, OutT* out, void* scratch,
+              const float* stats, int n_stat, float* ms, int B, int N, int L,
+              int chunk, int passes, cudaStream_t stream) {
   const int n_chunks = (N + chunk - 1) / chunk;
   const int64_t ctas = static_cast<int64_t>(B) * n_chunks;
-  float* stats = scratch;
-  float* part = stats + ctas * L * 2;
-  int* ticket = reinterpret_cast<int*>(part + ctas * L * C);
+  const Scratch sc(scratch, ctas, L);
   const unsigned grid = static_cast<unsigned>(ctas);
-  stats_kernel<T, LT><<<grid, THREADS, 0, stream>>>(x, w, stats, ticket, N, L,
-                                                    chunk, n_chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pool_kernel<T, LT><<<grid, THREADS, 0, stream>>>(x, w, stats, part, ticket,
-                                                   out, N, L, chunk, n_chunks);
+  if (passes & STATS) {
+    stats_kernel<T, LT><<<grid, THREADS, 0, stream>>>(x, w, sc.stats, sc.ticket,
+                                                      N, L, chunk, n_chunks);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (passes & POOL) {
+    if (stats == nullptr) {
+      stats = sc.stats;
+      n_stat = n_chunks;
+    }
+    pool_kernel<T, LT, OutT><<<grid, THREADS, 0, stream>>>(
+        x, w, stats, n_stat, sc.part, sc.ticket, out, ms, N, L, chunk,
+        n_chunks);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* out, void* scratch, int B, int N,
-           int L, int chunk, void* stream) {
-  if (B < 1 || N < 1 || L < 1 || L > 16 || chunk < TILE || chunk % TILE)
+template <typename T, typename OutT>
+int launch(const void* x, const void* w, void* out, void* scratch,
+           const void* stats, int n_stat, void* ms, int B, int N, int L,
+           int chunk, int passes, void* stream) {
+  if (B < 1 || N < 1 || L < 1 || L > 16 || chunk < TILE || chunk % TILE ||
+      (stats != nullptr && n_stat < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
-  T* ot = static_cast<T*>(out);
-  float* sc = static_cast<float*>(scratch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return L <= 4 ? launch_lt<T, 4>(xt, wt, ot, sc, B, N, L, chunk, st)
-                : launch_lt<T, 16>(xt, wt, ot, sc, B, N, L, chunk, st);
+  OutT* ot = static_cast<OutT*>(out);
+  const float* st = static_cast<const float*>(stats);
+  float* m = static_cast<float*>(ms);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return L <= 4 ? launch_lt<T, 4, OutT>(xt, wt, ot, scratch, st, n_stat, m, B, N,
+                                        L, chunk, passes, s)
+                : launch_lt<T, 16, OutT>(xt, wt, ot, scratch, st, n_stat, m, B,
+                                         N, L, chunk, passes, s);
 }
 
 }  // namespace
@@ -382,11 +432,52 @@ int launch(const void* x, const void* w, void* out, void* scratch, int B, int N,
 extern "C" int semantic_tokenizer_f32(const void* x, const void* w, void* out,
                                       void* scratch, int B, int N, int L,
                                       int chunk, void* stream) {
-  return launch<float>(x, w, out, scratch, B, N, L, chunk, stream);
+  return launch<float, float>(x, w, out, scratch, nullptr, 0, nullptr, B, N, L,
+                              chunk, STATS | POOL, stream);
 }
 
 extern "C" int semantic_tokenizer_bf16(const void* x, const void* w, void* out,
                                        void* scratch, int B, int N, int L,
                                        int chunk, void* stream) {
-  return launch<__nv_bfloat16>(x, w, out, scratch, B, N, L, chunk, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, scratch, nullptr, 0,
+                                              nullptr, B, N, L, chunk,
+                                              STATS | POOL, stream);
+}
+
+// A rank's pixels, first pass: its chunks' statistics, at the start of
+// scratch ((B, n_chunks, L, 2) fp32); scratch as above.
+extern "C" int semantic_tokenizer_stats_f32(const void* x, const void* w,
+                                            void* scratch, int B, int N, int L,
+                                            int chunk, void* stream) {
+  return launch<float, float>(x, w, nullptr, scratch, nullptr, 0, nullptr, B, N,
+                              L, chunk, STATS, stream);
+}
+
+extern "C" int semantic_tokenizer_stats_bf16(const void* x, const void* w,
+                                             void* scratch, int B, int N, int L,
+                                             int chunk, void* stream) {
+  return launch<__nv_bfloat16, float>(x, w, nullptr, scratch, nullptr, 0,
+                                      nullptr, B, N, L, chunk, STATS, stream);
+}
+
+// Second pass, after the statistics pass on the same scratch: every rank's
+// statistics (B, n_stat, L, 2) in (rank, chunk) order combined, the rank's
+// fp32 partial tokens (B, L, C) into `part`, the combined M and S into ms
+// (B, L, 2).
+extern "C" int semantic_tokenizer_pool_f32(const void* x, const void* w,
+                                           const void* stats, int n_stat,
+                                           void* part, void* ms, void* scratch,
+                                           int B, int N, int L, int chunk,
+                                           void* stream) {
+  return launch<float, float>(x, w, part, scratch, stats, n_stat, ms, B, N, L,
+                              chunk, POOL, stream);
+}
+
+extern "C" int semantic_tokenizer_pool_bf16(const void* x, const void* w,
+                                            const void* stats, int n_stat,
+                                            void* part, void* ms, void* scratch,
+                                            int B, int N, int L, int chunk,
+                                            void* stream) {
+  return launch<__nv_bfloat16, float>(x, w, part, scratch, stats, n_stat, ms, B,
+                                      N, L, chunk, POOL, stream);
 }

@@ -20,7 +20,12 @@ With a ``mesh`` (``core/mesh.py``) each rank scores its rows of every
 batch, padded to the world size (the first sample repeated, label 255, a
 ``valid`` vector): the batch matrices are summed over the ranks (the 255
 filler enters no class), per-sample matrices are gathered in dataset order
-with the filler rows dropped, and only rank 0 writes the artifacts.
+with the filler rows dropped, and only rank 0 writes the artifacts. On a (data,
+space) grid the ranks of a data row score the same samples: each pass runs
+them replicated, or with ``eval_models(spatial=True)`` row-sharded
+(``nn/space.py``: each space rank's rows through the model, the predictions
+gathered over the rows); either way the matrices are summed and gathered
+over the data group only (evaluator.py:125, 152).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from dahitra_tpu_torch.metrics.confusion import (batch_confusion_matrix,
                                                  cm2score,
                                                  per_sample_confusion_matrix)
 from dahitra_tpu_torch.models.registry import define_g, final_logits
+from dahitra_tpu_torch.nn import space
 from dahitra_tpu_torch.train.graph import EvalScan
 from dahitra_tpu_torch.utils import Logger, Timer, disable_tf32, resolve_device
 
@@ -70,9 +76,11 @@ class CDEvaluator:
             else torch.float32
         self.logger = Logger(os.path.join(args.checkpoint_dir, "log_test.txt"),
                              enabled=self.main)
-        world = mesh.world_size if mesh else 1
+        n_data = mesh.n_data if mesh else 1
+        self.data = mesh.data_group if mesh else None  # gathers and sums
         self.loader = BatchLoader(arrays, args.batch_size,
-                                  pad_to_multiple=world if world > 1 else None,
+                                  pad_to_multiple=n_data if n_data > 1
+                                  else None,
                                   shard=mesh.shard if mesh else None)
         if state_dict is None:
             restored = load_checkpoint(self.checkpoint_dir, "best_ckpt")
@@ -90,12 +98,17 @@ class CDEvaluator:
 
     @torch.inference_mode()
     def eval_step(self, a_u8: torch.Tensor, b_u8: torch.Tensor,
-                  l_u8: torch.Tensor, per_sample: bool = False):
-        """(confusion matrix, prediction) of one uint8 batch on the device;
-        per-sample (B, C, C) matrices when ``per_sample``."""
+                  l_u8: torch.Tensor, per_sample: bool = False,
+                  spatial: bool = False):
+        """(confusion matrix, prediction) of one uint8 batch on the device
+        (whole images); per-sample (B, C, C) matrices when ``per_sample``.
+        With ``spatial`` on a grid the forward runs on the space rank's rows
+        and the prediction is gathered over the rows."""
         a, b, label = augment_pairs(a_u8, b_u8, l_u8, train=False,
                                     dtype=self.dtype)
-        pred = final_logits(self.model(a, b)).argmax(-1)
+        with space.grid(self.mesh, spatial):
+            a, b = space.shard_rows(self.model, a, b)
+            pred = space.gather_rows(final_logits(self.model(a, b)).argmax(-1))
         cm_fn = per_sample_confusion_matrix if per_sample \
             else batch_confusion_matrix
         return cm_fn(pred, label, self.n_class), pred
@@ -114,14 +127,16 @@ class CDEvaluator:
 
     def eval_models(self, save_vis: bool = False, device_cache: bool = False,
                     scan: bool = False,
-                    group_of: Optional[np.ndarray] = None) -> dict:
+                    group_of: Optional[np.ndarray] = None,
+                    spatial: bool = False) -> dict:
         """Score the split. ``device_cache`` stages the dataset on the
         device before the pass. ``scan`` runs the full batches as replays of
         a captured forward (module docstring); ``save_vis`` turns it into
         ``device_cache``, as in JAX (evaluator.py:154-159). ``group_of``
         (the patch of each dataset position) switches to per-sample
         matrices so that the result also carries a reference-style score
-        block per patch (``per_group``). The summed matrix stays on
+        block per patch (``per_group``). ``spatial`` runs every forward
+        row-sharded on a grid (``eval_step``). The summed matrix stays on
         ``self.confusion_matrix``."""
         self.logger.write("Begin evaluation...\n")
         timer = Timer()
@@ -134,23 +149,25 @@ class CDEvaluator:
                                              self.device)
             if stack is not None:
                 out = EvalScan(
-                    lambda a, b, l: self.eval_step(a, b, l, grouped)[0],
+                    lambda a, b, l: self.eval_step(a, b, l, grouped,
+                                                   spatial)[0],
                     stack, self.n_class, self.device, grouped)()
                 # per full batch, every rank's matrices; or the sum
-                cms += [all_gather_rows(ps) for ps in out] if grouped \
-                    else [out]
+                cms += [all_gather_rows(ps, self.data) for ps in out] \
+                    if grouped else [out]
                 n_img += stack[0].shape[0] * self.loader.batch_size
             batches = (self._to_device(b) for b in tail)
         else:
             batches = (self.stage_on_device() if device_cache
                        else (self._to_device(b) for b in self.loader))
         for a, b, l, valid in batches:
-            cm, pred = self.eval_step(a, b, l, per_sample=grouped)
+            cm, pred = self.eval_step(a, b, l, per_sample=grouped,
+                                      spatial=spatial)
             if valid is not None:
-                keep = all_gather_rows(valid.byte()) > 0
+                keep = all_gather_rows(valid.byte(), self.data) > 0
                 n_img += int(keep.sum())
                 if grouped:  # every rank's matrices, filler dropped
-                    cm = all_gather_rows(cm)[keep]
+                    cm = all_gather_rows(cm, self.data)[keep]
             else:  # unpadded: one process (or a mesh of one)
                 n_img += a.shape[0]
             cms.append(cm)
@@ -162,7 +179,7 @@ class CDEvaluator:
         else:
             total = torch.stack(cms).sum(0)
             if self.mesh:
-                reduce_sum_(total)
+                reduce_sum_(total, self.data)
             total = total.cpu().numpy()
         imps = timer.images_per_sec(n_img)
         scores = cm2score(total)

@@ -14,6 +14,13 @@ Scales: 1/4 ("3", 64 ch, decoder depth 8, 8 heads), 1/8 ("4", 128 ch, depth
 Per forward, the K3 tokenizer runs once per scale and the decoder stack
 twice per scale (the two dates batch-stacked, then the difference): K1
 without saves in eval, K1 with saves and then K2 in a training step.
+
+Under a row-sharded grid (``nn/space.py``) the rows per space rank must be
+a multiple of 16, the model's total stride; the decoder positional
+embeddings (whole-image grids of img_size / stride rows) are sliced to the
+rank's rows at each scale, as GSPMD slices them (dahitra.py:98-117), K3
+splits its softmax over the ranks, and K1, K1-save and K2 run on the
+rank's rows as they are.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from dahitra_tpu_torch.nn import space
 from dahitra_tpu_torch.nn.blocks import (SemanticTokenizer, TransformerDecoder,
                                          TransformerEncoder, TwoLayerConv,
                                          UpConv, conv2d_nhwc, max_pool_3x3_s2,
@@ -51,6 +59,9 @@ class DAHiTraUNet(nn.Module):
     ``generator`` (seed 0 when none is given), as the flax initializer
     does; ``nn/init.py`` leaves them as they are.
     """
+
+    # rows per space rank must be a multiple of this (nn/space.py)
+    space_stride = 16
 
     def __init__(self, output_nc: int = 2, img_size: int = 256,
                  pos_coarsest_only: bool = False,
@@ -105,7 +116,15 @@ class DAHiTraUNet(nn.Module):
         b, h, w, c = x.shape
         pos = getattr(self, f"pos_embedding_decoder_{self.pos_ref[r]}", None)
         if pos is not None:
-            x = x + pos.permute(0, 2, 3, 1)
+            pos = pos.permute(0, 2, 3, 1)
+            rows = space.rows()
+            if rows is not None:  # the rank's rows of the whole grid
+                if pos.shape[1] != h * rows.size:
+                    raise ValueError(
+                        f"decoder positional embedding {r}: {pos.shape[1]} "
+                        f"rows, the ranks hold {h * rows.size}")
+                pos = space.local_rows(pos, rows)
+            x = x + pos
         seq = getattr(self, f"transformer_decoder_{r}")(x.reshape(b, h * w, c),
                                                         tokens)
         return seq.reshape(b, h, w, c)

@@ -78,7 +78,11 @@ class Res34Encoder(nn.Module):
 
 class _Res34Unet(Res34Encoder):
     """The shared encoder and decoder: ``features`` returns every level,
-    ``core`` the 48-channel full-resolution map (``_Res34UnetCore``)."""
+    ``core`` the 48-channel full-resolution map (``_Res34UnetCore``).
+    Under a row-sharded grid (``nn/space.py``) the rows per space rank must
+    be a multiple of 32, the encoder's stride."""
+
+    space_stride = 32
 
     def __init__(self, dtype=torch.float32):
         super().__init__(dtype)

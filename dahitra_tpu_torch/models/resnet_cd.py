@@ -71,7 +71,10 @@ class SiameseTrunk(nn.Module):
 class ResNetCD(SiameseTrunk):
     """``base_resnet18``: NHWC images (B, H, W, 3) twice -> logits (B, H, W,
     output_nc) in the compute dtype (sigmoid applied with
-    ``output_sigmoid``)."""
+    ``output_sigmoid``). Under a row-sharded grid (``nn/space.py``) the
+    rows per space rank must be a multiple of 8, the trunk's stride."""
+
+    space_stride = 8
 
     def __init__(self, output_nc: int = 2, backbone: str = "resnet18",
                  resnet_stages_num: int = 5, if_upsample_2x: bool = True,

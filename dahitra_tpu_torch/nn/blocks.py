@@ -25,6 +25,17 @@ At rate 0 every block computes what it computes without dropout.
 ``DAHITRA_FAST_VJP=0`` in the environment at import (blocks.py:33), or
 ``TransformerDecoder(fast_vjp=False)``, sends the shapes that would take
 the decoder stack to the layer loop instead.
+
+Under a row-sharded grid (``nn/space.py``) the spatial ops take halos, as
+GSPMD adds them: a k x k convolution of stride s and padding p gets p rows
+from the rank above and k - s - p from the rank below (zeros at the global
+edges) and then pads only the columns; the 3 x 3 / 2 max-pool 1 and 0
+(-inf); the bilinear resizes one row each side (the edge row at the global
+edges), cropping the factor's rows off each side of the result;
+``upsample_nearest`` and ``max_pool_2x2`` read no row across a shard's edge.
+BatchNorm's statistics then sum over every rank's distinct rows, the
+tokenizer's softmax spans the ranks (the rank-split K3), and the decoder
+gates read the global token count.
 """
 from __future__ import annotations
 
@@ -38,7 +49,9 @@ import torch.nn.functional as F
 from dahitra_tpu_torch.core.mesh import all_reduce_sum, world_size
 from dahitra_tpu_torch.kernels.fused_decoder import (ORDER, FusedDecoderFn,
                                                      pick_tile)
-from dahitra_tpu_torch.kernels.fused_tokenizer import SemanticTokenizerFn
+from dahitra_tpu_torch.kernels.fused_tokenizer import (
+    SemanticTokenizerFn, SemanticTokenizerRanksFn)
+from dahitra_tpu_torch.nn import space
 from dahitra_tpu_torch.nn.decoder_vjp import decoder_stack, pack_decoder_params
 
 # Read once at import, as the JAX package does (blocks.py:28-33).
@@ -49,9 +62,16 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, stride: int = 1,
                 padding: int = 0, dtype=torch.float32,
                 groups: int = 1) -> torch.Tensor:
-    """NHWC conv with an OIHW weight, computed in ``dtype``."""
+    """NHWC conv with an OIHW weight, computed in ``dtype``; under row
+    sharding, on the rank's rows with their halos."""
+    pad = padding
+    r = space.rows()
+    if r is not None:
+        x = space.halo(x, padding, weight.shape[2] - stride - padding,
+                       "zero", r)
+        pad = (0, padding)
     y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), weight.to(dtype),
-                 None if bias is None else bias.to(dtype), stride, padding,
+                 None if bias is None else bias.to(dtype), stride, pad,
                  1, groups)
     return y.permute(0, 2, 3, 1)
 
@@ -87,14 +107,21 @@ def upsample_bilinear(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
     ``align_corners=False``, ``jax.image.resize`` "bilinear"). At the border
     jax renormalises its triangle weights and torch clamps the source index;
     both give the edge pixel there. Computed in x's dtype."""
+    if space.rows() is not None:
+        return resize_bilinear(x, factor * x.shape[1], factor * x.shape[2])
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=factor,
                       mode="bilinear", align_corners=False)
     return y.permute(0, 2, 3, 1)
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """torch MaxPool2d(3, stride=2, padding=1) on NHWC."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+    """torch MaxPool2d(3, stride=2, padding=1) on NHWC; under row
+    sharding, on the rank's rows with their halos."""
+    pad = 1
+    r = space.rows()
+    if r is not None:
+        x, pad = space.halo(x, 1, 0, "neg_inf", r), (0, 1)
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, pad).permute(0, 2, 3, 1)
 
 
 def max_pool_3x3_s2_ceil(x: torch.Tensor) -> torch.Tensor:
@@ -107,10 +134,23 @@ def max_pool_3x3_s2_ceil(x: torch.Tensor) -> torch.Tensor:
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """NHWC resized to (h, w) bilinearly with half-pixel centres
     (``jax.image.resize`` "bilinear" when it enlarges; see
-    ``upsample_bilinear``). Computed in x's dtype."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
-                      align_corners=False)
-    return y.permute(0, 2, 3, 1)
+    ``upsample_bilinear``). Computed in x's dtype. Under row sharding ``h``
+    is the rank's rows of the result, a whole multiple f of x's: the rows
+    with a halo of one each side (the edge row at the global edges),
+    resized to f times as many, and f rows cropped off each side."""
+    r = space.rows()
+    if r is None:
+        y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w),
+                          mode="bilinear", align_corners=False)
+        return y.permute(0, 2, 3, 1)
+    f = h // x.shape[1]
+    if f * x.shape[1] != h:
+        raise ValueError(f"resize_bilinear: {x.shape[1]} rows per space rank "
+                         f"to {h} is not a whole factor")
+    x = space.halo(x, 1, 1, "edge", r)
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(f * x.shape[1], w),
+                      mode="bilinear", align_corners=False)
+    return y[:, :, f:f + h].permute(0, 2, 3, 1)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -157,12 +197,14 @@ def set_dropout_generator(model: nn.Module,
             m.generator = generator
 
 
-def _global_moments(xf: torch.Tensor):
-    """Mean and biased variance of (G, n, C) per group over every rank's
-    rows: one all-reduce of [sum x | sum x^2 | n] per group."""
+def _global_moments(xf: torch.Tensor, group=None):
+    """Mean and biased variance of (G, n, C) per group over the rows of
+    every rank of ``group`` (the world by default): one all-reduce of
+    [sum x | sum x^2 | n] per group."""
     c = xf.shape[-1]
     n = xf.new_full((xf.shape[0], 1), float(xf.shape[1]))
-    sums = all_reduce_sum(torch.cat([xf.sum(1), (xf * xf).sum(1), n], -1))
+    sums = all_reduce_sum(torch.cat([xf.sum(1), (xf * xf).sum(1), n], -1),
+                          group)
     count = sums[:, 2 * c:]
     mean = sums[:, :c] / count
     var = (sums[:, c:2 * c] / count - mean * mean).clamp_min(0.0)
@@ -190,7 +232,10 @@ class BatchNorm(nn.Module):
     element count go through one differentiable all-reduce (in pair mode
     the date-1 statistics come from every rank's first half), and every
     rank takes the same running update. Filler rows of a padded batch enter
-    them, as in the JAX package.
+    them, as in the JAX package. Under a row-sharded grid every rank holds
+    distinct rows, so the same world sum is GSPMD's statistic over the
+    space axis too; on a replicated grid the sum runs over the data group
+    (``nn/space.py`` ``stat_group``).
     """
 
     def __init__(self, channels: int, dtype=torch.float32, eps: float = 1e-5,
@@ -210,8 +255,9 @@ class BatchNorm(nn.Module):
         mean, var = self.running_mean, self.running_var
         if train:
             xf = xf.reshape(2 if pair else 1, -1, x.shape[-1])
-            if world_size() > 1:
-                gmean, gvar = _global_moments(xf)
+            group = space.stat_group()
+            if world_size(group) > 1:
+                gmean, gvar = _global_moments(xf, group)
             else:
                 gmean = xf.mean(1)
                 gvar = ((xf * xf).mean(1) - gmean * gmean).clamp_min(0.0)
@@ -445,7 +491,10 @@ class TransformerDecoder(nn.Module):
     the card the first two paths raise a ``ValueError`` naming ``mlp_dim``
     for any other width. Both kernel paths also need ``deterministic`` or
     a ``dropout`` of 0; ``fast_vjp=False`` (or ``DAHITRA_FAST_VJP=0`` at
-    import) closes the stack path (the JAX gates, blocks.py:585-600).
+    import) closes the stack path (the JAX gates, blocks.py:585-600). Under
+    row sharding the gates read the global token count, the rank's n times
+    the space ranks, as GSPMD traces them on global shapes; the stack then
+    runs on the rank's rows.
     """
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
@@ -478,7 +527,9 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor, m: torch.Tensor,
                 deterministic: bool = True) -> torch.Tensor:
-        shape = (x.shape[-2], m.shape[-2], x.shape[-1], deterministic)
+        r = space.rows()
+        n = x.shape[-2] * (r.size if r is not None else 1)
+        shape = (n, m.shape[-2], x.shape[-1], deterministic)
         if self.uses_fused(*shape):
             packed = pack_decoder_params(self)
             return FusedDecoderFn.apply(self.depth, self.heads, self.dtype, x,
@@ -498,7 +549,9 @@ class SemanticTokenizer(nn.Module):
     """Spatial-attention token pooling (networks.py:312-319): a 1x1 conv to
     L logits per pixel, a softmax over the pixels, attention-weighted sums
     of the features. Runs through the K3 kernel on the card, with its
-    gradient in PyTorch operations (``SemanticTokenizerFn``). Its one
+    gradient in PyTorch operations (``SemanticTokenizerFn``); under row
+    sharding the softmax spans the space ranks (``SemanticTokenizerRanksFn``,
+    the rank-split K3), and every rank gets the same tokens. Its one
     parameter is the reference's ``conv_token`` weight (L, C, 1, 1)."""
 
     def __init__(self, dim: int, token_len: int, dtype=torch.float32):
@@ -511,5 +564,8 @@ class SemanticTokenizer(nn.Module):
         """x: (B, H, W, C) -> tokens (B, L, C) in the compute dtype."""
         b, h, w, c = x.shape
         wt = self.weight.view(-1, c).t().to(self.dtype).contiguous()
-        return SemanticTokenizerFn.apply(
-            x.reshape(b, h * w, c).to(self.dtype).contiguous(), wt)
+        seq = x.reshape(b, h * w, c).to(self.dtype).contiguous()
+        r = space.rows()
+        if r is not None:
+            return SemanticTokenizerRanksFn.apply(seq, wt, r.group)
+        return SemanticTokenizerFn.apply(seq, wt)

@@ -1,7 +1,8 @@
-"""Two measurements behind the decoder kernels' design notes, on one card.
+"""Measurements behind the kernels' design notes, on one card.
 
     python -m dahitra_tpu_torch.tools.decoder_probes cta-rows [--warps 4]
     python -m dahitra_tpu_torch.tools.decoder_probes sass-diff OTHER_CHECKOUT [--out DIR]
+    python -m dahitra_tpu_torch.tools.decoder_probes k3-bits OTHER_CHECKOUT
 
 ``cta-rows`` builds ``csrc/decoder_fwd.cu`` once more with ``WARPS`` set to
 ``--warps`` (16 rows per warp, so the CTA's rows change) and times it against
@@ -18,7 +19,10 @@ Instances are matched by name, the anonymous-namespace hash aside, with a
 last template arguments ``false`` (the ``PAD`` and ``WIDE`` flags of the
 row kernels) and then an ``mlp_dim`` template argument of 32 read as their
 absence, so a checkout that predates any of these parameters compares with
-the instances that have none; instances that exist only here are listed as new. One JSON
+the instances that have none; instances that exist only here are listed as new.
+``k3-bits`` builds another checkout's ``csrc/tokenizer.cu`` and holds its
+one-process K3 entry points against this checkout's ``semantic_tokenizer``,
+bit for bit, at every K3 shape of ``chip_smoke.py`` in both dtypes. One JSON
 line each.
 """
 from __future__ import annotations
@@ -142,6 +146,38 @@ def sass_diff(other: str, out_dir=None) -> None:
                           "new_here": sorted(set(here) - set(there))}), flush=True)
 
 
+def k3_bits(other: str) -> None:
+    sys.path.insert(0, str(_ROOT))
+    import chip_smoke as cs
+
+    from dahitra_tpu_torch.kernels import fused_tokenizer as ft
+
+    tmp = Path(tempfile.mkdtemp(prefix="k3_bits_"))
+    _nvcc(Path(other) / "dahitra_tpu_torch" / "csrc" / "tokenizer.cu",
+          tmp / "other.so")
+    lib = ctypes.CDLL(str(tmp / "other.so"))
+    gen = torch.Generator().manual_seed(0)
+    differ, cases = [], 0
+    for dtype in (torch.float32, torch.bfloat16):
+        fn = getattr(lib, ft._FNS[dtype])
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for name, b, n in cs.K3_SHAPES:
+            x = torch.randn(b, n, 32, generator=gen).cuda().to(dtype)
+            w = (torch.randn(32, 4, generator=gen) * 32 ** -0.5).cuda().to(dtype)
+            chunk = ft._chunk(b, n, ft._n_sm(x.device.index))
+            out = torch.empty((b, 4, 32), dtype=dtype, device=x.device)
+            scratch = ft._scratch(b, n, 4, chunk, x.device)
+            _build.check(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                            scratch.data_ptr(), b, n, 4, chunk,
+                            torch.cuda.current_stream().cuda_stream), "other K3")
+            cases += 1
+            if not torch.equal(out, ft.semantic_tokenizer(x, w)):
+                differ.append(f"{name}[{dtype}]")
+    print(json.dumps({"k3_bits": other, "cases": cases, "differ": differ}),
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -149,11 +185,14 @@ def main() -> None:
     sd = sub.add_parser("sass-diff")
     sd.add_argument("other")
     sd.add_argument("--out", default=None)
+    sub.add_parser("k3-bits").add_argument("other")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("decoder_probes: needs a CUDA card")
     if args.cmd == "cta-rows":
         cta_rows(args.warps)
+    elif args.cmd == "k3-bits":
+        k3_bits(args.other)
     else:
         sass_diff(args.other, args.out)
 

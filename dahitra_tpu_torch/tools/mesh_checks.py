@@ -2,7 +2,10 @@
 process.
 
 Each function takes ``(mesh, cfg, ...)``, as ``core.mesh.launch`` calls it
-(``mesh`` None for one process with no group), builds the trainer or
+(``mesh`` None for one process with no group; on a (data, space) grid the
+rank's data shard is ``mesh.shard``, (data rank, n_data), and ``spatial``
+runs the row-sharded steps; ``tools/space_checks.py`` adds the space
+axis's own cases), builds the trainer or
 evaluator the CLI would build from ``cfg`` (the CLI's arguments as a dict,
 ``device`` among them) and returns what the rank holds afterwards: losses,
 confusion matrices, each parameter's gradient of the last step, the
@@ -36,16 +39,18 @@ def reset_launches() -> None:
     fd = folded_decoder
     fd.launches = fd.launches_save = fd.launches_bwd = 0
     fd.launches_pad = fd.launches_save_pad = fd.launches_bwd_pad = 0
-    fused_tokenizer.launches = 0
+    fused_tokenizer.launches = fused_tokenizer.launches_ranks = 0
     fused_decoder.launches = fused_decoder.launches_pad = 0
 
 
 def launches() -> Dict[str, int]:
-    """The kernel launch counters of this process: K1, K1-save, K2, K3,
-    K4 and the padded-token-count ones."""
+    """The kernel launch counters of this process: K1, K1-save, K2, K3
+    (one process), K3 split over the space ranks, K4 and the
+    padded-token-count ones."""
     fd = folded_decoder
     return {"k1": fd.launches, "k1_save": fd.launches_save,
             "k2": fd.launches_bwd, "k3": fused_tokenizer.launches,
+            "k3_ranks": fused_tokenizer.launches_ranks,
             "k4": fused_decoder.launches, "k1_pad": fd.launches_pad,
             "k1_save_pad": fd.launches_save_pad,
             "k2_pad": fd.launches_bwd_pad,
@@ -62,7 +67,7 @@ def rank_sums(world: int) -> Iterator[None]:
     process; only the rounding follows the ranks."""
     from dahitra_tpu_torch.nn import blocks
 
-    def moments(xf: torch.Tensor):
+    def moments(xf: torch.Tensor, group=None):
         c = xf.shape[-1]
         sums = None
         for part in xf.chunk(world, 1):
@@ -75,7 +80,8 @@ def rank_sums(world: int) -> Iterator[None]:
         return mean, (sums[:, c:2 * c] / count - mean * mean).clamp_min(0.0)
 
     saved = blocks.world_size, blocks._global_moments
-    blocks.world_size, blocks._global_moments = (lambda: world), moments
+    blocks.world_size, blocks._global_moments = (
+        lambda group=None: world), moments
     try:
         yield
     finally:
@@ -97,8 +103,9 @@ def _state(model: torch.nn.Module) -> dict:
 
 
 def _rows(mesh, n: int) -> slice:
-    rank, world = mesh.shard if mesh else (0, 1)
-    return slice(rank * n // world, (rank + 1) * n // world)
+    """The rank's data shard of ``n`` samples."""
+    rank, n_data = mesh.shard if mesh else (0, 1)
+    return slice(rank * n // n_data, (rank + 1) * n // n_data)
 
 
 def bn_rows(mesh, x: np.ndarray, dy: np.ndarray, params: Dict[str, np.ndarray],
@@ -169,11 +176,13 @@ def run_cases(mesh, cases, deterministic: bool = False) -> list:
 
 
 def cd_steps(mesh, cfg: dict, train_arrays: Dict[str, np.ndarray],
-             steps: int = 1, pad_to: Optional[int] = None) -> dict:
+             steps: int = 1, pad_to: Optional[int] = None,
+             spatial: bool = False) -> dict:
     """``steps`` ``CDTrainer.train_step`` calls on the first batches of
-    epoch 0: their losses and (global) confusion matrices, the last step's
-    gradients and the running statistics after it. ``pad_to`` pads one
-    process's batches as a mesh of that size pads the joined batch."""
+    epoch 0 (row-sharded on a (data, space) grid with ``spatial``): their
+    losses and (global) confusion matrices, the last step's gradients and
+    the running statistics after it. ``pad_to`` pads one process's batches
+    as a mesh of that size pads the joined batch."""
     from dahitra_tpu_torch.data.loader import BatchLoader
     from dahitra_tpu_torch.train.engine import CDTrainer
 
@@ -186,7 +195,8 @@ def cd_steps(mesh, cfg: dict, train_arrays: Dict[str, np.ndarray],
     reset_launches()
     losses, cms = [], []
     for _, batch in zip(range(steps), trainer.train_loader):
-        loss, cm = trainer.train_step(*trainer._to_device(batch))
+        loss, cm = trainer.train_step(*trainer._to_device(batch),
+                                      spatial=spatial)
         losses.append(loss)
         cms.append(cm)
     _sync(trainer.device)
@@ -196,7 +206,7 @@ def cd_steps(mesh, cfg: dict, train_arrays: Dict[str, np.ndarray],
 
 def xbd_steps(mesh, cfg: dict, train_arrays: Dict[str, np.ndarray],
               steps: int = 1, task: str = "damage",
-              sums_of: int = 1) -> dict:
+              sums_of: int = 1, spatial: bool = False) -> dict:
     """As ``cd_steps`` for ``XBDTrainer.train_step`` on ``task``; one
     process with ``sums_of`` > 1 runs under ``rank_sums(sums_of)``."""
     from dahitra_tpu_torch.train.xbd_engine import XBDTrainer
@@ -208,7 +218,8 @@ def xbd_steps(mesh, cfg: dict, train_arrays: Dict[str, np.ndarray],
         else contextlib.nullcontext()
     reset_launches()
     with order:
-        losses = [trainer.train_step(*trainer._to_device(batch))
+        losses = [trainer.train_step(*trainer._to_device(batch),
+                                     spatial=spatial)
                   for _, batch in zip(range(steps), trainer.train_loader)]
     _sync(trainer.device)
     return {"loss": torch.stack(losses), **_state(trainer.model),
@@ -237,7 +248,7 @@ def xbd_validate(mesh, cfg: dict, val_arrays: Dict[str, np.ndarray],
     if mesh is not None:
         from dahitra_tpu_torch.core.mesh import reduce_sum_
 
-        reduce_sum_(local)
+        reduce_sum_(local, mesh.data_group)
     return {"scores": scores, "counts": local}
 
 
@@ -289,16 +300,18 @@ def gan_epoch(mesh, cfg: dict, train_arrays: Dict[str, np.ndarray]) -> dict:
 
 def cd_eval(mesh, cfg: dict, arrays: Dict[str, np.ndarray],
             state_dict: Optional[dict] = None,
-            group_of: Optional[np.ndarray] = None) -> dict:
+            group_of: Optional[np.ndarray] = None,
+            spatial: bool = False) -> dict:
     """``CDEvaluator.eval_models`` of ``state_dict`` (or of the checkpoint
-    in ``cfg["checkpoint_dir"]``): the summed confusion matrix, the scores,
-    and the launches."""
+    in ``cfg["checkpoint_dir"]``; row-sharded on a (data, space) grid with
+    ``spatial``): the summed confusion matrix, the scores, and the
+    launches."""
     from dahitra_tpu_torch.evalx.evaluator import CDEvaluator
 
     ev = CDEvaluator(argparse.Namespace(**cfg), arrays, device=cfg["device"],
                      state_dict=state_dict, mesh=mesh)
     reset_launches()
-    scores = ev.eval_models(group_of=group_of)
+    scores = ev.eval_models(group_of=group_of, spatial=spatial)
     _sync(ev.device)
     return {"cm": torch.from_numpy(np.asarray(ev.confusion_matrix)),
             "scores": scores, "launches": launches()}

@@ -1,0 +1,295 @@
+"""The ``space`` axis's cases, run on each rank of a (data, space) grid and
+held against one process.
+
+Each function takes ``(mesh, ...)``, as ``core.mesh.launch`` calls it
+(``mesh`` None for one process with no group), runs on the rank's part of a
+global batch given whole (numpy, seeded by the caller) and returns what the
+rank holds afterwards. Imports no JAX: ``tests/test_torch_space.py`` runs
+these on gloo CPU ranks, ``chip_smoke.py`` phase 21 on two gloo ranks
+sharing the card. The trainers' row-sharded steps are
+``tools/mesh_checks.py`` ``cd_steps`` / ``xbd_steps`` with
+``spatial=True``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from dahitra_tpu_torch.tools.mesh_checks import launches, reset_launches
+
+# name -> (kernel, stride, padding) of the convolutions ``halo_ops`` runs;
+# the rest are the pools and resizes of nn/blocks.py
+CONVS = {"conv3x3_s1": (3, 1, 1), "conv3x3_s2": (3, 2, 1),
+         "stem7x7_s2": (7, 2, 3), "conv1x1_s2": (1, 2, 0)}
+HALO_OPS = tuple(CONVS) + ("maxpool3x3_s2", "bilinear_x4")
+
+
+def _dev(mesh, device):
+    return mesh.device if mesh is not None else torch.device(device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def halo_op(op: str, x: torch.Tensor, weight: Optional[torch.Tensor]):
+    """One spatial op of ``nn/blocks.py`` on NHWC x (its rows with halos
+    under row sharding)."""
+    from dahitra_tpu_torch.nn import blocks
+
+    if op in CONVS:
+        _, stride, pad = CONVS[op]
+        return blocks.conv2d_nhwc(x, weight, stride=stride, padding=pad)
+    if op == "maxpool3x3_s2":
+        return blocks.max_pool_3x3_s2(x)
+    return blocks.upsample_bilinear(x, 4)
+
+
+def halo_ops(mesh, cases, device: str = "cpu") -> list:
+    """Each ``(op, x, dy, weight)`` (whole NHWC arrays; ``weight`` None for
+    the pools and resizes) on the rank's rows under the row-sharded grid:
+    the rank's output y, the gradient of sum(y * dy) with respect to its
+    rows of x, and the weight's gradient summed over the ranks."""
+    from dahitra_tpu_torch.core.mesh import reduce_sum_, shard_batch
+    from dahitra_tpu_torch.nn import space
+
+    dev = _dev(mesh, device)
+    out = []
+    for op, x, dy, weight in cases:
+        part = shard_batch({"x": x}, mesh, spatial=True)
+        xl = torch.from_numpy(np.ascontiguousarray(part["x"])).to(dev)
+        xl.requires_grad_(True)
+        w = None if weight is None else torch.from_numpy(weight).to(
+            dev).requires_grad_(True)
+        with space.grid(mesh, spatial=True):
+            y = halo_op(op, xl, w)
+            (y * space.local_rows(torch.from_numpy(dy).to(dev))).sum(
+                ).backward()
+        dw = None
+        if w is not None:
+            dw = w.grad if mesh is None else reduce_sum_(w.grad.clone())
+        out.append({"y": y.detach(), "dx": xl.grad, "dw": dw})
+    return out
+
+
+def k3_inputs(b: int, h: int, w: int, l: int, seed: int):
+    """Seeded (x (b, h, w, 32) feature maps, w (32, l), dt (b, l, 32) a
+    token cotangent), numpy fp32."""
+    rng = np.random.RandomState(seed)
+    return (rng.normal(size=(b, h, w, 32)).astype(np.float32),
+            (rng.normal(size=(32, l)) * 32 ** -0.5).astype(np.float32),
+            rng.normal(size=(b, l, 32)).astype(np.float32))
+
+
+def k3_ranks(mesh, cases, device: str = "cpu") -> list:
+    """Each ``(b, h, w, l, seed, dtype)``: ``k3_inputs`` through
+    ``SemanticTokenizerRanksFn`` on the rank's rows (its h w / S pixels)
+    over the space group, each rank taking 1 / S of dt (the ranks' shares
+    sum to dt): the tokens (the same bits on every rank), the rank's pixel
+    gradient and its partial dw; and the launches."""
+    from dahitra_tpu_torch.kernels.fused_tokenizer import (
+        SemanticTokenizerRanksFn)
+    from dahitra_tpu_torch.nn import space
+
+    dev = _dev(mesh, device)
+    reset_launches()
+    out = []
+    for b, h, w, l, seed, dname in cases:
+        x, wk, dt = k3_inputs(b, h, w, l, seed)
+        dtype = getattr(torch, dname)
+        with space.grid(mesh, spatial=True):
+            r = space.rows()
+            xl = space.local_rows(torch.from_numpy(x).to(dev, dtype))
+            hl = xl.shape[1]
+            seq = xl.reshape(b, hl * w, 32).contiguous().requires_grad_(True)
+            wt = torch.from_numpy(wk).to(dev, dtype).requires_grad_(True)
+            tokens = SemanticTokenizerRanksFn.apply(seq, wt, r.group)
+            share = torch.from_numpy(dt).to(dev, torch.float32) / r.size
+            (tokens.float() * share).sum().backward()
+        out.append({"tokens": tokens.detach(),
+                    "dx": seq.grad.reshape(b, hl, w, 32), "dw": wt.grad})
+    _sync(dev)
+    return out + [launches()]
+
+
+def _shapes(model: torch.nn.Module):
+    """Forward hooks that record each submodule's tensor output shape."""
+    shapes, hooks = {}, []
+    for name, mod in model.named_modules():
+        if not name:
+            continue
+
+        def keep(m, args, out, name=name):
+            if isinstance(out, torch.Tensor):
+                shapes[name] = tuple(out.shape)
+
+        hooks.append(mod.register_forward_hook(keep))
+    return shapes, hooks
+
+
+def forward_rows(mesh, net_g: str, img: int, state_dict: dict,
+                 inputs: Dict[str, np.ndarray], dname: str = "float32",
+                 train: bool = False, loss: Optional[str] = None,
+                 spatial: bool = True, device: str = "cpu") -> dict:
+    """``net_g`` with ``state_dict`` on the rank's part of ``inputs``
+    (whole normalized NHWC images: "a" and "b", or "x" the 6-channel pair;
+    row-sharded with ``spatial``): its logits, the global batch's logits
+    (gathered over rows, then samples), every submodule's output shape, and
+    the launches and the peak device memory. ``train`` runs the train-mode
+    forward; with ``loss`` ("levir" on "label", "damage" on "masks") the
+    loss of the gathered logits, the gradients averaged over the ranks
+    (DDP's mean) and the running statistics after the forward; without,
+    one eval forward first warms the card (its algorithm choices), and the
+    second is the one returned."""
+    from dahitra_tpu_torch.core.checkpoint import load_weights
+    from dahitra_tpu_torch.core.mesh import (all_gather_rows, reduce_sum_,
+                                             shard_batch, world_size)
+    from dahitra_tpu_torch.models.registry import define_g, final_logits
+    from dahitra_tpu_torch.nn import space
+
+    dev = _dev(mesh, device)
+    dtype = getattr(torch, dname)
+    model = define_g(net_g, dtype=dtype, img_size=img)
+    load_weights(model, state_dict)
+    model.to(dev).train(train)
+    part = shard_batch(inputs, mesh, spatial=False)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in part.items()}
+    grad = torch.enable_grad() if loss else torch.no_grad()
+    with grad, space.grid(mesh, spatial):
+        xs = [t[k].to(dtype) for k in (("a", "b") if "a" in t else ("x",))]
+        xs = space.shard_rows(model, *xs)
+        if not loss and not train:
+            model(*xs)
+        shapes, hooks = _shapes(model)
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        logits = final_logits(model(*xs, train=train)).float()
+        whole = space.gather_batch(logits, mesh)
+        out = {"logits": logits.detach(), "whole": whole.detach()}
+        if loss:
+            data = mesh.data_group if mesh else None
+            if loss == "levir":
+                from dahitra_tpu_torch.losses.cd import levir_train_loss
+
+                label = all_gather_rows(t["label"].long(), data)
+                value = levir_train_loss(whole, label, label.shape[0])
+            else:
+                from dahitra_tpu_torch.losses.combo import xbd_damage_loss
+
+                value = xbd_damage_loss(whole, all_gather_rows(
+                    t["masks"].float(), data))
+            value.backward()
+            world = world_size()
+            out["loss"] = value.detach()
+            out["grads"] = {k: (reduce_sum_(p.grad.clone()) / world
+                                if mesh is not None else p.grad.clone())
+                            for k, p in model.named_parameters()
+                            if p.grad is not None}
+            out["stats"] = {k: b.detach().clone()
+                            for k, b in model.named_buffers()
+                            if k.endswith(("running_mean", "running_var"))}
+    for h in hooks:
+        h.remove()
+    _sync(dev)
+    return {**out, "shapes": shapes, "launches": launches(),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else 0}
+
+
+def trainer_steps(mesh, kind: str, cfg: dict,
+                  train_arrays: Dict[str, np.ndarray], spatial: bool = True,
+                  timed: int = 0) -> dict:
+    """A ``CDTrainer`` (``kind`` "cd") or ``XBDTrainer`` ("xbd", damage)
+    built from ``cfg``: one ``train_step`` (row-sharded with ``spatial``)
+    on the first batch of epoch 0, its loss (and confusion matrix), the
+    gradients, the running statistics after it, the launches in it and the
+    peak device memory over it (``torch.cuda.max_memory_allocated``, 0 on
+    the CPU); then ``timed`` more steps on the same batch, each on the host
+    clock around a synchronized call: their median, their peak device
+    memory and the collectives staged through host memory per step."""
+    import argparse
+    import statistics
+    import time
+
+    from dahitra_tpu_torch.core import mesh as mesh_mod
+    from dahitra_tpu_torch.tools.mesh_checks import _state
+
+    if kind == "cd":
+        from dahitra_tpu_torch.train.engine import CDTrainer as cls
+    else:
+        from dahitra_tpu_torch.train.xbd_engine import XBDTrainer as cls
+    trainer = cls(argparse.Namespace(**cfg), train_arrays, train_arrays,
+                  device=cfg["device"], mesh=mesh)
+    dev = trainer.device
+    batch = trainer._to_device(next(iter(trainer.train_loader)))
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    out = trainer.train_step(*batch, spatial=spatial)
+    _sync(dev)
+    loss, cm = out if isinstance(out, tuple) else (out, None)
+    res = {"loss": loss.view(1).clone(), **_state(trainer.model),
+           "launches": launches(),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)
+           if dev.type == "cuda" else 0}
+    if cm is not None:
+        res["cm"] = cm.clone()
+    times, staged = [], mesh_mod.STAGED
+    if timed and dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        trainer.train_step(*batch, spatial=spatial)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    if timed:
+        res["step_s"] = statistics.median(times)
+        res["warm_peak_bytes"] = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        res["staged_per_step"] = (mesh_mod.STAGED - staged) / timed
+    return res
+
+
+def grid_of(mesh) -> dict:
+    """The rank's place on the grid and its groups' members, read back
+    through the groups: every rank's global rank gathered over its space
+    group and over its data group."""
+    from dahitra_tpu_torch.core.mesh import gather_parts
+
+    me = torch.tensor([mesh.rank])
+    return {"rank": mesh.rank, "data_rank": mesh.data_rank,
+            "space_rank": mesh.space_rank, "n_data": mesh.n_data,
+            "n_space": mesh.n_space, "shard": mesh.shard,
+            "space_members": [int(p) for p in gather_parts(
+                me, mesh.space_group)],
+            "data_members": [int(p) for p in gather_parts(
+                me, mesh.data_group)]}
+
+
+def run_cases(mesh, cases, deterministic: bool = False) -> list:
+    """Each ``(function name, args)`` of ``cases`` in turn on this rank (one
+    launch for several checks; TF32 off, as the trainers set it, and cuDNN
+    deterministic where asked), then the rank's count of collectives staged
+    through host memory (``core.mesh.STAGED``)."""
+    from dahitra_tpu_torch.core import mesh as mesh_mod
+    from dahitra_tpu_torch.tools import mesh_checks
+    from dahitra_tpu_torch.utils import disable_tf32
+
+    def fn(name):
+        return globals().get(name) or getattr(mesh_checks, name)
+
+    disable_tf32()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        out = [fn(name)(mesh, *args) for name, args in cases]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out + [mesh_mod.STAGED]

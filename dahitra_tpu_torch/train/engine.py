@@ -23,9 +23,10 @@ resumes the run after its epoch, optimizer state and the augmentation and
 dropout generators' states included.
 
 With a ``mesh`` (``core/mesh.py``; ``--gpu_ids`` with several ordinals)
-each rank holds the model in ``DistributedDataParallel`` and takes its rows
-of every batch, padded to the world size as the JAX trainer pads them
-(engine.py:95-101: the first sample repeated, label 255). BatchNorm takes
+each rank holds the model in ``DistributedDataParallel`` and takes its data
+shard's samples of every batch, padded to the mesh's data axis (n_data) as
+the JAX trainer pads them (engine.py:95-101: the first sample repeated,
+label 255). BatchNorm takes
 the global batch's statistics, the augmentation draws are the global
 batch's (``shard``), and the fp32 logits and the labels are gathered so that
 every rank computes the loss and the confusion matrix of the global batch,
@@ -36,6 +37,19 @@ with dropout draws other masks than one process. Only rank 0 writes
 ``log.txt``, the ``*.npy`` curves, checkpoints and visualisations; every
 rank resumes from the same checkpoint; ``imps`` counts the real pairs of all
 ranks.
+
+On a (data, space) grid (``n_space > 1``) the ranks of a data row take the
+same samples. The epoch loops place them replicated (``spatial=False``, as
+JAX's do, engine.py:214, 292): every space rank runs the whole images,
+BatchNorm sums over the data group and the gathers run over it.
+``train_step(..., spatial=True)`` is the row-sharded step
+(``batch_sharding(spatial=True)``): each space rank augments its whole
+images with the draws its data row shares, keeps its rows
+(``nn/space.py``; rows per rank a multiple of the model's stride) and runs
+the forward on them; the fp32 logits are gathered over rows, then over
+samples, before the unchanged loss and confusion matrix, so that every
+rank's loss is the global loss and the gathers' backward gives the factor
+n_data * n_space that cancels DDP's mean.
 
 ``--scan_epoch`` is the host-free epoch (engine.py:327-384): the training
 set is staged on the device once (``_stage_train``, trimmed to a multiple
@@ -72,6 +86,7 @@ from dahitra_tpu_torch.evalx.evaluator import stage_full_batches
 from dahitra_tpu_torch.losses.cd import levir_train_loss, multi_scale_loss
 from dahitra_tpu_torch.metrics.confusion import batch_confusion_matrix, cm2score
 from dahitra_tpu_torch.models.registry import define_g, final_logits
+from dahitra_tpu_torch.nn import space
 from dahitra_tpu_torch.nn.blocks import set_dropout_generator
 from dahitra_tpu_torch.nn.init import init_weights
 from dahitra_tpu_torch.train.graph import EvalScan, StepGraph
@@ -150,26 +165,32 @@ class CDTrainer:
         return tuple(torch.from_numpy(batch[k]).to(self.device)
                      for k in ("a", "b", "label"))
 
-    def train_step(self, a_u8, b_u8, l_u8):
+    def train_step(self, a_u8, b_u8, l_u8, spatial: bool = False):
         """One optimizer step on a uint8 batch already on the device (the
-        rank's rows under a mesh); returns (loss, confusion matrix) of the
-        global batch, both device tensors."""
-        a, b, label = augment_pairs(a_u8, b_u8, l_u8, train=True,
-                                    dtype=self.dtype,
-                                    generator=self.aug_generator,
-                                    shard=self.mesh.shard if self.mesh
-                                    else None)
-        out = self.net(a, b, train=True)
-        label = all_gather_rows(label)
-        if self.multi_scale and isinstance(out, (list, tuple)):
-            out = [all_gather_rows(lg.float()) for lg in out]
-            logits = out[-1]
-            loss = multi_scale_loss(out, label, label.shape[0])
-        else:
-            logits = all_gather_rows(final_logits(out).float())
-            loss = levir_train_loss(logits, label, label.shape[0])
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        rank's data shard under a mesh, whole images); returns (loss,
+        confusion matrix) of the global batch, both device tensors. With
+        ``spatial`` on a grid, the forward runs on the space rank's rows."""
+        data = self.mesh.data_group if self.mesh else None
+        with space.grid(self.mesh, spatial):
+            a, b, label = augment_pairs(a_u8, b_u8, l_u8, train=True,
+                                        dtype=self.dtype,
+                                        generator=self.aug_generator,
+                                        shard=self.mesh.shard if self.mesh
+                                        else None)
+            a, b = space.shard_rows(self.model, a, b)
+            out = self.net(a, b, train=True)
+            label = all_gather_rows(label, data)
+            if self.multi_scale and isinstance(out, (list, tuple)):
+                out = [space.gather_batch(lg.float(), self.mesh)
+                       for lg in out]
+                logits = out[-1]
+                loss = multi_scale_loss(out, label, label.shape[0])
+            else:
+                logits = space.gather_batch(final_logits(out).float(),
+                                            self.mesh)
+                loss = levir_train_loss(logits, label, label.shape[0])
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         self.optimizer.step()
         cm = batch_confusion_matrix(logits.detach().argmax(-1), label,
                                     self.n_class)
@@ -191,11 +212,13 @@ class CDTrainer:
     def _epoch_perm(self, epoch: int, n_batches: int, bs: int) -> np.ndarray:
         """Shuffled batch indices (n_batches, bs), JAX's draw
         (engine.py:223-245): one global permutation, or under a mesh of d
-        ranks each shard permuted alone and every batch taking bs / d
-        shard-local indices from each shard, rank order."""
+        data ranks (``n_data``, not the world size: the staged set shards
+        over ``data`` only, engine.py:60-67) each shard permuted alone and
+        every batch taking bs / d shard-local indices from each shard, rank
+        order."""
         rng = np.random.default_rng(
             getattr(self.args, "seed", 0) * 100003 + epoch)
-        d = self.mesh.world_size if self.mesh else 1
+        d = self.mesh.n_data if self.mesh else 1
         if d == 1:
             return rng.permutation(self._staged_n)[: n_batches * bs].reshape(
                 n_batches, bs)
@@ -292,8 +315,8 @@ class CDTrainer:
             prof = profile(activities=acts)
             prof.__enter__()
         timer = Timer()
-        world = self.mesh.world_size if self.mesh else 1
-        if self.scan and self.args.batch_size % world == 0:  # scan_ok
+        n_data = self.mesh.n_data if self.mesh else 1
+        if self.scan and self.args.batch_size % n_data == 0:  # scan_ok
             cm_dev, losses, n_img = self._scan_epoch(epoch, timer)
         else:
             cm_dev, losses, n_img = self._loader_epoch(epoch, timer)
@@ -354,13 +377,18 @@ class CDTrainer:
         Image.fromarray(grid).save(
             os.path.join(vis_dir, f"train_e{epoch}_b{batch_id}.jpg"))
 
-    def _eval_cm(self, a_u8, b_u8, l_u8) -> torch.Tensor:
+    def _eval_cm(self, a_u8, b_u8, l_u8, spatial: bool = False
+                 ) -> torch.Tensor:
         """The confusion matrix of the eval forward (running statistics;
-        K1 without saves) on one uint8 batch on the device."""
+        K1 without saves) on one uint8 batch on the device (whole images);
+        with ``spatial`` on a grid, the forward on the space rank's rows and
+        the predictions gathered over the rows."""
         a, b, label = augment_pairs(a_u8, b_u8, l_u8, train=False,
                                     dtype=self.dtype)
-        return batch_confusion_matrix(
-            final_logits(self.model(a, b)).argmax(-1), label, self.n_class)
+        with space.grid(self.mesh, spatial):
+            a, b = space.shard_rows(self.model, a, b)
+            pred = space.gather_rows(final_logits(self.model(a, b)).argmax(-1))
+        return batch_confusion_matrix(pred, label, self.n_class)
 
     @torch.inference_mode()
     def validate(self, epoch: int) -> dict:
@@ -384,7 +412,7 @@ class CDTrainer:
         for batch in batches:
             cm += self._eval_cm(*self._to_device(batch))
         if self.mesh:  # filler rows carry label 255, which no class counts
-            reduce_sum_(cm)
+            reduce_sum_(cm, self.mesh.data_group)
         self.confusion_matrix = cm.cpu().numpy()
         scores = cm2score(self.confusion_matrix)
         self.logger.write(

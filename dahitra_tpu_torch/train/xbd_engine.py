@@ -76,8 +76,15 @@ the gathered logits and masks, dropout masks from a generator per rank (seed
 + 1 + 1000 rank), and only rank 0 writing the log and checkpoints. A
 ``--batch_size`` that is not a multiple of the world size is refused, as
 the JAX trainer refuses it (xbd_engine.py:113-123). Validation batches are
-padded to the world size with a ``valid`` vector: the filler enters no dice
-and no tp / fp / fn count. The GAN's discriminator has a DDP of its own,
+padded to the mesh's data axis with a ``valid`` vector: the filler enters no
+dice and no tp / fp / fn count. On a (data, space) grid the ranks of a data
+row take the same samples, replicated in the epoch loops (xbd_engine.py:290;
+BatchNorm and the gathers over the data group), and ``train_step`` /
+``eval_step`` with ``spatial=True`` run the row-sharded step as
+``CDTrainer.train_step`` does (``nn/space.py``): the whole images augmented
+with the data row's draws, the rank's rows through the model, the fp32
+logits gathered over rows, then samples, before the loss on the gathered
+masks. The GAN's discriminator has a DDP of its own,
 used only in its update; the generator step runs the bare discriminator,
 whose parameters then take no gradient.
 """
@@ -102,6 +109,7 @@ from dahitra_tpu_torch.losses.combo import (dual_hrnet_loss, xbd_adapt_loss,
                                             xbd_localization_loss)
 from dahitra_tpu_torch.models.discriminator import Discriminator
 from dahitra_tpu_torch.models.registry import define_g
+from dahitra_tpu_torch.nn import space
 from dahitra_tpu_torch.nn.blocks import resize_bilinear, set_dropout_generator
 from dahitra_tpu_torch.nn.init import init_random, zoo_ctor_init
 from dahitra_tpu_torch.train.graph import StepGraph
@@ -309,28 +317,39 @@ class XBDTrainer:
                            train=True, dtype=self.dtype, elastic=self.elastic,
                            shard=self.mesh.shard if self.mesh else None)
 
-    def train_step(self, pre, post, msk, lbl) -> torch.Tensor:
+    def train_step(self, pre, post, msk, lbl, spatial: bool = False
+                   ) -> torch.Tensor:
         """One optimizer step on a uint8 batch already on the device (the
-        rank's rows under a mesh); returns the global batch's loss, a device
-        tensor."""
-        img6, masks, _ = self._augment(pre, post, msk, lbl)
-        out = self._forward(img6, True, self.net)
-        out = ({k: all_gather_rows(v) for k, v in out.items()}
-               if isinstance(out, dict) else all_gather_rows(out.float()))
-        loss = _LOSSES[self.task](out, all_gather_rows(masks))
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        rank's data shard under a mesh, whole tiles); returns the global
+        batch's loss, a device tensor. With ``spatial`` on a grid, the
+        forward runs on the space rank's rows."""
+        with space.grid(self.mesh, spatial):
+            img6, masks, _ = self._augment(pre, post, msk, lbl)
+            img6, = space.shard_rows(self.model, img6)
+            out = self._forward(img6, True, self.net)
+            out = ({k: space.gather_batch(v, self.mesh)
+                    for k, v in out.items()} if isinstance(out, dict)
+                   else space.gather_batch(out.float(), self.mesh))
+            loss = _LOSSES[self.task](out, all_gather_rows(
+                masks, self.mesh.data_group if self.mesh else None))
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         self.optimizer.step()
         return loss.detach()
 
     @torch.inference_mode()
-    def eval_step(self, pre, post, msk, lbl, valid=None):
+    def eval_step(self, pre, post, msk, lbl, valid=None,
+                  spatial: bool = False):
         """(dice (B,), tp, fp, fn (4,)) of one uint8 batch on the device;
         the counts are 0 for ``loc``; filler samples (``valid`` False) enter
-        no count."""
+        no count. With ``spatial`` on a grid, the forward runs on the space
+        rank's rows and its logits are gathered over the rows."""
         img6, masks, lbl_i = augment_xbd(pre, post, msk, lbl, train=False,
                                          dtype=self.dtype)
-        out = self._forward(img6)
+        with space.grid(self.mesh, spatial):
+            out = self._forward(*space.shard_rows(self.model, img6))
+            out = ({k: space.gather_rows(v) for k, v in out.items()}
+                   if isinstance(out, dict) else space.gather_rows(out))
         if isinstance(out, dict):
             h, w = masks.shape[1], masks.shape[2]
             loc, cls = (resize_bilinear(out[k].float(), h, w)
@@ -450,11 +469,14 @@ class XBDTrainer:
                 if "valid" in batch else None
             d, tp, fp, fn = self.eval_step(*self._to_device(batch), valid)
             if valid is not None:  # every rank's dice, filler dropped
-                d = all_gather_rows(d)[all_gather_rows(valid.byte()) > 0]
+                data = self.mesh.data_group
+                d = all_gather_rows(d, data)[
+                    all_gather_rows(valid.byte(), data) > 0]
             dices.append(d)
             counts.append(torch.stack([tp, fp, fn]))
         if self.mesh and counts:
-            counts = [reduce_sum_(torch.stack(counts).sum(0))]
+            counts = [reduce_sum_(torch.stack(counts).sum(0),
+                                  self.mesh.data_group)]
         dice = torch.cat(dices).mean().item() if dices else 0.0
         if self.task == "loc":
             self.logger.write(f"Val Dice: {dice:.5f}\n")
@@ -544,6 +566,14 @@ class GANTrainer(XBDTrainer):
         (the discriminator's pass in train mode, its BN updates thrown
         away). Returns (generator loss, discriminator loss), device
         tensors."""
+        with space.grid(self.mesh):  # replicated on a grid
+            return self._gan_step(pre, post, msk, lbl, update_disc)
+
+    def _gan_step(self, pre, post, msk, lbl, update_disc: bool):
+        def gather(t):
+            return all_gather_rows(t, self.mesh.data_group if self.mesh
+                                   else None)
+
         img6, masks, _ = self._augment(pre, post, msk, lbl)
         d_loss = torch.zeros((), device=img6.device)
         if update_disc:
@@ -552,8 +582,7 @@ class GANTrainer(XBDTrainer):
             real_logits = self.d_net(masks.to(self.dtype), train=True)
             fake_logits = self.d_net(fake, train=True)
             d_loss = xbd_gan_discriminator_loss(
-                all_gather_rows(real_logits.float()),
-                all_gather_rows(fake_logits.float()))
+                gather(real_logits.float()), gather(fake_logits.float()))
             self.d_optimizer.zero_grad(set_to_none=True)
             d_loss.backward()
             self.d_optimizer.step()
@@ -564,8 +593,7 @@ class GANTrainer(XBDTrainer):
             with _running_stats_kept(self.disc):
                 fake_logits = self.disc(fake_in.to(self.dtype), train=True)
             loss = xbd_gan_generator_loss(
-                all_gather_rows(logits), all_gather_rows(masks),
-                all_gather_rows(fake_logits.float()),
+                gather(logits), gather(masks), gather(fake_logits.float()),
                 effective_gan=self.effective_gan)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()

@@ -319,6 +319,58 @@ def test_tokenizer_matches_its_split_plain_version(card):
     assert _scaled_err(ft.semantic_tokenizer(x, w), ref) <= 1e-4
 
 
+def _split_over_ranks(x, w, ranks):
+    """The rank-split K3 with ``ranks`` ranks simulated in one process: a
+    statistics launch per rank on its N / ranks pixels, the statistics
+    joined in (rank, chunk) order, a pool launch per rank, the fp32 partial
+    tokens summed in rank order. Returns (tokens, each rank's M and S, the
+    ranks' pixels, the chunk)."""
+    b, n, _ = x.shape
+    parts = [p.contiguous() for p in x.split(n // ranks, 1)]
+    chunk = ft._chunk(b, n // ranks, ft._n_sm(x.device.index))
+    scratch = [ft._scratch(b, n // ranks, w.shape[1], chunk, x.device)
+               for _ in parts]
+    stats = torch.cat([ft.ranks_stats(p, w, chunk, s)
+                       for p, s in zip(parts, scratch)], 1)
+    pooled = [ft.ranks_pool(p, w, stats, chunk, s)
+              for p, s in zip(parts, scratch)]
+    tokens = ft.sum_in_order([p for p, _ in pooled]).to(x.dtype)
+    return tokens, [ms for _, ms in pooled], parts, chunk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,l,ranks", [(16, 4096, 4, 2), (2, 65536, 4, 2),
+                                         (3, 1000, 16, 2), (16, 256, 4, 2),
+                                         (2, 16384, 4, 4), (1, 128, 1, 2)])
+def test_rank_split_tokenizer_matches_its_plain_version(card, dtype, b, n, l,
+                                                        ranks):
+    """The rank-split K3 (ranks simulated in one process) against
+    ``semantic_tokenizer_ranks_plain`` at its own chunk and against the
+    plain tokenizer of all N pixels: every rank combines the same M and S
+    bits; the tokens within the tolerance."""
+    x, w = _tokenizer_case(card, dtype, b, n, l, seed=6)
+    tokens, ms, parts, chunk = _split_over_ranks(x, w, ranks)
+    torch.cuda.synchronize()
+    assert all(torch.equal(ms[0], m) for m in ms[1:])
+    assert torch.isfinite(tokens.float()).all()
+    ref = ft.semantic_tokenizer_ranks_plain(parts, w, chunk)
+    assert _scaled_err(tokens, ref) <= TOL[dtype]
+    assert _scaled_err(tokens, ft.semantic_tokenizer_plain(x, w)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,l", [(16, 4096, 4), (2, 65536, 4), (3, 1000, 16),
+                                   (5, 129, 3)])
+def test_one_process_tokenizer_keeps_its_bits(card, dtype, b, n, l):
+    """The one-process K3 and the rank-split entry points over one rank
+    run the same statistics, combine and pooling code: the same bits (the
+    rank-split pool's fp32 partial tokens cast as the one-process pool
+    casts them)."""
+    x, w = _tokenizer_case(card, dtype, b, n, l, seed=7)
+    tokens, _, _, _ = _split_over_ranks(x, w, 1)
+    assert torch.equal(ft.semantic_tokenizer(x, w), tokens)
+
+
 # K4 instances: (x dtype, precise). The fp32 model, the bf16 model (fp32
 # decoder input, bf16 operands), bf16 I/O, and bf16 I/O with fp32 operands.
 K4_MODES = [(torch.float32, True), (torch.float32, False),

@@ -78,7 +78,8 @@ def test_epoch_perm_matches_jax(world, seed, epoch, n, bs):
                                 n_data=world, _staged_n=staged)
     tns = types.SimpleNamespace(
         args=types.SimpleNamespace(seed=seed), _staged_n=staged,
-        mesh=types.SimpleNamespace(world_size=world) if world > 1 else None)
+        mesh=types.SimpleNamespace(world_size=world, n_data=world)
+        if world > 1 else None)
     want = JaxCDTrainer._epoch_perm(jns, epoch, n_batches, bs)
     got = CDTrainer._epoch_perm(tns, epoch, n_batches, bs)
     assert got.shape == (n_batches, bs)
@@ -246,7 +247,8 @@ def _joined_steps(cfg, arrays, world):
     bs = cfg["batch_size"]
     staged = (len(arrays["a"]) // world) * world
     ns = types.SimpleNamespace(args=tr.args, _staged_n=staged,
-                               mesh=types.SimpleNamespace(world_size=world))
+                               mesh=types.SimpleNamespace(world_size=world,
+                                                         n_data=world))
     perm = CDTrainer._epoch_perm(ns, 0, staged // bs, bs)
     per, local = bs // world, staged // world
     losses, cms = [], []

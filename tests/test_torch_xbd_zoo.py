@@ -476,7 +476,7 @@ def test_hrnet_eval_counters_match_jax_eval_step():
                                       for h, v in out.items()})
     ref = JaxXBDTrainer._eval_step_impl(stub, None, None, pre, post, msk, lbl)
     port = types.SimpleNamespace(
-        task="hrnet", thr=0.3, dtype=torch.float32,
+        task="hrnet", thr=0.3, dtype=torch.float32, mesh=None, model=None,
         _forward=lambda img6: {h: torch.from_numpy(v)
                                for h, v in out.items()})
     got = XBDTrainer.eval_step(port, *(torch.from_numpy(t) for t in
