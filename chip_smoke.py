@@ -18,7 +18,8 @@ Dual-HRNet with ``xbd_train --task hrnet``), data parallelism
 padded loader), the host-free step (``--scan_epoch``,
 ``eval_models(scan=True)``: CUDA-graph replays of the train and eval
 steps), and the space axis (``nn/space.py``: image rows sharded over the
-ranks of a grid, with halo exchanges and the rank-split K3). ``--phases`` runs the phases it lists (every phase
+ranks of a grid, with halo exchanges and the rank-split K3; BIT,
+``xbd_bit`` and ``pallas = True`` on a rank's rows). ``--phases`` runs the phases it lists (every phase
 without it), with the phases whose output they read (``PHASE_NEEDS``) and
 phase 1; the kernels are built in every selection. Phases, each fatal on
 failure:
@@ -250,13 +251,36 @@ failure:
      K1-save 6, K2 6), peak memory and warm step beside one process's;
      then the rank-split K3's per-rank launches timed with two
      ranks simulated in one process (``semantic_tokenizer_ranks`` in the
-     kernels line).
+     kernels line);
+ 22. the decoder kernels on the space axis (``run_space_kernels_phase``),
+     cuDNN deterministic: two gloo ranks on cuda:0, half the rows each,
+     against one process on the same card, weights and data, fp32 and
+     bf16: (a) ``base_transformer_pos_s4_dd8`` at 256 px, batch 8, its eval
+     forward (each rank: the rank-split K3 2, K1 at mlp_dim 64 2) and its
+     row-sharded ``CDTrainer.train_step`` on pairs with a painted change
+     (K1-save 2, K2 2, K3 2); (b) ``_t8_e2d4``'s eval forward (8 tokens,
+     hl 64); (c) ``xbd_bit``'s damage step at 1024 px, batch 1; (d) with
+     ``pallas = True``, ``newUNetTrans``'s eval forward and step at 256 px
+     (K4 6 a rank, K3 3), ``xbd_dahitra``'s damage step at 1024 px (K4 3 a
+     rank, as one process's pallas step) and the ``_dd8`` eval forward (K4
+     at mlp_dim 64, 2): the gathered logits (bf16: 2e-2, BIT's fixed
+     ``SPACE22_BIT_BF16_TOL``, as its |f1 - f2| head cancels), every
+     decoder's gate as one process's, the steps' loss, gradients and BN
+     statistics (``_check_two_ranks``; the bf16 steps at batch 1 a rank
+     also against one process in the ranks' BN order),
+     each rank's launches, its peak memory and warm step beside one
+     process's; then K1, K1-save and K2 at mlp_dim 64 and
+     K4 at mlp_dim 32 and 64 at a rank's shapes (``RANK_*_SHAPES``)
+     against their plain versions, rerun for the same bits and timed (the
+     ``_rank`` entries of the kernels line).
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21) and read just after (phases 19
-and 21 read each rank's counters before and after its run); the counters of the padded
-token counts and of the rank-split K3 (``NO_PAD``) must read 0 in every one of
-them but phase 21's row-sharded runs, which launch the rank-split K3. ``--profile`` adds a torch.profiler
+7, 9, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21, 22) and read just after
+(phases 19, 21 and 22 read each rank's counters before and after its run);
+the counters of the padded token counts and of the rank-split K3
+(``NO_PAD``) must read 0 in every one of them but the row-sharded runs of
+phases 21 and 22, which launch the rank-split K3 (and there the
+one-process K3 0). ``--profile`` adds a torch.profiler
 breakdown of the batch-8 forward and of one batch-8 training step by kernel
 class, with the device's idle share, on the default path and with
 ``pallas = True``, and of one 1024 px xBD step of ``xbd_senet154_double``
@@ -364,7 +388,7 @@ WIDE_SHAPES = [(f"wide/l{tokens}h{heads}", 2 * BATCH, 4096, 8, heads, tokens,
 CALLS = {"bit/dd8": 2, "xbd_bit/s4": 2, "xbd_bit_tta/s4": 2}
 
 
-PHASES = range(1, 22)
+PHASES = range(1, 23)
 # What a phase reads from another: phase 4's tree and checkpoint, phase 5's
 # confusion matrix, phase 15's damage checkpoints. (Phase 7's splits and
 # phase 15's tiles are written for whichever phase reads them.)
@@ -457,6 +481,13 @@ def _reps(n: int) -> dict:
     return {"reps": 3, "rounds": 3} if n > 4096 else {}
 
 
+# Timed calls of a plain version (``plain_ms``): 2 a round, median of 3
+# rounds, after one warm-up. The plain versions take 3-60 ms a call: timed
+# 51 times each, they took 70 of phase 3's 112 s on an H100 whose phases
+# ran a third slower than usual, and the script 1210 s of its 1200.
+PLAIN_REPS = {"reps": 2, "rounds": 3}
+
+
 def _reset_counts() -> None:
     from dahitra_tpu_torch.tools.mesh_checks import reset_launches
 
@@ -464,8 +495,9 @@ def _reset_counts() -> None:
 
 
 # The pad counters (the main-path runs send no token count that the kernels
-# pad) and the rank-split K3's (only phase 21's row-sharded runs split the
-# tokenizer over ranks): every other main-path run must read them 0.
+# pad) and the rank-split K3's (only the row-sharded runs of phases 21 and
+# 22 split the tokenizer over ranks): every other main-path run must read
+# them 0.
 NO_PAD = {"k1_pad": 0, "k1_save_pad": 0, "k2_pad": 0, "k4_pad": 0,
           "k3_ranks": 0}
 
@@ -479,13 +511,11 @@ def _read_counts() -> dict:
 def _set_pallas(model, on: bool, n_decoders: int = 3) -> None:
     """``pallas = on`` on the model's decoder stacks (DAHiTra's three,
     BIT's one), as a JAX user sets the field (no flag selects it)."""
-    from dahitra_tpu_torch.nn.blocks import TransformerDecoder
+    from dahitra_tpu_torch.tools.space_checks import set_pallas
 
-    decs = [mod for mod in model.modules() if isinstance(mod, TransformerDecoder)]
-    if len(decs) != n_decoders:
-        fail(f"expected {n_decoders} TransformerDecoders, found {len(decs)}")
-    for dec in decs:
-        dec.pallas = on
+    found = set_pallas(model, on)
+    if found != n_decoders:
+        fail(f"expected {n_decoders} TransformerDecoders, found {found}")
 
 
 def _shape(shape):
@@ -743,7 +773,7 @@ def check_k1(torch, dtype, gen, shapes=None, mlp=DIM):
             ms=time_ms(k1, torch, **_reps(n)),
             device_ms=time_ms(k1, torch, queued=True, **_reps(n)),
             plain_ms=time_ms(lambda: fd.decoder_stack_fwd_plain(
-                *ops_in, depth, heads, dtype, b1=b1), torch, **_reps(n)),
+                *ops_in, depth, heads, dtype, b1=b1), torch, **PLAIN_REPS),
             bound_ms=bms, bound_by=by, library_ms=None))
     return rows
 
@@ -809,7 +839,7 @@ def check_k1_save_k2(torch, dtype, gen, shapes=None, mlp=DIM):
             device_ms=time_ms(k1_save, torch, queued=True, **_reps(n)),
             plain_ms=time_ms(lambda: fd.decoder_stack_fwd_plain(
                 *ops_in, depth, heads, dtype, save=True, b1=b1), torch,
-                **_reps(n)),
+                **PLAIN_REPS),
             bound_ms=bms, bound_by=by, library_ms=None))
         # K2: reads the saves, dy and the weights; writes dx, dA, dZ (T)
         # and dW1, dW2, dvecs and db1 (fp32).
@@ -825,7 +855,7 @@ def check_k1_save_k2(torch, dtype, gen, shapes=None, mlp=DIM):
             device_ms=time_ms(k2, torch, queued=True, **_reps(n)),
             plain_ms=time_ms(lambda: fd.decoder_stack_bwd_plain(
                 got[1], got[2], dy, *ops_in[1:], depth, heads, dtype, b1=b1),
-                torch, **_reps(n)),
+                torch, **PLAIN_REPS),
             bound_ms=bms, bound_by=by, library_ms=None))
     return fwd_rows, bwd_rows
 
@@ -893,7 +923,8 @@ def check_k3(torch, dtype, gen):
             "ms": time_ms(lambda: ft.semantic_tokenizer(x, w), torch),
             "device_ms": time_ms(lambda: ft.semantic_tokenizer(x, w), torch,
                                  queued=True),
-            "plain_ms": time_ms(lambda: ft.semantic_tokenizer_plain(x, w), torch),
+            "plain_ms": time_ms(lambda: ft.semantic_tokenizer_plain(x, w),
+                                torch, **PLAIN_REPS),
             "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, x, x, scale=1.0), torch)})
@@ -997,7 +1028,7 @@ def check_k4(torch, dtype, gen, shapes=None, mlp=DIM):
                        tokens), torch, queued=True, **_reps(n)),
                    plain_ms=time_ms(lambda: kd.fused_decoder_plain(
                        x, m, packed, depth, heads, precise), torch,
-                       **_reps(n)),
+                       **PLAIN_REPS),
                    bound_ms=bms, bound_by=by, library_ms=None)
         (rows if io == torch.float32 else io_rows).append(row)
     return rows, io_rows
@@ -1968,7 +1999,8 @@ def run_xbd_task_steps(torch, tmp, task, net_g, dtype, arrays,
         if got != {**NO_PAD, **want} or not np.isfinite(losses).all():
             fail(f"xBD {task} {kind} {net_g} {dname}: launches {got} != "
                  f"{want} or losses {losses}")
-        out[kind] = {"step_ms": _spread(times), "losses": losses,
+        out[kind] = {"step_ms": _spread(times), "samples": timed,
+                     "losses": losses,
                      "peak_mem_gib": torch.cuda.max_memory_allocated()
                      / 2 ** 30, "launches": got}
     if task == "gan":
@@ -2560,9 +2592,10 @@ XBD_ZOO_PREDICT = "xbd_senet154_double"
 # epoch of each run is half as long and phases 1-21 stay inside the 1200 s
 # a smoke run may take (941 s with 8 tiles).
 XBD_ZOO_TILES = 4
-# Warm steps per run of phase 18 (3, down from phase 16's 5 since PR 16,
-# which added phase 19 within the run's 900 s).
-XBD_ZOO_TIMED = 3
+# Warm steps per run of phase 18: 1, so that phases 1-22 stay inside the
+# 1200 s a smoke run may take (3 took the script to 1210 s on a card whose
+# phases ran a third slower than usual).
+XBD_ZOO_TIMED = 1
 XBD_ZOO_IMPORTS = ("xbd_senet154_double", "dual_hrnet")
 
 
@@ -2762,8 +2795,9 @@ def run_xbd_zoo_phase(torch, tmp, dtypes) -> dict:
     of its own (phase 15's test tiles to predict), batch 1,
     cuDNN deterministic, fp32 then bf16: for every run of
     ``XBD_ZOO_RUNS`` one epoch of ``xbd_train`` with a validation and
-    ``XBD_ZOO_TIMED`` warm steps (median, range, peak memory; no decoder or
-    tokenizer launch), ``xbd_predict`` with the SENet154 double checkpoint;
+    ``XBD_ZOO_TIMED`` warm steps (one sample, ``samples`` printed; peak
+    memory; no decoder or tokenizer launch), ``xbd_predict`` with the
+    SENet154 double checkpoint;
     then the imported checkpoints, the card against the CPU plain path
     and the dropout step. Returns the launch counts by dtype and phase."""
     import gc
@@ -2844,6 +2878,19 @@ MESH_BF16_UNHELD = ("resnet.conv1.", "resnet.bn1.", "resnet.layer1.",
 def _trans34_path(name: str) -> bool:
     return (name.split(".")[0].endswith(("_3", "_4"))
             or name.startswith(MESH_BF16_UNHELD))
+
+
+# Phase 22d's bf16 pallas ``xbd_dahitra`` step at batch 1 a rank: besides
+# trans modules 3-4's path, the second feed-forward weight of trans module
+# 5's encoder, which one process moves by 6.05e-2 of scale when it sums
+# BatchNorm's statistics in the ranks' order (the ranks lie 6.04e-2 from
+# the plain one there, H100 80GB HBM3 at 700 W); it stays held against the
+# ordered one.
+SPACE22_BF16_UNHELD = ("transformer_5.layers.0.1.fn.fn.net.3.weight",)
+
+
+def _trans34_path_pallas(name: str) -> bool:
+    return _trans34_path(name) or name in SPACE22_BF16_UNHELD
 
 
 def _mesh_cfg(tmp, tag, net_g, img, batch, dname, **kw) -> dict:
@@ -2970,14 +3017,16 @@ def _check_two_ranks(torch, got, ref, line, dname, moves=None, order=None,
     ranks' order, the tokens' cancellation or None); in fp32 the flat
     bounds hold against it too. ``held`` names leaves (bf16
     ``xbd_dahitra``: trans modules 3-4's path, whose dates' tokens nearly
-    cancel) that are printed against ``ref``, not held (the worst, how many
-    within the flat bound); the other leaves are held. With
-    ``order_rounds_as_ranks`` (phase 21c: rows split at batch 1, which
-    ``order`` rounds as the ranks do) the loss and every leaf are held at
-    the flat bounds against ``order``, and the loss against ``ref`` is
-    printed beside ``order``'s own move from it; otherwise (phase 19c, the
-    ranks at batch 1 where ``order`` runs 2, which cuDNN rounds otherwise
-    in bf16) the loss is held against ``ref``."""
+    cancel; in 22d also ``SPACE22_BF16_UNHELD``) that are printed against
+    ``ref``, not held (the worst, how many
+    within the flat bound); the other leaves are held (the worst printed).
+    With ``order_rounds_as_ranks`` and an ``order`` (phases 21c and 22c-d:
+    rows split at batch 1, which ``order`` rounds as the ranks do) the loss
+    and every leaf are held at the flat bounds against ``order``, and the
+    loss against ``ref`` is printed beside ``order``'s own move from it;
+    otherwise (phase 19c, the ranks at batch 1 where ``order`` runs 2,
+    which cuDNN rounds otherwise in bf16) the loss is held against
+    ``ref``."""
     bf16 = dname == "bfloat16"
     l_tol, g_flat, s_flat = ((TOL["bfloat16"], GTOL["bfloat16"],
                               TOL["bfloat16"]) if bf16 else (1e-5, 1e-4, 1e-5))
@@ -3007,7 +3056,7 @@ def _check_two_ranks(torch, got, ref, line, dname, moves=None, order=None,
            "ranks_same_stats": _same_bits(got[0]["stats"], got[1]["stats"]),
            "launches_per_rank": [g["launches"] for g in got],
            "launches_one_process": ref["launches"]}
-    by_order = held is not None and order_rounds_as_ranks
+    by_order = order is not None and order_rounds_as_ranks
     ok = loss_err <= l_tol or by_order
     if order is not None:
         oref, cancel = order
@@ -3026,9 +3075,9 @@ def _check_two_ranks(torch, got, ref, line, dname, moves=None, order=None,
         if not bf16 or by_order:
             ok = (ok and ro["loss_rel_err"] <= l_tol
                   and ro["grad_err"] <= g_flat and ro["stats_err"] <= s_flat)
-    if held is not None:
         out["loss_held"] = ("against one process in the ranks' BN order"
                             if by_order else "against one process")
+    if held is not None:
         scale = max(float(v.float().abs().max())
                     for v in ref["grads"].values())
 
@@ -3037,6 +3086,9 @@ def _check_two_ranks(torch, got, ref, line, dname, moves=None, order=None,
                               - ref["grads"][k].float().cpu()).abs().max())
                        for g in got) / scale
 
+        out["held_worst_leaf"] = _worst(got[0]["grads"], ref["grads"], keep)
+        out["held_outside_flat"] = sorted(
+            k for k in ref["grads"] if keep(k) and leaf_err(k) > g_flat)
         out["unheld_leaves"] = sum(held(k) for k in ref["grads"])
         out["unheld_grad_err"] = max(_scaled_max(g["grads"], ref["grads"],
                                                  held) for g in got)
@@ -3051,7 +3103,8 @@ def _check_two_ranks(torch, got, ref, line, dname, moves=None, order=None,
                                           for g in got],
                     "peak_gib_one_process": ref["peak_bytes"] / 2 ** 30})
     if "step_s" in ref:
-        out.update({"warm_step_s_per_rank": [g["step_s"] for g in got],
+        out.update({"warm_step_samples": ref["step_samples"],
+                    "warm_step_s_per_rank": [g["step_s"] for g in got],
                     "warm_step_s_one_process": ref["step_s"],
                     "warm_peak_gib_per_rank": [g["warm_peak_bytes"] / 2 ** 30
                                                for g in got],
@@ -3062,8 +3115,10 @@ def _check_two_ranks(torch, got, ref, line, dname, moves=None, order=None,
     if "cm" in ref and not bf16:
         out["same_confusion_matrix"] = all(
             torch.equal(g["cm"].cpu(), ref["cm"].cpu()) for g in got)
-    out["ok"] = bool(ok and g_err <= g_tol and s_err <= s_tol
-                     and out["ranks_same_grads"] and out["ranks_same_stats"])
+        out["confusion_matrix_flips"] = max(int(
+            (g["cm"].cpu() - ref["cm"].cpu()).abs().sum()) // 2 for g in got)
+    same = out["ranks_same_grads"] and out["ranks_same_stats"]
+    out["ok"] = bool(ok and g_err <= g_tol and s_err <= s_tol and same)
     return out
 
 
@@ -3302,7 +3357,17 @@ def run_mesh_phase(torch, tmp, train_root, cm5) -> dict:
 
 # Phase 21: the space axis (nn/space.py) on the one card: two gloo ranks of
 # one data row, each holding half the rows, against one process.
-SPACE_TIMED = 3  # warm steps timed after each step case
+# Warm steps timed after each step case of phases 21-22: one sample each,
+# so that phases 1-22 keep headroom inside the 1200 s a smoke run may take.
+SPACE_TIMED = 1
+# Phase 22's bf16 BIT logits, held from one process's bf16 and fp32 logits:
+# fixed bounds, 1.25 times one process's own bf16 distance from its fp32
+# logits on an H100 80GB HBM3 at 700 W (5.9e-2 / 5.7e-2 / 4.3e-2), rounded
+# down, where the ranks read 6.4e-2 / 5.6e-2 / 4.8e-2 and one process moves
+# 5.5e-2 / 4.9e-2 / 3.9e-2 when it halves its batch: BIT's |f1 - f2| head
+# cancels, and no two bf16 paths meet the flat 2e-2 there.
+SPACE22_BIT_BF16_TOL = {"a_bit_eval": 7.3e-2, "b_bit_t8_eval": 7.0e-2,
+                        "d_bit_pallas_eval": 5.3e-2}
 # Tokenizer inputs a forward sends at (a)-(b) (256 px, batch 8: both dates
 # batch-stacked) and (c) (1024 px, batch 1), as (name, B, H, W) feature maps
 SPACE_K3 = [(f"r{img}/s{s}", 2 * b, img // s, img // s)
@@ -3397,7 +3462,7 @@ def check_k3_ranks(torch, dtype, gen) -> list:
             "ms": time_ms(rank_launches, torch, **_reps(n)),
             "device_ms": time_ms(rank_launches, torch, queued=True,
                                  **_reps(n)),
-            "plain_ms": time_ms(rank_plain, torch, **_reps(n)),
+            "plain_ms": time_ms(rank_plain, torch, **PLAIN_REPS),
             "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, x0, x0, scale=1.0), torch, **_reps(n))})
@@ -3616,9 +3681,242 @@ def _space_k3_line(torch, ft, sc, cases, got) -> dict:
             "ok": bool(ok and same and all(n == want for n in launches))}
 
 
+# Phase 22: the decoder kernels on the space axis: BIT, xbd_bit and the K4
+# path (``pallas = True``), two gloo ranks of one data row on cuda:0, each
+# holding half the rows, against one process.
+BIT_T8_KEY = "base_transformer_pos_s4_dd8_t8_e2d4"
+# The decoder kernels' shapes on a rank, half of one process's rows: (name,
+# batch, pixels N a rank, depth, heads[, tokens, dim_head]); "rank256" the
+# 256 px batch-8 runs of the main path (BIT ``_dd8``, DAHiTra),
+# "rank256t8" ``_t8_e2d4``'s, "rank1024" the 1024 px batch-1 xBD steps.
+RANK_BIT_SHAPES = [(f"rank{IMG}/bit/dd8", BATCH, (IMG // 4) ** 2 // 2, 8, 8,
+                    4, 64),
+                   (f"rank{IMG}t8/bit_t8/s4", BATCH, (IMG // 4) ** 2 // 2, 4,
+                    8, 8, 8)]
+RANK_BIT_TRAIN_SHAPES = [RANK_BIT_SHAPES[0],
+                         (f"rank{XBD_IMG}/xbd_bit/s4", 1,
+                          (XBD_IMG // 4) ** 2 // 2, 8, 8, 4, 64)]
+RANK_K4_SHAPES = [(f"rank{IMG}/{name}", b, n // 2, depth, heads)
+                  for name, b, n, depth, heads in K1_SHAPES] + [
+    (f"rank{XBD_IMG}/xbd/{name}", 1, n // 2, depth, heads)
+    for name, _, n, depth, heads in XBD_K1_SHAPES[:3]]
+CALLS.update({name: 2 for name, *_ in RANK_BIT_TRAIN_SHAPES + RANK_BIT_SHAPES})
+
+
+def _rank_want(k1=0, k1_save=0, k2=0, k4=0, k3_ranks=0) -> dict:
+    """A rank's launch counters in a row-sharded run: the one-process K3 and
+    the padded counts 0."""
+    return {**NO_PAD, "k1": k1, "k1_save": k1_save, "k2": k2, "k3": 0,
+            "k3_ranks": k3_ranks, "k4": k4}
+
+
+def run_space_kernels_phase(torch, tmp) -> tuple:
+    """Phase 22 (``nn/space.py`` with the decoder kernels), cuDNN
+    deterministic on both sides. One launch of two gloo ranks on cuda:0
+    (n_data 1, n_space 2; collectives staged through host memory) against
+    one process on the same card, weights and data, fp32 and bf16: (a)
+    ``base_transformer_pos_s4_dd8`` at 256 px, batch 8: the eval forward
+    (each rank: the rank-split K3 2, K1 at mlp_dim 64 2) and
+    ``CDTrainer.train_step(spatial=True)`` on pairs with a painted change
+    (K1-save 2, K2 2, K3 2); (b) ``_t8_e2d4``'s eval forward (8 tokens, hl
+    64); (c) ``xbd_bit``'s damage ``XBDTrainer.train_step(spatial=True)`` at
+    1024 px, batch 1; (d) ``pallas = True``: ``newUNetTrans``'s eval forward
+    and train step at 256 px, batch 8 (K4 6 a rank, K3 3), ``xbd_dahitra``'s
+    damage step at 1024 px, batch 1 (K4 a rank as one process's pallas
+    step), and the ``_dd8`` eval forward (K4 at mlp_dim 64, 2). Held: the
+    gathered logits (fp32 1e-5; bf16 2e-2 from one process's bf16 and fp32
+    logits, BIT's ``SPACE22_BIT_BF16_TOL``) and each decoder's gate as one
+    process's; the steps by ``_check_two_ranks`` (loss, every gradient
+    leaf, the BN statistics; rule 5 in fp32; the bf16 steps at batch 1 a
+    rank against one process in the ranks' BN order, and their kept leaves
+    and statistics against the plain one as phase 21c's); each rank's
+    launches
+    as listed, the one-process K3 and the padded counts 0. Printed: peak
+    memory and the warm step (``SPACE_TIMED``) a rank beside one process,
+    one process's own move when it runs the batch in two halves, and the
+    confusion matrix's flipped pixels.
+    Then K1, K1-save and K2 at mlp_dim 64 and K4 at mlp_dim 32 and 64 at a
+    rank's shapes (``RANK_*_SHAPES``) against their plain versions, timed.
+    Returns (the launches per dtype and run, the rank-shape kernel rows)."""
+    from dahitra_tpu_torch.core import mesh as mesh_mod
+    from dahitra_tpu_torch.models.registry import define_g as _define_g
+    from dahitra_tpu_torch.nn.init import init_random
+    from dahitra_tpu_torch.tools import mesh_checks
+    from dahitra_tpu_torch.tools import space_checks as sc
+    from dahitra_tpu_torch.train import engine, xbd_engine
+
+    t_phase = time.time()
+    by_phase = {"float32": {}, "bfloat16": {}}
+    sds = {}
+    for i, key in enumerate((BIT_KEY, BIT_T8_KEY, "newUNetTrans")):
+        model = init_random(_define_g(key, img_size=IMG),
+                            torch.Generator().manual_seed(220 + i))
+        sds[key] = {k: v.detach().clone()
+                    for k, v in model.state_dict().items()}
+    del model
+    rng = np.random.default_rng(22)
+    fwd_in = {k: rng.uniform(-1, 1, (BATCH, IMG, IMG, 3)).astype(np.float32)
+              for k in ("a", "b")}
+    cd_arrays = space_arrays(BATCH, IMG, 22)
+    xbd_arrays = space_arrays(1, XBD_IMG, 23, xbd=True)
+
+    def cfg(tag, net_g, img, batch, dname, **kw):
+        c = _mesh_cfg(tmp, f"space22_{tag}_{dname}", net_g, img, batch,
+                      dname, **kw)
+        os.makedirs(c["checkpoint_dir"], exist_ok=True)
+        return c
+
+    def fwd(key, dname, pallas=False):
+        return ("forward_rows", (key, IMG, sds[key], fwd_in, dname, False,
+                                 None, True, "cuda:0", pallas))
+
+    # (tag, (function, args), a rank's launches)
+    cases = []
+    for dname in ("float32", "bfloat16"):
+        cases += [
+            ("a_bit_eval", fwd(BIT_KEY, dname), _rank_want(k1=2, k3_ranks=2)),
+            ("a_bit_step", ("trainer_steps", (
+                "cd", cfg("a", BIT_KEY, IMG, BATCH, dname), cd_arrays, True,
+                SPACE_TIMED)), _rank_want(k1_save=2, k2=2, k3_ranks=2)),
+            ("b_bit_t8_eval", fwd(BIT_T8_KEY, dname),
+             _rank_want(k1=2, k3_ranks=2)),
+            ("c_xbd_bit_step", ("trainer_steps", (
+                "xbd", cfg("c", "xbd_bit", XBD_IMG, 1, dname,
+                           val_batch_size=1), xbd_arrays, True, SPACE_TIMED)),
+             _rank_want(k1_save=2, k2=2, k3_ranks=2)),
+            ("d_pallas_eval", fwd("newUNetTrans", dname, True),
+             _rank_want(k4=6, k3_ranks=3)),
+            ("d_pallas_step", ("trainer_steps", (
+                "cd", cfg("d", "newUNetTrans", IMG, BATCH, dname), cd_arrays,
+                True, SPACE_TIMED, True)), _rank_want(k4=6, k3_ranks=3)),
+            ("d_pallas_xbd_step", ("trainer_steps", (
+                "xbd", cfg("dx", "xbd_dahitra", XBD_IMG, 1, dname,
+                           val_batch_size=1), xbd_arrays, True, SPACE_TIMED,
+                True)), _rank_want(k4=XBD_CALLS["xbd_dahitra"], k3_ranks=3)),
+            ("d_bit_pallas_eval", fwd(BIT_KEY, dname, True),
+             _rank_want(k4=2, k3_ranks=2))]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    refs = []
+    try:
+        t0 = time.time()
+        ranks = mesh_mod.launch(sc.run_cases, ([c[1] for c in cases], True),
+                                devices=["cuda:0", "cuda:0"], backend="gloo",
+                                timeout=600, n_space=2)
+        launch_s = time.time() - t0
+        # one-process references, the same functions with no mesh
+        for tag, (name, args), _ in cases:
+            refs.append(getattr(sc, name)(None, *args))
+            if name == "forward_rows":
+                # one process on the batch in two halves: how far other
+                # shapes (cuDNN's choices) move its logits, no rows split
+                halves = [sc.forward_rows(None, *args[:3], {
+                    k: v[h] for k, v in args[3].items()}, *args[4:])["logits"]
+                    for h in (slice(0, BATCH // 2), slice(BATCH // 2, None))]
+                refs[-1]["batch_split_move"] = scaled_err(
+                    torch.cat(halves), refs[-1]["logits"])[1]
+            if name == "trainer_steps" and args[0] == "xbd" \
+                    and args[1].get("bf16"):
+                # one process summing BatchNorm's statistics in the ranks'
+                # order (phase 21c), and for DAHiTra the tokens' cancellation
+                with mesh_checks.rank_sums(2):
+                    order = sc.trainer_steps(None, *args[:4], 0, *args[5:])
+                refs[-1]["order"] = (order, mesh_checks.token_cancellation(
+                    args[1], args[2]) if args[1]["net_G"] == "xbd_dahitra"
+                    else None)
+            _free(torch)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    print(json.dumps({"space22": "two_gloo_ranks_launch", "launch_s": launch_s,
+                      "cases": len(cases), "staged_per_rank": [
+                          r[-1] for r in ranks]}), flush=True)
+    ok = True
+    for i, (tag, (name, args), want) in enumerate(cases):
+        got = [r[i] for r in ranks]
+        ref = refs[i]
+        if name == "forward_rows":
+            dname = args[4]
+            errs = [scaled_err(g["whole"], ref["logits"].cpu())[1]
+                    for g in got]
+            tol = 1e-5 if dname == "float32" else \
+                SPACE22_BIT_BF16_TOL.get(tag, TOL[dname])
+            line = {"space22": tag, "dtype": dname,
+                    "logits_scaled_err": max(errs),
+                    "one_process_batch_split_move": ref["batch_split_move"],
+                    "rows_per_rank": [int(g["logits"].shape[1]) for g in got],
+                    "paths_per_rank": [g["paths"] for g in got],
+                    "paths_one_process": ref["paths"],
+                    "launches_per_rank": [g["launches"] for g in got],
+                    "launches_one_process": ref["launches"],
+                    "peak_gib_per_rank": [g["peak_bytes"] / 2 ** 30
+                                          for g in got],
+                    "peak_gib_one_process": ref["peak_bytes"] / 2 ** 30}
+            if dname == "bfloat16":
+                # held from one process's fp32 logits too, its own bf16
+                # distance from them printed beside
+                ref32 = refs[[c[0] for c in cases].index(tag)]["logits"]
+                own = scaled_err(ref["logits"], ref32)[1]
+                errs += [scaled_err(g["whole"], ref32.cpu())[1] for g in got]
+                line.update({"one_process_bf16_from_fp32": own,
+                             "logits_from_fp32_scaled_err": max(errs[2:])})
+            line["tol"] = tol
+            line["ok"] = bool(max(errs) <= tol and all(
+                g["launches"] == want and g["paths"] == ref["paths"]
+                and g["logits"].shape[1] == IMG // 2 for g in got))
+        else:
+            kind, c = args[:2]
+            dname = "bfloat16" if c.get("bf16") else "float32"
+
+            def moves(kind=kind, args=args, ref=ref):
+                mod, aug, n_img = ((engine, "augment_pairs", 2)
+                                   if kind == "cd" else
+                                   (xbd_engine, "augment_xbd", 1))
+                return _own_moves(torch, ref, lambda: sc.trainer_steps(
+                    None, *args[:4], 0, *args[5:]), mod, aug, n_img)
+
+            held = _trans34_path_pallas if (c["net_G"] == "xbd_dahitra"
+                                            and dname == "bfloat16") else None
+            line = _check_two_ranks(torch, got, ref, {"space22": tag}, dname,
+                                    moves, ref.get("order"), held,
+                                    order_rounds_as_ranks=True)
+            # the confusion matrix is printed, not held: a pixel whose
+            # logits tie within rounding is counted either way
+            same_k4 = all(g["launches"]["k4"] == ref["launches"]["k4"]
+                          for g in got)
+            line["ok"] = bool(line["ok"] and same_k4 and all(
+                g["launches"] == want for g in got))
+        by_phase[dname][f"space_k_{tag[2:]}"] = got[0]["launches"]
+        print(json.dumps(line), flush=True)
+        ok = ok and line["ok"]
+    rows = {}
+    gen = torch.Generator().manual_seed(22)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        rows[("k1_mlp64_rank", dname)] = check_k1(torch, dtype, gen,
+                                                  RANK_BIT_SHAPES, BIT_MLP)
+        rows[("k1_save_mlp64_rank", dname)], rows[("k2_mlp64_rank", dname)] = \
+            check_k1_save_k2(torch, dtype, gen, RANK_BIT_TRAIN_SHAPES, BIT_MLP)
+        rows[("k4_rank", dname)] = check_k4(torch, dtype, gen,
+                                            RANK_K4_SHAPES)[0]
+        rows[("k4_mlp64_rank", dname)] = check_k4(
+            torch, dtype, gen, RANK_BIT_SHAPES[:1], BIT_MLP)[0]
+        for kid in ("k1_mlp64_rank", "k1_save_mlp64_rank", "k2_mlp64_rank",
+                    "k4_rank", "k4_mlp64_rank"):
+            for r in rows[(kid, dname)]:
+                print(json.dumps({"check": f"{kid}[{dname}]", **r}),
+                      flush=True)
+    print(json.dumps({"space22": "phase_s", "seconds": time.time() - t_phase}),
+          flush=True)
+    if not ok:
+        fail("space kernels (phase 22): a row-sharded run differs from one "
+             "process, or a rank's launches are not as listed (the lines "
+             "above)")
+    return by_phase, rows
+
+
 # Phase 20, the host-free step: graphed steps against eager ones.
 GRAPH_STEPS = 8  # replays (and eager steps) per comparison, >= 8
-GRAPH_TIMED = 8  # warm calls per timing
+GRAPH_TIMED = 3  # warm calls per timing: phases 1-22 share the 1200 s
 GRAPH_WARMUP = 3  # StepGraph's warm-up steps before the capture, one process
 # The profiler's kernel rows of one replay: 256 px default train step (6
 # K1-save, 6 K2 of 2 kernels, 3 K3 of 2), its pallas step (6 K4 of 2
@@ -4216,6 +4514,16 @@ def main() -> None:
         for dname, ph in phases.items():
             by_phase[dname].update(ph)
 
+    started["22"] = time.time()
+    # 22. the decoder kernels on the space axis: BIT, xbd_bit and pallas =
+    # True on two gloo ranks against one process; the kernels at a rank's
+    # shapes
+    rank_checks = {}
+    if 22 in sel:
+        phases, rank_checks = run_space_kernels_phase(torch, tmp)
+        for dname, ph in phases.items():
+            by_phase[dname].update(ph)
+
     started["profile"] = time.time()
     if "--profile" in sys.argv[1:]:
         for net_g, project, n_dec in (("newUNetTrans", "smoke", 3),
@@ -4337,6 +4645,27 @@ def main() -> None:
         ("decoder_stack_bwd_wide", "decoder_bwd.cu",
          "dahitra_tpu/pallas/folded_decoder.py:320", "k2_wide", "train_256",
          "k2_pad", GTOL, {"design": K2_DESIGN, "resources": k2_wide_res}))
+    rank_table = (
+        ("decoder_stack_fwd" + sfx + "_rank", "decoder_fwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:180", "k1_mlp64_rank",
+         "space_k_bit_eval", "k1", TOL,
+         {"design": K1_DESIGN, "resources": k1w_res}),
+        ("decoder_stack_fwd_save" + sfx + "_rank", "decoder_fwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:180", "k1_save_mlp64_rank",
+         "space_k_bit_step", "k1_save", TOL,
+         {"design": K1_DESIGN, "resources": k1w_save_res}),
+        ("decoder_stack_bwd" + sfx + "_rank", "decoder_bwd.cu",
+         "dahitra_tpu/pallas/folded_decoder.py:320", "k2_mlp64_rank",
+         "space_k_bit_step", "k2", GTOL,
+         {"design": K2_DESIGN, "resources": k2w_res}),
+        ("fused_decoder_rank", "fused_decoder.cu",
+         "dahitra_tpu/pallas/fused_decoder.py:102", "k4_rank",
+         "space_k_pallas_eval", "k4", TOL,
+         {"design": K4_DESIGN, "resources": k4_res}),
+        ("fused_decoder" + sfx + "_rank", "fused_decoder.cu",
+         "dahitra_tpu/pallas/fused_decoder.py:102", "k4_mlp64_rank",
+         "space_k_bit_pallas_eval", "k4", TOL,
+         {"design": K4_DESIGN, "resources": k4w_res}))
     for dname in ("float32", "bfloat16"):
         for name, source, replaces, kid, phase, counter, tol, extra in table:
             # The BIT phases launch the decoder kernels' mlp_dim-64 instances
@@ -4366,6 +4695,20 @@ def main() -> None:
             {ph: c["k3_ranks"] for ph, c in by_phase[dname].items()
              if ph.startswith("space_")}, main_size=f"r{IMG}",
             empty_launch_ms=floor_ms))
+        # The decoder kernels at a rank's shapes (phase 22): per rank, 256 px
+        # batch 8 (``rank1024``: the xBD steps at 1024 px, batch 1);
+        # launches from each rank's row-sharded runs of phase 22.
+        for name, source, replaces, kid, phase, counter, tol, extra in (
+                rank_table):
+            bit = "mlp64" in kid
+            kernels.append(summarize(
+                name, src + source, replaces, dname,
+                rank_checks.get((kid, dname)),
+                by_phase[dname].get(phase, {}).get(counter), tol,
+                {ph: c[counter] for ph, c in by_phase[dname].items()
+                 if ph.startswith("space_k_") and ("bit" in ph) == bit},
+                main_size=f"rank{IMG}",
+                **{k: v[dname] for k, v in extra.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,14 @@ Per forward, as in the JAX module: the trunk over both dates batch-stacked
 ``forward_single`` calls), the tokenizer once per date and the decoder once
 per date (``_decode``, bit.py:116-117), so K3 and the decoder kernels launch
 twice each.
+
+Under a row-sharded grid (``nn/space.py``) the trunk's stride is 8 (the
+stem /2, the max-pool /4, layer 2 /8; layer 3 keeps /8, as ``ResNetCD``'s
+does); the decoder positional embedding (a whole-image grid of
+``decoder_pos_size`` rows) is sliced to the rank's rows, as GSPMD slices it
+(bit.py:92-97), K3 splits its softmax over the ranks, and the decoder (K1,
+K1-save and K2, or K4 with ``pallas = True``) runs on the rank's rows, its
+gate reading the global token count.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch
 import torch.nn as nn
 
 from dahitra_tpu_torch.models.resnet_cd import DIM, SiameseTrunk
+from dahitra_tpu_torch.nn import space
 from dahitra_tpu_torch.nn.blocks import (SemanticTokenizer, TransformerDecoder,
                                          TransformerEncoder, TwoLayerConv)
 
@@ -44,7 +53,11 @@ class BIT(SiameseTrunk):
     "learned"``) and ``pos_embedding_decoder`` (with ``with_decoder_pos`` in
     "learned", "fix") are drawn N(0, 1) from ``generator`` (seed 0 when none
     is given), as the reference's ``torch.randn`` and the flax initializer
-    draw them; ``nn/init.py`` ``init_weights`` leaves them as they are."""
+    draw them; ``nn/init.py`` ``init_weights`` leaves them as they are.
+    Under a row-sharded grid (``nn/space.py``) the rows per space rank must
+    be a multiple of 8, the trunk's stride."""
+
+    space_stride = 8
 
     def __init__(self, output_nc: int = 2, token_len: int = 4,
                  resnet_stages_num: int = 4, enc_depth: int = 1,
@@ -83,7 +96,8 @@ class BIT(SiameseTrunk):
     def _decode(self, x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         if self.pos_embedding_decoder is not None:
-            x = x + self.pos_embedding_decoder.permute(0, 2, 3, 1)
+            x = x + space.local_pos(self.pos_embedding_decoder.permute(
+                0, 2, 3, 1), h, "decoder positional embedding")
         seq = self.transformer_decoder(x.reshape(b, h * w, c), tokens)
         return seq.reshape(b, h, w, c)
 

@@ -116,15 +116,8 @@ class DAHiTraUNet(nn.Module):
         b, h, w, c = x.shape
         pos = getattr(self, f"pos_embedding_decoder_{self.pos_ref[r]}", None)
         if pos is not None:
-            pos = pos.permute(0, 2, 3, 1)
-            rows = space.rows()
-            if rows is not None:  # the rank's rows of the whole grid
-                if pos.shape[1] != h * rows.size:
-                    raise ValueError(
-                        f"decoder positional embedding {r}: {pos.shape[1]} "
-                        f"rows, the ranks hold {h * rows.size}")
-                pos = space.local_rows(pos, rows)
-            x = x + pos
+            x = x + space.local_pos(pos.permute(0, 2, 3, 1), h,
+                                    f"decoder positional embedding {r}")
         seq = getattr(self, f"transformer_decoder_{r}")(x.reshape(b, h * w, c),
                                                         tokens)
         return seq.reshape(b, h, w, c)

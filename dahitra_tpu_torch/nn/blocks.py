@@ -493,8 +493,10 @@ class TransformerDecoder(nn.Module):
     a ``dropout`` of 0; ``fast_vjp=False`` (or ``DAHITRA_FAST_VJP=0`` at
     import) closes the stack path (the JAX gates, blocks.py:585-600). Under
     row sharding the gates read the global token count, the rank's n times
-    the space ranks, as GSPMD traces them on global shapes; the stack then
-    runs on the rank's rows.
+    the space ranks, as GSPMD traces them on global shapes; the stack or K4
+    then runs on the rank's rows, and the memory tokens' gradient a rank's
+    backward gives is its rows' part, which the rank-split K3's backward
+    sums over the space group.
     """
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,

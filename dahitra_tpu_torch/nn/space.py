@@ -31,7 +31,11 @@ under gloo on CUDA tensors, ``core.mesh.STAGED``).
 Rows that do not divide raise: the rows per rank must be a multiple of the
 model's total stride (``shard_rows`` checks it), so that every level of the model
 splits into whole rows and every strided window starts on the rank's first
-row. GSPMD reshards uneven rows; this port does not.
+row. GSPMD reshards uneven rows; this port does not. The models with a
+``space_stride`` take row-sharded batches: DAHiTra (``newUNetTrans``,
+``xbd_dahitra``, ``xbd_adapt_dahitra``), ``base_resnet18``, the ResNet34
+UNets and BIT (``base_transformer_pos_s4*``, ``xbd_bit``); every other
+model is refused by name.
 """
 from __future__ import annotations
 
@@ -98,6 +102,20 @@ def local_rows(t: torch.Tensor, r: Optional[Rows] = None) -> torch.Tensor:
     if h % r.size:
         raise ValueError(f"{h} rows do not split over {r.size} space ranks")
     return t[:, r.rank * h // r.size:(r.rank + 1) * h // r.size]
+
+
+def local_pos(pos: torch.Tensor, h: int, name: str) -> torch.Tensor:
+    """The rank's rows of a whole-image (1, H, W, C) grid ``pos`` (a decoder
+    positional embedding) where each rank holds ``h`` rows, as GSPMD slices
+    it; ``pos`` itself without row sharding. Raises, naming ``name``, where
+    H is not the ranks' rows together."""
+    r = rows()
+    if r is None:
+        return pos
+    if pos.shape[1] != h * r.size:
+        raise ValueError(f"{name}: {pos.shape[1]} rows, the ranks hold "
+                         f"{h * r.size}")
+    return local_rows(pos, r)
 
 
 def gather_rows(x: torch.Tensor, r: Optional[Rows] = None) -> torch.Tensor:

@@ -6,9 +6,10 @@ Each function takes ``(mesh, ...)``, as ``core.mesh.launch`` calls it
 global batch given whole (numpy, seeded by the caller) and returns what the
 rank holds afterwards. Imports no JAX: ``tests/test_torch_space.py`` runs
 these on gloo CPU ranks, ``chip_smoke.py`` phase 21 on two gloo ranks
-sharing the card. The trainers' row-sharded steps are
-``tools/mesh_checks.py`` ``cd_steps`` / ``xbd_steps`` with
-``spatial=True``.
+sharing the card, ``tests/test_torch_space_kernels.py`` and phase 22 the
+decoder kernels' cases (BIT, ``xbd_bit``, ``pallas = True``). The trainers'
+row-sharded steps are ``trainer_steps`` here and ``tools/mesh_checks.py``
+``cd_steps`` / ``xbd_steps`` with ``spatial=True``.
 """
 from __future__ import annotations
 
@@ -115,6 +116,49 @@ def k3_ranks(mesh, cases, device: str = "cpu") -> list:
     return out + [launches()]
 
 
+def set_pallas(model: torch.nn.Module, on: bool = True) -> int:
+    """``pallas = on`` on every ``TransformerDecoder`` of ``model`` (the K4
+    path, as a JAX user sets the field; no flag selects it): how many."""
+    from dahitra_tpu_torch.nn.blocks import TransformerDecoder
+
+    decs = [m for m in model.modules() if isinstance(m, TransformerDecoder)]
+    for dec in decs:
+        dec.pallas = on
+    return len(decs)
+
+
+def _decoder_paths(model: torch.nn.Module):
+    """Per ``TransformerDecoder`` of ``model``, the path its gate sent the
+    last call to: "fused" (K4), "stack" (K1; K1-save and K2 in training)
+    or "layers"; and a function that puts the gates back."""
+    from dahitra_tpu_torch.nn.blocks import TransformerDecoder
+
+    paths, decs = {}, []
+    for name, dec in model.named_modules():
+        if not isinstance(dec, TransformerDecoder):
+            continue
+
+        def fused(*a, dec=dec, name=name, **k):
+            took = TransformerDecoder.uses_fused(dec, *a, **k)
+            paths[name] = "fused" if took else "layers"
+            return took
+
+        def stack(*a, dec=dec, name=name, **k):
+            took = TransformerDecoder.uses_stack(dec, *a, **k)
+            if took:
+                paths[name] = "stack"
+            return took
+
+        dec.uses_fused, dec.uses_stack = fused, stack
+        decs.append(dec)
+
+    def restore():
+        for dec in decs:
+            del dec.uses_fused, dec.uses_stack
+
+    return paths, restore
+
+
 def _shapes(model: torch.nn.Module):
     """Forward hooks that record each submodule's tensor output shape."""
     shapes, hooks = {}, []
@@ -130,20 +174,23 @@ def _shapes(model: torch.nn.Module):
     return shapes, hooks
 
 
-def forward_rows(mesh, net_g: str, img: int, state_dict: dict,
+def forward_rows(mesh, net_g, img: int, state_dict: dict,
                  inputs: Dict[str, np.ndarray], dname: str = "float32",
                  train: bool = False, loss: Optional[str] = None,
-                 spatial: bool = True, device: str = "cpu") -> dict:
-    """``net_g`` with ``state_dict`` on the rank's part of ``inputs``
+                 spatial: bool = True, device: str = "cpu",
+                 pallas: bool = False) -> dict:
+    """``net_g`` (a registry key, or a callable that builds the model from
+    ``dtype``) with ``state_dict`` on the rank's part of ``inputs``
     (whole normalized NHWC images: "a" and "b", or "x" the 6-channel pair;
     row-sharded with ``spatial``): its logits, the global batch's logits
-    (gathered over rows, then samples), every submodule's output shape, and
-    the launches and the peak device memory. ``train`` runs the train-mode
-    forward; with ``loss`` ("levir" on "label", "damage" on "masks") the
-    loss of the gathered logits, the gradients averaged over the ranks
+    (gathered over rows, then samples), every submodule's output shape, the
+    path each decoder's gate took, and the launches and the peak device
+    memory. ``train`` runs the train-mode forward; with ``loss`` ("levir"
+    on "label", "damage" on "masks") the loss of the gathered logits, the gradients averaged over the ranks
     (DDP's mean) and the running statistics after the forward; without,
     one eval forward first warms the card (its algorithm choices), and the
-    second is the one returned."""
+    second is the one returned. ``pallas`` sets every decoder's ``pallas``
+    (K4)."""
     from dahitra_tpu_torch.core.checkpoint import load_weights
     from dahitra_tpu_torch.core.mesh import (all_gather_rows, reduce_sum_,
                                              shard_batch, world_size)
@@ -152,8 +199,10 @@ def forward_rows(mesh, net_g: str, img: int, state_dict: dict,
 
     dev = _dev(mesh, device)
     dtype = getattr(torch, dname)
-    model = define_g(net_g, dtype=dtype, img_size=img)
+    model = net_g(dtype=dtype) if callable(net_g) else define_g(
+        net_g, dtype=dtype, img_size=img)
     load_weights(model, state_dict)
+    set_pallas(model, pallas)
     model.to(dev).train(train)
     part = shard_batch(inputs, mesh, spatial=False)
     t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
@@ -165,6 +214,7 @@ def forward_rows(mesh, net_g: str, img: int, state_dict: dict,
         if not loss and not train:
             model(*xs)
         shapes, hooks = _shapes(model)
+        paths, restore = _decoder_paths(model)
         _sync(dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -196,15 +246,16 @@ def forward_rows(mesh, net_g: str, img: int, state_dict: dict,
                             if k.endswith(("running_mean", "running_var"))}
     for h in hooks:
         h.remove()
+    restore()
     _sync(dev)
-    return {**out, "shapes": shapes, "launches": launches(),
+    return {**out, "shapes": shapes, "paths": paths, "launches": launches(),
             "peak_bytes": torch.cuda.max_memory_allocated(dev)
             if dev.type == "cuda" else 0}
 
 
 def trainer_steps(mesh, kind: str, cfg: dict,
                   train_arrays: Dict[str, np.ndarray], spatial: bool = True,
-                  timed: int = 0) -> dict:
+                  timed: int = 0, pallas: bool = False) -> dict:
     """A ``CDTrainer`` (``kind`` "cd") or ``XBDTrainer`` ("xbd", damage)
     built from ``cfg``: one ``train_step`` (row-sharded with ``spatial``)
     on the first batch of epoch 0, its loss (and confusion matrix), the
@@ -226,6 +277,7 @@ def trainer_steps(mesh, kind: str, cfg: dict,
         from dahitra_tpu_torch.train.xbd_engine import XBDTrainer as cls
     trainer = cls(argparse.Namespace(**cfg), train_arrays, train_arrays,
                   device=cfg["device"], mesh=mesh)
+    set_pallas(trainer.model, pallas)
     dev = trainer.device
     batch = trainer._to_device(next(iter(trainer.train_loader)))
     _sync(dev)
@@ -251,6 +303,7 @@ def trainer_steps(mesh, kind: str, cfg: dict,
         times.append(time.perf_counter() - t0)
     if timed:
         res["step_s"] = statistics.median(times)
+        res["step_samples"] = timed
         res["warm_peak_bytes"] = torch.cuda.max_memory_allocated(dev) \
             if dev.type == "cuda" else 0
         res["staged_per_step"] = (mesh_mod.STAGED - staged) / timed

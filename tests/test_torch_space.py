@@ -177,7 +177,7 @@ def test_misaligned_rows_raise_naming_the_stride(net_g, img, n_space, stride):
         with pytest.raises(ValueError, match=f"total stride {stride}"):
             space.shard_rows(model, x)
         with pytest.raises(ValueError, match="does not run on row-sharded"):
-            space.shard_rows(define_g("base_transformer_pos_s4"), x)
+            space.shard_rows(define_g("siamUnet_conc"), x)
 
 
 def test_ranks_plain_matches_one_rank_and_the_kernel_algorithm():
