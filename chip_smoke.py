@@ -135,7 +135,7 @@ failure:
      tokenizer call per scale), ``xbd_predict`` with its checkpoint (one
      forward of the 4 TTA views per tile: 3 K1 and 3 K3; both PNGs of the
      right shape and range) and its warm rate (one tile's views, the model
-     loaded, median of 5), 5 warm ``XBDTrainer.train_step`` calls of
+     loaded, median of 3), 3 warm ``XBDTrainer.train_step`` calls of
      ``xbd_dahitra`` and of ``xbd_bit`` (2 K1-save, 2 K2, 2 K3 each: the
      mlp_dim-64 instances) with the median step time, its range and peak
      memory, and ``xbd_predict`` of ``xbd_bit`` (2 K1, 2 K3 per tile);
@@ -152,7 +152,7 @@ failure:
      the generator's forward, 3 K1 and 3 K3, to the step's 3 K1-save, 3 K2,
      3 K3; ``best_ckpt_D.pt``) and ``--task damage --elastic``;
      ``visualize_results`` with the loc checkpoint and phase 15's damage
-     one over 2 tiles (3 K1, 3 K3 a tile; grids of (1024, 4096, 3)); 5 warm
+     one over 2 tiles (3 K1, 3 K3 a tile; grids of (1024, 4096, 3)); 3 warm
      steps of each task (the GAN's also with a discriminator update) with
      their median time and peak memory, and one ``--effective_gan`` step
      whose adversarial gradient is nonzero; then the card's fp32 gradients
@@ -166,7 +166,7 @@ failure:
      ``changeFormerV6`` a seeded model's fp32 forward of two patches against
      the CPU plain path, then per dtype one epoch of ``main_cd`` at batch 8
      on phase 7's splits (``--multi_scale_loss`` for ``changeFormerV6``),
-     ``eval_cd`` on its checkpoint and 5 warm ``CDTrainer.train_step`` calls
+     ``eval_cd`` on its checkpoint and 3 warm ``CDTrainer.train_step`` calls
      (median, range, peak memory), none launching K1, K1-save, K2, K3 or K4;
      the card's fp32 gradients and BN statistics at batch 2 with every
      dropout rate 0 against the CPU (as phase 16 holds them); one train step
@@ -186,7 +186,7 @@ failure:
      ``xbd_unet_change_transformer_bit`` at 256 px (its feed-forward is
      dim^2 wide, dim = (img / 32)^2), ``--task loc`` with the three ``_loc``
      keys and ``--task hrnet`` with ``dual_hrnet`` and ``dual_hrnet_fpn``,
-     each with 5 warm steps (median, range, peak memory), none launching
+     each with one warm step (time, peak memory), none launching
      K1, K1-save, K2, K3 or K4; ``xbd_predict`` with the SENet154 double
      checkpoint over 2 tiles; the fp32 SENet154 double and Dual-HRNet
      checkpoints written as reference ``.pt`` files and imported, the
@@ -251,7 +251,15 @@ failure:
      K1-save 6, K2 6), peak memory and warm step beside one process's;
      then the rank-split K3's per-rank launches timed with two
      ranks simulated in one process (``semantic_tokenizer_ranks`` in the
-     kernels line);
+     kernels line). In the same launch, uneven rows (a rank's rows not a
+     multiple of the model's stride; the coarse levels gathered and run
+     whole on both ranks): (f) ``newUNetTrans`` at 240 px, batch 8, eval
+     and train step, both dtypes (1/16 whole: the one-process K3 1 and the
+     rank-split K3 2 a forward); (g) ``xbd_res34_double``'s damage step at
+     224 px, batch 2 (1/32 whole); (h) ``base_resnet18`` and BIT ``_dd8``
+     eval at 232 px (1/8 whole); each rank's launches printed by kernel,
+     and K3 (both), K1, K1-save and K2 timed at (f)'s shapes a rank
+     (the ``_uneven`` entries of the kernels line);
  22. the decoder kernels on the space axis (``run_space_kernels_phase``),
      cuDNN deterministic: two gloo ranks on cuda:0, half the rows each,
      against one process on the same card, weights and data, fp32 and
@@ -878,14 +886,14 @@ def empty_launch_ms(torch) -> float:
     return time_ms(launch, torch, reps=100, queued=True)
 
 
-def check_k3(torch, dtype, gen):
-    """K3 against its plain version at every main-path tokenizer shape (256
-    and 512 px at batch 8, 1024 px at batch 2, the xBD path's at 1024 px
-    batch 1 and 4); a second call must give the
-    same bits. ``ms`` is timed as every kernel's is, the calls made back to
-    back on an idle card, which at these sizes is mostly the host's time to
-    enqueue two kernels; ``device_ms`` is the same calls enqueued behind
-    queued work, device time alone. The library
+def check_k3(torch, dtype, gen, shapes=None):
+    """K3 against its plain version at every tokenizer shape of ``shapes``
+    (by default the main paths': 256 and 512 px at batch 8, 1024 px at
+    batch 2, the xBD path's at 1024 px batch 1 and 4); a second call must
+    give the same bits. ``ms`` is timed as every kernel's is, the calls made
+    back to back on an idle card, which at these sizes is mostly the host's
+    time to enqueue two kernels; ``device_ms`` is the same calls enqueued
+    behind queued work, device time alone. The library
     yardstick is one scaled_dot_product_attention call with the L
     token-logit columns as queries and the pixels as keys and values."""
     import torch.nn.functional as F
@@ -894,7 +902,7 @@ def check_k3(torch, dtype, gen):
 
     dname = str(dtype).split(".")[-1]
     rows = []
-    for name, b, n in K3_SHAPES:
+    for name, b, n in shapes or K3_SHAPES:
         x = torch.randn(b, n, DIM, generator=gen).cuda().to(dtype)
         w = (torch.randn(DIM, TOKENS, generator=gen) * DIM ** -0.5).cuda().to(dtype)
         got = ft.semantic_tokenizer(x, w)
@@ -1622,8 +1630,9 @@ XBD_TILES, XBD_PREDICT_TILES = 8, 2
 XBD_CALLS = {"xbd_dahitra": 3, "xbd_bit": 2, "xbd_adapt_dahitra": 3}
 XBD_GRAD_IMG = 256
 # Warm timings: train steps, and prediction forwards of one tile's 4 views,
-# after one warm-up each (the median and the range are printed).
-XBD_TIMED = 5
+# after one warm-up each (the median and the range are printed); 3 keep
+# the whole script inside its time on a slow card.
+XBD_TIMED = 3
 
 
 def _xbd_trainer(torch, tmp, net_g, dtype, arrays, tag):
@@ -2213,7 +2222,7 @@ def run_xbd_tasks_phase(torch, tmp, dtypes) -> dict:
 ZOO_KEYS = ("unet_coupled_trans_256", "unet_coupled_two_trans_256",
             "siamUnet_conc", "changeFormer", "changeFormerV6")
 MULTI_SCALE_KEY = "changeFormerV6"
-ZOO_TIMED = 5
+ZOO_TIMED = 3  # warm steps a key
 NO_KERNELS = {"k1": 0, "k1_save": 0, "k2": 0, "k3": 0, "k4": 0}
 # Confusion matrices of the eval_cd runs, in order: phase 17 holds the
 # imported checkpoint's against phase 5's fp32 one.
@@ -3372,6 +3381,27 @@ SPACE22_BIT_BF16_TOL = {"a_bit_eval": 7.3e-2, "b_bit_t8_eval": 7.0e-2,
 # batch-stacked) and (c) (1024 px, batch 1), as (name, B, H, W) feature maps
 SPACE_K3 = [(f"r{img}/s{s}", 2 * b, img // s, img // s)
             for img, b in ((IMG, BATCH), (XBD_IMG, 1)) for s in (4, 8, 16)]
+# Phase 21f-h, uneven rows: sizes at which a rank's rows stop splitting
+# above a model's last stride, so the coarse levels run whole on both
+# ranks. ``newUNetTrans`` at 240 px, batch 8: 1/4 and 1/8 on the rank's
+# rows (30 and 15), 1/16 whole (15 rows, the last max-pool meets 15 rows a
+# rank); the ``xbd_res34_double`` damage step at 224 px, batch 2: 1/32
+# whole (7 rows); ``base_resnet18`` and BIT ``_dd8`` eval at 232 px: 1/8
+# whole (layer 2 meets 29 rows a rank at 1/4).
+UNEVEN_IMG, UNEVEN_R34_IMG, UNEVEN_FWD_IMG = 240, 224, 232
+# The kernels at 21f's shapes a rank (two ranks): the decoder calls (name,
+# batch, pixels N, depth, heads; N a rank's at 1/4 and 1/8, the whole
+# level's at 1/16), the rank-split K3's (name, B, H, W: the whole map) and
+# the one-process K3's on the whole 1/16 level (name, B, N).
+UNEVEN_K1_SHAPES = [
+    (f"u{UNEVEN_IMG}/{r}/{what}", b, n, depth, heads)
+    for r, n, depth, heads in (("s4", (UNEVEN_IMG // 4) ** 2 // 2, 8, 8),
+                               ("s8", (UNEVEN_IMG // 8) ** 2 // 2, 4, 4),
+                               ("s16", (UNEVEN_IMG // 16) ** 2, 4, 4))
+    for what, b in (("dates", 2 * BATCH), ("diff", BATCH))]
+UNEVEN_K3_RANKS = [(f"u{UNEVEN_IMG}/s{s}", 2 * BATCH, UNEVEN_IMG // s,
+                    UNEVEN_IMG // s) for s in (4, 8)]
+UNEVEN_K3 = [(f"u{UNEVEN_IMG}/s16", 2 * BATCH, (UNEVEN_IMG // 16) ** 2)]
 
 
 def space_arrays(n: int, img: int, seed: int, xbd: bool = False) -> dict:
@@ -3402,8 +3432,9 @@ def paint_change(post: np.ndarray) -> np.ndarray:
     return post
 
 
-def check_k3_ranks(torch, dtype, gen) -> list:
-    """The rank-split K3 at phase 21's shapes (``SPACE_K3``), two ranks
+def check_k3_ranks(torch, dtype, gen, shapes=None) -> list:
+    """The rank-split K3 at ``shapes`` (phase 21's, ``SPACE_K3``, by
+    default), two ranks
     simulated in one process: per rank the statistics and pool launches on
     its half of the pixels; the gathered statistics are the two ranks'
     joined. Held against ``semantic_tokenizer_ranks_plain`` (and the ranks'
@@ -3417,7 +3448,7 @@ def check_k3_ranks(torch, dtype, gen) -> list:
 
     dname = str(dtype).split(".")[-1]
     rows = []
-    for name, b, h, w in SPACE_K3:
+    for name, b, h, w in shapes or SPACE_K3:
         n = h * w // 2
         x = torch.randn(b, 2 * n, DIM, generator=gen).cuda().to(dtype)
         wk = (torch.randn(DIM, TOKENS, generator=gen) * DIM ** -0.5
@@ -3487,8 +3518,18 @@ def run_space_phase(torch, tmp) -> tuple:
     ranks, tokens against the plain tokenizer of all the pixels and the
     gradients against the one-process ``SemanticTokenizerFn`` on the card;
     (e) the replicated grid (``spatial=False``), one ``newUNetTrans`` step
-    against one process. Returns (the launches per dtype and run, the K3
-    rank-split rows per dtype for the kernels line)."""
+    against one process. Uneven rows, in the same launch (``UNEVEN_*``):
+    (f) ``newUNetTrans`` at 240 px, batch 8, the eval forward and the
+    ``CDTrainer`` step, fp32 and bf16 (1/16 whole: each rank's launches the
+    one-process K3 1 and the rank-split K3 2, K1 6 or K1-save 6 and K2 6);
+    (g) ``xbd_res34_double``'s damage step at 224 px, batch 2, both dtypes
+    (1/32 whole); (h) the ``base_resnet18`` and BIT ``_dd8`` eval forwards
+    at 232 px, fp32 (1/8 whole; BIT's rank-split K3 2, K1 2), held as (a)
+    and (b); then K3 (one-process and rank-split), K1, K1-save and K2 at
+    (f)'s shapes a rank against their plain versions, timed. Returns (the
+    launches per dtype and run, the K3 rank-split rows per dtype, the
+    kernel rows at (f)'s shapes by (kernel, dtype) for the kernels
+    line)."""
     from dahitra_tpu_torch.core import mesh as mesh_mod
     from dahitra_tpu_torch.kernels import fused_tokenizer as ft
     from dahitra_tpu_torch.models.registry import define_g as _define_g
@@ -3510,6 +3551,12 @@ def run_space_phase(torch, tmp) -> tuple:
     k3 = [(b, h, w, TOKENS, 30 + i, d)
           for d in ("float32", "bfloat16")
           for i, (_, b, h, w) in enumerate(SPACE_K3)]
+    u_in = {k: rng.uniform(-1, 1, (BATCH, UNEVEN_IMG, UNEVEN_IMG, 3)
+                           ).astype(np.float32) for k in ("a", "b")}
+    u_fwd_in = {k: rng.uniform(-1, 1, (2, UNEVEN_FWD_IMG, UNEVEN_FWD_IMG, 3)
+                               ).astype(np.float32) for k in ("a", "b")}
+    u_arrays = space_arrays(BATCH, UNEVEN_IMG, 23)
+    r34_arrays = space_arrays(2, UNEVEN_R34_IMG, 24, xbd=True)
 
     def cfg(tag, net_g, img, batch, dname, **kw):
         return _mesh_cfg(tmp, f"space_{tag}_{dname}", net_g, img, batch,
@@ -3528,6 +3575,25 @@ def run_space_phase(torch, tmp) -> tuple:
     cases.append(("k3_ranks", (k3, "cuda:0")))
     e_cfg = cfg("e", "newUNetTrans", IMG, BATCH, "float32")
     cases.append(("trainer_steps", ("cd", e_cfg, cd_arrays, False, 0)))
+    # (f)-(h), uneven rows: (tag, case); the weights drawn on each rank
+    # from a seed (``space_checks.seeded_weights``)
+    n_main = len(cases)
+    uneven = []
+    for dname in ("float32", "bfloat16"):
+        uneven.append(("f_uneven_eval_240", ("forward_rows", (
+            "newUNetTrans", UNEVEN_IMG, 211, u_in, dname, False, None, True,
+            "cuda:0"))))
+        uneven.append(("f_uneven_step_240", ("trainer_steps", (
+            "cd", cfg("f", "newUNetTrans", UNEVEN_IMG, BATCH, dname),
+            u_arrays, True, 0))))
+        uneven.append(("g_uneven_r34_224", ("trainer_steps", (
+            "xbd", cfg("g", "xbd_res34_double", UNEVEN_R34_IMG, 2, dname,
+                       val_batch_size=2), r34_arrays, True, 0))))
+    for i, key in enumerate(("base_resnet18", BIT_KEY)):
+        uneven.append((f"h_uneven_eval_{UNEVEN_FWD_IMG}", ("forward_rows", (
+            key, UNEVEN_FWD_IMG, 212 + i, u_fwd_in, "float32", False, None,
+            True, "cuda:0"))))
+    cases += [c for _, c in uneven]
     for c in cases:
         if isinstance(c[1][1], dict) and "checkpoint_dir" in c[1][1]:
             os.makedirs(c[1][1]["checkpoint_dir"], exist_ok=True)
@@ -3540,7 +3606,11 @@ def run_space_phase(torch, tmp) -> tuple:
                                 timeout=600, n_space=2)
         launch_s = time.time() - t0
         # one-process references, the same functions with no mesh
-        for name, args in cases:
+        for j, (name, args) in enumerate(cases):
+            if j >= n_main:
+                refs.append(getattr(sc, name)(None, *args))
+                _free(torch)
+                continue
             if name == "k3_ranks":
                 refs.append(None)
                 continue
@@ -3571,7 +3641,7 @@ def run_space_phase(torch, tmp) -> tuple:
     ok = True
     dec, k3n = MESH_CALLS["newUNetTrans"]
     xdec, xk3 = MESH_CALLS["xbd_dahitra"]
-    for i, (name, args) in enumerate(cases):
+    for i, (name, args) in enumerate(cases[:n_main]):
         got = [r[i] for r in ranks]
         ref = refs[i]
         if name == "forward_rows":
@@ -3629,19 +3699,97 @@ def run_space_phase(torch, tmp) -> tuple:
             by_phase[dname][key] = got[0]["launches"]
         print(json.dumps(line), flush=True)
         ok = ok and line["ok"]
-    k3_rows = {}
+    for j, (tag, (name, args)) in enumerate(uneven, n_main):
+        line = _uneven_line(torch, tag, name, args, [r[j] for r in ranks],
+                            refs[j], engine, xbd_engine, sc)
+        dname = args[4] if name == "forward_rows" else (
+            "bfloat16" if args[1].get("bf16") else "float32")
+        key = "space_" + tag.split("_", 1)[1] + (
+            "_" + args[0] if tag.startswith("h_") else "")
+        by_phase[dname][key] = [r[j] for r in ranks][0]["launches"]
+        print(json.dumps(line), flush=True)
+        ok = ok and line["ok"]
+    k3_rows, u_rows = {}, {}
     gen = torch.Generator().manual_seed(21)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         k3_rows[dname] = check_k3_ranks(torch, dtype, gen)
         for r in k3_rows[dname]:
             print(json.dumps({"check": f"k3_ranks[{dname}]", **r}), flush=True)
+        u_rows[("k3_ranks", dname)] = check_k3_ranks(torch, dtype, gen,
+                                                     UNEVEN_K3_RANKS)
+        u_rows[("k3", dname)] = check_k3(torch, dtype, gen, UNEVEN_K3)
+        u_rows[("k1", dname)] = check_k1(torch, dtype, gen, UNEVEN_K1_SHAPES)
+        u_rows[("k1_save", dname)], u_rows[("k2", dname)] = \
+            check_k1_save_k2(torch, dtype, gen, UNEVEN_K1_SHAPES)
+        for kid in ("k3", "k3_ranks", "k1", "k1_save", "k2"):
+            for r in u_rows[(kid, dname)]:
+                print(json.dumps({"check": f"{kid}_uneven[{dname}]", **r}),
+                      flush=True)
     print(json.dumps({"space": "phase_s", "seconds": time.time() - t_phase}),
           flush=True)
     if not ok:
         fail("space (phase 21): a row-sharded run differs from one process "
              "(the lines above)")
-    return by_phase, k3_rows
+    return by_phase, k3_rows, u_rows
+
+
+# A rank's launches in phase 21f-h, by kernel: the one-process K3 and the
+# rank-split K3 apart, then the decoder stack's.
+UNEVEN_COUNTERS = (("k3_one_process", "k3"), ("k3_rank_split", "k3_ranks"),
+                   ("k1", "k1"), ("k1_save", "k1_save"), ("k2", "k2"))
+
+
+def _uneven_line(torch, tag, name, args, got, ref, engine, xbd_engine,
+                 sc) -> dict:
+    """Phase 21f-h: two ranks at uneven rows against one process. A forward
+    (f, h): the gathered logits (fp32 1e-5, bf16 2e-2), each rank its rows,
+    each decoder's gate as one process's; a step (f, g): ``_check_two_ranks``
+    (rule 5 in fp32). Each rank's launches as ``UNEVEN_COUNTERS`` reads
+    them, against what the levels send: ``newUNetTrans`` at 240 px the
+    one-process K3 1 (1/16 whole) and the rank-split K3 2 a forward, K1 6
+    (eval) or K1-save 6 and K2 6 (step); BIT ``_dd8`` at 232 px the
+    rank-split K3 2 and K1 2; the ResNets none."""
+    net_g = args[0] if name == "forward_rows" else args[1]["net_G"]
+    counts = {"newUNetTrans": (1, 2, 6), BIT_KEY: (0, 2, 2)}.get(
+        net_g, (0, 0, 0))
+    train = name == "trainer_steps"
+    want = {**NO_PAD, "k3": counts[0], "k3_ranks": counts[1],
+            "k1": 0 if train else counts[2],
+            "k1_save": counts[2] if train else 0,
+            "k2": counts[2] if train else 0, "k4": 0}
+    per_rank = [{k: g["launches"][c] for k, c in UNEVEN_COUNTERS}
+                for g in got]
+    if not train:
+        dname = args[4]
+        errs = [scaled_err(g["whole"], ref["logits"].cpu())[1] for g in got]
+        tol = 1e-5 if dname == "float32" else TOL[dname]
+        line = {"space": tag, "net_G": net_g, "img": args[1], "dtype": dname,
+                "logits_scaled_err": max(errs), "tol": tol,
+                "rows_per_rank": [int(g["logits"].shape[1]) for g in got],
+                "paths": ref["paths"]}
+        line["ok"] = bool(max(errs) <= tol and all(
+            g["paths"] == ref["paths"] for g in got) and all(
+                r == args[1] // 2 for r in line["rows_per_rank"]))
+    else:
+        kind = args[0]
+        dname = "bfloat16" if args[1].get("bf16") else "float32"
+        mod, aug, n_img = ((engine, "augment_pairs", 2) if kind == "cd"
+                           else (xbd_engine, "augment_xbd", 1))
+        line = _check_two_ranks(
+            torch, got, ref, {"space": tag, "net_G": net_g,
+                              "img": args[1]["img_size"]}, dname,
+            lambda: _own_moves(torch, ref, lambda: sc.trainer_steps(
+                None, *args[:4], 0), mod, aug, n_img))
+        line["ok"] = line["ok"] and line.get("same_confusion_matrix", True)
+        line["grad_worst_leaf"] = _worst(got[0]["grads"], ref["grads"],
+                                         lambda k: True)
+    line["launches_per_rank"] = per_rank
+    line["launches_one_process"] = {k: ref["launches"][c]
+                                    for k, c in UNEVEN_COUNTERS}
+    line["launches_want"] = {k: want[c] for k, c in UNEVEN_COUNTERS}
+    line["ok"] = bool(line["ok"] and all(g["launches"] == want for g in got))
+    return line
 
 
 def _space_k3_line(torch, ft, sc, cases, got) -> dict:
@@ -4508,9 +4656,9 @@ def main() -> None:
     started["21"] = time.time()
     # 21. the space axis: two gloo ranks on the card, each holding half the
     # rows, against one process; the rank-split K3
-    space_k3 = {}
+    space_k3, space_uneven = {}, {}
     if 21 in sel:
-        phases, space_k3 = run_space_phase(torch, tmp)
+        phases, space_k3, space_uneven = run_space_phase(torch, tmp)
         for dname, ph in phases.items():
             by_phase[dname].update(ph)
 
@@ -4695,6 +4843,33 @@ def main() -> None:
             {ph: c["k3_ranks"] for ph, c in by_phase[dname].items()
              if ph.startswith("space_")}, main_size=f"r{IMG}",
             empty_launch_ms=floor_ms))
+        # The kernels at uneven rows (phase 21f): per rank, newUNetTrans at
+        # 240 px batch 8 (1/4 and 1/8 a rank's rows, 1/16 whole: the
+        # one-process K3 there); launches from each rank's eval forward (K3,
+        # K1) and train step (K1-save, K2) of 21f.
+        for name, source, replaces, kid, phase, tol in (
+                ("semantic_tokenizer_uneven", "tokenizer.cu",
+                 "dahitra_tpu/pallas/fused_tokenizer.py:42", "k3",
+                 "space_uneven_eval_240", TOL),
+                ("semantic_tokenizer_ranks_uneven", "tokenizer.cu",
+                 "dahitra_tpu/pallas/fused_tokenizer.py:42", "k3_ranks",
+                 "space_uneven_eval_240", TOL),
+                ("decoder_stack_fwd_uneven", "decoder_fwd.cu",
+                 "dahitra_tpu/pallas/folded_decoder.py:180", "k1",
+                 "space_uneven_eval_240", TOL),
+                ("decoder_stack_fwd_save_uneven", "decoder_fwd.cu",
+                 "dahitra_tpu/pallas/folded_decoder.py:180", "k1_save",
+                 "space_uneven_step_240", TOL),
+                ("decoder_stack_bwd_uneven", "decoder_bwd.cu",
+                 "dahitra_tpu/pallas/folded_decoder.py:320", "k2",
+                 "space_uneven_step_240", GTOL)):
+            kernels.append(summarize(
+                name, src + source, replaces, dname,
+                space_uneven.get((kid, dname)),
+                by_phase[dname].get(phase, {}).get(kid), tol,
+                {ph: c[kid] for ph, c in by_phase[dname].items()
+                 if ph.startswith("space_uneven_")},
+                main_size=f"u{UNEVEN_IMG}"))
         # The decoder kernels at a rank's shapes (phase 22): per rank, 256 px
         # batch 8 (``rank1024``: the xBD steps at 1024 px, batch 1);
         # launches from each rank's row-sharded runs of phase 22.

@@ -26,11 +26,13 @@ twice each.
 
 Under a row-sharded grid (``nn/space.py``) the trunk's stride is 8 (the
 stem /2, the max-pool /4, layer 2 /8; layer 3 keeps /8, as ``ResNetCD``'s
-does); the decoder positional embedding (a whole-image grid of
-``decoder_pos_size`` rows) is sliced to the rank's rows, as GSPMD slices it
-(bit.py:92-97), K3 splits its softmax over the ranks, and the decoder (K1,
-K1-save and K2, or K4 with ``pallas = True``) runs on the rank's rows, its
-gate reading the global token count.
+does). Where the 1/4 level's rows split over the ranks, the decoder
+positional embedding (a whole-image grid of ``decoder_pos_size`` rows) is
+sliced to the rank's rows, as GSPMD slices it (bit.py:92-97), K3 splits its
+softmax over the ranks, and the decoder (K1, K1-save and K2, or K4 with
+``pallas = True``) runs on the rank's rows, its gate reading the global
+token count; a level whose rows do not split runs whole (the one-process
+K3, the whole embedding and token count).
 """
 from __future__ import annotations
 
@@ -54,8 +56,7 @@ class BIT(SiameseTrunk):
     "learned", "fix") are drawn N(0, 1) from ``generator`` (seed 0 when none
     is given), as the reference's ``torch.randn`` and the flax initializer
     draw them; ``nn/init.py`` ``init_weights`` leaves them as they are.
-    Under a row-sharded grid (``nn/space.py``) the rows per space rank must
-    be a multiple of 8, the trunk's stride."""
+    ``space_stride`` is the trunk's stride (``nn/space.py``)."""
 
     space_stride = 8
 

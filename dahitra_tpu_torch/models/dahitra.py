@@ -15,12 +15,15 @@ Per forward, the K3 tokenizer runs once per scale and the decoder stack
 twice per scale (the two dates batch-stacked, then the difference): K1
 without saves in eval, K1 with saves and then K2 in a training step.
 
-Under a row-sharded grid (``nn/space.py``) the rows per space rank must be
-a multiple of 16, the model's total stride; the decoder positional
+Under a row-sharded grid (``nn/space.py``) each scale whose rows split
+over the space ranks runs on the rank's rows: the decoder positional
 embeddings (whole-image grids of img_size / stride rows) are sliced to the
-rank's rows at each scale, as GSPMD slices them (dahitra.py:98-117), K3
-splits its softmax over the ranks, and K1, K1-save and K2 run on the
-rank's rows as they are.
+rank's rows, as GSPMD slices them (dahitra.py:98-117), K3 splits its
+softmax over the ranks, and K1, K1-save and K2 run on the rank's rows as
+they are. A scale below a stride that does not split the rank's rows (at
+48 px on two ranks, 1/16: the last max-pool meets 3 rows a rank at 1/8)
+runs whole on every rank: the one-process K3, the whole embedding, the
+decoder gate on the whole token count.
 """
 from __future__ import annotations
 
@@ -60,7 +63,8 @@ class DAHiTraUNet(nn.Module):
     does; ``nn/init.py`` leaves them as they are.
     """
 
-    # rows per space rank must be a multiple of this (nn/space.py)
+    # the total stride; it marks the model as one that takes row-sharded
+    # batches (nn/space.py)
     space_stride = 16
 
     def __init__(self, output_nc: int = 2, img_size: int = 256,

@@ -24,6 +24,12 @@ layers 2-4, the decoder ``conv6``-``conv10`` (``layer.0``) and ``res``. Each
 date runs through the BatchNorms on its own, in order, as the flax modules
 run them: in train mode each call normalizes by its own batch and moves the
 running statistics once.
+
+Under a row-sharded grid (``nn/space.py``) the levels whose rows split run
+on the rank's rows and the coarser ones whole (at 64 px on four space
+ranks, 1/32: layer 4 gathers the 1/16 level's single row a rank); each
+decoder level's upsampling takes the rank's rows again where its skip has
+them.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from dahitra_tpu_torch.nn import space
 from dahitra_tpu_torch.nn.blocks import (BatchNorm, ConvRelu, conv2d_nhwc,
                                          max_pool_3x3_s2, upsample_nearest)
 from dahitra_tpu_torch.nn.resnet import ResNetLayer
@@ -62,6 +69,7 @@ class Res34Encoder(nn.Module):
              pair: bool = False) -> torch.Tensor:
         """relu(bn(conv 7x7 s2)): the 1/2-scale level, 64 channels."""
         conv, bn = self.conv1[0], self.conv1[1]
+        x = space.descend(x, 2, 3)
         return torch.relu(bn(conv2d_nhwc(x, conv.weight, stride=2, padding=3,
                                          dtype=self.dtype), train, pair))
 
@@ -79,8 +87,9 @@ class Res34Encoder(nn.Module):
 class _Res34Unet(Res34Encoder):
     """The shared encoder and decoder: ``features`` returns every level,
     ``core`` the 48-channel full-resolution map (``_Res34UnetCore``).
-    Under a row-sharded grid (``nn/space.py``) the rows per space rank must
-    be a multiple of 32, the encoder's stride."""
+    ``space_stride``: the encoder's total stride; under a row-sharded grid
+    the levels whose rows per rank it does not split run whole
+    (``nn/space.py``)."""
 
     space_stride = 32
 
@@ -187,6 +196,7 @@ class Res34UnetDoubleModified(_Res34Unet):
         x1, x2 = _dates(x1, x2)
         f1 = self.features(x1, train)
         f2 = self.features(x2, train)
+        space.at_level(2)  # the fused pass starts at enc1's level
         enc = self._fuse(1, f1[0], f2[0])
         enc2 = self._fuse(2, self.conv2[1](max_pool_3x3_s2(enc), train),
                           f1[1], f2[1])

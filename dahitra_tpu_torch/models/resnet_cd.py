@@ -71,8 +71,9 @@ class SiameseTrunk(nn.Module):
 class ResNetCD(SiameseTrunk):
     """``base_resnet18``: NHWC images (B, H, W, 3) twice -> logits (B, H, W,
     output_nc) in the compute dtype (sigmoid applied with
-    ``output_sigmoid``). Under a row-sharded grid (``nn/space.py``) the
-    rows per space rank must be a multiple of 8, the trunk's stride."""
+    ``output_sigmoid``). ``space_stride`` is the trunk's stride; under a
+    row-sharded grid the levels whose rows per rank it does not split run
+    whole (``nn/space.py``)."""
 
     space_stride = 8
 

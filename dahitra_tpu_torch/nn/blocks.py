@@ -35,7 +35,12 @@ edges), cropping the factor's rows off each side of the result;
 ``upsample_nearest`` and ``max_pool_2x2`` read no row across a shard's edge.
 BatchNorm's statistics then sum over every rank's distinct rows, the
 tokenizer's softmax spans the ranks (the rank-split K3), and the decoder
-gates read the global token count.
+gates read the global token count. The pools go down a level and the
+upsamplings up one through ``space.descend`` / ``space.ascend``; a strided
+convolution's caller (a trunk's stem, a ResNet block) calls ``descend``
+for it. At a whole level (``space.rows()`` None) every op, BatchNorm, the
+tokenizer (the one-process K3) and the decoder gates run as on one
+process.
 """
 from __future__ import annotations
 
@@ -63,10 +68,14 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 padding: int = 0, dtype=torch.float32,
                 groups: int = 1) -> torch.Tensor:
     """NHWC conv with an OIHW weight, computed in ``dtype``; under row
-    sharding, on the rank's rows with their halos."""
+    sharding, on the rank's rows with their halos (with a stride, rows that
+    ``space.descend`` passed)."""
     pad = padding
     r = space.rows()
     if r is not None:
+        if x.shape[1] % stride:
+            raise ValueError(f"conv2d_nhwc: {x.shape[1]} rows per space rank "
+                             f"at stride {stride}; call space.descend first")
         x = space.halo(x, padding, weight.shape[2] - stride - padding,
                        "zero", r)
         pad = (0, padding)
@@ -96,28 +105,32 @@ def conv_transpose2d_nhwc(x: torch.Tensor, conv: nn.ConvTranspose2d,
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """Nearest-neighbour upsample of NHWC (torch nn.Upsample default)."""
+    """Nearest-neighbour upsample of NHWC (torch nn.Upsample default); up a
+    level (``space.ascend``)."""
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=factor,
                       mode="nearest")
-    return y.permute(0, 2, 3, 1)
+    return space.ascend(y.permute(0, 2, 3, 1), factor)
 
 
 def upsample_bilinear(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
     """Bilinear upsample of NHWC with half-pixel centres (torch
     ``align_corners=False``, ``jax.image.resize`` "bilinear"). At the border
     jax renormalises its triangle weights and torch clamps the source index;
-    both give the edge pixel there. Computed in x's dtype."""
+    both give the edge pixel there. Computed in x's dtype; up a level
+    (``space.ascend``)."""
     if space.rows() is not None:
         return resize_bilinear(x, factor * x.shape[1], factor * x.shape[2])
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=factor,
                       mode="bilinear", align_corners=False)
-    return y.permute(0, 2, 3, 1)
+    return space.ascend(y.permute(0, 2, 3, 1), factor)
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """torch MaxPool2d(3, stride=2, padding=1) on NHWC; under row
-    sharding, on the rank's rows with their halos."""
+    """torch MaxPool2d(3, stride=2, padding=1) on NHWC; down a level
+    (``space.descend``), on the rank's rows with their halos where they
+    split."""
     pad = 1
+    x = space.descend(x, 2, 1)
     r = space.rows()
     if r is not None:
         x, pad = space.halo(x, 1, 0, "neg_inf", r), (0, 1)
@@ -134,15 +147,16 @@ def max_pool_3x3_s2_ceil(x: torch.Tensor) -> torch.Tensor:
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """NHWC resized to (h, w) bilinearly with half-pixel centres
     (``jax.image.resize`` "bilinear" when it enlarges; see
-    ``upsample_bilinear``). Computed in x's dtype. Under row sharding ``h``
-    is the rank's rows of the result, a whole multiple f of x's: the rows
-    with a halo of one each side (the edge row at the global edges),
-    resized to f times as many, and f rows cropped off each side."""
+    ``upsample_bilinear``). Computed in x's dtype; up a level
+    (``space.ascend``). Under row sharding ``h`` is the rank's rows of the
+    result, a whole multiple f of x's: the rows with a halo of one each side
+    (the edge row at the global edges), resized to f times as many, and f
+    rows cropped off each side."""
     r = space.rows()
     if r is None:
         y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w),
                           mode="bilinear", align_corners=False)
-        return y.permute(0, 2, 3, 1)
+        return space.ascend(y.permute(0, 2, 3, 1), h / x.shape[1])
     f = h // x.shape[1]
     if f * x.shape[1] != h:
         raise ValueError(f"resize_bilinear: {x.shape[1]} rows per space rank "
@@ -150,12 +164,13 @@ def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     x = space.halo(x, 1, 1, "edge", r)
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(f * x.shape[1], w),
                       mode="bilinear", align_corners=False)
-    return y[:, :, f:f + h].permute(0, 2, 3, 1)
+    return space.ascend(y[:, :, f:f + h].permute(0, 2, 3, 1), f)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """torch F.max_pool2d(kernel_size=2, stride=2) on NHWC: an odd last row
-    or column is dropped (blocks.py:220)."""
+    or column is dropped (blocks.py:220); down a level (``space.descend``)."""
+    x = space.descend(x, 2)
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
@@ -234,8 +249,9 @@ class BatchNorm(nn.Module):
     rank takes the same running update. Filler rows of a padded batch enter
     them, as in the JAX package. Under a row-sharded grid every rank holds
     distinct rows, so the same world sum is GSPMD's statistic over the
-    space axis too; on a replicated grid the sum runs over the data group
-    (``nn/space.py`` ``stat_group``).
+    space axis too; on a replicated grid and at a whole level (every rank of
+    a data row with the same whole rows) the sum runs over the data group
+    (``nn/space.py`` ``stat_group``), so each pixel counts once.
     """
 
     def __init__(self, channels: int, dtype=torch.float32, eps: float = 1e-5,
@@ -496,7 +512,8 @@ class TransformerDecoder(nn.Module):
     the space ranks, as GSPMD traces them on global shapes; the stack or K4
     then runs on the rank's rows, and the memory tokens' gradient a rank's
     backward gives is its rows' part, which the rank-split K3's backward
-    sums over the space group.
+    sums over the space group. At a whole level (``space.rows()`` None) the
+    gates read x's own count, the whole one.
     """
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
@@ -553,7 +570,8 @@ class SemanticTokenizer(nn.Module):
     of the features. Runs through the K3 kernel on the card, with its
     gradient in PyTorch operations (``SemanticTokenizerFn``); under row
     sharding the softmax spans the space ranks (``SemanticTokenizerRanksFn``,
-    the rank-split K3), and every rank gets the same tokens. Its one
+    the rank-split K3), and every rank gets the same tokens; at a whole
+    level every rank runs the one-process K3 on the whole rows. Its one
     parameter is the reference's ``conv_token`` weight (L, C, 1, 1)."""
 
     def __init__(self, dim: int, token_len: int, dtype=torch.float32):

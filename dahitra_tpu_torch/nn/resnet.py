@@ -12,6 +12,11 @@ Quirk kept: the vendored torchvision BasicBlock resets dilation to 1, so
 ``replace_stride_with_dilation`` only removes a layer's stride
 (resnet.py:8-11); the Bottleneck takes its stride on the 3x3 conv
 (torchvision v1.5).
+
+Under a row-sharded grid (``nn/space.py``) a block (its input feeds both
+its first convolution and its downsample) and the stem go down a level
+through ``space.descend`` before their strided convolutions: on the rank's
+rows where they split, else on the level gathered whole.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from dahitra_tpu_torch.nn import space
 from dahitra_tpu_torch.nn.blocks import BatchNorm, conv2d_nhwc, max_pool_3x3_s2
 
 # backbone -> (block, blocks per layer)
@@ -45,6 +51,7 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 pair: bool = False) -> torch.Tensor:
+        x = space.descend(x, self.stride, 1)
         y = conv2d_nhwc(x, self.conv1.weight, stride=self.stride, padding=1,
                         dtype=self.dtype)
         y = torch.relu(self.bn1(y, train, pair))
@@ -83,6 +90,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 pair: bool = False) -> torch.Tensor:
+        x = space.descend(x, self.stride, 1)
         y = torch.relu(self.bn1(conv2d_nhwc(x, self.conv1.weight,
                                             dtype=self.dtype), train, pair))
         y = torch.relu(self.bn2(conv2d_nhwc(
@@ -150,6 +158,7 @@ class ResNetTrunk(nn.Module):
     def stem_preact(self, x: torch.Tensor, train: bool = False,
                     pair: bool = False) -> torch.Tensor:
         """conv1 -> bn1, without the ReLU."""
+        x = space.descend(x, 2, 3)
         return self.bn1(conv2d_nhwc(x, self.conv1.weight, stride=2, padding=3,
                                     dtype=self.dtype), train, pair)
 

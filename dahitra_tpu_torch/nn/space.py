@@ -4,16 +4,18 @@ Counterpart of what GSPMD inserts into the jitted program when a batch is
 placed with ``batch_sharding(mesh, spatial=True)`` (dahitra_tpu/core/
 mesh.py:85-89, ``P("data", "space")``): halo exchanges before the
 convolutions, pools and resizes that read rows across a shard's edge,
-global statistics (BatchNorm's, the tokenizer's softmax over the pixels)
-and the gathers of the logits for the loss.
+global statistics (BatchNorm's, the tokenizer's softmax over the pixels),
+the gathers of the logits for the loss, and the reshards of the levels
+whose rows do not split.
 
 ``grid(mesh, spatial)`` is the grid a trainer's or the evaluator's step
 runs under (``core/mesh.py`` ``Mesh`` with ``n_space > 1``):
 
   * ``spatial=True``: each rank holds the rows [s H / S, (s + 1) H / S) of
-    its samples and keeps only its own rows of every activation;
-    ``rows()`` gives the space group, the rank's place in it and its size,
-    which the spatial ops of ``nn/blocks.py`` and the rank-split K3 read;
+    its samples and keeps only its own rows of every activation at the
+    levels whose rows split (below); ``rows()`` gives the space group, the
+    rank's place in it and its size, which the spatial ops of
+    ``nn/blocks.py`` and the rank-split K3 read;
   * ``spatial=False`` (replicated, the JAX epoch loops' placement): the
     ranks of a data row hold the same whole images; BatchNorm then sums its
     statistics over the data group (``stat_group``), so that each sample
@@ -28,14 +30,36 @@ rank that owns the row and adds it there. Each exchange is one all-gather
 of the boundary rows over the space group (staged through host memory
 under gloo on CUDA tensors, ``core.mesh.STAGED``).
 
-Rows that do not divide raise: the rows per rank must be a multiple of the
-model's total stride (``shard_rows`` checks it), so that every level of the model
-splits into whole rows and every strided window starts on the rank's first
-row. GSPMD reshards uneven rows; this port does not. The models with a
-``space_stride`` take row-sharded batches: DAHiTra (``newUNetTrans``,
+Levels. A model's levels are its scales below the input (1, 2, 4, ...).
+The rows of a level split over the ranks while every strided op above it
+found the rank's rows a multiple of its stride and at least its halo.
+Where one does not, the level is gathered over the space group
+(``descend``: ``gather_rows``, whose backward sums the group's gradient
+and keeps the rank's rows) and that op and every coarser one run on whole
+rows, the same on every rank of the data row. Inside a whole level
+``rows()`` answers None: the ops run as on one process, the tokenizer runs
+the one-process K3, the decoder gates read the whole token count,
+``local_pos`` gives the whole grid, and BatchNorm sums its statistics over
+the data group, so that each pixel counts once. On the way up, the first
+finer level than the first whole one takes the rank's rows again
+(``ascend``: a slice, whose backward gives the rank's rows their gradient
+and the others zero). So each rank's backward through a whole level
+carries its own rows' share of every gradient there, and the reductions
+over the ranks (the gathers' backward, the trainers' DDP mean) count each
+once. The grid records the current level (``scale``) and the first whole
+one; the trunks and the up and down ops of ``nn/blocks.py`` move it
+through ``descend`` and ``ascend``, and a model that goes back to a finer
+level without an upsampling says so (``at_level``). GSPMD reshards such
+levels into padded shards; this port runs them whole, which needs no
+other collective than the row gathers it already has.
+
+``shard_rows`` gives a model the rank's rows of its input and starts the
+levels over. It refuses rows that do not split at the input (H % S; the
+JAX package's ``device_put`` refuses them too) and, by name, a model
+without a ``space_stride`` (its total stride, the marker of the models
+that run on row-sharded batches): DAHiTra (``newUNetTrans``,
 ``xbd_dahitra``, ``xbd_adapt_dahitra``), ``base_resnet18``, the ResNet34
-UNets and BIT (``base_transformer_pos_s4*``, ``xbd_bit``); every other
-model is refused by name.
+UNets and BIT (``base_transformer_pos_s4*``, ``xbd_bit``).
 """
 from __future__ import annotations
 
@@ -49,7 +73,20 @@ from dahitra_tpu_torch.core.mesh import all_gather_rows, gather_parts
 
 FILLS = ("zero", "neg_inf", "edge")
 
-# (mesh, spatial) of the active grid, or None
+
+@dataclass
+class _Level:
+    """Where a row-sharded forward is: the current level's ``scale`` below
+    the model's input and the first whole level's (None while every level
+    has split)."""
+    scale: float = 1.0
+    whole_at: Optional[float] = None
+
+    def whole(self) -> bool:
+        return self.whole_at is not None and self.scale >= self.whole_at
+
+
+# (mesh, spatial, level) of the active grid, or None
 _GRID = None
 
 
@@ -69,28 +106,78 @@ def grid(mesh, spatial: bool = False) -> Iterator[None]:
     rank (or none) sets no grid."""
     global _GRID
     saved = _GRID
-    _GRID = (mesh, bool(spatial)) if mesh is not None and mesh.n_space > 1 \
-        else None
+    _GRID = (mesh, bool(spatial), _Level()) \
+        if mesh is not None and mesh.n_space > 1 else None
     try:
         yield
     finally:
         _GRID = saved
 
 
-def rows() -> Optional[Rows]:
-    """The active row sharding, or None where rows are not sharded."""
+def _sharding() -> Optional[Rows]:
+    """The row sharding of the active grid at any level, or None."""
     if _GRID is None or not _GRID[1]:
         return None
     mesh = _GRID[0]
     return Rows(mesh.space_group, mesh.space_rank, mesh.n_space)
 
 
+def _level() -> Optional[_Level]:
+    """The level state of a row-sharded grid, or None."""
+    return _GRID[2] if _GRID is not None and _GRID[1] else None
+
+
+def rows() -> Optional[Rows]:
+    """The active row sharding, or None where rows are not sharded: no
+    grid, a replicated one, or a whole level."""
+    lv = _level()
+    return None if lv is None or lv.whole() else _sharding()
+
+
 def stat_group():
     """The process group BatchNorm sums its statistics over: every rank
-    (None), but the data group on a replicated grid."""
-    if _GRID is None or _GRID[1]:
+    (None) where rows are sharded, else (a replicated grid, a whole level)
+    the data group."""
+    if _GRID is None or rows() is not None:
         return None
     return _GRID[0].data_group
+
+
+def descend(x: torch.Tensor, stride: int, reach: int = 0) -> torch.Tensor:
+    """x at the input of a strided op (or a block of them) that takes the
+    level ``stride`` times coarser and reads ``reach`` rows across a
+    shard's edge: the rank's rows while they are a multiple of ``stride``
+    and at least ``reach``; else every rank's rows gathered, and the next
+    level and every coarser one whole. Without row sharding, x."""
+    lv = _level()
+    if lv is None:
+        return x
+    r = rows()
+    if r is not None and (x.shape[1] % stride or reach > x.shape[1]):
+        x = gather_rows(x, r)
+        lv.whole_at = lv.scale * stride
+    lv.scale *= stride
+    return x
+
+
+def ascend(y: torch.Tensor, factor: float) -> torch.Tensor:
+    """y, just upsampled by ``factor`` from the level above: the rank's
+    rows of it where it leaves a whole level for one whose rows split,
+    else y."""
+    lv = _level()
+    if lv is None:
+        return y
+    was_whole = lv.whole()
+    lv.scale /= factor
+    return local_rows(y, _sharding()) if was_whole and not lv.whole() else y
+
+
+def at_level(scale: float) -> None:
+    """Go back to the level ``scale`` below the input (a model that takes
+    up a finer level again without an upsampling)."""
+    lv = _level()
+    if lv is not None:
+        lv.scale = float(scale)
 
 
 def local_rows(t: torch.Tensor, r: Optional[Rows] = None) -> torch.Tensor:
@@ -107,8 +194,8 @@ def local_rows(t: torch.Tensor, r: Optional[Rows] = None) -> torch.Tensor:
 def local_pos(pos: torch.Tensor, h: int, name: str) -> torch.Tensor:
     """The rank's rows of a whole-image (1, H, W, C) grid ``pos`` (a decoder
     positional embedding) where each rank holds ``h`` rows, as GSPMD slices
-    it; ``pos`` itself without row sharding. Raises, naming ``name``, where
-    H is not the ranks' rows together."""
+    it; ``pos`` itself without row sharding or at a whole level. Raises,
+    naming ``name``, where H is not the ranks' rows together."""
     r = rows()
     if r is None:
         return pos
@@ -189,25 +276,19 @@ def halo(x: torch.Tensor, top: int, bottom: int, fill: str = "zero",
 
 def shard_rows(model, *ts: torch.Tensor):
     """The rank's rows of whole (B, H, ...) tensors that ``model`` will
-    read under the active grid: the tensors as they are without row
-    sharding. A ``ValueError`` for a model without a ``space_stride`` (one
-    that does not run on row-sharded batches) and, naming the stride, where
-    the rows per rank are not a multiple of the model's total stride."""
-    r = rows()
-    if r is None:
+    read under the active grid, the levels started over at the input: the
+    tensors as they are without row sharding. A ``ValueError`` for a model
+    without a ``space_stride`` (one that does not run on row-sharded
+    batches) and where H does not split over the ranks."""
+    lv = _level()
+    if lv is None:
         return ts
-    stride = getattr(model, "space_stride", None)
-    if stride is None:
+    if getattr(model, "space_stride", None) is None:
         raise ValueError(f"{type(model).__name__} does not run on row-sharded "
                          f"batches (spatial=True); run it with spatial=False")
-    out = tuple(local_rows(t, r) for t in ts)
-    n_rows = out[0].shape[1]
-    if n_rows % stride:
-        raise ValueError(
-            f"{type(model).__name__}: {n_rows} rows per space rank are not a "
-            f"multiple of the model's total stride {stride}; row sharding "
-            f"needs rows per rank divisible by {stride}")
-    return out
+    lv.scale, lv.whole_at = 1.0, None
+    r = rows()
+    return tuple(local_rows(t, r) for t in ts)
 
 
 def gather_batch(t: torch.Tensor, mesh) -> torch.Tensor:

@@ -7,9 +7,12 @@ global batch given whole (numpy, seeded by the caller) and returns what the
 rank holds afterwards. Imports no JAX: ``tests/test_torch_space.py`` runs
 these on gloo CPU ranks, ``chip_smoke.py`` phase 21 on two gloo ranks
 sharing the card, ``tests/test_torch_space_kernels.py`` and phase 22 the
-decoder kernels' cases (BIT, ``xbd_bit``, ``pallas = True``). The trainers'
-row-sharded steps are ``trainer_steps`` here and ``tools/mesh_checks.py``
-``cd_steps`` / ``xbd_steps`` with ``spatial=True``.
+decoder kernels' cases (BIT, ``xbd_bit``, ``pallas = True``),
+``tests/test_torch_space_uneven.py`` (eight ranks, 2 x 4) and phase
+21f-h the uneven rows, whose coarse levels run whole (``forward_rows``'
+output shapes and gate paths show which). The trainers' row-sharded steps
+are ``trainer_steps`` here and ``tools/mesh_checks.py`` ``cd_steps`` /
+``xbd_steps`` with ``spatial=True``.
 """
 from __future__ import annotations
 
@@ -174,13 +177,31 @@ def _shapes(model: torch.nn.Module):
     return shapes, hooks
 
 
-def forward_rows(mesh, net_g, img: int, state_dict: dict,
+def seeded_weights(model: torch.nn.Module, seed: int) -> dict:
+    """``model``'s state dict after ``nn/init.py`` ``init_random`` from
+    ``seed``, with 0.1 N(0, 1) added to every bias (numpy's draws from the
+    same seed): the same on every process."""
+    from dahitra_tpu_torch.nn.init import init_random
+
+    init_random(model, torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.add_(torch.from_numpy(
+                    0.1 * rng.normal(size=tuple(p.shape)).astype(np.float32)))
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def forward_rows(mesh, net_g, img: int, state_dict,
                  inputs: Dict[str, np.ndarray], dname: str = "float32",
                  train: bool = False, loss: Optional[str] = None,
                  spatial: bool = True, device: str = "cpu",
                  pallas: bool = False) -> dict:
     """``net_g`` (a registry key, or a callable that builds the model from
-    ``dtype``) with ``state_dict`` on the rank's part of ``inputs``
+    ``dtype``) with ``state_dict`` (or, an int, ``seeded_weights`` from
+    that seed: no weights to send to the ranks) on the rank's part of
+    ``inputs``
     (whole normalized NHWC images: "a" and "b", or "x" the 6-channel pair;
     row-sharded with ``spatial``): its logits, the global batch's logits
     (gathered over rows, then samples), every submodule's output shape, the
@@ -201,6 +222,8 @@ def forward_rows(mesh, net_g, img: int, state_dict: dict,
     dtype = getattr(torch, dname)
     model = net_g(dtype=dtype) if callable(net_g) else define_g(
         net_g, dtype=dtype, img_size=img)
+    if isinstance(state_dict, int):
+        state_dict = seeded_weights(model, state_dict)
     load_weights(model, state_dict)
     set_pallas(model, pallas)
     model.to(dev).train(train)

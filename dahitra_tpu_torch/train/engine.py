@@ -45,9 +45,10 @@ BatchNorm sums over the data group and the gathers run over it.
 ``train_step(..., spatial=True)`` is the row-sharded step
 (``batch_sharding(spatial=True)``): each space rank augments its whole
 images with the draws its data row shares, keeps its rows
-(``nn/space.py``; rows per rank a multiple of the model's stride) and runs
-the forward on them; the fp32 logits are gathered over rows, then over
-samples, before the unchanged loss and confusion matrix, so that every
+(``nn/space.py``; the levels whose rows a strided op cannot split run
+whole on every rank of the row) and runs the forward on them; the fp32
+logits, the rank's rows of the full image, are gathered over rows, then
+over samples, before the unchanged loss and confusion matrix, so that every
 rank's loss is the global loss and the gathers' backward gives the factor
 n_data * n_space that cancels DDP's mean.
 

@@ -166,16 +166,23 @@ def test_epoch_perm_covers_every_data_shard_on_a_4x2_grid():
     ("base_resnet18", 40, 2, 8)])
 def test_misaligned_rows_raise_naming_the_stride(net_g, img, n_space, stride):
     """Rows per rank that are not a multiple of the model's total stride
-    raise a ValueError naming it in the row split that every row-sharded
-    step and forward goes through (``space.shard_rows``); a model that does
-    not run on row-sharded batches is refused by name. No collective runs
-    before the refusal."""
+    pass the row split that every row-sharded step and forward goes through
+    (``space.shard_rows``): each rank gets its rows, and the levels that
+    the strides do not split run whole (tests/test_torch_space_uneven.py
+    holds these sizes against JAX and one process). What raises, before any
+    collective: rows that do not split over the ranks at the input (as the
+    JAX package's ``device_put`` refuses them), and, by name, a model that
+    does not run on row-sharded batches."""
     model = define_g(net_g, img_size=img)
     mesh = Mesh(0, n_space, torch.device("cpu"), "gloo", n_space=n_space)
     x = torch.zeros(1, img, img, 6 if net_g.startswith("xbd") else 3)
+    assert (img // n_space) % stride
     with space.grid(mesh, spatial=True):
-        with pytest.raises(ValueError, match=f"total stride {stride}"):
-            space.shard_rows(model, x)
+        got, = space.shard_rows(model, x)
+        assert got.shape[1] == img // n_space
+        with pytest.raises(ValueError, match=f"{img - 1} rows do not split "
+                                             f"over {n_space} space ranks"):
+            space.shard_rows(model, x[:, 1:])
         with pytest.raises(ValueError, match="does not run on row-sharded"):
             space.shard_rows(define_g("siamUnet_conc"), x)
 

@@ -70,7 +70,6 @@ from dahitra_tpu_torch.kernels.fused_decoder import pick_tile
 from dahitra_tpu_torch.models.bit import BIT
 from dahitra_tpu_torch.models.registry import PORTED, define_g
 from dahitra_tpu_torch.nn import blocks, space
-from dahitra_tpu_torch.nn.init import init_random
 from dahitra_tpu_torch.tools import mesh_checks, space_checks
 from dahitra_tpu_torch.train.engine import CDTrainer
 from dahitra_tpu_torch.train.xbd_engine import XBDTrainer
@@ -117,19 +116,6 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _seeded_sd(model, seed):
-    """The port's ``init_random`` with seeded biases (BN statistics drawn
-    by ``init_random``)."""
-    init_random(model, torch.Generator().manual_seed(seed))
-    rng = np.random.RandomState(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("bias"):
-                p.add_(torch.from_numpy(
-                    0.1 * rng.normal(size=tuple(p.shape)).astype(np.float32)))
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
-
-
 def _pair(seed, h=IMG, w=IMG, n=2):
     rng = np.random.RandomState(seed)
     return {k: rng.uniform(-1, 1, (n, h, w, 3)).astype(np.float32)
@@ -146,9 +132,10 @@ class _Cases:
     """The launch's cases, built once: name -> (function, args)."""
 
     def __init__(self, tmp):
-        self.sd = {k: _seeded_sd(define_g(k, img_size=IMG), 10 + i)
+        self.sd = {k: space_checks.seeded_weights(define_g(k, img_size=IMG),
+                                                10 + i)
                    for i, k in enumerate(BIT_KEYS + (DAH,))}
-        self.var_sd = {k: _seeded_sd(BIT(**kw), 20 + i)
+        self.var_sd = {k: space_checks.seeded_weights(BIT(**kw), 20 + i)
                        for i, (k, kw) in enumerate(VARIANTS.items())}
         self.inputs = _pair(1)
         self.cd_arrays = _cd_arrays(2, IMG, 3)
