@@ -19,7 +19,8 @@ padded loader), the host-free step (``--scan_epoch``,
 ``eval_models(scan=True)``: CUDA-graph replays of the train and eval
 steps), and the space axis (``nn/space.py``: image rows sharded over the
 ranks of a grid, with halo exchanges and the rank-split K3; BIT,
-``xbd_bit`` and ``pallas = True`` on a rank's rows). ``--phases`` runs the phases it lists (every phase
+``xbd_bit``, ``pallas = True``, ``siamUnet_conc`` and the UNet change
+transformers on a rank's rows). ``--phases`` runs the phases it lists (every phase
 without it), with the phases whose output they read (``PHASE_NEEDS``) and
 phase 1; the kernels are built in every selection. Phases, each fatal on
 failure:
@@ -186,7 +187,8 @@ failure:
      ``xbd_unet_change_transformer_bit`` at 256 px (its feed-forward is
      dim^2 wide, dim = (img / 32)^2), ``--task loc`` with the three ``_loc``
      keys and ``--task hrnet`` with ``dual_hrnet`` and ``dual_hrnet_fpn``,
-     each with one warm step (time, peak memory), none launching
+     each but the ``_loc`` keys and ``dual_hrnet_fpn`` with one warm step
+     (time, peak memory), none launching
      K1, K1-save, K2, K3 or K4; ``xbd_predict`` with the SENet154 double
      checkpoint over 2 tiles; the fp32 SENet154 double and Dual-HRNet
      checkpoints written as reference ``.pt`` files and imported, the
@@ -280,11 +282,24 @@ failure:
      process's; then K1, K1-save and K2 at mlp_dim 64 and
      K4 at mlp_dim 32 and 64 at a rank's shapes (``RANK_*_SHAPES``)
      against their plain versions, rerun for the same bits and timed (the
-     ``_rank`` entries of the kernels line).
+     ``_rank`` entries of the kernels line);
+ 23. ``siamUnet_conc`` and the UNet change transformers on the space axis
+     (``run_space_zoo_phase``), cuDNN deterministic: two gloo ranks on
+     cuda:0, half the rows each, against one process on the same card,
+     seeded weights and data, at 256 px, batch 8: each key's fp32 eval
+     forward (1e-5 of scale), one fp32 row-sharded ``CDTrainer.train_step``
+     with dropout active (``_check_two_ranks``) and a warm step, and its
+     bf16 eval forward (2e-2); then ``unet_coupled_two_trans_256`` at 224 px
+     (1/32 whole: its ``transformer`` on the whole level, ``transformer2``
+     on the rank's block of the 1/4 level), fp32 eval and step; each
+     channel-token transformer on the rank's block of the token width where
+     its level splits, no kernel launched, each rank's peak memory, warm
+     step and staged collectives beside one process's.
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
-7, 9, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21, 22) and read just after
-(phases 19, 21 and 22 read each rank's counters before and after its run);
+7, 9, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21, 22, 23) and read just after
+(phases 19, 21, 22 and 23 read each rank's counters before and after its
+run);
 the counters of the padded token counts and of the rank-split K3
 (``NO_PAD``) must read 0 in every one of them but the row-sharded runs of
 phases 21 and 22, which launch the rank-split K3 (and there the
@@ -396,7 +411,7 @@ WIDE_SHAPES = [(f"wide/l{tokens}h{heads}", 2 * BATCH, 4096, 8, heads, tokens,
 CALLS = {"bit/dd8": 2, "xbd_bit/s4": 2, "xbd_bit_tta/s4": 2}
 
 
-PHASES = range(1, 23)
+PHASES = range(1, 24)
 # What a phase reads from another: phase 4's tree and checkpoint, phase 5's
 # confusion matrix, phase 15's damage checkpoints. (Phase 7's splits and
 # phase 15's tiles are written for whichever phase reads them.)
@@ -2605,6 +2620,11 @@ XBD_ZOO_TILES = 4
 # 1200 s a smoke run may take (3 took the script to 1210 s on a card whose
 # phases ran a third slower than usual).
 XBD_ZOO_TIMED = 1
+# Runs of phase 18 without warm steps (their epoch of ``xbd_train`` stays):
+# the ``_loc`` keys and ``dual_hrnet_fpn``, whose trunks the damage and
+# ``dual_hrnet`` runs time, so that phases 1-23 stay inside the 1200 s.
+XBD_ZOO_UNTIMED = ("xbd_seresnext50_loc", "xbd_senet154_loc",
+                   "xbd_dpn92_loc", "dual_hrnet_fpn")
 XBD_ZOO_IMPORTS = ("xbd_senet154_double", "dual_hrnet")
 
 
@@ -2803,9 +2823,10 @@ def run_xbd_zoo_phase(torch, tmp, dtypes) -> dict:
     """Phase 18: the xBD half of the zoo on ``XBD_ZOO_TILES`` seeded tiles
     of its own (phase 15's test tiles to predict), batch 1,
     cuDNN deterministic, fp32 then bf16: for every run of
-    ``XBD_ZOO_RUNS`` one epoch of ``xbd_train`` with a validation and
-    ``XBD_ZOO_TIMED`` warm steps (one sample, ``samples`` printed; peak
-    memory; no decoder or tokenizer launch), ``xbd_predict`` with the
+    ``XBD_ZOO_RUNS`` one epoch of ``xbd_train`` with a validation and,
+    but for ``XBD_ZOO_UNTIMED``, ``XBD_ZOO_TIMED`` warm steps (one sample,
+    ``samples`` printed; peak memory; no decoder or tokenizer launch),
+    ``xbd_predict`` with the
     SENet154 double checkpoint;
     then the imported checkpoints, the card against the CPU plain path
     and the dropout step. Returns the launch counts by dtype and phase."""
@@ -2838,6 +2859,9 @@ def run_xbd_zoo_phase(torch, tmp, dtypes) -> dict:
                                flag, dname, n_val, img)
             ckpts[net_g, dname] = out["checkpoint"]
             by_phase[dname][f"{net_g}_{task}_{img}"] = out["launches"]
+            if net_g in XBD_ZOO_UNTIMED:
+                print(json.dumps(out), flush=True)
+                continue
             gc.collect()
             steps = run_xbd_task_steps(torch, tmp, task, net_g, dtype,
                                        arrays[img], img,
@@ -4062,6 +4086,168 @@ def run_space_kernels_phase(torch, tmp) -> tuple:
     return by_phase, rows
 
 
+# Phase 23: siamUnet_conc and the UNet change transformers on the space axis,
+# two gloo ranks on the one card at 256 px, batch 8; then the uneven case:
+# unet_coupled_two_trans_256 at 224 px, where layer 4 meets 7 rows a rank at
+# 1/16, so 1/32 (its ``transformer``) runs whole while ``transformer2``
+# stays on the rank's block of the 1/4 level.
+SPACE_ZOO_KEYS = ("siamUnet_conc", "unet_coupled_trans_256",
+                  "unet_coupled_two_trans_256")
+SPACE_ZOO_UNEVEN = ("unet_coupled_two_trans_256", 224)
+# A sublayer of each channel-token transformer: its output is the rank's
+# block of the token width where its level splits, the whole width where
+# the level runs whole.
+SPACE_ZOO_BLOCKS = ("transformer.layers.0.0", "transformer2.layers.0.0")
+
+
+def _width_of(got: dict, ref: dict) -> dict:
+    """Per channel-token transformer sublayer (``SPACE_ZOO_BLOCKS``) that
+    ran, "block" where a rank's output held half of one process's token
+    width, "whole" where all of it."""
+    out = {}
+    for name in SPACE_ZOO_BLOCKS:
+        if name in ref["shapes"]:
+            mine, one = got["shapes"][name][-1], ref["shapes"][name][-1]
+            out[name] = ("whole" if mine == one else
+                         "block" if 2 * mine == one else f"{mine} of {one}")
+    return out
+
+
+def run_space_zoo_phase(torch, tmp) -> None:
+    """Phase 23 (``nn/space.py`` for ``siamUnet_conc`` and the UNet change
+    transformers), cuDNN deterministic on both sides. One launch of two
+    gloo ranks on cuda:0 (n_data 1, n_space 2; collectives staged through
+    host memory) against one process on the same card, seeded weights and
+    data, for each of ``SPACE_ZOO_KEYS`` at 256 px, batch 8: the fp32 eval
+    forward (the gathered logits 1e-5 of scale), one fp32
+    ``CDTrainer.train_step(spatial=True)`` with dropout active and the
+    trainer's generator on both sides (``_check_two_ranks``: loss 1e-5
+    relative, every gradient leaf 1e-4 of scale or rule 5 with its witness,
+    BN statistics 1e-5, both ranks with the same bits) and ``SPACE_TIMED``
+    warm steps, and the bf16 eval forward (flat 2e-2); then
+    ``SPACE_ZOO_UNEVEN``'s fp32 eval forward and step at 224 px (1/32
+    whole). Held also: each rank's rows of the logits, its launches (no
+    kernel: every counter 0), and where each channel-token transformer ran
+    (the rank's block of the width at a level that splits, the whole width
+    at 1/32 of 224 px). Printed: peak memory and the warm step a rank
+    beside one process, the staged collectives a step."""
+    from dahitra_tpu_torch.core import mesh as mesh_mod
+    from dahitra_tpu_torch.tools import space_checks as sc
+    from dahitra_tpu_torch.train import engine
+
+    t_phase = time.time()
+    rng = np.random.default_rng(23)
+    key_u, img_u = SPACE_ZOO_UNEVEN
+    fwd_in = {k: rng.uniform(-1, 1, (BATCH, IMG, IMG, 3)).astype(np.float32)
+              for k in ("a", "b")}
+    u_in = {k: rng.uniform(-1, 1, (BATCH, img_u, img_u, 3)
+                           ).astype(np.float32) for k in ("a", "b")}
+
+    def cfg(tag, net_g, img):
+        c = _mesh_cfg(tmp, f"space23_{tag}", net_g, img, BATCH, "float32")
+        os.makedirs(c["checkpoint_dir"], exist_ok=True)
+        return c
+
+    def fwd(key, img, seed, inputs, dname):
+        return ("forward_rows", (key, img, seed, inputs, dname, False, None,
+                                 True, "cuda:0"))
+
+    # (tag, key, image size, (function, args)); weights drawn on each rank
+    # from a seed (``space_checks.seeded_weights``)
+    cases = []
+    for i, key in enumerate(SPACE_ZOO_KEYS):
+        cases += [
+            ("eval", key, IMG, fwd(key, IMG, 230 + i, fwd_in, "float32")),
+            ("step", key, IMG, ("trainer_steps", (
+                "cd", cfg(f"step_{i}", key, IMG),
+                space_arrays(BATCH, IMG, 23), True, SPACE_TIMED))),
+            ("eval", key, IMG, fwd(key, IMG, 230 + i, fwd_in, "bfloat16"))]
+    cases += [
+        ("uneven_eval", key_u, img_u, fwd(key_u, img_u, 233, u_in,
+                                          "float32")),
+        ("uneven_step", key_u, img_u, ("trainer_steps", (
+            "cd", cfg("uneven", key_u, img_u),
+            space_arrays(BATCH, img_u, 24), True, 0)))]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    refs = []
+    try:
+        t0 = time.time()
+        ranks = mesh_mod.launch(sc.run_cases, ([c[3] for c in cases], True),
+                                devices=["cuda:0", "cuda:0"], backend="gloo",
+                                timeout=600, n_space=2)
+        launch_s = time.time() - t0
+        # one-process references, the same functions with no mesh
+        for _, _, _, (name, args) in cases:
+            refs.append(getattr(sc, name)(None, *args))
+            _free(torch)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    print(json.dumps({"space23": "two_gloo_ranks_launch", "launch_s": launch_s,
+                      "cases": len(cases), "staged_per_rank": [
+                          r[-1] for r in ranks]}), flush=True)
+    want_launches = _rank_want()
+    uneven = {"transformer.layers.0.0": "whole",
+              "transformer2.layers.0.0": "block"}
+    ok = True
+    for i, (tag, key, img, (name, args)) in enumerate(cases):
+        got = [r[i] for r in ranks]
+        ref = refs[i]
+        width = [_width_of(g, ref) for g in got]
+        want_width = {n: "block" for n in SPACE_ZOO_BLOCKS
+                      if n in ref["shapes"]}
+        if tag.startswith("uneven"):
+            want_width = uneven
+        if name == "forward_rows":
+            dname = args[4]
+            errs = [scaled_err(g["whole"], ref["logits"].cpu())[1]
+                    for g in got]
+            tol = 1e-5 if dname == "float32" else TOL[dname]
+            line = {"space23": tag, "net_G": key, "img": img,
+                    "dtype": dname, "logits_scaled_err": max(errs),
+                    "tol": tol,
+                    "rows_per_rank": [int(g["logits"].shape[1]) for g in got],
+                    "token_width_per_rank": width,
+                    "launches_per_rank": [g["launches"] for g in got],
+                    "peak_gib_per_rank": [g["peak_bytes"] / 2 ** 30
+                                          for g in got],
+                    "peak_gib_one_process": ref["peak_bytes"] / 2 ** 30}
+            if dname == "bfloat16":
+                # one process's own bf16 distance from its fp32 logits
+                ref32 = refs[i - 2]["logits"]
+                line.update({
+                    "one_process_bf16_from_fp32": scaled_err(
+                        ref["logits"], ref32)[1],
+                    "logits_from_fp32_scaled_err": max(scaled_err(
+                        g["whole"], ref32.cpu())[1] for g in got)})
+            line["ok"] = bool(max(errs) <= tol and all(
+                torch.isfinite(g["whole"]).all() for g in got) and all(
+                g["launches"] == want_launches
+                and g["logits"].shape[1] == img // 2 for g in got)
+                and all(w == want_width for w in width))
+        else:
+            def moves(args=args, ref=ref):
+                return _own_moves(torch, ref, lambda: sc.trainer_steps(
+                    None, *args[:4], 0), engine, "augment_pairs", 2)
+
+            line = _check_two_ranks(
+                torch, got, ref, {"space23": tag, "net_G": key, "img": img},
+                "float32", moves)
+            line["token_width_per_rank"] = width
+            line["ok"] = bool(line["ok"] and all(
+                torch.isfinite(g["loss"]).all()
+                and g["launches"] == want_launches for g in got)
+                and all(w == want_width for w in width))
+        print(json.dumps(line), flush=True)
+        ok = ok and line["ok"]
+    print(json.dumps({"space23": "phase_s", "seconds": time.time() - t_phase}),
+          flush=True)
+    if not ok:
+        fail("space zoo (phase 23): a row-sharded run differs from one "
+             "process, launched a kernel or ran a transformer on other "
+             "columns (the lines above)")
+
+
 # Phase 20, the host-free step: graphed steps against eager ones.
 GRAPH_STEPS = 8  # replays (and eager steps) per comparison, >= 8
 GRAPH_TIMED = 3  # warm calls per timing: phases 1-22 share the 1200 s
@@ -4671,6 +4857,12 @@ def main() -> None:
         phases, rank_checks = run_space_kernels_phase(torch, tmp)
         for dname, ph in phases.items():
             by_phase[dname].update(ph)
+
+    started["23"] = time.time()
+    # 23. siamUnet_conc and the UNet change transformers on the space axis:
+    # two gloo ranks against one process, no kernel
+    if 23 in sel:
+        run_space_zoo_phase(torch, tmp)
 
     started["profile"] = time.time()
     if "--profile" in sys.argv[1:]:

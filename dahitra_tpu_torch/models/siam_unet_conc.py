@@ -20,6 +20,15 @@ flipped taps (``_ct_as_conv``). ``Dropout2d`` drops whole channels: one draw
 per (sample, channel), active in train mode. Both dates run through the
 encoder batch-stacked, each BatchNorm taking per-date statistics in train
 mode (the JAX module's two ``encode`` calls).
+
+On row-sharded batches (``nn/space.py``; ``space_stride`` 16, the four
+2x2 pools) every convolution and transposed convolution runs on the
+rank's rows with halos (``nn/blocks.py``), the pools go down a level and
+the up-convs up one, so a level whose rows a pool cannot split runs whole
+and the up-conv that leaves it takes the rank's rows again. A
+``Dropout2d`` mask is one draw per sample and channel, which no row
+changes, so every space rank draws it as one process does; the
+``log_softmax`` is per pixel.
 """
 from __future__ import annotations
 
@@ -46,6 +55,8 @@ _DEC = (("4", 128, (("43", 384, 128), ("42", 128, 128), ("41", 128, 64))),
 class SiamUnetConc(nn.Module):
     """NHWC images (B, H, W, 3) twice -> fp32 log-probabilities (B, H, W,
     label_nbr); H and W multiples of 16."""
+
+    space_stride = 16
 
     def __init__(self, input_nbr: int = 3, label_nbr: int = 2,
                  dtype=torch.float32):

@@ -27,6 +27,15 @@ the modules the reference builds and never calls are not built. Both dates
 run through the encoder batch-stacked, each BatchNorm taking per-date
 statistics in train mode (the JAX module's two encoder calls). Dropout is
 active in train mode (``set_dropout_generator``).
+
+On row-sharded batches (``nn/space.py``; ``space_stride`` 32, the
+encoder's) the encoder and the decoder's nearest upsamplings and convs run
+on the rank's rows, the channel attention's global max and the gate's
+softmax over the pixels span every rank's rows (``space.pixel_max``,
+``space.pixel_softmax``), and a channel-token transformer runs on the
+rank's block of every token's width, its rows times W
+(``TransformerEncoder(..., width=)``): no level is gathered for it. A
+level whose rows a stride cannot split runs whole (its transformer too).
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import torch
 import torch.nn as nn
 
 from dahitra_tpu_torch.models.res34_unet import ENCODER_FILTERS, Res34Encoder
+from dahitra_tpu_torch.nn import space
 from dahitra_tpu_torch.nn.blocks import (ConvRelu, TransformerEncoder,
                                          conv2d_nhwc, upsample_nearest)
 
@@ -59,8 +69,9 @@ class ChannelAttentionFuse(nn.Module):
 
 
 class BottleneckChannelAttention(nn.Module):
-    """Squeeze-excite on the global max, ending in a ReLU, not a sigmoid
-    (networks.py:516-545, att_type 'max')."""
+    """Squeeze-excite on the global max (over every space rank's rows
+    under row sharding), ending in a ReLU, not a sigmoid (networks.py:
+    516-545, att_type 'max')."""
 
     def __init__(self, channels: int, ratio: int = 16, dtype=torch.float32):
         super().__init__()
@@ -69,7 +80,7 @@ class BottleneckChannelAttention(nn.Module):
         self.fc2 = nn.Conv2d(channels // ratio, channels, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        m = x.amax(dim=(1, 2), keepdim=True)
+        m = space.pixel_max(x)
         m = torch.relu(conv2d_nhwc(m, self.fc1.weight, dtype=self.dtype))
         return torch.relu(conv2d_nhwc(m, self.fc2.weight, dtype=self.dtype))
 
@@ -77,19 +88,23 @@ class BottleneckChannelAttention(nn.Module):
 def channel_tokens(transformer: TransformerEncoder, x: torch.Tensor,
                    deterministic: bool) -> torch.Tensor:
     """The transformer over the channel axis: (B, H, W, C) -> tokens
-    (B, C, H * W) -> back."""
+    (B, C, H * W) -> back. Under row sharding x holds the rank's rows, so
+    its tokens are the rank's block of the width, on which the transformer
+    runs (``width``)."""
     b, h, w, c = x.shape
     tokens = x.reshape(b, h * w, c).transpose(1, 2)
-    tokens = transformer(tokens, deterministic=deterministic)
+    tokens = transformer(tokens, deterministic=deterministic,
+                         width=space.rows())
     return tokens.transpose(1, 2).reshape(b, h, w, c)
 
 
 def spatial_softmax_gate(fused: torch.Tensor, a: torch.Tensor,
                          b: torch.Tensor) -> torch.Tensor:
-    """``fused`` times the softmax over the pixels of (a - b), channel by
-    channel, in fp32 (networks.py:846-850)."""
+    """``fused`` times the softmax over the pixels of (a - b) (every space
+    rank's under row sharding), channel by channel, in fp32
+    (networks.py:846-850)."""
     bs, h, w, c = fused.shape
-    att = torch.softmax((a - b).reshape(bs, h * w, c).float(), dim=1)
+    att = space.pixel_softmax((a - b).reshape(bs, h * w, c).float())
     return (att.to(fused.dtype) * fused.reshape(bs, h * w, c)).reshape(
         bs, h, w, c)
 
@@ -98,6 +113,8 @@ class _UNetChangeBase(Res34Encoder):
     """The encoder, the decoder convs ``conv6``-``conv10`` (their ``_2``
     read the upsampled map and both dates' skips, at the 1/4 level
     ``skip_8`` channels) and the 1x1 head ``res``."""
+
+    space_stride = 32
 
     def __init__(self, output_nc: int, dtype, skip_8: int):
         super().__init__(dtype)
@@ -182,8 +199,10 @@ class UNetChangeTwoTransformer(_UNetChangeBase):
         enc5 = channel_tokens(self.transformer, enc5, not train)
         d = self.up(6, enc5, *e4)
         d = self.up(7, d, *e3)
+        space.at_level(4)  # the 1/4 level's fusion, gate and transformer
         enc2 = spatial_softmax_gate(self.ca_skip_2(*e2), *e2)
         enc2 = channel_tokens(self.transformer2, enc2, not train)
+        space.at_level(8)
         d = self.up(8, d, enc2)
         d = self.up(9, d, *e1)
         return self.head(self.up(10, d))

@@ -31,16 +31,22 @@ GSPMD adds them: a k x k convolution of stride s and padding p gets p rows
 from the rank above and k - s - p from the rank below (zeros at the global
 edges) and then pads only the columns; the 3 x 3 / 2 max-pool 1 and 0
 (-inf); the bilinear resizes one row each side (the edge row at the global
-edges), cropping the factor's rows off each side of the result;
-``upsample_nearest`` and ``max_pool_2x2`` read no row across a shard's edge.
-BatchNorm's statistics then sum over every rank's distinct rows, the
-tokenizer's softmax spans the ranks (the rank-split K3), and the decoder
-gates read the global token count. The pools go down a level and the
-upsamplings up one through ``space.descend`` / ``space.ascend``; a strided
-convolution's caller (a trunk's stem, a ResNet block) calls ``descend``
-for it. At a whole level (``space.rows()`` None) every op, BatchNorm, the
-tokenizer (the one-process K3) and the decoder gates run as on one
-process.
+edges), cropping the factor's rows off each side of the result; a k x k
+transposed convolution of stride s, padding p and output padding op whose
+output has s times its input's rows (k - s - 2p + op = 0) (k - 1 - p) // s
+rows from above and (p + s - 1) // s from below (zeros), cropping its
+output to the rank's s h rows; ``upsample_nearest`` and ``max_pool_2x2``
+read no row across a shard's edge. BatchNorm's statistics then sum over
+every rank's distinct rows, the tokenizer's softmax spans the ranks (the
+rank-split K3), the decoder gates read the global token count, and
+``TransformerEncoder(..., width=rows)`` runs on tokens whose width is the
+pixels, each rank holding its block (the channel-token transformers).
+The pools go down a level and the upsamplings and strided transposed
+convolutions up one through ``space.descend`` / ``space.ascend``; a
+strided convolution's caller (a trunk's stem, a ResNet block) calls
+``descend`` for it. At a whole level (``space.rows()`` None) every op,
+BatchNorm, the tokenizer (the one-process K3) and the decoder gates run as
+on one process.
 """
 from __future__ import annotations
 
@@ -51,7 +57,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dahitra_tpu_torch.core.mesh import all_reduce_sum, world_size
+from dahitra_tpu_torch.core.mesh import (all_gather_rows, all_reduce_sum,
+                                         world_size)
 from dahitra_tpu_torch.kernels.fused_decoder import (ORDER, FusedDecoderFn,
                                                      pick_tile)
 from dahitra_tpu_torch.kernels.fused_tokenizer import (
@@ -96,12 +103,34 @@ def apply_conv(conv: nn.Conv2d, x: torch.Tensor,
 def conv_transpose2d_nhwc(x: torch.Tensor, conv: nn.ConvTranspose2d,
                           dtype=torch.float32) -> torch.Tensor:
     """NHWC ``nn.ConvTranspose2d`` (its stride, padding and output padding),
-    computed in ``dtype``."""
+    computed in ``dtype``; with a stride s, up a level (``space.ascend``).
+    Under row sharding, on the rank's rows with their halos: output row o
+    reads the input rows (o + p - t) / s of the taps t that divide, so
+    where the output has s times the input's rows (k - s - 2p + op = 0) a
+    rank takes (k - 1 - p) // s rows from the rank above and (p + s - 1)
+    // s from the rank below (zeros at the global edges), runs the
+    transposed convolution with no row padding and keeps its s h rows from
+    row (k - 1 - p) // s * s + p on."""
+    (k, _), (s, _) = conv.kernel_size, conv.stride
+    p, op = conv.padding[0], conv.output_padding[0]
     bias = None if conv.bias is None else conv.bias.to(dtype)
+    pad, out_pad = conv.padding, conv.output_padding
+    r = space.rows()
+    if r is not None:
+        if k - s - 2 * p + op:
+            raise ValueError(
+                f"conv_transpose2d_nhwc: kernel {k}, stride {s}, padding "
+                f"{p}, output padding {op} does not give each space rank "
+                f"{s} times its rows")
+        h, top = x.shape[1], (k - 1 - p) // s
+        x = space.halo(x, top, (p + s - 1) // s, "zero", r)
+        pad, out_pad = (0, conv.padding[1]), (0, conv.output_padding[1])
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dtype),
-                           conv.weight.to(dtype), bias, conv.stride,
-                           conv.padding, conv.output_padding)
-    return y.permute(0, 2, 3, 1)
+                           conv.weight.to(dtype), bias, conv.stride, pad,
+                           out_pad)
+    if r is not None:
+        y = y[:, :, top * s + p:top * s + p + s * h]
+    return space.ascend(y.permute(0, 2, 3, 1), s)
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
@@ -195,12 +224,20 @@ class Dropout(nn.Module):
             return (x.shape[0],) + (1,) * (x.dim() - 1)
         return x.shape
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                width: Optional[space.Rows] = None) -> torch.Tensor:
+        """``width``: x's last axis is the rank's block of one sharded
+        over ``width``'s group (``_width_block``); the mask is drawn at the
+        whole width and sliced to the block, as one process draws it."""
         if deterministic or self.rate == 0.0:
             return x
-        keep = torch.rand(self.mask_shape(x), generator=self.generator,
+        shape = self.mask_shape(x)
+        if width is not None:
+            shape = (*shape[:-1], shape[-1] * width.size)
+        keep = torch.rand(shape, generator=self.generator,
                           device=x.device) >= self.rate
+        if width is not None:
+            keep = keep[..., _width_block(width, x.shape[-1])]
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
@@ -363,6 +400,58 @@ def _dense(x: torch.Tensor, linear: nn.Linear, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), linear.weight.to(dtype), bias)
 
 
+# A token width sharded over a group (``TransformerEncoder``'s ``width``):
+# each rank holds the contiguous block ``_width_block`` of every token.
+
+def _width_block(width: space.Rows, n: int) -> slice:
+    """The rank's block of a width of ``n`` per rank."""
+    return slice(width.rank * n, (width.rank + 1) * n)
+
+
+def _dense_in(x: torch.Tensor, linear: nn.Linear, dtype,
+              width: Optional[space.Rows] = None) -> torch.Tensor:
+    """``_dense``; with ``width``, of x whose last axis is the rank's block
+    of the input width: its block by its columns of the weight, the partial
+    products summed over the group in fp32, the bias added once after the
+    sum."""
+    if width is None:
+        return _dense(x, linear, dtype)
+    w = linear.weight[:, _width_block(width, x.shape[-1])]
+    y = all_reduce_sum(F.linear(x.to(dtype), w.to(dtype)).float(),
+                       width.group)
+    return (y if linear.bias is None else y + linear.bias).to(dtype)
+
+
+def _dense_out(x: torch.Tensor, linear: nn.Linear, dtype,
+               width: Optional[space.Rows], n: int) -> torch.Tensor:
+    """``_dense``; with ``width``, the rank's block (``n`` wide) of its
+    output: its rows of the weight and of the bias."""
+    if width is None:
+        return _dense(x, linear, dtype)
+    block = _width_block(width, n)
+    bias = None if linear.bias is None else linear.bias[block].to(dtype)
+    return F.linear(x.to(dtype), linear.weight[block].to(dtype), bias)
+
+
+def _layer_norm_block(norm: nn.LayerNorm, x: torch.Tensor,
+                      width: space.Rows) -> torch.Tensor:
+    """``norm`` of fp32 x whose last axis is the rank's block of the
+    normalized width: the global moments from every rank's block mean and
+    sum of squared deviations (one gather over the group, combined as
+    Chan's parallel variance), gamma and beta sliced to the block."""
+    n = x.shape[-1]
+    mean = x.mean(-1, keepdim=True)
+    m2 = (x - mean).square().sum(-1, keepdim=True)
+    parts = all_gather_rows(torch.stack([mean, m2]), width.group)
+    means, m2s = parts[0::2], parts[1::2]
+    g_mean = means.mean(0)
+    var = (m2s.sum(0) + n * (means - g_mean).square().sum(0)) \
+        / (n * width.size)
+    block = _width_block(width, n)
+    return ((x - g_mean) * torch.rsqrt(var + norm.eps) * norm.weight[block]
+            + norm.bias[block])
+
+
 class FeedForward(nn.Module):
     """Linear-GELU-Dropout-Linear-Dropout (help_funcs.py:52-63)."""
 
@@ -374,11 +463,15 @@ class FeedForward(nn.Module):
                                  Dropout(dropout), nn.Linear(hidden_dim, dim),
                                  Dropout(dropout))
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True
-                ) -> torch.Tensor:
-        h = self.net[2](F.gelu(_dense(x, self.net[0], self.dtype)),
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                width: Optional[space.Rows] = None) -> torch.Tensor:
+        """``width``: x holds the rank's block of the model width
+        (``TransformerEncoder``); the hidden units are whole on every
+        rank, their dropout drawn as one process draws it."""
+        h = self.net[2](F.gelu(_dense_in(x, self.net[0], self.dtype, width)),
                         deterministic)
-        return self.net[4](_dense(h, self.net[3], self.dtype), deterministic)
+        return self.net[4](_dense_out(h, self.net[3], self.dtype, width,
+                                      x.shape[-1]), deterministic, width)
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -409,12 +502,16 @@ class MultiHeadSelfAttention(nn.Module):
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, dim), Dropout(dropout))
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True
-                ) -> torch.Tensor:
-        q, k, v = (_split_heads(t, self.heads) for t in
-                   _dense(x, self.to_qkv, self.dtype).chunk(3, dim=-1))
-        out = _dense(_attend(q, k, v, self.dim), self.to_out[0], self.dtype)
-        return self.to_out[1](out, deterministic)
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                width: Optional[space.Rows] = None) -> torch.Tensor:
+        """``width``: x holds the rank's block of the model width
+        (``TransformerEncoder``); q, k, v and the attention are whole on
+        every rank, the output the rank's block."""
+        q, k, v = (_split_heads(t, self.heads) for t in _dense_in(
+            x, self.to_qkv, self.dtype, width).chunk(3, dim=-1))
+        out = _dense_out(_attend(q, k, v, self.dim), self.to_out[0],
+                         self.dtype, width, x.shape[-1])
+        return self.to_out[1](out, deterministic, width)
 
 
 class CrossAttention(nn.Module):
@@ -452,7 +549,10 @@ class PreNorm(nn.Module):
         self.fn = fn
 
     def forward(self, x: torch.Tensor, *mem: torch.Tensor,
-                **kw) -> torch.Tensor:
+                width: Optional[space.Rows] = None, **kw) -> torch.Tensor:
+        if width is not None:  # no memory: TransformerEncoder's
+            return self.fn(_layer_norm_block(self.norm, x.float(), width),
+                           width=width, **kw)
         return self.fn(self.norm(x.float()),
                        *(self.norm(t.float()) for t in mem), **kw)
 
@@ -470,22 +570,46 @@ class Residual(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """depth x [x += MHSA(LN(x)); x += FF(LN(x))] (help_funcs.py:154-167)."""
+    """depth x [x += MHSA(LN(x)); x += FF(LN(x))] (help_funcs.py:154-167).
+
+    ``forward(..., width=rows)`` runs it on a token width sharded over
+    ``rows``' group (the channel-token transformers on row-sharded maps,
+    ``models/unet_change_transformer.py`` ``channel_tokens``), as GSPMD
+    shards the width: x holds the rank's contiguous block of ``dim``; the
+    LayerNorms take the global moments (one gather over the group) with
+    gamma and beta sliced to the block; the products that contract over
+    the width (``to_qkv``, the feed-forward's first) multiply the block by
+    the weight's columns for it and sum the partial products over the
+    group (``all_reduce_sum``, the bias added once after), so that q, k,
+    v, the attention (scale ``dim ** -0.5`` on the whole width) and the
+    hidden units are whole on every rank; the products that give the width
+    (``to_out``, the feed-forward's second) give the rank's block from its
+    rows of the weight and bias, and the residual stays on the block. The
+    dropout masks of width-shaped tensors are drawn at the whole width and
+    sliced, those of the hidden units whole, so the ranks draw as one
+    process does. Each rank's backward carries its block's share of the
+    gradient through the whole part, and the all-reduce's backward sums
+    the shares, so every rank's block takes its whole gradient.
+    """
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dtype=torch.float32, dropout: float = 0.0):
         super().__init__()
+        self.dim = dim
         self.layers = nn.ModuleList([nn.ModuleList([
             Residual(PreNorm(dim, MultiHeadSelfAttention(dim, heads, dim_head,
                                                          dtype, dropout))),
             Residual(PreNorm(dim, FeedForward(dim, mlp_dim, dtype, dropout))),
         ]) for _ in range(depth)])
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                width: Optional[space.Rows] = None) -> torch.Tensor:
+        if width is not None and x.shape[-1] * width.size != self.dim:
+            raise ValueError(f"TransformerEncoder: {width.size} blocks of "
+                             f"{x.shape[-1]} are not its width {self.dim}")
         for attn, ff in self.layers:
-            x = ff(attn(x, deterministic=deterministic),
-                   deterministic=deterministic)
+            x = ff(attn(x, deterministic=deterministic, width=width),
+                   deterministic=deterministic, width=width)
         return x
 
 

@@ -53,13 +53,22 @@ level without an upsampling says so (``at_level``). GSPMD reshards such
 levels into padded shards; this port runs them whole, which needs no
 other collective than the row gathers it already has.
 
+Reductions over the pixels of the space group: ``pixel_max`` (the max
+over H and W, a squeeze-excite's global max pool) and ``pixel_softmax``
+(a softmax over the H * W pixels): each rank's (B, C) maxima are gathered
+and their max taken, and the softmax divides by the group's sum of exp,
+both differentiable. At a whole level, or without row sharding, they are
+the one-process ops.
+
 ``shard_rows`` gives a model the rank's rows of its input and starts the
 levels over. It refuses rows that do not split at the input (H % S; the
 JAX package's ``device_put`` refuses them too) and, by name, a model
 without a ``space_stride`` (its total stride, the marker of the models
 that run on row-sharded batches): DAHiTra (``newUNetTrans``,
 ``xbd_dahitra``, ``xbd_adapt_dahitra``), ``base_resnet18``, the ResNet34
-UNets and BIT (``base_transformer_pos_s4*``, ``xbd_bit``).
+UNets, BIT (``base_transformer_pos_s4*``, ``xbd_bit``), ``siamUnet_conc``
+and the UNet change transformers (``unet_coupled_trans_256``,
+``unet_coupled_two_trans_256``).
 """
 from __future__ import annotations
 
@@ -69,7 +78,8 @@ from typing import Iterator, Optional
 
 import torch
 
-from dahitra_tpu_torch.core.mesh import all_gather_rows, gather_parts
+from dahitra_tpu_torch.core.mesh import (all_gather_rows, all_reduce_sum,
+                                         gather_parts)
 
 FILLS = ("zero", "neg_inf", "edge")
 
@@ -213,6 +223,31 @@ def gather_rows(x: torch.Tensor, r: Optional[Rows] = None) -> torch.Tensor:
     if r is None:
         return x
     return all_gather_rows(x, r.group, dim=1)
+
+
+def pixel_max(x: torch.Tensor) -> torch.Tensor:
+    """The max of NHWC x over its rows and columns, (B, 1, 1, C): over
+    every space rank's rows where rows are sharded (the ranks' maxima
+    gathered, then their max), else over x's own; differentiable."""
+    m = x.amax(dim=(1, 2), keepdim=True)
+    r = rows()
+    if r is None:
+        return m
+    return all_gather_rows(m, r.group, dim=1).amax(1, keepdim=True)
+
+
+def pixel_softmax(x: torch.Tensor) -> torch.Tensor:
+    """The softmax over dim 1 of (B, N, C) x, N the pixels (rows times
+    columns) x holds: over every space rank's pixels where rows are sharded
+    (the group's max, then the group's sum of exp), else
+    ``torch.softmax``; differentiable."""
+    r = rows()
+    if r is None:
+        return torch.softmax(x, dim=1)
+    m = all_gather_rows(x.detach().amax(1, keepdim=True), r.group,
+                        dim=1).amax(1, keepdim=True)
+    e = torch.exp(x - m)
+    return e / all_reduce_sum(e.sum(1, keepdim=True), r.group)
 
 
 def _fill_rows(x: torch.Tensor, n: int, fill: str, edge: torch.Tensor):

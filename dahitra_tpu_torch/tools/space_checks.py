@@ -10,7 +10,10 @@ sharing the card, ``tests/test_torch_space_kernels.py`` and phase 22 the
 decoder kernels' cases (BIT, ``xbd_bit``, ``pallas = True``),
 ``tests/test_torch_space_uneven.py`` (eight ranks, 2 x 4) and phase
 21f-h the uneven rows, whose coarse levels run whole (``forward_rows``'
-output shapes and gate paths show which). The trainers' row-sharded steps
+output shapes and gate paths show which),
+``tests/test_torch_space_zoo.py`` and phase 23 ``siamUnet_conc`` and the
+UNet change transformers (with ``pixel_ops``, ``width_encoder`` and the
+transposed convolutions of ``halo_op``). The trainers' row-sharded steps
 are ``trainer_steps`` here and ``tools/mesh_checks.py`` ``cd_steps`` /
 ``xbd_steps`` with ``spatial=True``.
 """
@@ -28,6 +31,9 @@ from dahitra_tpu_torch.tools.mesh_checks import launches, reset_launches
 CONVS = {"conv3x3_s1": (3, 1, 1), "conv3x3_s2": (3, 2, 1),
          "stem7x7_s2": (7, 2, 3), "conv1x1_s2": (1, 2, 0)}
 HALO_OPS = tuple(CONVS) + ("maxpool3x3_s2", "bilinear_x4")
+# name -> (kernel, stride, padding, output padding) of the transposed
+# convolutions ``halo_op`` also runs: siamUnet_conc's deconvs and up-convs
+TRANSPOSED = {"deconv3x3_s1": (3, 1, 1, 0), "upconv3x3_s2": (3, 2, 1, 1)}
 
 
 def _dev(mesh, device):
@@ -47,6 +53,14 @@ def halo_op(op: str, x: torch.Tensor, weight: Optional[torch.Tensor]):
     if op in CONVS:
         _, stride, pad = CONVS[op]
         return blocks.conv2d_nhwc(x, weight, stride=stride, padding=pad)
+    if op in TRANSPOSED:
+        from types import SimpleNamespace
+
+        k, stride, pad, out_pad = TRANSPOSED[op]
+        return blocks.conv_transpose2d_nhwc(x, SimpleNamespace(
+            weight=weight, bias=None, kernel_size=(k, k),
+            stride=(stride, stride), padding=(pad, pad),
+            output_padding=(out_pad, out_pad)))
     if op == "maxpool3x3_s2":
         return blocks.max_pool_3x3_s2(x)
     return blocks.upsample_bilinear(x, 4)
@@ -77,6 +91,77 @@ def halo_ops(mesh, cases, device: str = "cpu") -> list:
             dw = w.grad if mesh is None else reduce_sum_(w.grad.clone())
         out.append({"y": y.detach(), "dx": xl.grad, "dw": dw})
     return out
+
+
+def pixel_ops(mesh, x: np.ndarray, dy: np.ndarray,
+              device: str = "cpu") -> dict:
+    """``space.pixel_max`` and ``space.pixel_softmax`` of the rank's rows of
+    NHWC x under the row-sharded grid: the max (B, 1, 1, C), the rank's
+    rows of the softmax over the pixels, and the gradient of max.sum() +
+    sum(softmax * dy) with respect to its rows of x (the max's gradient
+    taken once: the rank's share, 1 / S of it)."""
+    from dahitra_tpu_torch.core.mesh import shard_batch
+    from dahitra_tpu_torch.nn import space
+
+    dev = _dev(mesh, device)
+    xl = torch.from_numpy(np.ascontiguousarray(shard_batch(
+        {"x": x}, mesh, spatial=True)["x"])).to(dev).requires_grad_(True)
+    with space.grid(mesh, spatial=True):
+        r = space.rows()
+        m = space.pixel_max(xl)
+        b, h, w, c = xl.shape
+        soft = space.pixel_softmax(xl.reshape(b, h * w, c))
+        dyl = space.local_rows(torch.from_numpy(dy).to(dev))
+        share = 1.0 / (r.size if r is not None else 1)
+        (m.sum() * share + (soft * dyl.reshape(b, h * w, c)).sum()
+         ).backward()
+    return {"max": m.detach(), "softmax": soft.detach().reshape(b, h, w, c),
+            "dx": xl.grad}
+
+
+def width_encoder(mesh, x: np.ndarray, dy: np.ndarray, seed: int,
+                  dim: int, depth: int, heads: int, mlp: int,
+                  dropout: float = 0.0, device: str = "cpu") -> dict:
+    """A ``TransformerEncoder(dim, depth, heads, 64, mlp, dropout=)``
+    with ``seeded_weights(seed)`` on tokens x (B, C, dim), train mode
+    (dropout drawn from a generator seeded by ``seed``): under the
+    row-sharded grid on the rank's block of the width (``width``), else
+    whole. Its output block, the gradient of sum(y * dy) with respect to
+    its block of x, every parameter's gradient summed over the ranks, and
+    the shapes its sublayers' outputs had."""
+    from dahitra_tpu_torch.core.mesh import reduce_sum_
+    from dahitra_tpu_torch.nn import space
+    from dahitra_tpu_torch.nn.blocks import (TransformerEncoder,
+                                             set_dropout_generator)
+
+    dev = _dev(mesh, device)
+    enc = TransformerEncoder(dim, depth, heads, 64, mlp, dropout=dropout)
+    seeded_weights(enc, seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():  # LayerNorm scales off 1, so their blocks show
+        for name, p in enc.named_parameters():
+            if name.endswith("norm.weight"):
+                p.uniform_(0.5, 1.5, generator=gen)
+    enc.to(dev)
+    set_dropout_generator(enc, torch.Generator(device=dev).manual_seed(seed))
+    shapes, hooks = _shapes(enc)
+    with space.grid(mesh, spatial=True):
+        r = space.rows()
+        n = dim // (r.size if r is not None else 1)
+        block = slice(r.rank * n, (r.rank + 1) * n) if r is not None \
+            else slice(None)
+        xl = torch.from_numpy(np.ascontiguousarray(x[..., block])).to(
+            dev).requires_grad_(True)
+        y = enc(xl, deterministic=False, width=r)
+        (y * torch.from_numpy(np.ascontiguousarray(dy[..., block])).to(dev)
+         ).sum().backward()
+    for h in hooks:
+        h.remove()
+    grads = {k: p.grad.clone() for k, p in enc.named_parameters()}
+    if r is not None:
+        grads = {k: reduce_sum_(g, r.group) for k, g in grads.items()}
+    return {"y": y.detach(), "dx": xl.grad, "grads": grads,
+            "shapes": shapes}
 
 
 def k3_inputs(b: int, h: int, w: int, l: int, seed: int):
@@ -278,11 +363,14 @@ def forward_rows(mesh, net_g, img: int, state_dict,
 
 def trainer_steps(mesh, kind: str, cfg: dict,
                   train_arrays: Dict[str, np.ndarray], spatial: bool = True,
-                  timed: int = 0, pallas: bool = False) -> dict:
+                  timed: int = 0, pallas: bool = False,
+                  no_dropout: bool = False) -> dict:
     """A ``CDTrainer`` (``kind`` "cd") or ``XBDTrainer`` ("xbd", damage)
-    built from ``cfg``: one ``train_step`` (row-sharded with ``spatial``)
+    built from ``cfg`` (with ``no_dropout`` every ``Dropout`` rate of its
+    model 0): one ``train_step`` (row-sharded with ``spatial``)
     on the first batch of epoch 0, its loss (and confusion matrix), the
-    gradients, the running statistics after it, the launches in it and the
+    gradients, the running statistics after it, the launches in it, every
+    submodule's output shape in it and the
     peak device memory over it (``torch.cuda.max_memory_allocated``, 0 on
     the CPU); then ``timed`` more steps on the same batch, each on the host
     clock around a synchronized call: their median, their peak device
@@ -301,17 +389,26 @@ def trainer_steps(mesh, kind: str, cfg: dict,
     trainer = cls(argparse.Namespace(**cfg), train_arrays, train_arrays,
                   device=cfg["device"], mesh=mesh)
     set_pallas(trainer.model, pallas)
+    if no_dropout:
+        from dahitra_tpu_torch.nn.blocks import Dropout
+
+        for m in trainer.model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
     dev = trainer.device
     batch = trainer._to_device(next(iter(trainer.train_loader)))
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
+    shapes, hooks = _shapes(trainer.model)
     out = trainer.train_step(*batch, spatial=spatial)
     _sync(dev)
+    for h in hooks:
+        h.remove()
     loss, cm = out if isinstance(out, tuple) else (out, None)
     res = {"loss": loss.view(1).clone(), **_state(trainer.model),
-           "launches": launches(),
+           "launches": launches(), "shapes": shapes,
            "peak_bytes": torch.cuda.max_memory_allocated(dev)
            if dev.type == "cuda" else 0}
     if cm is not None:

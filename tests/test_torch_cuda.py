@@ -371,6 +371,42 @@ def test_one_process_tokenizer_keeps_its_bits(card, dtype, b, n, l):
     assert torch.equal(ft.semantic_tokenizer(x, w), tokens)
 
 
+@pytest.mark.parametrize("op", ["deconv3x3_s1", "upconv3x3_s2"])
+def test_transposed_conv_on_rows_matches_one_process(card, op):
+    """``siamUnet_conc``'s deconv (k3, s1, p1) and up-conv (k3, s2, p1,
+    output padding 1) on rows (``nn/blocks.py`` ``conv_transpose2d_nhwc``
+    under a row-sharded grid): two gloo ranks sharing the card, 16 rows
+    each of a (2, 32, 24, 16) map, against one process on the card, TF32
+    off on both sides: each rank holds its rows (the up-conv's 32), the
+    ranks' outputs joined 1e-5 of one process's, the input gradient (halo
+    gradients sent home) and the weight gradient summed over the ranks
+    1e-4 (cuDNN picks its algorithms by shape)."""
+    import numpy as np
+
+    from dahitra_tpu_torch.core.mesh import launch
+    from dahitra_tpu_torch.tools import space_checks as sc
+    from dahitra_tpu_torch.utils import disable_tf32
+
+    disable_tf32()
+    stride = sc.TRANSPOSED[op][1]
+    rng = np.random.RandomState(23)
+    x = rng.normal(size=(2, 32, 24, 16)).astype(np.float32)
+    w = (rng.normal(size=(16, 8, 3, 3)) / 3).astype(np.float32)
+    dy = rng.normal(size=(2, 32 * stride, 24 * stride, 8)).astype(np.float32)
+    case = (op, x, dy, w)
+    ranks = launch(sc.run_cases, ([("halo_ops", ([case], "cuda:0"))],),
+                   devices=["cuda:0", "cuda:0"], backend="gloo",
+                   timeout=300, n_space=2)
+    one = sc.halo_ops(None, [case], "cuda:0")[0]
+    got = [r[0][0] for r in ranks]
+    assert all(g["y"].shape[1] == 16 * stride for g in got)
+    assert _scaled_err(torch.cat([g["y"] for g in got], 1), one["y"].cpu()
+                       ) <= 1e-5
+    assert _scaled_err(torch.cat([g["dx"] for g in got], 1), one["dx"].cpu()
+                       ) <= 1e-4
+    assert _scaled_err(got[0]["dw"], one["dw"].cpu()) <= 1e-4
+
+
 # K4 instances: (x dtype, precise). The fp32 model, the bf16 model (fp32
 # decoder input, bf16 operands), bf16 I/O, and bf16 I/O with fp32 operands.
 K4_MODES = [(torch.float32, True), (torch.float32, False),

@@ -184,7 +184,7 @@ def test_misaligned_rows_raise_naming_the_stride(net_g, img, n_space, stride):
                                              f"over {n_space} space ranks"):
             space.shard_rows(model, x[:, 1:])
         with pytest.raises(ValueError, match="does not run on row-sharded"):
-            space.shard_rows(define_g("siamUnet_conc"), x)
+            space.shard_rows(define_g("changeFormer"), x)
 
 
 def test_ranks_plain_matches_one_rank_and_the_kernel_algorithm():

@@ -82,11 +82,14 @@ T8 = "base_transformer_pos_s4_dd8_t8_e2d4"
 BIT_KEYS = ("base_transformer_pos_s4", DD8, "base_transformer_pos_s4_dd8_o5",
             "base_transformer_pos_s4_dd8_dedim8", T8, "xbd_bit")
 # The models that take row-sharded batches: DAHiTra, the ResNet34 UNets,
-# ResNetCD (tests/test_torch_space.py) and BIT (this file).
+# ResNetCD (tests/test_torch_space.py), BIT (this file), siamUnet_conc and
+# the UNet change transformers (tests/test_torch_space_zoo.py).
 ROWS_KEYS = {"newUNetTrans", "xbd_dahitra", "xbd_adapt_dahitra",
              "base_resnet18", "xbd_res34_loc", "xbd_res34_double",
              "xbd_res34_single", "xbd_res34_double_modified",
-             "xbd_adapt_res34", "siamUnet", *BIT_KEYS}
+             "xbd_adapt_res34", "siamUnet", "siamUnet_conc",
+             "unet_coupled_trans_256", "unet_coupled_two_trans_256",
+             *BIT_KEYS}
 # BIT variants outside the registry: (name, constructor arguments)
 VARIANTS = {"simple_decoder": dict(token_len=4, dec_depth=8,
                                    with_decoder=False),

@@ -1,0 +1,447 @@
+"""``siamUnet_conc`` and the UNet change transformers on the port's ``space``
+axis, against the JAX package and against one process, with two gloo ranks
+on the CPU.
+
+Each rank holds half the image rows (n_data 1, n_space 2): the convolutions
+and ``siamUnet_conc``'s transposed convolutions take halos, the squeeze-
+excite's global max and the gate's softmax over the pixels span both
+ranks (``space.pixel_max``, ``space.pixel_softmax``), and the channel-token
+transformers run on the rank's block of every token's width
+(``TransformerEncoder(..., width=)``). All cases run in one launch of two
+ranks (``tools/space_checks.py``, which imports no JAX, one thread a rank),
+started in a thread of its own before the JAX references compile in theirs
+(``FAST_COMPILE``, as tests/test_torch_space_kernels.py compiles them):
+
+  * the three keys at 64 px, batch 2: the eval forward on seeded weights,
+    a ``CDTrainer.train_step(spatial=True)`` with every dropout rate 0 (the
+    JAX side's flax ``Dropout`` patched to the identity, as
+    tests/test_torch_zoo_unet.py does) and one with dropout active, and
+    ``CDEvaluator.eval_models(spatial=True)``;
+  * uneven rows: ``unet_coupled_two_trans_256`` at 96 px (1/32 whole, its
+    ``transformer`` on the whole level, ``transformer2`` on the rank's
+    block of the 1/4 level) and ``siamUnet_conc`` at 48 px (1/16 whole, the
+    up-conv that leaves it takes the rank's rows again);
+  * the blocks: the stride-1 and stride-2 transposed convolutions on
+    rows, the pixel max and softmax, the width-sharded encoder.
+
+The JAX references are the un-sharded flax models on the port's weights
+crossed by the JAX package's ``convert_siam_unet_conc`` /
+``convert_unet_change_transformer``; the trainers' steps start from the
+weights the trainers draw and are held against ``jax.value_and_grad`` on
+those weights and the trainer's augmented batch.
+
+Tolerances, scale-normalized (the largest difference over the reference's
+largest element; gradients over the whole gradient's): against JAX, eval
+logits 1e-4, a step's loss 1e-5 relative, gradients 1e-3 of scale or
+ROADMAP rule 5 on JAX (the median of JAX's own moves under four 1e-6 moves
+of its augmented images), statistics 1e-4; against one process, fp32
+forwards 1e-5, the dropout step's loss 1e-5 relative, gradients 1e-4 of
+scale or rule 5 on one process (``siamUnet_conc``'s ``conv11`` gradient
+moves 1.2e-3 of scale under one process's own 1e-6 move), statistics 1e-5,
+every rank with the same gradient and statistics bits; the transposed
+convolutions' outputs bit for bit, their input and weight gradients and
+the pixel reductions 1e-6, the width-sharded encoder 1e-5.
+"""
+import multiprocessing
+import time
+from concurrent.futures import ThreadPoolExecutor, wait
+
+import numpy as np
+import pytest
+import torch
+
+import flax.linen
+import jax
+import jax.numpy as jnp
+
+from dahitra_tpu.core.torch_import import (convert_siam_unet_conc,
+                                           convert_unet_change_transformer)
+from dahitra_tpu.losses.cd import levir_train_loss as jax_levir_train_loss
+from dahitra_tpu.models.registry import define_g as jax_define_g
+from dahitra_tpu_torch.core.flax_import import (
+    siam_unet_conc_flax_to_state_dict,
+    unet_change_transformer_flax_to_state_dict)
+from dahitra_tpu_torch.core.mesh import Mesh, launch
+from dahitra_tpu_torch.models.registry import define_g
+from dahitra_tpu_torch.nn import space
+from dahitra_tpu_torch.tools import mesh_checks, space_checks
+from test_torch_space import LIMIT, _cd_arrays, _cfg, _grad_err, _scaled
+from test_torch_space_kernels import (FAST_COMPILE, _held_to_jax,
+                                      _held_to_one_process, _moved, _np,
+                                      _one_moved, _trainer_start)
+
+IMG = 64
+SIAM, TRANS, TWO = ("siamUnet_conc", "unet_coupled_trans_256",
+                    "unet_coupled_two_trans_256")
+KEYS = (SIAM, TRANS, TWO)
+# uneven rows: (key, px) whose coarse levels run whole on both ranks
+UNEVEN = {TWO: 96, SIAM: 48}
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The one-process references on one thread, as the ranks run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(seed, img, n=2):
+    rng = np.random.RandomState(seed)
+    return {k: rng.uniform(-1, 1, (n, img, img, 3)).astype(np.float32)
+            for k in ("a", "b")}
+
+
+def _halo_case(op, seed):
+    """(op, x, dy, weight) of a transposed convolution: x (2, 8, 6, 4) and
+    a (4, 5, 3, 3) weight."""
+    rng = np.random.RandomState(seed)
+    x = rng.normal(size=(2, 8, 6, 4)).astype(np.float32)
+    w = (rng.normal(size=(4, 5, 3, 3)) / 3).astype(np.float32)
+    y = space_checks.halo_op(op, torch.from_numpy(x), torch.from_numpy(w))
+    return (op, x, rng.normal(size=tuple(y.shape)).astype(np.float32), w)
+
+
+# the width-sharded encoder: tokens (2, 12, 32), depth 2, 2 heads, mlp 48,
+# dropout 0.2 (every mask drawn)
+ENC = dict(seed=5, dim=32, depth=2, heads=2, mlp=48, dropout=0.2)
+
+
+class _Cases:
+    """The launch's cases, built once: name -> (function, args)."""
+
+    def __init__(self, tmp):
+        rng = np.random.RandomState(3)
+        self.halo = [_halo_case(op, 10 + i)
+                     for i, op in enumerate(space_checks.TRANSPOSED)]
+        self.pixel = tuple(rng.normal(size=(2, 8, 6, 5)).astype(np.float32)
+                           for _ in range(2))
+        self.enc = tuple(rng.normal(size=(2, 12, ENC["dim"])).astype(
+            np.float32) for _ in range(2))
+        self.seed = {k: 60 + i for i, k in enumerate(KEYS)}
+        self.inputs = _pair(4, IMG)
+        self.arrays = _cd_arrays(2, IMG, 5)
+        self.cfg = {k: {**_cfg(tmp, k, k, 2), "img_size": IMG} for k in KEYS}
+        self.cases = {
+            "halo": ("halo_ops", (self.halo,)),
+            "pixel": ("pixel_ops", self.pixel),
+            "encoder": ("width_encoder", (*self.enc, *ENC.values()))}
+        for k in KEYS:
+            self.cases[f"{k}_eval"] = ("forward_rows", (
+                k, IMG, self.seed[k], self.inputs))
+            self.cases[f"{k}_step"] = ("trainer_steps", (
+                "cd", self.cfg[k], self.arrays, True, 0, False, True))
+            self.cases[f"{k}_dropout"] = ("trainer_steps", (
+                "cd", {**_cfg(tmp, f"{k}_d", k, 2), "img_size": IMG},
+                self.arrays, True))
+            self.cases[f"{k}_eval_models"] = ("cd_eval", (
+                {**_cfg(tmp, f"{k}_ev", k, 2), "img_size": IMG},
+                _cd_arrays(3, IMG, 6),
+                space_checks.seeded_weights(define_g(k, img_size=IMG),
+                                            self.seed[k]),
+                np.array([0, 0, 1]), True))
+        for i, (k, img) in enumerate(UNEVEN.items()):
+            self.cases[f"{k}_uneven_eval"] = ("forward_rows", (
+                k, img, 70 + i, _pair(7 + i, img)))
+            self.cases[f"{k}_uneven_step"] = ("trainer_steps", (
+                "cd", {**_cfg(tmp, f"{k}_u", k, 2), "img_size": img},
+                _cd_arrays(2, img, 8 + i), True))
+        self._one = {}
+
+    def run(self, name):
+        """The case on one process, the whole batch."""
+        fn, args = self.cases[name]
+        run = getattr(space_checks, fn, None) or getattr(mesh_checks, fn)
+        return run(None, *args)
+
+    def one(self, name):
+        """``run(name)``, once."""
+        if name not in self._one:
+            self._one[name] = self.run(name)
+        return self._one[name]
+
+
+def _to_jax(key, sd):
+    """The port's state dict as (params, batch_stats) of the JAX model."""
+    np_sd = {k: v.float().numpy() for k, v in sd.items()}
+    if key == SIAM:
+        return convert_siam_unet_conc(np_sd)
+    return convert_unet_change_transformer(np_sd, two=key == TWO)
+
+
+def _to_torch(key, params, stats):
+    """A flax tree (parameters or their gradients) as the port's names."""
+    tree = jax.tree.map(np.asarray, params)
+    if key == SIAM:
+        return siam_unet_conc_flax_to_state_dict(tree, stats)
+    return unet_change_transformer_flax_to_state_dict(tree, stats,
+                                                      two=key == TWO)
+
+
+def _jax_ref(cases, key):
+    """The flax model ``key`` at 64 px: its eval logits on the seeded
+    weights, and ``jax.value_and_grad`` of its train-mode
+    ``levir_train_loss`` on the CD trainer's weights and first augmented
+    batch (one compile for both; flax ``Dropout`` the identity)."""
+    model = jax_define_g(key, img_size=IMG)
+
+    def loss_fn(p, s, a, b, label):
+        logits, mut = model.apply({"params": p, "batch_stats": s}, a, b,
+                                  True, mutable=["batch_stats"])
+        return jax_levir_train_loss(logits.astype(jnp.float32), label,
+                                    label.shape[0]), mut["batch_stats"]
+
+    def fn(pe, se, x1, x2, p, s, a, b, label):
+        ev = model.apply({"params": pe, "batch_stats": se}, x1, x2, False)
+        return ev, jax.value_and_grad(loss_fn, has_aux=True)(p, s, a, b,
+                                                              label)
+
+    sd, (a, b, label) = _trainer_start("cd", cases.cfg[key], cases.arrays)
+    pe, se = _to_jax(key, space_checks.seeded_weights(
+        define_g(key, img_size=IMG), cases.seed[key]))
+    p, s = _to_jax(key, sd)
+    fn = jax.jit(fn, compiler_options=FAST_COMPILE)
+    ev_in = (cases.inputs["a"], cases.inputs["b"])
+    batch = (_np(a), _np(b), label.numpy().astype(np.int32))
+    ev, step = fn(pe, se, *ev_in, p, s, *batch)
+    return {"fn": fn, "logits": np.asarray(ev),
+            "step": jax.tree.map(np.asarray, step), "params": p, "stats": s,
+            "eval": (pe, se, *ev_in), "batch": batch}
+
+
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    """(the cases, their results): the launch of two ranks and the JAX
+    references, in threads beside the tests."""
+    cases = _Cases(tmp_path_factory.mktemp("space_zoo"))
+    with pytest.MonkeyPatch.context() as mp, ThreadPoolExecutor(4) as pool:
+        mp.setenv("OMP_NUM_THREADS", "1")  # the ranks', before any thread
+        mp.setattr(flax.linen.Dropout, "__call__", lambda self, x, *a, **k: x)
+        # The ranks are spawned before any JAX program runs
+        # (tests/test_torch_space_kernels.py ``launched``).
+        before = set(multiprocessing.active_children())
+        futures = {"ranks": pool.submit(
+            launch, space_checks.run_cases, (list(cases.cases.values()),),
+            devices=["cpu", "cpu"], timeout=LIMIT, n_space=2)}
+        while (len(set(multiprocessing.active_children()) - before) < 2
+               and not futures["ranks"].done()):
+            time.sleep(0.05)
+        for k in KEYS:
+            futures[k] = pool.submit(_jax_ref, cases, k)
+        try:
+            yield cases, _Results(cases, futures)
+        finally:
+            wait(futures.values(), timeout=2 * LIMIT)
+
+
+class _Results:
+    def __init__(self, cases, futures):
+        self.cases, self.futures = cases, futures
+
+    def ranks(self, name):
+        """Each rank's result of the case ``name``."""
+        i = list(self.cases.cases).index(name)
+        return [r[i] for r in self["ranks"]]
+
+    def __getitem__(self, key):
+        return self.futures[key].result(timeout=2 * LIMIT)
+
+
+def _whole(got: dict, one: dict, name: str, axis: int = 1) -> bool:
+    """Whether the submodule ``name``'s output on a rank had one process's
+    shape (a whole level) rather than half of it along ``axis`` (the
+    rank's rows, or its block of a token width)."""
+    mine, ref = got["shapes"][name], one["shapes"][name]
+    if mine == ref:
+        return True
+    assert mine[axis] * 2 == ref[axis], name
+    return False
+
+
+def test_keys_take_row_sharded_batches_by_their_stride():
+    """``siamUnet_conc`` has a ``space_stride`` of 16 (four 2x2 pools), the
+    UNet change transformers 32 (the ResNet34 encoder's); ChangeFormer V1
+    and V6 still refuse row-sharded batches by name."""
+    with torch.device("meta"):
+        strides = {k: define_g(k, img_size=IMG).space_stride for k in KEYS}
+        assert strides == {SIAM: 16, TRANS: 32, TWO: 32}
+        for k in ("changeFormer", "changeFormerV6"):
+            model = define_g(k, img_size=IMG)
+            mesh = Mesh(0, 2, torch.device("cpu"), "gloo", n_space=2)
+            with space.grid(mesh, spatial=True), pytest.raises(
+                    ValueError, match="does not run on row-sharded"):
+                space.shard_rows(model, torch.zeros(1, IMG, IMG, 3))
+
+
+@pytest.mark.parametrize("op", list(space_checks.TRANSPOSED))
+def test_transposed_conv_on_rows_equals_one_process(launched, op):
+    """``siamUnet_conc``'s deconv (k3, s1, p1) and up-conv (k3, s2, p1,
+    output padding 1) on two ranks of 4 rows: each rank's output rows bit
+    for bit those of one process (the up-conv's 8 a rank), the gradient of
+    sum(y * dy) with respect to x (halo gradients sent home) and to the
+    weight (summed over the ranks) 1e-6."""
+    cases, res = launched
+    i = list(space_checks.TRANSPOSED).index(op)
+    one = space_checks.halo_ops(None, [cases.halo[i]])[0]
+    got = [g[i] for g in res.ranks("halo")]
+    stride = space_checks.TRANSPOSED[op][1]
+    for g in got:
+        assert g["y"].shape[1] == 4 * stride and g["dx"].shape[1] == 4
+    assert torch.equal(torch.cat([g["y"] for g in got], 1), one["y"])
+    assert _scaled(torch.cat([g["dx"] for g in got], 1), one["dx"]) <= 1e-6
+    assert _scaled(got[0]["dw"], one["dw"]) <= 1e-6
+
+
+def test_pixel_max_and_softmax_equal_one_process(launched):
+    """``space.pixel_max`` and ``space.pixel_softmax`` over two ranks' rows:
+    the max bit for bit one process's on every rank, the softmax's rows and
+    the gradient of max + sum(softmax * dy) with respect to x 1e-6."""
+    cases, res = launched
+    one = cases.one("pixel")
+    got = res.ranks("pixel")
+    assert all(torch.equal(g["max"], one["max"]) for g in got)
+    assert _scaled(torch.cat([g["softmax"] for g in got], 1),
+                   one["softmax"]) <= 1e-6
+    assert _scaled(torch.cat([g["dx"] for g in got], 1), one["dx"]) <= 1e-6
+
+
+def test_width_sharded_encoder_equals_the_whole_one(launched):
+    """``TransformerEncoder(..., width=)`` on two ranks' blocks of a
+    32-wide token width (depth 2, 2 heads, mlp 48, dropout 0.2 drawn at
+    the whole width and sliced): the joined output, the input gradient
+    and every parameter's gradient summed over the ranks 1e-5 of the
+    whole encoder's on one process; each sublayer's output is the rank's
+    16 columns."""
+    cases, res = launched
+    one = cases.one("encoder")
+    got = res.ranks("encoder")
+    assert _scaled(torch.cat([g["y"] for g in got], -1), one["y"]) <= 1e-5
+    assert _scaled(torch.cat([g["dx"] for g in got], -1), one["dx"]) <= 1e-5
+    scale = max(float(v.abs().max()) for v in one["grads"].values())
+    for g in got:
+        assert max(float((g["grads"][k] - one["grads"][k]).abs().max())
+                   for k in one["grads"]) <= 1e-5 * scale
+        for name in ("layers.0.0", "layers.1.1", "layers.0.0.fn.fn.to_out.1"):
+            assert not _whole(g, one, name, axis=-1)
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_row_sharded_eval_matches_jax(launched, key):
+    """The eval forward at 64 px, batch 2, on two ranks of 32 rows: the
+    gathered logits against the flax model on whole images (1e-4) and one
+    process (1e-5); each rank holds its rows; the UNet change
+    transformers' channel-token transformers run on the rank's block of
+    the width (their sublayers' outputs half one process's), no level
+    gathered."""
+    cases, res = launched
+    one = cases.one(f"{key}_eval")
+    for g in res.ranks(f"{key}_eval"):
+        assert _scaled(g["whole"], res[key]["logits"]) <= 1e-4
+        assert _scaled(g["whole"], one["logits"]) <= 1e-5
+        assert g["logits"].shape[1] * 2 == IMG
+        names = ("transformer.layers.0.0", "transformer.layers.2.1") + (
+            ("transformer2.layers.1.1",) if key == TWO else ())
+        for name in names if key != SIAM else ():
+            assert not _whole(g, one, name, axis=-1), name
+        deepest = "bn43" if key == SIAM else "conv5"
+        assert not _whole(g, one, deepest)
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_row_sharded_step_matches_jax(launched, key):
+    """``CDTrainer.train_step(spatial=True)`` at 64 px, batch 2, every
+    dropout rate 0, on two ranks of 32 rows: the loss, the gradients the
+    ranks reduce (DDP's mean of each rank's share) and the running
+    statistics against ``jax.value_and_grad`` of the flax model on the
+    trainer's weights and augmented batch (loss 1e-5 relative, gradients
+    1e-3 of scale or rule 5 on JAX, statistics 1e-4); both ranks with the
+    same bits."""
+    _, res = launched
+    ref = res[key]
+    (loss, new), grads = ref["step"]
+    got = res.ranks(f"{key}_step")
+
+    def moves():
+        a, b, label = ref["batch"]
+        return [_to_torch(key, ref["fn"](
+            *ref["eval"], ref["params"], ref["stats"], _moved(a, i),
+            _moved(b, i), label)[1][1], ref["stats"]) for i in range(4)]
+
+    _held_to_jax(got, loss, _to_torch(key, grads, ref["stats"]),
+                 _to_torch(key, ref["params"], new), moves)
+    for k in ("grads", "stats"):
+        assert all(torch.equal(got[0][k][n], got[1][k][n])
+                   for n in got[0][k]), k
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_dropout_step_equals_one_process(launched, key):
+    """``CDTrainer.train_step(spatial=True)`` at 64 px, batch 2, with
+    dropout active (``siamUnet_conc``'s ``Dropout2d`` masks, (B, 1, 1, C),
+    the transformers' masks drawn at the whole token width and sliced),
+    both ranks from the trainer's generator as one process: the step
+    against one process's (loss 1e-5 relative, gradients 1e-4 of scale or
+    rule 5 on one process, statistics 1e-5), every rank with the same
+    bits."""
+    cases, res = launched
+    name = f"{key}_dropout"
+    _held_to_one_process(cases, name, res.ranks(name), cases.one(name))
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_row_sharded_evaluation_counts_each_pixel_once(launched, key):
+    """``CDEvaluator.eval_models(spatial=True)`` over 3 pairs at batch 2 (a
+    ragged last batch) with per-patch groups on two ranks: the summed
+    matrix and the per-group scores those of one process."""
+    cases, res = launched
+    one = cases.one(f"{key}_eval_models")
+    for g in res.ranks(f"{key}_eval_models"):
+        assert torch.equal(g["cm"], one["cm"])
+        assert int(g["cm"].sum()) == 3 * IMG * IMG
+        assert g["scores"]["per_group"] == one["scores"]["per_group"]
+
+
+@pytest.mark.parametrize("key", list(UNEVEN))
+def test_uneven_rows_equal_one_process(launched, key):
+    """``unet_coupled_two_trans_256`` at 96 px (3 rows a rank at 1/16, so
+    layer 4 gathers and 1/32 runs whole: ``transformer`` on the whole
+    level, ``transformer2`` on the rank's block of the 1/4 level) and
+    ``siamUnet_conc`` at 48 px (3 rows a rank at 1/8, so the last pool
+    gathers, 1/16 runs whole and ``upconv4`` takes the rank's rows again):
+    the gathered fp32 eval logits 1e-5 of one process's, and a dropout
+    step held as ``test_dropout_step_equals_one_process`` holds it, but
+    for the gradients' rule-5 bound: the largest of one process's four own
+    moves, not their median (at 96 px the ranks read 2.32e-3 of scale on
+    ``conv9_2.layer.0.weight``, where one process's own moves read 2.33e-3
+    on that leaf twice and 1.25e-3 and 1.67e-3 on ``conv1.0.weight``:
+    median 2.0e-3). (No module of ``siamUnet_conc`` runs at 1/16 but the
+    pool and ``upconv4``; the 1/8 outputs on both sides of it hold the
+    rank's rows.)"""
+    cases, res = launched
+    one = cases.one(f"{key}_uneven_eval")
+    img = UNEVEN[key]
+    for g in res.ranks(f"{key}_uneven_eval"):
+        assert _scaled(g["whole"], one["logits"]) <= 1e-5
+        assert g["logits"].shape[1] * 2 == img
+        if key == TWO:
+            assert _whole(g, one, "transformer.layers.2.1", axis=-1)
+            assert not _whole(g, one, "transformer2.layers.1.1", axis=-1)
+            assert _whole(g, one, "conv5") and not _whole(g, one, "conv4")
+        else:
+            assert not _whole(g, one, "bn43")  # 1/8, pooled whole to 1/16
+            assert not _whole(g, one, "bn43d")
+    name = f"{key}_uneven_step"
+    got, one = res.ranks(name), cases.one(name)
+    errs = [_grad_err(g["grads"], one["grads"]) for g in got]
+    bound = 1e-4 if max(errs) <= 1e-4 else max(1e-4, *(
+        _grad_err(_one_moved(cases, name, i)["grads"], one["grads"])
+        for i in range(4)))
+    for g, err in zip(got, errs):
+        torch.testing.assert_close(g["loss"], one["loss"], rtol=1e-5, atol=0)
+        assert err <= bound, (err, bound)
+        assert max(_scaled(g["stats"][k], one["stats"][k])
+                   for k in one["stats"]) <= 1e-5
+    for k in ("grads", "stats"):
+        assert all(torch.equal(got[0][k][n], got[1][k][n])
+                   for n in got[0][k]), k
