@@ -283,18 +283,21 @@ failure:
      K4 at mlp_dim 32 and 64 at a rank's shapes (``RANK_*_SHAPES``)
      against their plain versions, rerun for the same bits and timed (the
      ``_rank`` entries of the kernels line);
- 23. ``siamUnet_conc`` and the UNet change transformers on the space axis
-     (``run_space_zoo_phase``), cuDNN deterministic: two gloo ranks on
-     cuda:0, half the rows each, against one process on the same card,
-     seeded weights and data, at 256 px, batch 8: each key's fp32 eval
-     forward (1e-5 of scale), one fp32 row-sharded ``CDTrainer.train_step``
-     with dropout active (``_check_two_ranks``) and a warm step, and its
-     bf16 eval forward (2e-2); then ``unet_coupled_two_trans_256`` at 224 px
-     (1/32 whole: its ``transformer`` on the whole level, ``transformer2``
-     on the rank's block of the 1/4 level), fp32 eval and step; each
-     channel-token transformer on the rank's block of the token width where
-     its level splits, no kernel launched, each rank's peak memory, warm
-     step and staged collectives beside one process's.
+ 23. ``siamUnet_conc``, the UNet change transformers and ChangeFormer V1
+     and V6 on the space axis (``run_space_zoo_phase``), cuDNN
+     deterministic: two gloo ranks on cuda:0, half the rows each, against
+     one process on the same card, seeded weights and data, at 256 px,
+     batch 8: each key's fp32 eval forward (1e-5 of scale, every head of
+     V6's list), one fp32 row-sharded ``CDTrainer.train_step`` with
+     dropout active (V6 on its five heads; ``_check_two_ranks``) and a warm
+     step, and its bf16 eval forward (2e-2); then at 224 px
+     ``unet_coupled_two_trans_256`` (1/32 whole: its ``transformer`` on the
+     whole level, ``transformer2`` on the rank's block of the 1/4 level)
+     and ``changeFormerV6`` (every sr conv on its level's rows gathered,
+     1/32 and the p4 head whole), fp32 eval and step; each channel-token
+     transformer on the rank's block of the token width where its level
+     splits, no kernel launched, each rank's peak memory, warm step and
+     staged collectives beside one process's.
 
 Every launch counter is set to 0 just before each main-path run (phases 5,
 7, 9, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21, 22, 23) and read just after
@@ -2622,9 +2625,14 @@ XBD_ZOO_TILES = 4
 XBD_ZOO_TIMED = 1
 # Runs of phase 18 without warm steps (their epoch of ``xbd_train`` stays):
 # the ``_loc`` keys and ``dual_hrnet_fpn``, whose trunks the damage and
-# ``dual_hrnet`` runs time, so that phases 1-23 stay inside the 1200 s.
+# ``dual_hrnet`` runs time, and the SE-ResNeXt50, DPN92 and change-
+# transformer doubles (SENet154's double, the ``_bit`` model and
+# ``dual_hrnet`` keep theirs), so that phases 1-23 with phase 23's
+# ChangeFormer cases stay inside the 1200 s.
 XBD_ZOO_UNTIMED = ("xbd_seresnext50_loc", "xbd_senet154_loc",
-                   "xbd_dpn92_loc", "dual_hrnet_fpn")
+                   "xbd_dpn92_loc", "dual_hrnet_fpn",
+                   "xbd_seresnext50_double", "xbd_dpn92_double",
+                   "xbd_unet_change_transformer")
 XBD_ZOO_IMPORTS = ("xbd_senet154_double", "dual_hrnet")
 
 
@@ -2993,6 +3001,8 @@ def _scaled_max(got: dict, ref: dict, keep=None) -> float:
     (the whole gradient's scale)."""
     if got.keys() != ref.keys():
         fail(f"mesh: tensors differ: {sorted(set(got) ^ set(ref))}")
+    if not ref:  # a model without BatchNorm: no running statistics
+        return 0.0
     scale = max(float(v.float().abs().max()) for v in ref.values())
     return max(float((got[k].float().cpu() - ref[k].float().cpu()).abs()
                      .max()) for k in ref if keep is None or keep(k)) \
@@ -4086,14 +4096,25 @@ def run_space_kernels_phase(torch, tmp) -> tuple:
     return by_phase, rows
 
 
-# Phase 23: siamUnet_conc and the UNet change transformers on the space axis,
-# two gloo ranks on the one card at 256 px, batch 8; then the uneven case:
-# unet_coupled_two_trans_256 at 224 px, where layer 4 meets 7 rows a rank at
-# 1/16, so 1/32 (its ``transformer``) runs whole while ``transformer2``
-# stays on the rank's block of the 1/4 level.
+# Phase 23: siamUnet_conc, the UNet change transformers and ChangeFormer V1
+# and V6 (V6 on its five heads, ``--multi_scale_loss``) on the space axis,
+# two gloo ranks on the one card at 256 px, batch 8; then the uneven cases
+# at 224 px: unet_coupled_two_trans_256, where layer 4 meets 7 rows a rank
+# at 1/16, so 1/32 (its ``transformer``) runs whole while ``transformer2``
+# stays on the rank's block of the 1/4 level, and changeFormerV6, whose sr
+# convs meet 28 / 14 / 7 rows a rank (not multiples of 8 / 4 / 2: each
+# gathers its level) and whose stage-4 patch embed leaves 1/32 (and the
+# p4 head) whole.
 SPACE_ZOO_KEYS = ("siamUnet_conc", "unet_coupled_trans_256",
-                  "unet_coupled_two_trans_256")
-SPACE_ZOO_UNEVEN = ("unet_coupled_two_trans_256", 224)
+                  "unet_coupled_two_trans_256", "changeFormer",
+                  "changeFormerV6")
+SPACE_ZOO_UNEVEN = (("unet_coupled_two_trans_256", 224),
+                    ("changeFormerV6", 224))
+# The keys trained on every head of their multi-scale output.
+SPACE_ZOO_MULTI_SCALE = ("changeFormerV6",)
+# Where each channel-token transformer of an uneven case runs.
+SPACE_ZOO_UNEVEN_WIDTH = {"unet_coupled_two_trans_256": {
+    "transformer.layers.0.0": "whole", "transformer2.layers.0.0": "block"}}
 # A sublayer of each channel-token transformer: its output is the rank's
 # block of the token width where its level splits, the whole width where
 # the level runs whole.
@@ -4114,37 +4135,42 @@ def _width_of(got: dict, ref: dict) -> dict:
 
 
 def run_space_zoo_phase(torch, tmp) -> None:
-    """Phase 23 (``nn/space.py`` for ``siamUnet_conc`` and the UNet change
-    transformers), cuDNN deterministic on both sides. One launch of two
-    gloo ranks on cuda:0 (n_data 1, n_space 2; collectives staged through
-    host memory) against one process on the same card, seeded weights and
-    data, for each of ``SPACE_ZOO_KEYS`` at 256 px, batch 8: the fp32 eval
-    forward (the gathered logits 1e-5 of scale), one fp32
+    """Phase 23 (``nn/space.py`` for ``siamUnet_conc``, the UNet change
+    transformers and ChangeFormer), cuDNN deterministic on both sides. One
+    launch of two gloo ranks on cuda:0 (n_data 1, n_space 2; collectives
+    staged through host memory) against one process on the same card,
+    seeded weights and data, for each of ``SPACE_ZOO_KEYS`` at 256 px,
+    batch 8: the fp32 eval forward (the gathered logits 1e-5 of scale,
+    every head of a multi-scale list), one fp32
     ``CDTrainer.train_step(spatial=True)`` with dropout active and the
-    trainer's generator on both sides (``_check_two_ranks``: loss 1e-5
-    relative, every gradient leaf 1e-4 of scale or rule 5 with its witness,
-    BN statistics 1e-5, both ranks with the same bits) and ``SPACE_TIMED``
-    warm steps, and the bf16 eval forward (flat 2e-2); then
-    ``SPACE_ZOO_UNEVEN``'s fp32 eval forward and step at 224 px (1/32
-    whole). Held also: each rank's rows of the logits, its launches (no
-    kernel: every counter 0), and where each channel-token transformer ran
-    (the rank's block of the width at a level that splits, the whole width
-    at 1/32 of 224 px). Printed: peak memory and the warm step a rank
-    beside one process, the staged collectives a step."""
+    trainer's generator on both sides (``SPACE_ZOO_MULTI_SCALE`` on every
+    head; ``_check_two_ranks``: loss 1e-5 relative, every gradient leaf
+    1e-4 of scale or rule 5 with its witness, BN statistics 1e-5, both
+    ranks with the same bits) and ``SPACE_TIMED`` warm steps, and the bf16
+    eval forward (the full-resolution logits at the flat 2e-2, a coarser
+    head at it or twice one process's own bf16 distance from its fp32 head
+    where larger); then ``SPACE_ZOO_UNEVEN``'s fp32
+    eval forwards and steps at 224 px (1/32 whole). Held also: each rank's
+    rows of the logits, its launches (no kernel: every counter 0), and
+    where each channel-token transformer ran (the rank's block of the
+    width at a level that splits, the whole width at 1/32 of 224 px).
+    Printed: peak memory and the warm step a rank beside one process, the
+    staged collectives a step."""
     from dahitra_tpu_torch.core import mesh as mesh_mod
     from dahitra_tpu_torch.tools import space_checks as sc
     from dahitra_tpu_torch.train import engine
 
     t_phase = time.time()
     rng = np.random.default_rng(23)
-    key_u, img_u = SPACE_ZOO_UNEVEN
     fwd_in = {k: rng.uniform(-1, 1, (BATCH, IMG, IMG, 3)).astype(np.float32)
               for k in ("a", "b")}
-    u_in = {k: rng.uniform(-1, 1, (BATCH, img_u, img_u, 3)
-                           ).astype(np.float32) for k in ("a", "b")}
+    u_in = {img: {k: rng.uniform(-1, 1, (BATCH, img, img, 3)).astype(
+        np.float32) for k in ("a", "b")} for img in {
+            img for _, img in SPACE_ZOO_UNEVEN}}
 
     def cfg(tag, net_g, img):
-        c = _mesh_cfg(tmp, f"space23_{tag}", net_g, img, BATCH, "float32")
+        c = _mesh_cfg(tmp, f"space23_{tag}", net_g, img, BATCH, "float32",
+                      multi_scale_loss=net_g in SPACE_ZOO_MULTI_SCALE)
         os.makedirs(c["checkpoint_dir"], exist_ok=True)
         return c
 
@@ -4162,12 +4188,13 @@ def run_space_zoo_phase(torch, tmp) -> None:
                 "cd", cfg(f"step_{i}", key, IMG),
                 space_arrays(BATCH, IMG, 23), True, SPACE_TIMED))),
             ("eval", key, IMG, fwd(key, IMG, 230 + i, fwd_in, "bfloat16"))]
-    cases += [
-        ("uneven_eval", key_u, img_u, fwd(key_u, img_u, 233, u_in,
-                                          "float32")),
-        ("uneven_step", key_u, img_u, ("trainer_steps", (
-            "cd", cfg("uneven", key_u, img_u),
-            space_arrays(BATCH, img_u, 24), True, 0)))]
+    for i, (key_u, img_u) in enumerate(SPACE_ZOO_UNEVEN):
+        cases += [
+            ("uneven_eval", key_u, img_u, fwd(key_u, img_u, 233 + 10 * i,
+                                              u_in[img_u], "float32")),
+            ("uneven_step", key_u, img_u, ("trainer_steps", (
+                "cd", cfg(f"uneven_{i}", key_u, img_u),
+                space_arrays(BATCH, img_u, 24), True, 0)))]
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     refs = []
@@ -4187,8 +4214,6 @@ def run_space_zoo_phase(torch, tmp) -> None:
                       "cases": len(cases), "staged_per_rank": [
                           r[-1] for r in ranks]}), flush=True)
     want_launches = _rank_want()
-    uneven = {"transformer.layers.0.0": "whole",
-              "transformer2.layers.0.0": "block"}
     ok = True
     for i, (tag, key, img, (name, args)) in enumerate(cases):
         got = [r[i] for r in ranks]
@@ -4197,14 +4222,28 @@ def run_space_zoo_phase(torch, tmp) -> None:
         want_width = {n: "block" for n in SPACE_ZOO_BLOCKS
                       if n in ref["shapes"]}
         if tag.startswith("uneven"):
-            want_width = uneven
+            want_width = SPACE_ZOO_UNEVEN_WIDTH.get(key, {})
         if name == "forward_rows":
             dname = args[4]
-            errs = [scaled_err(g["whole"], ref["logits"].cpu())[1]
-                    for g in got]
+            # every head of a multi-scale list, else the logits
+            heads = ref.get("heads", [ref["logits"]])
+            head_errs = [max(scaled_err(g.get("heads", [g["whole"]])[j],
+                                        h.cpu())[1] for g in got)
+                         for j, h in enumerate(heads)]
+            err = max(head_errs)
             tol = 1e-5 if dname == "float32" else TOL[dname]
+            head_tols = [tol] * len(heads)
+            if dname == "bfloat16" and len(heads) > 1:
+                # the full-resolution logits at the flat bound; a coarser
+                # head at it or, where larger, twice one process's own
+                # bf16 move from its fp32 head (rule 5 as
+                # ``_check_two_ranks`` takes it: twice the own move)
+                head_tols[:-1] = [max(tol, 2 * scaled_err(h, h32)[1])
+                                  for h, h32 in zip(heads[:-1],
+                                                    refs[i - 2]["heads"])]
             line = {"space23": tag, "net_G": key, "img": img,
-                    "dtype": dname, "logits_scaled_err": max(errs),
+                    "dtype": dname, "logits_scaled_err": err,
+                    "head_scaled_errs": head_errs, "head_tols": head_tols,
                     "tol": tol,
                     "rows_per_rank": [int(g["logits"].shape[1]) for g in got],
                     "token_width_per_rank": width,
@@ -4218,9 +4257,13 @@ def run_space_zoo_phase(torch, tmp) -> None:
                 line.update({
                     "one_process_bf16_from_fp32": scaled_err(
                         ref["logits"], ref32)[1],
+                    "one_process_bf16_from_fp32_heads": [
+                        scaled_err(h, h32)[1] for h, h32 in zip(
+                            heads, refs[i - 2].get("heads", [ref32]))],
                     "logits_from_fp32_scaled_err": max(scaled_err(
                         g["whole"], ref32.cpu())[1] for g in got)})
-            line["ok"] = bool(max(errs) <= tol and all(
+            line["ok"] = bool(all(
+                e <= t for e, t in zip(head_errs, head_tols)) and all(
                 torch.isfinite(g["whole"]).all() for g in got) and all(
                 g["launches"] == want_launches
                 and g["logits"].shape[1] == img // 2 for g in got)
@@ -4859,7 +4902,8 @@ def main() -> None:
             by_phase[dname].update(ph)
 
     started["23"] = time.time()
-    # 23. siamUnet_conc and the UNet change transformers on the space axis:
+    # 23. siamUnet_conc, the UNet change transformers and ChangeFormer on the
+    # space axis:
     # two gloo ranks against one process, no kernel
     if 23 in sel:
         run_space_zoo_phase(torch, tmp)

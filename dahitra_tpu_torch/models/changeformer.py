@@ -29,6 +29,36 @@ intra-patch modules, which its forward never calls, are not built, nor is
 the JAX modules' ``decoder_softmax`` option, which no registry key sets.
 Both dates run through the encoder batch-stacked (it has no BatchNorm).
 Dropout and drop path are active in train mode (``set_dropout_generator``).
+
+On row-sharded batches (``nn/space.py``; ``space_stride`` 32, the four
+patch embeddings' strides) each rank holds its rows of every level that
+splits:
+
+  * ``OverlapPatchEmbed`` goes down a level (``space.descend``, reach
+    max(p, k - s - p): 3 for the 7x7 embeddings, 1 for V1's 3x3), its
+    strided conv taking p rows from above and k - s - p from below;
+  * ``SRAttention`` keeps its queries on the rank's pixels; its keys and
+    values span the image: the reduced map (the sr x sr / sr conv on the
+    rank's rows, or, where they are not a multiple of sr, on the level's
+    rows gathered; then its LayerNorm; at sr 1 the input itself) is
+    gathered over the space group before the ``kv`` Linear, so the softmax
+    needs no collective, and the rank's backward sends every key's
+    gradient home through the gather. It does not move the level;
+  * the Mix-FFN's depthwise 3x3 takes its halo, its Linears and every
+    LayerNorm are per pixel;
+  * element dropout draws its mask at the whole rows and slices the rank's
+    (``Dropout(x, deterministic, rows, 1)``; the attention's on its query
+    axis, 2), so the
+    masks, and the per-sample drop path drawn after them, are one
+    process's;
+  * V6's decoder takes each scale's level (``space.at_level``) and
+    resizes with ``nn/blocks.py`` ``resize_bilinear`` (halos, up a level),
+    from a whole level to the whole rows of a level that splits
+    (``space.rows_at``); its BatchNorms sum over ``space.stat_group``; the
+    ``k4 s2 p1`` transposed convs (V6's and V1's ladder) take halos;
+  * a multi-scale list reaches the loss head by head through
+    ``space.gather_head``: a head of a whole level (1/32 at rows that do
+    not split) is gathered over the data ranks only.
 """
 from __future__ import annotations
 
@@ -38,16 +68,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dahitra_tpu_torch.nn import space
 from dahitra_tpu_torch.nn.blocks import (BatchNorm, Dropout, _dense,
-                                         conv2d_nhwc, conv_transpose2d_nhwc)
-
-
-def _resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """NHWC bilinear resize with half-pixel centres (``jax.image.resize``
-    "bilinear" when upsampling)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
-                      align_corners=False)
-    return y.permute(0, 2, 3, 1)
+                                         conv2d_nhwc, conv_transpose2d_nhwc,
+                                         resize_bilinear)
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
@@ -70,6 +94,9 @@ class OverlapPatchEmbed(nn.Module):
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (k, _), (s, _), (p, _) = (self.proj.kernel_size, self.proj.stride,
+                                  self.proj.padding)
+        x = space.descend(x, s, max(p, k - s - p))
         return _ln(self.norm, _conv(x, self.proj, self.dtype))
 
 
@@ -95,16 +122,19 @@ class MixFFN(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True
                 ) -> torch.Tensor:
+        r = space.rows()
         x = _conv(_dense(x, self.fc1, self.dtype), self.dwconv.dwconv,
                   self.dtype)
-        x = self.drop(F.gelu(x), deterministic)
-        return self.drop(_dense(x, self.fc2, self.dtype), deterministic)
+        x = self.drop(F.gelu(x), deterministic, r, 1)
+        return self.drop(_dense(x, self.fc2, self.dtype), deterministic, r, 1)
 
 
 class SRAttention(nn.Module):
     """Spatial-reduction attention (ChangeFormer.py:298-358): queries from
     every pixel, keys and values from the map reduced by an sr x sr conv
-    (and a LayerNorm) where ``sr_ratio`` > 1; scale head_dim^-0.5."""
+    (and a LayerNorm) where ``sr_ratio`` > 1; scale head_dim^-0.5. Under
+    row sharding the queries are the rank's pixels and the reduced map is
+    gathered over the space group (module docstring)."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
@@ -125,19 +155,36 @@ class SRAttention(nn.Module):
                 ) -> torch.Tensor:
         b, h, w, c = x.shape
         heads, hd = self.num_heads, self.dim // self.num_heads
+        r = space.rows()
         q = _dense(x, self.q, self.dtype).reshape(b, h * w, heads, hd)
-        kv_in = x
+        kv_in, gather = x, r is not None
         if self.sr_ratio > 1:
-            kv_in = _ln(self.norm, _conv(x, self.sr, self.dtype))
+            if r is not None and h % self.sr_ratio:
+                # the level's rows gathered, the conv run whole by hand
+                # (conv2d_nhwc would take halos of whole rows)
+                kv_in, gather = space.gather_rows(x, r), False
+                kv_in = F.conv2d(
+                    kv_in.permute(0, 3, 1, 2).to(self.dtype),
+                    self.sr.weight.to(self.dtype),
+                    self.sr.bias.to(self.dtype), self.sr_ratio
+                ).permute(0, 2, 3, 1)
+            else:
+                kv_in = _conv(x, self.sr, self.dtype)
+            kv_in = _ln(self.norm, kv_in)
+        # every key and value: the compute dtype's map gathered, as the
+        # kv product would cast it
+        kv_in = kv_in.to(self.dtype)
+        if gather:
+            kv_in = space.gather_rows(kv_in, r)
         kv = _dense(kv_in, self.kv, self.dtype).reshape(b, -1, 2, heads, hd)
         q, k, v = q.transpose(1, 2), kv[:, :, 0].transpose(1, 2), \
             kv[:, :, 1].transpose(1, 2)
         dots = torch.matmul(q, k.transpose(-1, -2)).float() * hd ** -0.5
         attn = self.attn_drop(torch.softmax(dots, -1).to(q.dtype),
-                              deterministic)
+                              deterministic, r, 2)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, h, w, self.dim)
         return self.proj_drop(_dense(out, self.proj, self.dtype),
-                              deterministic)
+                              deterministic, r, 1)
 
 
 class SegformerBlock(nn.Module):
@@ -286,16 +333,22 @@ class DecoderTransformerV3(nn.Module):
         h1, w1 = feats1[0].shape[1:3]
         outputs, cs_up, prev = [], [], None
         for s in (3, 2, 1, 0):
-            tag = str(s + 1)
+            tag, level = str(s + 1), 4 * 2 ** s
             lin = getattr(self, f"linear_c{tag}").proj
+            space.at_level(level)
             pair = torch.cat([_dense(feats1[s], lin, self.dtype),
                               _dense(feats2[s], lin, self.dtype)], -1)
             d = getattr(self, f"diff_c{tag}")(pair, train)
             if prev is not None:
-                d = d + _resize_bilinear(prev, d.shape[1], d.shape[2])
+                space.at_level(2 * level)  # prev's, up to d's
+                d = d + resize_bilinear(prev, space.rows_at(d.shape[1],
+                                                            level),
+                                        d.shape[2])
             outputs.append(getattr(self, f"make_pred_c{tag}")(d, train))
             prev = d
-            cs_up.append(d if s == 0 else _resize_bilinear(d, h1, w1))
+            cs_up.append(d if s == 0 else resize_bilinear(
+                d, space.rows_at(h1, 4), w1))
+        space.at_level(4)
         fused = _conv(torch.cat(cs_up, -1), self.linear_fuse[0], self.dtype)
         fused = self.linear_fuse[1](fused, train)
         x = self.dense_2x(self.convd2x(fused))
@@ -320,6 +373,11 @@ class ConvProjectionBase(nn.Module):
 
     def forward(self, di: List[torch.Tensor]) -> torch.Tensor:
         def crop_to(x, ref):
+            # on a level whose rows split, x holds the rank's rows (the
+            # transposed conv's, or a whole level's sliced by ``ascend``)
+            if space.rows() is not None and x.shape[1] != ref.shape[1]:
+                raise ValueError(f"ConvProjectionBase: {x.shape[1]} rows "
+                                 f"per space rank against {ref.shape[1]}")
             return x[:, :ref.shape[1], :ref.shape[2]]
 
         y = self.dense_4(crop_to(self.convd16x(di[3]), di[2])) + di[2]
@@ -337,7 +395,10 @@ def _encode_dates(encoder: EncoderTransformerV3, x1: torch.Tensor,
 
 class ChangeFormerV1(nn.Module):
     """``changeFormer`` (ChangeFormer.py:643-674): NHWC images twice ->
-    logits (B, H, W, output_nc)."""
+    logits (B, H, W, output_nc). ``space_stride``: the encoder's total
+    stride (``nn/space.py``)."""
+
+    space_stride = 32
 
     def __init__(self, output_nc: int = 2, dtype=torch.float32):
         super().__init__()
@@ -357,7 +418,10 @@ class ChangeFormerV1(nn.Module):
 
 class ChangeFormerV6(nn.Module):
     """``changeFormerV6`` (ChangeFormer.py:1657-1687): NHWC images twice ->
-    the list of logits [p4, p3, p2, p1, full] (1/32 to full scale)."""
+    the list of logits [p4, p3, p2, p1, full] (1/32 to full scale).
+    ``space_stride``: the encoder's total stride (``nn/space.py``)."""
+
+    space_stride = 32
 
     def __init__(self, output_nc: int = 2, dtype=torch.float32):
         super().__init__()

@@ -225,19 +225,27 @@ class Dropout(nn.Module):
         return x.shape
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                width: Optional[space.Rows] = None) -> torch.Tensor:
-        """``width``: x's last axis is the rank's block of one sharded
-        over ``width``'s group (``_width_block``); the mask is drawn at the
-        whole width and sliced to the block, as one process draws it."""
+                shard: Optional[space.Rows] = None,
+                axis: int = -1) -> torch.Tensor:
+        """``shard``: x's ``axis`` is the rank's block of one sharded over
+        ``shard``'s group: the last, a token width (``TransformerEncoder(
+        ..., width=)``); 1, the rows of an NHWC map; 2, the queries of a
+        (B, heads, Nq, Nk) attention matrix (row-major, so a rank's queries
+        are one block). The mask is drawn at the whole size and sliced to
+        the block, as one process draws it; a mask that does not vary
+        along that axis (per sample, per channel) is drawn as it is."""
         if deterministic or self.rate == 0.0:
             return x
-        shape = self.mask_shape(x)
-        if width is not None:
-            shape = (*shape[:-1], shape[-1] * width.size)
+        shape = list(self.mask_shape(x))
+        axis %= x.dim()
+        split = shard is not None and shape[axis] > 1
+        if split:
+            shape[axis] *= shard.size
         keep = torch.rand(shape, generator=self.generator,
                           device=x.device) >= self.rate
-        if width is not None:
-            keep = keep[..., _width_block(width, x.shape[-1])]
+        if split:
+            n = x.shape[axis]
+            keep = keep.narrow(axis, shard.rank * n, n)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 

@@ -66,9 +66,18 @@ JAX package's ``device_put`` refuses them too) and, by name, a model
 without a ``space_stride`` (its total stride, the marker of the models
 that run on row-sharded batches): DAHiTra (``newUNetTrans``,
 ``xbd_dahitra``, ``xbd_adapt_dahitra``), ``base_resnet18``, the ResNet34
-UNets, BIT (``base_transformer_pos_s4*``, ``xbd_bit``), ``siamUnet_conc``
-and the UNet change transformers (``unet_coupled_trans_256``,
-``unet_coupled_two_trans_256``).
+UNets, BIT (``base_transformer_pos_s4*``, ``xbd_bit``), ``siamUnet_conc``,
+the UNet change transformers (``unet_coupled_trans_256``,
+``unet_coupled_two_trans_256``) and ChangeFormer (``changeFormer``,
+``changeFormerV6``).
+
+A model that jumps between levels (ChangeFormerV6's decoder: 1/32, then
+up to 1/4, back to 1/16, ...) calls ``at_level`` before each scale's work;
+where it resizes a whole level's map onto a level whose rows split, it
+asks for the whole target rows (``rows_at``), which ``ascend`` then
+slices. A multi-scale output reaches a loss through ``gather_head``: the
+global batch once, whether the head was computed on the rank's rows or on
+a whole level (``gather_batch`` of a whole head would stack S copies).
 """
 from __future__ import annotations
 
@@ -188,6 +197,18 @@ def at_level(scale: float) -> None:
     lv = _level()
     if lv is not None:
         lv.scale = float(scale)
+
+
+def rows_at(h: int, scale: float) -> int:
+    """The rows of the map at level ``scale`` of which the rank holds
+    ``h``, as an op at the current level must ask for them: the whole
+    rows (h times the space ranks) where the current level is whole and
+    ``scale``'s rows split, else ``h``. (A resize from a whole level to the
+    rank's ``h`` rows would squeeze the whole map into them.)"""
+    lv = _level()
+    if lv is None or not lv.whole() or scale >= lv.whole_at:
+        return h
+    return h * _sharding().size
 
 
 def local_rows(t: torch.Tensor, r: Optional[Rows] = None) -> torch.Tensor:
@@ -330,3 +351,28 @@ def gather_batch(t: torch.Tensor, mesh) -> torch.Tensor:
     """The global batch of ``t``, differentiable: every space rank's rows
     (where rows are sharded), then every data rank's samples."""
     return all_gather_rows(gather_rows(t), mesh.data_group if mesh else None)
+
+
+def gather_head(t: torch.Tensor, mesh, image) -> torch.Tensor:
+    """The global batch of one head (B, h, w, C) of a multi-scale output
+    of whole ``image`` = (H, W) inputs, each head once, differentiable.
+    Columns never split, so the head's whole rows are H w / W: a head that
+    holds them (computed at a whole level, the same on every space rank)
+    is gathered over the data ranks only, its gradient on each rank the
+    whole one, as a whole level's backward takes it; a head that holds
+    the rank's share is gathered over the space group too. Raises where
+    its rows are neither."""
+    h_img, w_img = image
+    r = _sharding()
+    if r is None:
+        return gather_batch(t, mesh)
+    whole, rem = divmod(h_img * t.shape[2], w_img)
+    data = mesh.data_group if mesh else None
+    if not rem and t.shape[1] == whole:
+        return all_gather_rows(t, data)
+    if rem or t.shape[1] * r.size != whole:
+        raise ValueError(f"gather_head: {t.shape[1]} rows of {t.shape[2]} "
+                         f"columns are neither the whole rows of a "
+                         f"{h_img} x {w_img} image's head nor a share of "
+                         f"them over {r.size} space ranks")
+    return all_gather_rows(all_gather_rows(t, r.group, dim=1), data)

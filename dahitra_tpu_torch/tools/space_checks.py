@@ -13,9 +13,11 @@ decoder kernels' cases (BIT, ``xbd_bit``, ``pallas = True``),
 output shapes and gate paths show which),
 ``tests/test_torch_space_zoo.py`` and phase 23 ``siamUnet_conc`` and the
 UNet change transformers (with ``pixel_ops``, ``width_encoder`` and the
-transposed convolutions of ``halo_op``). The trainers' row-sharded steps
-are ``trainer_steps`` here and ``tools/mesh_checks.py`` ``cd_steps`` /
-``xbd_steps`` with ``spatial=True``.
+transposed convolutions of ``halo_op``),
+``tests/test_torch_space_changeformer.py`` and phase 23 ChangeFormer V1
+and V6 (with ``rows_dropout`` and ``sr_attention``). The trainers'
+row-sharded steps are ``trainer_steps`` here and ``tools/mesh_checks.py``
+``cd_steps`` / ``xbd_steps`` with ``spatial=True``.
 """
 from __future__ import annotations
 
@@ -164,6 +166,73 @@ def width_encoder(mesh, x: np.ndarray, dy: np.ndarray, seed: int,
             "shapes": shapes}
 
 
+def _block(t: torch.Tensor, r, axis: int = 1) -> torch.Tensor:
+    """The rank's block of whole ``t`` along ``axis`` (all of it without
+    row sharding)."""
+    if r is None:
+        return t
+    n = t.shape[axis] // r.size
+    return t.narrow(axis, r.rank * n, n).contiguous()
+
+
+def rows_dropout(mesh, shape, rate: float, seed: int,
+                 device: str = "cpu") -> list:
+    """``Dropout(rate)`` masks on the rank's block of whole ones tensors
+    (train mode, one generator seeded by ``seed``), drawn in turn: an NHWC
+    map ``shape`` (rows, axis 1), an attention matrix (B, 2, N, N) of its
+    pixels (queries, axis 2), the map again per sample (drop path) and per
+    channel: the rank's outputs under the row-sharded grid, one process's
+    whole ones without."""
+    from dahitra_tpu_torch.nn import space
+    from dahitra_tpu_torch.nn.blocks import Dropout
+
+    dev = _dev(mesh, device)
+    b, h, w, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    with space.grid(mesh, spatial=True):
+        r = space.rows()
+        for per, full, axis in (("element", shape, 1),
+                                ("element", (b, 2, h * w, h * w), 2),
+                                ("sample", shape, 1), ("channel", shape, 1)):
+            drop = Dropout(rate, per)
+            drop.generator = gen
+            x = _block(torch.ones(full, device=dev), r, axis)
+            out.append(drop(x, False, r, axis))
+    return out
+
+
+def sr_attention(mesh, cases, device: str = "cpu") -> list:
+    """Each ``(x, dy, sr, seed)`` (whole NHWC x (B, H, W, C), C / 8 heads)
+    through an ``SRAttention(C, C // 8, sr, attn_drop=0.2, proj_drop=0.2)``
+    with ``seeded_weights(seed)``, train mode (dropout from a generator
+    seeded by ``seed``), on the rank's rows under the row-sharded grid:
+    its output rows, the gradient of sum(y * dy) with respect to its rows
+    of x and every parameter's gradient summed over the ranks."""
+    from dahitra_tpu_torch.core.mesh import reduce_sum_
+    from dahitra_tpu_torch.models.changeformer import SRAttention
+    from dahitra_tpu_torch.nn import space
+
+    dev = _dev(mesh, device)
+    out = []
+    for x, dy, sr, seed in cases:
+        attn = SRAttention(x.shape[-1], x.shape[-1] // 8, sr, 0.2, 0.2)
+        seeded_weights(attn, seed)
+        attn.to(dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        attn.attn_drop.generator = attn.proj_drop.generator = gen
+        with space.grid(mesh, spatial=True):
+            r = space.rows()
+            xl = _block(torch.from_numpy(x).to(dev), r).requires_grad_(True)
+            y = attn(xl, deterministic=False)
+            (y * _block(torch.from_numpy(dy).to(dev), r)).sum().backward()
+        grads = {k: p.grad.clone() for k, p in attn.named_parameters()}
+        if r is not None:
+            grads = {k: reduce_sum_(g, r.group) for k, g in grads.items()}
+        out.append({"y": y.detach(), "dx": xl.grad, "grads": grads})
+    return out
+
+
 def k3_inputs(b: int, h: int, w: int, l: int, seed: int):
     """Seeded (x (b, h, w, 32) feature maps, w (32, l), dt (b, l, 32) a
     token cotangent), numpy fp32."""
@@ -289,7 +358,9 @@ def forward_rows(mesh, net_g, img: int, state_dict,
     ``inputs``
     (whole normalized NHWC images: "a" and "b", or "x" the 6-channel pair;
     row-sharded with ``spatial``): its logits, the global batch's logits
-    (gathered over rows, then samples), every submodule's output shape, the
+    (gathered over rows, then samples; for a multi-scale list also each
+    head's, ``heads``, through ``space.gather_head``), every submodule's
+    output shape, the
     path each decoder's gate took, and the launches and the peak device
     memory. ``train`` runs the train-mode forward; with ``loss`` ("levir"
     on "label", "damage" on "masks") the loss of the gathered logits, the gradients averaged over the ranks
@@ -318,6 +389,7 @@ def forward_rows(mesh, net_g, img: int, state_dict,
     grad = torch.enable_grad() if loss else torch.no_grad()
     with grad, space.grid(mesh, spatial):
         xs = [t[k].to(dtype) for k in (("a", "b") if "a" in t else ("x",))]
+        image = xs[0].shape[1:3]
         xs = space.shard_rows(model, *xs)
         if not loss and not train:
             model(*xs)
@@ -327,9 +399,13 @@ def forward_rows(mesh, net_g, img: int, state_dict,
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         reset_launches()
-        logits = final_logits(model(*xs, train=train)).float()
+        heads = model(*xs, train=train)
+        logits = final_logits(heads).float()
         whole = space.gather_batch(logits, mesh)
         out = {"logits": logits.detach(), "whole": whole.detach()}
+        if isinstance(heads, (list, tuple)):  # each head's global batch
+            out["heads"] = [space.gather_head(h.float(), mesh, image
+                                              ).detach() for h in heads]
         if loss:
             data = mesh.data_group if mesh else None
             if loss == "levir":

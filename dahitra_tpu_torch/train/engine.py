@@ -178,11 +178,13 @@ class CDTrainer:
                                         generator=self.aug_generator,
                                         shard=self.mesh.shard if self.mesh
                                         else None)
+            image = a.shape[1:3]
             a, b = space.shard_rows(self.model, a, b)
             out = self.net(a, b, train=True)
             label = all_gather_rows(label, data)
             if self.multi_scale and isinstance(out, (list, tuple)):
-                out = [space.gather_batch(lg.float(), self.mesh)
+                # each head once: one of a whole level is not the rank's
+                out = [space.gather_head(lg.float(), self.mesh, image)
                        for lg in out]
                 logits = out[-1]
                 loss = multi_scale_loss(out, label, label.shape[0])

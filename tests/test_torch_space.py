@@ -183,8 +183,10 @@ def test_misaligned_rows_raise_naming_the_stride(net_g, img, n_space, stride):
         with pytest.raises(ValueError, match=f"{img - 1} rows do not split "
                                              f"over {n_space} space ranks"):
             space.shard_rows(model, x[:, 1:])
+        with torch.device("meta"):
+            refused = define_g("xbd_seresnext50_loc", img_size=img)
         with pytest.raises(ValueError, match="does not run on row-sharded"):
-            space.shard_rows(define_g("changeFormer"), x)
+            space.shard_rows(refused, x)
 
 
 def test_ranks_plain_matches_one_rank_and_the_kernel_algorithm():

@@ -83,13 +83,14 @@ BIT_KEYS = ("base_transformer_pos_s4", DD8, "base_transformer_pos_s4_dd8_o5",
             "base_transformer_pos_s4_dd8_dedim8", T8, "xbd_bit")
 # The models that take row-sharded batches: DAHiTra, the ResNet34 UNets,
 # ResNetCD (tests/test_torch_space.py), BIT (this file), siamUnet_conc and
-# the UNet change transformers (tests/test_torch_space_zoo.py).
+# the UNet change transformers (tests/test_torch_space_zoo.py), ChangeFormer
+# V1 and V6 (tests/test_torch_space_changeformer.py).
 ROWS_KEYS = {"newUNetTrans", "xbd_dahitra", "xbd_adapt_dahitra",
              "base_resnet18", "xbd_res34_loc", "xbd_res34_double",
              "xbd_res34_single", "xbd_res34_double_modified",
              "xbd_adapt_res34", "siamUnet", "siamUnet_conc",
              "unet_coupled_trans_256", "unet_coupled_two_trans_256",
-             *BIT_KEYS}
+             "changeFormer", "changeFormerV6", *BIT_KEYS}
 # BIT variants outside the registry: (name, constructor arguments)
 VARIANTS = {"simple_decoder": dict(token_len=4, dec_depth=8,
                                    with_decoder=False),
@@ -459,8 +460,8 @@ def _held_to_one_process(cases, name, got, one, bf16=False):
             assert _cosine(g["grads"], one["grads"]) >= 0.99
         else:
             assert err <= g_tol, (err, g_tol)
-        assert max(_scaled(g["stats"][k], one["stats"][k])
-                   for k in one["stats"]) <= s_tol
+        assert max((_scaled(g["stats"][k], one["stats"][k])
+                    for k in one["stats"]), default=0.0) <= s_tol
     for k in ("grads", "stats"):
         assert got[0][k].keys() == got[1][k].keys()
         assert all(torch.equal(got[0][k][n], got[1][k][n]) for n in got[0][k])

@@ -261,12 +261,13 @@ def _whole(got: dict, one: dict, name: str, axis: int = 1) -> bool:
 
 def test_keys_take_row_sharded_batches_by_their_stride():
     """``siamUnet_conc`` has a ``space_stride`` of 16 (four 2x2 pools), the
-    UNet change transformers 32 (the ResNet34 encoder's); ChangeFormer V1
-    and V6 still refuse row-sharded batches by name."""
+    UNet change transformers 32 (the ResNet34 encoder's); the kernel-free
+    xBD zoo (its SE-ResNeXt50 and Dual-HRNet keys here) still refuses
+    row-sharded batches by name."""
     with torch.device("meta"):
         strides = {k: define_g(k, img_size=IMG).space_stride for k in KEYS}
         assert strides == {SIAM: 16, TRANS: 32, TWO: 32}
-        for k in ("changeFormer", "changeFormerV6"):
+        for k in ("xbd_seresnext50_double", "dual_hrnet"):
             model = define_g(k, img_size=IMG)
             mesh = Mesh(0, 2, torch.device("cpu"), "gloo", n_space=2)
             with space.grid(mesh, spatial=True), pytest.raises(
